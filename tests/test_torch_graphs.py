@@ -1,0 +1,89 @@
+"""The port's graph builders against the JAX package's: the same seed gives
+identical ``nbr``/``deg``/``edges`` arrays (both are host numpy)."""
+
+import numpy as np
+import pytest
+
+from graphdyn import graphs as jg
+from graphdyn_torch import graphs as tg
+
+
+def _assert_same(a, b):
+    np.testing.assert_array_equal(a.nbr, b.nbr)
+    np.testing.assert_array_equal(a.deg, b.deg)
+    np.testing.assert_array_equal(a.edges, b.edges)
+    assert a.nbr.dtype == b.nbr.dtype == np.int32
+    assert (a.n, a.dmax, a.num_edges) == (b.n, b.dmax, b.num_edges)
+
+
+@pytest.mark.parametrize("n", [100, 1000])
+@pytest.mark.parametrize("d", [3, 4])
+def test_rrg_pairing_identical(n, d):
+    _assert_same(jg.random_regular_graph(n, d, seed=7),
+                 tg.random_regular_graph(n, d, seed=7))
+
+
+@pytest.mark.parametrize("n,d", [(20, 15), (12, 11), (30, 20)])
+def test_rrg_dense_complement_identical(n, d):
+    # d > (n-1)//2 takes the complement branch (d = n-1: no complement)
+    _assert_same(jg.random_regular_graph(n, d, seed=3),
+                 tg.random_regular_graph(n, d, seed=3))
+
+
+@pytest.mark.parametrize("n,c", [(500, 3.0), (500, 200.0), (5000, 6.0)])
+def test_er_identical(n, c):
+    # n=500: M <= 2^22, the exact-subset branch; n=5000 at c=6: M > 2^22
+    # and m < M/4, the rejection branch
+    M = n * (n - 1) // 2
+    assert (M > (1 << 22)) == (n == 5000)
+    _assert_same(jg.erdos_renyi_graph(n, c / n, seed=11),
+                 tg.erdos_renyi_graph(n, c / n, seed=11))
+
+
+def test_er_empty_and_full():
+    _assert_same(jg.erdos_renyi_graph(50, 0.0, seed=1),
+                 tg.erdos_renyi_graph(50, 0.0, seed=1))
+    _assert_same(jg.erdos_renyi_graph(30, 1.0, seed=1),
+                 tg.erdos_renyi_graph(30, 1.0, seed=1))
+
+
+def test_remove_isolates_identical():
+    g_j, iso_j = jg.remove_isolates(jg.erdos_renyi_graph(800, 1.5 / 800, seed=2))
+    g_t, iso_t = tg.remove_isolates(tg.erdos_renyi_graph(800, 1.5 / 800, seed=2))
+    assert iso_j == iso_t > 0
+    _assert_same(g_j, g_t)
+    # a graph without isolates comes back as it is
+    g = tg.random_regular_graph(50, 3, seed=0)
+    assert tg.remove_isolates(g) == (g, 0)
+
+
+def test_graph_from_edges_and_decode_identical():
+    rng = np.random.default_rng(0)
+    edges = rng.integers(0, 40, size=(60, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    _assert_same(jg.graph_from_edges(40, edges), tg.graph_from_edges(40, edges))
+    _assert_same(jg.graph_from_edges(40, edges, dmax=12),
+                 tg.graph_from_edges(40, edges, dmax=12))
+    with pytest.raises(ValueError, match="dmax"):
+        tg.graph_from_edges(40, edges, dmax=1)
+    with pytest.raises(ValueError, match="endpoints"):
+        tg.graph_from_edges(10, np.array([[0, 10]]))
+    codes = rng.choice(1000 * 999 // 2, size=500, replace=False)
+    for a, b in zip(jg._decode_triu(codes, 1000), tg._decode_triu(codes, 1000)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_rng_passthrough_and_refusals():
+    rng_j, rng_t = np.random.default_rng(5), np.random.default_rng(5)
+    assert tg._as_rng(rng_t) is rng_t
+    _assert_same(jg.random_regular_graph(60, 3, seed=rng_j),
+                 tg.random_regular_graph(60, 3, seed=rng_t))
+    with pytest.raises(ValueError, match="even"):
+        tg.random_regular_graph(5, 3, seed=0)
+    with pytest.raises(ValueError, match="d < n"):
+        tg.random_regular_graph(4, 4, seed=0)
+    for method in ("networkx", "native"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tg.random_regular_graph(10, 3, seed=0, method=method)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tg.erdos_renyi_graph(10, 0.3, seed=0, method=method)

@@ -1,0 +1,152 @@
+"""The port's boundary: it never imports jax or the JAX package, its entry
+points never run on the CPU unless asked, and the CUDA path raises instead of
+falling back to the plain version."""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from graphdyn_torch import graphs as tg
+from graphdyn_torch.models import consensus as tc
+from graphdyn_torch.ops import dynamics as td
+from graphdyn_torch.ops import packed as tp
+from graphdyn_torch.ops import packed_cuda
+from graphdyn_torch.utils.platform import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_SOURCES = sorted(
+    os.path.relpath(os.path.join(root, f), REPO)
+    for root, _, files in os.walk(os.path.join(REPO, "graphdyn_torch"))
+    for f in files if f.endswith(".py")
+) + ["chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "graphdyn"}
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import graphdyn_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    graphdyn_torch.__path__, 'graphdyn_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'graphdyn'))\n"
+        "print(json.dumps({'modules': names, 'bad': bad}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    for name in ("graphdyn_torch.ops.packed", "graphdyn_torch.ops.packed_cuda",
+                 "graphdyn_torch.models.consensus", "graphdyn_torch.cli",
+                 "graphdyn_torch.interop", "graphdyn_torch.observe"):
+        assert name in out["modules"]
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
+def test_source_imports_no_jax_or_graphdyn(path):
+    with open(os.path.join(REPO, path), encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            roots = [(node.module or "").split(".")[0]] if node.level == 0 else []
+        else:
+            continue
+        assert not FORBIDDEN.intersection(roots), f"{path}:{node.lineno}"
+
+
+def _small_graph():
+    return tg.random_regular_graph(20, 3, seed=0)
+
+
+def _spins():
+    return np.ones((2, 20), np.int8)
+
+
+_DRAW = tp.draw_packed_biased   # the test below stubs the module's name
+ENTRY_POINTS = {
+    "resolve_device": lambda: resolve_device(),
+    "run_dynamics": lambda: td.run_dynamics(_small_graph(), _spins(), 1),
+    "end_state": lambda: td.end_state(_small_graph(), _spins(), 1, 1),
+    "packed_end_state": lambda: tp.packed_end_state(_small_graph(), _spins(), 1),
+    "draw_packed_biased": lambda: _DRAW(0, 20, 1, 0.1),
+    "er_consensus_ensemble": lambda: tc.er_consensus_ensemble(50),
+    "rrg_consensus_ensemble": lambda: tc.rrg_consensus_ensemble(50),
+    "consensus_point": lambda: tc.consensus_point(_small_graph(), 32, 0.1, 10),
+    "consensus_curve": lambda: tc.consensus_curve(_small_graph(), 32, [0.1], 10),
+    "consensus_curve_ensemble":
+        lambda: tc.consensus_curve_ensemble(50, 32, [0.1], 10),
+    "consensus_doc": lambda: tc.consensus_doc(_small_graph(), 0, []),
+    "consensus_ensemble_doc": lambda: tc.consensus_ensemble_doc(50, [], []),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_without_device_refuses_on_cuda_less_host(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    drawn = []
+    monkeypatch.setattr(tp, "draw_packed_biased",
+                        lambda *a, **k: drawn.append(a))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name]()
+    assert drawn == []
+
+
+def test_cli_without_device_refuses_on_cuda_less_host():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    proc = subprocess.run(
+        [sys.executable, "-m", "graphdyn_torch", "consensus", "--n", "50",
+         "--max-steps", "10"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run for real")
+    for cwd in (REPO, tmp_path):
+        if cwd == tmp_path:
+            shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(packed_cuda, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        packed_cuda.build()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        packed_cuda._library()
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():
+    g = _small_graph()
+    nbr, deg = torch.from_numpy(g.nbr), torch.from_numpy(g.deg)
+    ext = torch.zeros(g.n + 1, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not CUDA"):
+        packed_cuda.packed_step(nbr, deg, ext, ext.clone(), minority=False,
+                                change=False)
+    before = packed_cuda.LAUNCHES
+    tp.packed_rollout(nbr, deg, ext[:-1], 3)
+    assert packed_cuda.LAUNCHES == before
