@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the packed-step CUDA kernel from ``graphdyn_torch/csrc/`` with nvcc
-(sm_90a), holds it against its plain PyTorch version bit for bit, drives the
-port's main path — the packed rollout at the headline shape (d=3 RRG,
-n=10⁶, R=16384) and the config-3 consensus sweep (ER n=10⁵, c=6, R=512) —
-through the entry points a user calls, checks that every step of that path
-went through the kernel, and checks the sweep against the JAX package's
-recorded sweep of the same graph (``er_consensus_r05.json``).
+Builds the two CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
+(sm_90a, both compilers started together) and holds each against its plain
+PyTorch version bit for bit. Then it drives the port's two main paths
+through the entry points a user calls, each with the launch counts set to 0
+just before it and read just after:
+
+- the packed rollout at the headline shape (d=3 RRG, n=10⁶, R=16384) and the
+  config-3 consensus sweep (ER n=10⁵, c=6, R=512), checked against the JAX
+  package's recorded sweep of the same graph (``er_consensus_r05.json``);
+- the fused SA annealer (``fused_anneal``) at config 1 (d=3 RRG, n=10⁴,
+  R=32), runs (a) and (b) of ``fused_config1_ref.json``, held to that record
+  of the JAX package's runs under the near-tie rule, and the ``fused`` CLI
+  once at its defaults.
+
+It also times the fused kernel at config 5's single-chip width (d=5 RRG,
+n=10⁶, R=1024).
 
 Prints, in order: phase reports, the card's name and power limit (from
 nvidia-smi), one JSON line listing the kernels with their measured times, and
@@ -27,17 +36,26 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
+from graphdyn_torch import graphs
+from graphdyn_torch.config import DynamicsConfig, SAConfig
 from graphdyn_torch.graphs import erdos_renyi_graph, random_regular_graph
 from graphdyn_torch.models.consensus import (
     consensus_curve,
     consensus_point,
     er_consensus_ensemble,
 )
-from graphdyn_torch.ops import packed_cuda
+from graphdyn_torch.ops import cuda_build, fused_cuda, packed_cuda
 from graphdyn_torch.ops.dynamics import run_dynamics
+from graphdyn_torch.ops.fused import (
+    FusedState,
+    build_fused_tables,
+    fused_chunk,
+)
 from graphdyn_torch.ops.packed import (
     draw_packed_biased,
     packed_consensus_scan,
@@ -45,6 +63,12 @@ from graphdyn_torch.ops.packed import (
     packed_end_state,
     packed_rollout,
     packed_rollout_plain,
+)
+from graphdyn_torch.search.fused import _assemble_fused, fused_anneal
+from graphdyn_torch.search.reference import (
+    hold_to_record,
+    result_record,
+    run_record,
 )
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -54,6 +78,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # integer logic, which the table lists no separate rate for)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# 32-bit integer ops: 132 SMs x 64 INT32 lanes x 1.98 GHz (the Hopper white
+# paper's per-SM units, at the boost clock that gives the data sheet's 67
+# TFLOP/s f32 = 132 x 128 lanes x 2 flops x 1.98 GHz)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 HEADLINE_N, HEADLINE_D, HEADLINE_R = 10**6, 3, 16384
 CONFIG3_N, CONFIG3_C, CONFIG3_R = 100_000, 6.0, 512
@@ -61,6 +89,14 @@ CONFIG3_M0 = [0.0, 0.01, 0.02, 0.03, 0.05, 0.07, 0.1, 0.15, 0.2, 0.3]
 CONFIG3_MAX_STEPS, CONFIG3_CHUNK = 2000, 10
 RULE_TIES = [("majority", "stay"), ("majority", "change"),
              ("minority", "stay"), ("minority", "change")]
+CONFIG1 = dict(n=10_000, d=3, replicas=32, seed=0)
+CONFIG1_RUNS = {"a": dict(m_target=0.9, max_sweeps=5000, chunk_sweeps=256),
+                "b": dict(m_target=1.0, max_sweeps=200, chunk_sweeps=256)}
+SCALE_N, SCALE_D, SCALE_R = 10**6, 5, 1024
+# one Threefry-2x32 block: 20 rounds of add, rotate, xor, 5 key injections of
+# 2 adds (the key word plus the injection index folds into one constant per
+# thread), 2 initial adds; one accurate expf counted as 10 f32 ops
+THREEFRY_OPS, EXPF_OPS = 20 * 3 + 5 * 2 + 2, 10
 
 
 def log(msg: str) -> None:
@@ -132,17 +168,35 @@ def step_bound(g, W: int, fast: bool) -> dict:
             "no_reuse_ms": no_reuse_bytes / HBM_BYTES_PER_S * 1e3}
 
 
-def phase_build() -> tuple[float, dict]:
+def phase_build() -> dict:
+    """Build both kernel libraries, one nvcc each, started together; load
+    them; print each one's ptxas summary and the fused kernel's co-resident
+    grid at the two shapes it runs."""
     t0 = time.perf_counter()
-    path = packed_cuda.build()
-    packed_cuda._library()
+    wrappers = {"packed_step": packed_cuda, "fused_chunk": fused_cuda}
+    with ThreadPoolExecutor(len(wrappers)) as pool:
+        paths = dict(zip(wrappers, pool.map(lambda w: w.build(),
+                                            wrappers.values())))
+    for w in wrappers.values():
+        w._library()
     dt = time.perf_counter() - t0
-    ptxas = packed_cuda.ptxas_summary(path)
-    log(f"[1 build] {os.path.relpath(path, HERE)} built and loaded in {dt:.3f} s; "
-        f"ptxas -v over {ptxas['kernels']} instantiations: "
-        f"{ptxas['registers_min']}-{ptxas['registers_max']} registers, "
-        f"at most {ptxas['spill_bytes_max']} bytes of spill stores + loads")
-    return dt, ptxas
+    out = {"build_s": dt}
+    for name, path in paths.items():
+        ptxas = cuda_build.ptxas_summary(path)
+        out[name] = ptxas
+        log(f"[1 build] {os.path.relpath(path, HERE)}: ptxas -v over "
+            f"{ptxas['kernels']} instantiations: {ptxas['registers_min']}-"
+            f"{ptxas['registers_max']} registers, at most "
+            f"{ptxas['spill_bytes_max']} bytes of spill stores + loads")
+    for label, dmax, Rp in (("config 1", CONFIG1["d"], CONFIG1["replicas"]),
+                            ("scale", SCALE_D, SCALE_R)):
+        grid = fused_cuda.grid_info(dmax, Rp)
+        out[f"grid_{label.replace(' ', '')}"] = grid
+        log(f"[1 build] fused_chunk co-resident grid at {label} (dmax={dmax}, "
+            f"Rp={Rp}): {grid['blocks_per_sm']} blocks of 256 per SM x "
+            f"{grid['sms']} SMs = {grid['max_blocks']} blocks")
+    log(f"[1 build] both libraries built and loaded in {dt:.3f} s")
+    return out
 
 
 def phase_parity(g_h, g_e) -> float:
@@ -362,6 +416,419 @@ def phase_int8_crosscheck() -> None:
         "(n=10^4, d=3, R=32, 10 steps), bit for bit")
 
 
+# ---------------------------------------------------------------------------
+# the fused annealer (K4)
+# ---------------------------------------------------------------------------
+
+
+def _sa_config(rule="majority", tie="stay") -> SAConfig:
+    return SAConfig(dynamics=DynamicsConfig(p=1, c=1, rule=rule, tie=tie))
+
+
+def _clone(st: FusedState) -> FusedState:
+    return FusedState(*(t.clone() for t in st))
+
+
+def _state_err(a: FusedState, b: FusedState) -> float:
+    """max |a − b| over every field (0.0 when all are bit-identical)."""
+    err = 0.0
+    for x, y in zip(a, b):
+        if torch.equal(x, y):
+            continue
+        if x.dtype == torch.float32:
+            err = max(err, float((x.double() - y.double()).abs().max()))
+        else:
+            err = max(err, _max_abs_err(x.to(torch.int64), y.to(torch.int64)))
+        err = max(err, 1.0)
+    return err
+
+
+def phase_breakdown(st0: FusedState, td, static, seed: int, steps: int) -> dict:
+    """One traced launch of ``steps`` class steps from ``st0``: the mean
+    microseconds per class step of phase A (end-state evaluations of every
+    word), B (accepts of the class words) and C (bookkeeping), each
+    including the grid barrier that ends it, from the kernel's global-timer
+    stamps."""
+    trace = torch.zeros((steps, 4), dtype=torch.int64, device="cuda")
+    fused_cuda.fused_chunk_cuda(_clone(st0), seed, td, chunk_steps=steps,
+                                trace=trace, **static)
+    torch.cuda.synchronize()
+    t = trace.cpu().double()
+    d = (t[:, 1:] - t[:, :-1]) / 1e3
+    return {"A_us": float(d[:, 0].mean()), "B_us": float(d[:, 1].mean()),
+            "C_us": float(d[:, 2].mean()),
+            "step_us": float((t[:, 3] - t[:, 0]).mean() / 1e3)}
+
+
+def class_step_bound(chrom, W: int) -> dict:
+    """The least time one fused class step can take on the card, averaged
+    over the χ classes of a sweep. Only the ball B = C ∪ N(C) of the class
+    rows C enters a decision, so the count is over B and over the rows D =
+    B ∪ N(B) that its two LUT evaluations read, from this graph's colouring
+    (``chrom``, the ChromaticTables). For each class the larger of
+
+    - bytes over HBM bandwidth: the state rows of D read once (4·|D|·W), the
+      class rows written once (4·|C|·W), the table entries read once
+      (neighbours of B 4·Σ_B deg, balls of C 4·Σ_C (deg+1), LUT masks of B
+      8·Σ_B (deg+1), the class mask over D 4·|D|) and the six per-replica
+      vectors (24·Rp);
+    - 32-bit integer ops over the INT32 rate: |C|·Rp/2 Threefry blocks of
+      THREEFRY_OPS, the two LUT evaluations' carry-save and select logic per
+      word of B (2·(2·deg·NP + (deg+1)·(NP+4))), the ball popcounts per class
+      word ((deg+1)·(2+4·NB)), and the per-replica bit extraction (4·NB+6
+      per class site and replica);
+    - f32 ops over the f32 rate: ΔE, the uniform and expf per class site and
+      replica (EXPF_OPS + 6).
+
+    NP = bit_length(dmax), NB = bit_length(dmax+1), Rp = 32·W."""
+    n, dmax = chrom.n, chrom.dmax
+    nbr = chrom.nbr_ext[:n].astype(np.int64)       # ghost index n pads
+    deg = chrom.deg_ext[:n].astype(np.int64)
+    Rp = 32 * W
+    NP = max(dmax.bit_length(), 1)
+    NB = (dmax + 1).bit_length()
+
+    def grow(rows):                     # rows ∪ N(rows), as a node mask
+        out = rows.copy()
+        idx = nbr[rows].ravel()
+        out[idx[idx < n]] = True
+        return out
+
+    per = []
+    for c in range(chrom.chi):
+        in_c = chrom.colors == c
+        in_b = grow(in_c)
+        in_d = grow(in_b)
+        k, n_d = int(in_c.sum()), int(in_d.sum())
+        deg_b, deg_c = deg[in_b], deg[in_c]
+        nbytes = 4 * n_d * W + 4 * k * W + 4 * int(deg_b.sum()) \
+            + 4 * int((deg_c + 1).sum()) + 8 * int((deg_b + 1).sum()) \
+            + 4 * n_d + 24 * Rp
+        int_ops = k * Rp / 2 * THREEFRY_OPS \
+            + W * 2 * int((2 * deg_b * NP + (deg_b + 1) * (NP + 4)).sum()) \
+            + W * int((deg_c + 1).sum()) * (2 + 4 * NB) \
+            + k * Rp * (4 * NB + 6)
+        f32_ops = k * Rp * (EXPF_OPS + 6)
+        per.append((nbytes / HBM_BYTES_PER_S * 1e3,
+                    int_ops / INT32_OPS_PER_S * 1e3,
+                    f32_ops / ALU_OPS_PER_S * 1e3, nbytes, int_ops, f32_ops))
+    mean = [sum(p[i] for p in per) / len(per) for i in range(6)]
+    bytes_ms, int_ms, f32_ms = mean[:3]
+    bound = max(bytes_ms, int_ms, f32_ms)
+    return {"bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= max(int_ms, f32_ms)
+            else "operations",
+            "bytes": mean[3], "int_ops": mean[4], "f32_ops": mean[5],
+            "bytes_ms": bytes_ms, "int_ms": int_ms, "f32_ms": f32_ms}
+
+
+def phase_fused_parity() -> float:
+    """The fused kernel against its plain version on the card, bit for bit
+    in every FusedState field: RRG d=3 (two rules; odd degree, no ties),
+    RRG d=4 and ragged ER (the four (rule, tie) pairs), W in {1, 2, 32},
+    chunk_steps in {1, χ, 3χ+1}, stop_on_first on and off, a betas ladder;
+    the ghost row after every chunk; one chunk against the same steps split
+    over two chunks; and one case at W=128, past the kernel's shared-memory
+    staging of the per-replica vectors. Returns the max |kernel − plain|
+    (0.0 when every case is bit-identical)."""
+    t0 = time.perf_counter()
+    small = {
+        "rrg3": random_regular_graph(5000, 3, seed=1),
+        "rrg4": random_regular_graph(4000, 4, seed=3),
+        "er_ragged": erdos_renyi_graph(5000, 3.0 / 5000, seed=4),
+    }
+    pairs = {"rrg3": [("majority", "stay"), ("minority", "stay")],
+             "rrg4": RULE_TIES, "er_ragged": RULE_TIES}
+    # (W, chunk_steps as (multiple of chi, offset), stop_on_first, ladder,
+    #  m_target)
+    shapes = [(1, (0, 1), False, False, 1.0), (2, (1, 0), True, False, 0.3),
+              (32, (3, 1), False, True, 0.4)]
+    err, n_cases, stops = 0.0, 0, 0
+    for name, g in small.items():
+        for rule, tie in pairs[name]:
+            cfg = _sa_config(rule, tie)
+            tables = build_fused_tables(g, cfg, seed=0)
+            for W, (mult, off), stop, ladder, m_target in shapes:
+                R = 32 * W - 3                      # pad replicas present
+                betas = [1.0 + 7.0 * r / max(R - 1, 1) for r in range(R)] \
+                    if ladder else None
+                st, td, static, _, _, _, _ = _assemble_fused(
+                    g, cfg, n_replicas=R, seed=n_cases, m_target=m_target,
+                    betas=betas, tables=tables, device=torch.device("cuda"))
+                steps = mult * tables.chi + off
+                kw = dict(chunk_steps=steps, stop_on_first=stop, **static)
+                k = fused_chunk(_clone(st), n_cases, td, kernel="cuda", **kw)
+                p = fused_chunk(_clone(st), n_cases, td, kernel="plain", **kw)
+                torch.cuda.synchronize()
+                e = _state_err(k, p)
+                if e or bool(k.sp_ext[g.n].ne(0).any()):
+                    raise AssertionError(
+                        f"fused kernel != plain (or ghost row set): {name} "
+                        f"{rule}/{tie} W={W} chunk_steps={steps} stop={stop} "
+                        f"ladder={ladder}: max_abs_err={e}")
+                stops += int(stop and int(k.steps) < steps)
+                # the same steps split over two chunks
+                if steps > 1:
+                    s2 = fused_chunk(_clone(st), n_cases, td, kernel="cuda",
+                                     **dict(kw, chunk_steps=steps // 2))
+                    if not bool(s2.sp_ext[g.n].eq(0).all()):
+                        raise AssertionError("ghost row set after a chunk")
+                    s2 = fused_chunk(s2, n_cases, td, kernel="cuda",
+                                     **dict(kw, chunk_steps=steps - steps // 2))
+                    torch.cuda.synchronize()
+                    if _state_err(s2, k):
+                        raise AssertionError(
+                            f"fused chunk of {steps} steps != two chunks: "
+                            f"{name} {rule}/{tie} W={W}")
+                err = max(err, e)
+                n_cases += 1
+    # W = 128: past the shared-memory staging of the per-replica vectors
+    g, (rule, tie) = small["rrg4"], ("majority", "change")
+    st, td, static, _, _, _, _ = _assemble_fused(
+        g, _sa_config(rule, tie), n_replicas=32 * 128 - 5, seed=99,
+        m_target=1.0, betas=None, tables=None, device=torch.device("cuda"))
+    kw = dict(chunk_steps=9, stop_on_first=False, **static)
+    e = _state_err(fused_chunk(_clone(st), 99, td, kernel="cuda", **kw),
+                   fused_chunk(_clone(st), 99, td, kernel="plain", **kw))
+    if e:
+        raise AssertionError(f"fused kernel != plain at W=128: {e}")
+    n_cases += 1
+    torch.cuda.empty_cache()
+    log(f"[7 fused parity] {n_cases} chunk cases ({stops} stopped on the first "
+        f"passage) + split chunks + ghost row: kernel == plain bit for bit in "
+        f"every FusedState field (max_abs_err {err}) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return err
+
+
+def _load_config1_record() -> dict:
+    with open(os.path.join(HERE, "fused_config1_ref.json")) as f:
+        doc = json.load(f)
+    if doc["config"]["n"] != CONFIG1["n"] or \
+            doc["config"]["replicas"] != CONFIG1["replicas"]:
+        raise AssertionError(f"config-1 record is for {doc['config']}")
+    return doc["runs"]
+
+
+def phase_config1_main_path() -> dict:
+    """The fused main path: fused_anneal on the card at config 1, runs (a)
+    and (b), with both launch counts set to 0 just before and read just
+    after; wall clock per run."""
+    g = random_regular_graph(CONFIG1["n"], CONFIG1["d"], seed=CONFIG1["seed"])
+    cfg = _sa_config()
+    results, walls = {}, {}
+    packed_cuda.LAUNCHES = 0
+    fused_cuda.LAUNCHES = 0
+    for run, kw in CONFIG1_RUNS.items():
+        t0 = time.perf_counter()
+        res = fused_anneal(g, cfg, n_replicas=CONFIG1["replicas"],
+                           seed=CONFIG1["seed"], device="cuda", **kw)
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t0
+        results[run] = res
+    launches = {"fused_chunk": fused_cuda.LAUNCHES,
+                "packed_step": packed_cuda.LAUNCHES}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"config-1 runs did not go through both kernels: "
+                             f"launches {launches}")
+    for run, res in results.items():
+        if res.kernel_used != "cuda" or res.s.shape != (CONFIG1["replicas"],
+                                                        CONFIG1["n"]):
+            raise AssertionError(f"config-1 run {run}: {res.kernel_used}, "
+                                 f"{res.s.shape}")
+        log(f"[8 config 1] fused_anneal run ({run}) {CONFIG1_RUNS[run]}: "
+            f"{res.device_steps} class steps (chi={res.chi}), accepted "
+            f"{res.accepted}, reached {int((res.steps_to_target >= 0).sum())}"
+            f"/{CONFIG1['replicas']}, wall {walls[run]} s")
+    log(f"[8 config 1] launches on the fused main path: {launches}")
+    return {"results": results, "walls": walls, "launches": launches,
+            "graph": g}
+
+
+def phase_config1_check(main: dict) -> dict:
+    """Each config-1 result against the JAX package's record under the
+    near-tie rule (graphdyn_torch.search.reference); the divergent step, if
+    any, is located by stepping the kernel one class step per launch."""
+    ref = _load_config1_record()
+    g, cfg = main["graph"], _sa_config()
+    tables = build_fused_tables(g, cfg, seed=CONFIG1["seed"])
+    verdicts = {}
+    for run, res in main["results"].items():
+        kw = CONFIG1_RUNS[run]
+        st0, td, static, _, _, _, _ = _assemble_fused(
+            g, cfg, n_replicas=CONFIG1["replicas"], seed=CONFIG1["seed"],
+            m_target=kw["m_target"], betas=None, tables=tables,
+            device=torch.device("cuda"))
+
+        def step(st, td=td, static=static):
+            return fused_chunk(_clone(st), CONFIG1["seed"], td, kernel="cuda",
+                               chunk_steps=1, **static)
+
+        v = hold_to_record(result_record(res), ref[run], step, st0,
+                           CONFIG1["seed"], td, **static)
+        verdicts[run] = v
+        log(f"[8 config 1] run ({run}) against fused_config1_ref.json: "
+            f"passed {v['how']}" + ("" if v["how"] == "bit-exact" else
+                                    f" at class step {v['step']}: inverted "
+                                    f"{v['inverted']}"))
+    return verdicts
+
+
+def phase_config1_timing(g) -> dict:
+    """Run (b)'s 1600 class steps as one chunk: the kernel's ms per class
+    step by CUDA events (3 repeats from the same state; each repeat's final
+    state must be the record's), and the plain version's ms per class step
+    over χ steps."""
+    cfg = _sa_config()
+    kw = CONFIG1_RUNS["b"]
+    tables = build_fused_tables(g, cfg, seed=CONFIG1["seed"])
+    st0, td, static, _, _, _, _ = _assemble_fused(
+        g, cfg, n_replicas=CONFIG1["replicas"], seed=CONFIG1["seed"],
+        m_target=kw["m_target"], betas=None, tables=tables,
+        device=torch.device("cuda"))
+    steps = kw["max_sweeps"] * tables.chi
+    ref = _load_config1_record()["b"]["final_state"]
+    times = []
+    for _ in range(3):
+        st = _clone(st0)
+        fused_cuda.fused_chunk_cuda(st, CONFIG1["seed"], td, chunk_steps=1,
+                                    **static)
+        st = _clone(st0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fused_cuda.fused_chunk_cuda(st, CONFIG1["seed"], td,
+                                    chunk_steps=steps, **static)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / steps)
+        if run_record(st, tables.chrom.class_sizes) != ref:
+            raise AssertionError(
+                f"config 1 run (b) timed as one chunk of {steps} class steps "
+                f"does not end in fused_config1_ref.json's final state")
+    ms = min(times)
+    st = _clone(st0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fused_chunk(st, CONFIG1["seed"], td, kernel="plain",
+                chunk_steps=tables.chi, **static)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end) / tables.chi
+    bound = class_step_bound(tables.chrom, 1)
+    phases = phase_breakdown(st0, td, static, CONFIG1["seed"], 2 * tables.chi)
+    log(f"[8 config 1] kernel {ms} ms per class step (min of {times}, one "
+        f"chunk of {steps} steps, grid {fused_cuda.LAST_GRID_BLOCKS} blocks, "
+        f"each ending in the record's final state); plain {plain_ms} ms per "
+        f"class step; bound {bound['bound_ms']} ms ({bound['bound_by']}: "
+        f"{bound['bytes']:.0f} B, {bound['int_ops']:.0f} int ops, "
+        f"{bound['f32_ops']:.0f} f32 ops); phases over 2 sweeps (us per "
+        f"class step, barrier included): {phases}")
+    return {"ms": ms, "ms_repeats": times, "plain_ms": plain_ms,
+            "phases_us": phases, **bound}
+
+
+def phase_fused_cli(main: dict) -> None:
+    """``python -m graphdyn_torch fused --device cuda`` at its defaults,
+    which are config 1 run (a): its JSON equals the run's result."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "graphdyn_torch", "fused", "--device", "cuda"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"fused CLI failed: {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    res = main["results"]["a"]
+    want = {"solver": "fused", "kernel": "cuda", "chi": res.chi,
+            "sweeps": res.sweeps, "device_steps": res.device_steps,
+            "accepted": res.accepted, "m_end": res.m_end.tolist(),
+            "steps_to_target": res.steps_to_target.tolist(),
+            "sweeps_to_target": res.sweeps_to_target.tolist(), "out": None}
+    if doc != want:
+        raise AssertionError(f"fused CLI output {doc} != run (a) {want}")
+    log(f"[8 config 1] python -m graphdyn_torch fused --device cuda: equal to "
+        f"run (a) in every key, {time.perf_counter() - t0:.3f} s wall")
+
+
+def phase_fused_scale() -> dict:
+    """Config 5's single-chip width: d=5 RRG, n=10⁶, R=1024 (W=32),
+    majority/stay. Host set-up seconds; the kernel's ms per class step over
+    2 sweeps by CUDA events; the plain version's over χ steps; kernel ==
+    plain over one chunk of χ steps."""
+    timers = {}
+    cfg = _sa_config()
+    t0 = time.perf_counter()
+    g = random_regular_graph(SCALE_N, SCALE_D, seed=0)
+    timers["graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g2 = graphs.power_graph(g, 2)
+    timers["power_graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    colors = graphs.greedy_coloring(g2, seed=0)
+    timers["coloring"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = build_fused_tables(g, cfg, seed=0, coloring=(g2, colors))
+    timers["tables"] = time.perf_counter() - t0
+    del g2
+    t0 = time.perf_counter()
+    st0, td, static, _, _, W, _ = _assemble_fused(
+        g, cfg, n_replicas=SCALE_R, seed=0, m_target=1.0, betas=None,
+        tables=tables, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    timers["state_and_upload"] = time.perf_counter() - t0
+    chi = tables.chi
+    log(f"[9 scale] RRG d={SCALE_D} n={SCALE_N} R={SCALE_R}: chi={chi}, class "
+        f"sizes {tables.chrom.class_sizes.tolist()}; host set-up seconds "
+        f"{timers}")
+    # kernel: warm-up launch, then 2 sweeps in one chunk
+    st = _clone(st0)
+    fused_cuda.fused_chunk_cuda(st, 0, td, chunk_steps=1, **static)
+    times = []
+    for _ in range(2):
+        st = _clone(st0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fused_cuda.fused_chunk_cuda(st, 0, td, chunk_steps=2 * chi, **static)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (2 * chi))
+    grid = fused_cuda.LAST_GRID_BLOCKS
+    del st
+    phases = phase_breakdown(st0, td, static, 0, 2 * chi)
+    # kernel == plain over one chunk of chi steps (the plain run is timed)
+    k = fused_chunk(_clone(st0), 0, td, kernel="cuda", chunk_steps=chi,
+                    **static)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p = fused_chunk(_clone(st0), 0, td, kernel="plain", chunk_steps=chi,
+                    **static)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end) / chi
+    err = _state_err(k, p)
+    if err:
+        raise AssertionError(f"scale shape: kernel != plain over {chi} steps "
+                             f"(max_abs_err {err})")
+    bound = class_step_bound(tables.chrom, W)
+    ms = min(times)
+    log(f"[9 scale] kernel {ms} ms per class step (min of {times}, 2 sweeps "
+        f"in one chunk, grid {grid} blocks); plain {plain_ms} ms per class "
+        f"step over {chi} steps; kernel == plain over {chi} steps; bound "
+        f"{bound['bound_ms']} ms ({bound['bound_by']}: {bound['bytes']:.0f} B "
+        f"= {bound['bytes_ms']} ms, {bound['int_ops']:.0f} int ops = "
+        f"{bound['int_ms']} ms, {bound['f32_ops']:.0f} f32 ops = "
+        f"{bound['f32_ms']} ms); phases over 2 sweeps (us per class step, "
+        f"barrier included): {phases}")
+    del k, p, st0, td
+    torch.cuda.empty_cache()
+    return {"ms": ms, "ms_repeats": times, "plain_ms": plain_ms,
+            "max_abs_err": err, "setup_s": timers, "chi": chi,
+            "grid_blocks": grid, "phases_us": phases, **bound}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -378,7 +845,7 @@ def main() -> int:
     torch.cuda.set_device(0)
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"(CUDA {torch.version.cuda})")
-    build_s, ptxas = phase_build()
+    built = phase_build()
     # headline shape: d=3 RRG, n=10^6, R=16384 (W=512); config 3: ER
     # n=10^5, c=6, isolates removed, R=512 (W=16)
     t0 = time.perf_counter()
@@ -434,6 +901,14 @@ def main() -> int:
         f"sweep) + {launches_point} (headline consensus_point)")
     phase_int8_crosscheck()
 
+    # the fused annealer: parity, then its main path, counted
+    fused_err = phase_fused_parity()
+    main_f = phase_config1_main_path()
+    verdicts = phase_config1_check(main_f)
+    cfg1 = phase_config1_timing(main_f["graph"])
+    phase_fused_cli(main_f)
+    scale = phase_fused_scale()
+
     kernels = [{
         "name": "packed_step",
         "route": "cuda",
@@ -456,12 +931,45 @@ def main() -> int:
         "config3": {k: cfg3[k] for k in ("ms", "plain_ms", "host_ms_per_step",
                                          "bound_ms", "bound_by",
                                          "no_reuse_ms")},
-        "build_s": build_s,
-        "ptxas": ptxas,
+        "build_s": built["build_s"],
+        "ptxas": built["packed_step"],
+    }, {
+        "name": "fused_chunk",
+        "route": "cuda",
+        "source": "graphdyn_torch/csrc/fused_anneal.cu",
+        "replaces": "graphdyn/ops/pallas_anneal.py:433 (K4 fused_chunk_pallas)",
+        "parity": "bit-exact",
+        "launches": main_f["launches"]["fused_chunk"],
+        "max_abs_err": max(fused_err, scale["max_abs_err"]),
+        "ms": scale["ms"],
+        "plain_ms": scale["plain_ms"],
+        "bound_ms": scale["bound_ms"],
+        "bound_by": scale["bound_by"],
+        "library_ms": None,
+        "library_note": "no PyTorch call computes a fused SA class step",
+        "unit": "per class step",
+        "shape": f"RRG d={SCALE_D} n={SCALE_N} W={SCALE_R // 32}",
+        "bound_terms_ms": {k: scale[k] for k in ("bytes_ms", "int_ms",
+                                                  "f32_ms")},
+        "grid_blocks": scale["grid_blocks"],
+        "phases_us": scale["phases_us"],
+        "setup_s": scale["setup_s"],
+        "config1": {
+            "shape": f"RRG d={CONFIG1['d']} n={CONFIG1['n']} W=1",
+            **{k: cfg1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "bytes_ms", "int_ms", "f32_ms",
+                                    "phases_us")},
+            "wall_s": main_f["walls"],
+            "reference": {run: v["how"] for run, v in verdicts.items()},
+        },
+        "packed_step_launches_on_fused_path":
+            main_f["launches"]["packed_step"],
+        "ptxas": built["fused_chunk"],
     }]
-    log(f"[6] seconds in all: {time.perf_counter() - t_start:.3f} "
+    log(f"[10] seconds in all: {time.perf_counter() - t_start:.3f} "
         f"(sweep {sweep['sweep_wall_s']:.3f}, headline point "
-        f"{point['point_wall_s']:.3f})")
+        f"{point['point_wall_s']:.3f}, fused scale set-up "
+        f"{sum(scale['setup_s'].values()):.3f})")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,16 @@ The port of the JAX package ``graphdyn`` (which stays in the repository as
 the reference) to PyTorch on an NVIDIA H100. Module names follow the JAX
 package, so each counterpart is found under the same name:
 
-- ``graphdyn_torch.graphs``    — graph ensembles (RRG, Erdős–Rényi) and the
-  padded neighbor table, host numpy as in the reference.
-- ``graphdyn_torch.ops``       — int8 synchronous dynamics (plain PyTorch) and
+- ``graphdyn_torch.graphs``    — graph ensembles (RRG, Erdős–Rényi), the
+  padded neighbor table and the distance-2 coloring, host numpy as in the
+  reference.
+- ``graphdyn_torch.ops``       — int8 synchronous dynamics (plain PyTorch);
   the 32-replicas-per-word packed rollout, whose step is a hand-written CUDA
-  kernel (``csrc/packed_step.cu``) on the GPU.
+  kernel (``csrc/packed_step.cu``) on the GPU; the update LUTs, the
+  chromatic class step and the fused annealer chunk, one cooperative CUDA
+  launch per chunk (``csrc/fused_anneal.cu``) on the GPU.
+- ``graphdyn_torch.search``    — the fused SA annealer driver
+  (``fused_anneal``) and the near-tie comparison against recorded runs.
 - ``graphdyn_torch.observe``   — magnetization, consensus fraction.
 - ``graphdyn_torch.models``    — the opinion-consensus m(0) sweep.
 - ``graphdyn_torch.interop``   — numpy bridges to the JAX package's arrays.

@@ -1,9 +1,13 @@
-"""Command line of the port: ``python -m graphdyn_torch consensus ...``.
+"""Command line of the port: ``python -m graphdyn_torch <command> ...``.
 
-The ``consensus`` subcommand with the JAX package's flags and defaults
-(``graphdyn/cli.py``), plus ``--device`` (default ``cuda``). It prints one
-JSON document, the sweep's :func:`~graphdyn_torch.models.consensus.
-consensus_doc`, and with ``--out`` also writes it atomically.
+- ``consensus``: the JAX package's flags and defaults (``graphdyn/cli.py``),
+  plus ``--device`` (default ``cuda``). It prints one JSON document, the
+  sweep's :func:`~graphdyn_torch.models.consensus.consensus_doc`, and with
+  ``--out`` also writes it atomically.
+- ``fused``: the fused one-kernel annealer with the JAX package's flags and
+  defaults, ``--kernel {auto,cuda,plain}`` for ``{auto,xla,pallas}`` and
+  ``--device`` (default ``cuda``). It prints the reference's JSON keys, and
+  with ``--out`` writes the reference's npz keys.
 """
 
 from __future__ import annotations
@@ -57,7 +61,122 @@ def build_parser() -> argparse.ArgumentParser:
              "PyTorch version)",
     )
     cons.add_argument("--out", default=None, help="json path for the curve")
+
+    fus = sub.add_parser(
+        "fused",
+        help="one-kernel annealing: the chromatic class-at-a-time chain with "
+             "the rule compiled to a popcount LUT, counter-based RNG, and the "
+             "anneal schedule advanced inside one CUDA launch per chunk "
+             "(p=c=1 only)",
+    )
+    fus.add_argument("--n", type=int, default=10_000)
+    fus.add_argument("--d", type=int, default=3)
+    _add_dynamics_flags(fus, p_default=1)
+    _add_sa_schedule_flags(fus)
+    fus.add_argument("--replicas", type=int, default=32,
+                     help="independent packed chains (32 per 32-bit word)")
+    fus.add_argument("--m-target", type=float, default=0.9)
+    fus.add_argument("--max-sweeps", type=int, default=5000)
+    fus.add_argument(
+        "--chunk-sweeps", type=int, default=256, metavar="S",
+        help="full sweeps per kernel launch (the chunk plan is host-side; no "
+             "device read-back between chunks, and the counter RNG makes "
+             "splits chain-invariant)",
+    )
+    fus.add_argument("--stop-on-first", action="store_true",
+                     help="stop at the first replica reaching --m-target "
+                          "(adds a per-chunk stop test)")
+    fus.add_argument(
+        "--kernel", choices=["auto", "cuda", "plain"], default="auto",
+        help="'auto' runs the CUDA kernel on the card and the plain PyTorch "
+             "version on the CPU; 'cuda' requires the card; 'plain' forces "
+             "the plain version (for tests). Both run the same chain bit for "
+             "bit",
+    )
+    fus.add_argument(
+        "--ladder-beta-max", type=float, default=None, metavar="B",
+        help="per-replica drive ladder on the packed replica axis: replica r "
+             "scales (b0, b-cap) by geomspace(1, B, replicas)[r]",
+    )
+    fus.add_argument("--seed", type=int, default=0)
+    fus.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default cuda; 'cpu' runs the plain "
+             "PyTorch version)",
+    )
+    fus.add_argument("--out", default=None,
+                     help="npz path (per-replica arrays)")
     return p
+
+
+def _add_dynamics_flags(ap: argparse.ArgumentParser, p_default: int = 1):
+    ap.add_argument("--p", type=int, default=p_default, help="transient length")
+    ap.add_argument("--c", type=int, default=1, help="cycle length")
+    ap.add_argument("--rule", choices=["majority", "minority"],
+                    default="majority")
+    ap.add_argument("--tie", choices=["stay", "change"], default="stay")
+    ap.add_argument("--attr-value", type=int, choices=[1, -1], default=1)
+
+
+def _add_sa_schedule_flags(ap: argparse.ArgumentParser) -> None:
+    """The reference SA annealing schedule (`SA_RRG.py:44-52`)."""
+    ap.add_argument("--a0-frac", type=float, default=0.015)
+    ap.add_argument("--b0-frac", type=float, default=0.010)
+    ap.add_argument("--par-a", type=float, default=1.0005)
+    ap.add_argument("--par-b", type=float, default=1.0005)
+    ap.add_argument("--a-cap-frac", type=float, default=4.5)
+    ap.add_argument("--b-cap-frac", type=float, default=5.0)
+
+
+def _sa_config(args):
+    from graphdyn_torch.config import DynamicsConfig, SAConfig
+
+    return SAConfig(
+        dynamics=DynamicsConfig(p=args.p, c=args.c, rule=args.rule,
+                                tie=args.tie, attr_value=args.attr_value),
+        a0_frac=args.a0_frac, b0_frac=args.b0_frac,
+        par_a=args.par_a, par_b=args.par_b,
+        a_cap_frac=args.a_cap_frac, b_cap_frac=args.b_cap_frac,
+    )
+
+
+def _fused_main(args, dev) -> int:
+    import numpy as np
+
+    from graphdyn_torch.graphs import random_regular_graph
+    from graphdyn_torch.search.fused import fused_anneal
+    from graphdyn_torch.utils.io import save_results_npz
+
+    betas = None
+    if args.ladder_beta_max is not None:
+        if args.ladder_beta_max < 1.0:
+            raise SystemExit("--ladder-beta-max must be >= 1.0")
+        betas = np.geomspace(1.0, args.ladder_beta_max, args.replicas)
+    g = random_regular_graph(args.n, args.d, seed=args.seed)
+    res = fused_anneal(
+        g, _sa_config(args), n_replicas=args.replicas, seed=args.seed,
+        m_target=args.m_target, max_sweeps=args.max_sweeps,
+        chunk_sweeps=args.chunk_sweeps, stop_on_first=args.stop_on_first,
+        kernel=args.kernel, betas=betas, device=dev,
+    )
+    if args.out:
+        save_results_npz(
+            args.out, conf=res.s, mag_reached=res.mag_reached,
+            m_end=res.m_end, steps_to_target=res.steps_to_target,
+        )
+    print(json.dumps({
+        "solver": "fused",
+        "kernel": res.kernel_used,
+        "chi": res.chi,
+        "sweeps": res.sweeps,
+        "device_steps": res.device_steps,
+        "accepted": res.accepted,
+        "m_end": res.m_end.tolist(),
+        "steps_to_target": res.steps_to_target.tolist(),
+        "sweeps_to_target": res.sweeps_to_target.tolist(),
+        "out": args.out,
+    }))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -74,6 +193,8 @@ def main(argv=None) -> int:
         dev = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
+    if args.cmd == "fused":
+        return _fused_main(args, dev)
     if args.graph == "rrg":
         g, n_iso, nbr_dev, deg_dev = rrg_consensus_ensemble(
             args.n, d=args.d, seed=args.seed, device=dev

@@ -11,9 +11,12 @@ the callers (:mod:`graphdyn_torch.models.consensus`).
   slots contribute nothing to neighbor counts).
 - ``Graph.deg``: ``int32[n]`` degrees; ``Graph.edges``: ``int32[E, 2]``.
 
-Sampling methods other than the numpy ones (``networkx``, ``native``), and the
-colorings, buckets, partitions and edge tables, come with the slices of the
-port that use them (ROADMAP.md, queue A).
+The distance-2 coloring of the fused annealer (``power_graph``,
+``greedy_coloring``, ``validate_coloring``) and the layout statistic
+``degree_cv`` are copied line for line too, so the same seed gives the same
+colours. Sampling methods other than the numpy ones (``networkx``,
+``native``), and the buckets, partitions, relabelings and edge tables, come
+with the slices of the port that use them (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -263,3 +266,103 @@ def erdos_renyi_graph(
         codes = rng.permutation(codes)[:m]
     i, j = _decode_triu(np.sort(codes), n)
     return graph_from_edges(n, np.stack([i, j], axis=1))
+
+
+# ---------------------------------------------------------------------------
+# Layout statistic and distance-2 coloring (the fused annealer's setup)
+# ---------------------------------------------------------------------------
+
+
+def degree_cv(deg) -> float:
+    """Coefficient of variation of a degree sequence (std/mean, host
+    float): ~0 for an RRG, ``1/sqrt(c)`` for ER(c), diverging with n for a
+    power-law tail. ``fused_anneal(layout="auto")`` consults it through
+    :func:`graphdyn_torch.ops.bucketed.auto_layout`."""
+    deg = np.asarray(deg)
+    if deg.size == 0:
+        return 0.0
+    mean = float(deg.mean())
+    if mean <= 0.0:
+        return 0.0
+    return float(deg.std()) / mean
+
+
+def power_graph(graph: Graph, radius: int) -> Graph:
+    """The graph ``G^radius``: an edge between every pair of distinct nodes
+    at distance ≤ ``radius`` in ``graph`` (host numpy, repeated
+    neighbor-table expansion, O(n·dmax^radius) memory at build time). A
+    proper coloring of ``G²`` puts same-colour nodes at distance ≥ 3, so
+    their radius-1 update balls are disjoint."""
+    if radius < 1:
+        raise ValueError(f"radius must be >= 1, got {radius}")
+    n = graph.n
+    if radius == 1:
+        return graph
+    # frontier expansion over the ghost-extended table: ball[k] holds every
+    # node at distance <= k (dense [n, width] with ghost padding)
+    nbr = graph.nbr.astype(np.int64)
+    ball = nbr
+    for _ in range(radius - 1):
+        nbr_ext = np.concatenate(
+            [nbr, np.full((1, graph.dmax), n, np.int64)], axis=0
+        )
+        grown = nbr_ext[ball.reshape(-1)].reshape(n, -1)
+        ball = np.concatenate([ball, grown], axis=1)
+    src = np.repeat(np.arange(n, dtype=np.int64), ball.shape[1])
+    dst = ball.reshape(-1)
+    keep = (dst != n) & (src != dst)
+    src, dst = src[keep], dst[keep]
+    lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+    codes = np.unique(lo * n + hi)
+    edges = np.stack([codes // n, codes % n], axis=1)
+    return graph_from_edges(n, edges)
+
+
+def greedy_coloring(graph: Graph, *, seed: int = 0) -> np.ndarray:
+    """Greedy proper node coloring, host numpy and deterministic per seed:
+    nodes are visited highest-degree-first with a seeded jitter ordering
+    equal degrees, each taking the smallest colour absent from its
+    already-coloured neighbors. No monochromatic edge, and χ ≤ dmax + 1.
+
+    Returns ``int32[n]`` colours in ``[0, χ)``. Distance-2 colorings come
+    from ``greedy_coloring(power_graph(g, 2))``."""
+    n = graph.n
+    rng = np.random.default_rng(seed)
+    jitter = rng.random(n)
+    order = np.lexsort((jitter, -graph.deg.astype(np.int64)))
+    colors = np.full(n, -1, np.int64)
+    nbr = graph.nbr
+    # smallest-free-colour scan: used[] sized dmax+2 so argmin always finds
+    # a free slot within the chi <= dmax+1 bound
+    width = graph.dmax + 2
+    used = np.zeros(width, bool)
+    for i in order:
+        used[:] = False
+        cs = colors[nbr[i][nbr[i] != n]]
+        used[cs[cs >= 0]] = True
+        colors[i] = int(np.argmin(used))
+    return colors.astype(np.int32)
+
+
+def validate_coloring(graph: Graph, colors: np.ndarray) -> list[str]:
+    """Validity problems of a coloring for ``graph`` (empty list = valid):
+    monochromatic edges, the χ ≤ dmax+1 greedy bound, out-of-range or
+    non-contiguous colour ids. An invalid distance-2 coloring would make the
+    whole-class update silently wrong, so the table builder refuses it."""
+    problems = []
+    colors = np.asarray(colors)
+    if colors.shape != (graph.n,):
+        return [f"colors shape {colors.shape} != ({graph.n},)"]
+    e = graph.edges.astype(np.int64)
+    if e.size:
+        mono = int((colors[e[:, 0]] == colors[e[:, 1]]).sum())
+        if mono:
+            problems.append(f"{mono} monochromatic edge(s)")
+    if colors.min(initial=0) < 0:
+        problems.append("negative color id")
+    chi = int(colors.max(initial=-1)) + 1
+    if chi > graph.dmax + 1:
+        problems.append(f"chi={chi} exceeds dmax+1={graph.dmax + 1}")
+    if chi and len(np.unique(colors)) != chi:
+        problems.append(f"non-contiguous color ids (chi={chi})")
+    return problems

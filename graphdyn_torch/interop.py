@@ -39,3 +39,80 @@ def words_to_numpy(words: torch.Tensor) -> np.ndarray:
     if words.dtype != torch.int32:
         raise TypeError(f"packed words are torch.int32, got {words.dtype}")
     return words.detach().cpu().contiguous().numpy().view(np.uint32).copy()
+
+
+def chromatic_tables_from_jax(chrom):
+    """The JAX package's ``ChromaticTables`` (numpy fields) -> the port's,
+    with copies of every field in the same dtypes."""
+    from graphdyn_torch.ops.chromatic import ChromaticTables
+
+    return ChromaticTables(*(np.array(f) for f in chrom))
+
+
+def fused_tables_from_jax(tables):
+    """The JAX package's ``FusedTables`` -> the port's (numpy copies)."""
+    from graphdyn_torch.ops.fused import FusedTables
+
+    return FusedTables(
+        chrom=chromatic_tables_from_jax(tables.chrom),
+        masks_ext=np.array(tables.masks_ext),
+        lut_masks=np.array(tables.lut_masks),
+        fac_a=np.array(tables.fac_a),
+        fac_b=np.array(tables.fac_b),
+    )
+
+
+def fused_device_tables_from_jax(tables_dev, device="cpu"):
+    """The JAX package's seven device tables ``(masks_ext, facs, nbr_ext,
+    nbr_self, lut_masks, a_caps, b_caps)`` -> the port's
+    :class:`~graphdyn_torch.ops.fused.FusedDeviceTables` on ``device``
+    (uint32 masks become int32 words with the same bits)."""
+    from graphdyn_torch.ops.fused import fused_device_tables
+
+    masks_ext, facs, nbr_ext, nbr_self, lut_masks, a_caps, b_caps = (
+        np.asarray(t) for t in tables_dev)
+    lm = words_from_numpy(lut_masks.reshape(-1, lut_masks.shape[-1]))
+    return fused_device_tables(
+        words_from_numpy(masks_ext).to(device),
+        torch.from_numpy(np.array(facs, np.float32)).to(device),
+        torch.from_numpy(np.array(nbr_ext, np.int32)).to(device),
+        torch.from_numpy(np.array(nbr_self, np.int32)).to(device),
+        lm.reshape(lut_masks.shape).to(device),
+        torch.from_numpy(np.array(a_caps, np.float32)).to(device),
+        torch.from_numpy(np.array(b_caps, np.float32)).to(device),
+    )
+
+
+def fused_state_from_jax(state, device="cpu"):
+    """The JAX package's ``FusedState`` -> the port's
+    :class:`~graphdyn_torch.ops.fused.FusedState` on ``device``."""
+    from graphdyn_torch.ops.fused import FusedState
+
+    def t(x, dtype):
+        return torch.from_numpy(np.array(x, dtype)).to(device)
+
+    return FusedState(
+        sp_ext=words_from_numpy(np.asarray(state.sp_ext)).to(device),
+        sum_end=t(state.sum_end, np.int32),
+        a=t(state.a, np.float32),
+        b=t(state.b, np.float32),
+        t_target=t(state.t_target, np.int32),
+        active=t(state.active, np.bool_),
+        steps=t(state.steps, np.int32),
+        accepted=t(state.accepted, np.int32),
+    )
+
+
+def fused_state_to_numpy(state) -> dict:
+    """The port's ``FusedState`` (any device) -> a dict of numpy arrays in
+    the JAX package's dtypes (uint32 words, int32, float32, bool)."""
+    return {
+        "sp_ext": words_to_numpy(state.sp_ext),
+        "sum_end": state.sum_end.cpu().numpy().astype(np.int32),
+        "a": state.a.cpu().numpy().astype(np.float32),
+        "b": state.b.cpu().numpy().astype(np.float32),
+        "t_target": state.t_target.cpu().numpy().astype(np.int32),
+        "active": state.active.cpu().numpy().astype(np.bool_),
+        "steps": np.int32(state.steps.item()),
+        "accepted": np.int32(state.accepted.item()),
+    }

@@ -326,13 +326,19 @@ def draw_packed_biased(seed: int, n: int, W: int, m0: float,
     return out
 
 
+def _inv_n(n: int, device) -> torch.Tensor:
+    """The float32 reciprocal of n (1/n divided in float32): XLA rewrites a
+    compiled division by the constant n into a multiplication by it, so the
+    port multiplies by it wherever it holds a float to the JAX package's
+    compiled program."""
+    return (torch.ones((), dtype=torch.float32) / n).to(device)
+
+
 def _magnetization_from_counts(cnt: torch.Tensor, n: int) -> torch.Tensor:
     """float32 m_r = (2·cnt_r − n)/n, computed as the JAX package's compiled
-    program computes it, so that m_final and the near-consensus flags agree
-    bit for bit: XLA rewrites the division by the constant n into a
-    multiplication by the float32 reciprocal of n (1/n divided in float32)."""
-    inv_n = (torch.ones((), dtype=torch.float32) / n).to(cnt.device)
-    return (2.0 * cnt.to(torch.float32) - n) * inv_n
+    program computes it (times :func:`_inv_n`), so that m_final and the
+    near-consensus flags agree bit for bit."""
+    return (2.0 * cnt.to(torch.float32) - n) * _inv_n(n, cnt.device)
 
 
 def _consensus_bits(sp: torch.Tensor, R: int) -> torch.Tensor:

@@ -7,33 +7,24 @@ pallas_packed_step``) and K2 (``_general_step_ext``): one synchronous packed
 majority/minority step on the ghost-extended state ``[n+1, W]``.
 
 Build: ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, loaded with ctypes, at the first CUDA use — never at import, so
-importing the package needs no ``nvcc``. The library lands in
-``build/graphdyn_torch/`` at the repo root, named by a hash of the source and
-the flags, and is installed through a temporary name and ``os.replace``.
-There is no fallback: when a CUDA tensor reaches :func:`packed_step` and the
-build or the launch fails, it raises.
+interface, loaded with ctypes at the first CUDA use, through
+:mod:`graphdyn_torch.ops.cuda_build` (never at import). There is no
+fallback: when a CUDA tensor reaches :func:`packed_step` and the build or the
+launch fails, it raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "packed_step.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
-                         "graphdyn_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from graphdyn_torch.ops import cuda_build
+
+SOURCE = "packed_step.cu"
+NVCC_FLAGS = cuda_build.BASE_FLAGS
 MAX_PLANES = 6          # the kernel's template range: dmax <= 63
 
 # kernel launches made through packed_step since the last reset; a run shows
@@ -44,69 +35,17 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME")
-    if cuda_home:
-        path = os.path.join(cuda_home, "bin", "nvcc")
-        return path if os.path.exists(path) else ""
-    return shutil.which("nvcc") or (
-        "/usr/local/cuda/bin/nvcc"
-        if os.path.exists("/usr/local/cuda/bin/nvcc") else ""
-    )
-
-
 def build() -> str:
     """Compile the kernel library if this source and these flags have not
-    been built yet; return its path. The compiler's report (``-Xptxas -v``:
-    registers and spills per kernel) is kept beside the library as
-    ``<library>.log`` (see :func:`ptxas_summary`)."""
-    nvcc = _nvcc()
-    if not nvcc:
-        raise RuntimeError(
-            "graphdyn_torch: nvcc not found (PATH, or CUDA_HOME/bin); the "
-            "packed-step CUDA kernel cannot be built"
-        )
-    with open(_SRC, "rb") as f:
-        source = f.read()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libpacked_step-{key}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"graphdyn_torch: nvcc failed (exit {proc.returncode}) building "
-            f"{_SRC}:\n{proc.stdout}{proc.stderr}"
-        )
-    with open(f"{tmp}.log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(f"{tmp}.log", f"{lib_path}.log")
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
-def ptxas_summary(lib_path: str) -> dict:
-    """The register and spill figures of every kernel instantiation, from
-    the compiler report that :func:`build` kept beside ``lib_path``."""
-    with open(f"{lib_path}.log") as f:
-        report = f.read()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)]
-    if not regs:
-        raise RuntimeError(f"no ptxas register report in {lib_path}.log")
-    return {"kernels": len(regs), "registers_min": min(regs),
-            "registers_max": max(regs), "spill_bytes_max": max(spills or [0])}
+    been built yet; return its path (:func:`cuda_build.build`)."""
+    return cuda_build.build(SOURCE, NVCC_FLAGS)
 
 
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = cuda_build.load(SOURCE, NVCC_FLAGS)
             fn = lib.graphdyn_packed_step
             fn.restype = ctypes.c_int
             fn.argtypes = [

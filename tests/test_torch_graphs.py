@@ -87,3 +87,64 @@ def test_rng_passthrough_and_refusals():
             tg.random_regular_graph(10, 3, seed=0, method=method)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tg.erdos_renyi_graph(10, 0.3, seed=0, method=method)
+
+
+POWER_CASES = {
+    "rrg": lambda m: m.random_regular_graph(200, 3, seed=5),
+    "er": lambda m: m.erdos_renyi_graph(150, 3.0 / 150, seed=6),  # isolates
+}
+
+
+@pytest.mark.parametrize("gname", list(POWER_CASES))
+def test_power_graph_and_distance2_coloring_identical(gname):
+    g_j, g_t = POWER_CASES[gname](jg), POWER_CASES[gname](tg)
+    _assert_same(g_j, g_t)
+    assert tg.degree_cv(g_t.deg) == jg.degree_cv(g_j.deg)
+    for r in (1, 2, 3):
+        _assert_same(jg.power_graph(g_j, r), tg.power_graph(g_t, r))
+    g2_j, g2_t = jg.power_graph(g_j, 2), tg.power_graph(g_t, 2)
+    for seed in (0, 7):
+        c_j = jg.greedy_coloring(g2_j, seed=seed)
+        c_t = tg.greedy_coloring(g2_t, seed=seed)
+        assert c_t.dtype == c_j.dtype == np.int32
+        np.testing.assert_array_equal(c_t, c_j)
+        assert tg.validate_coloring(g2_t, c_t) == [] == \
+            jg.validate_coloring(g2_j, c_j)
+    # a broken coloring: the same problems reported
+    bad = c_t.copy()
+    bad[g2_t.edges[0, 1]] = bad[g2_t.edges[0, 0]]
+    bad[0] = -1
+    assert tg.validate_coloring(g2_t, bad) == jg.validate_coloring(g2_j, bad)
+    assert tg.validate_coloring(g2_t, bad[:-1]) == \
+        jg.validate_coloring(g2_j, bad[:-1])
+    with pytest.raises(ValueError, match="radius"):
+        tg.power_graph(g_t, 0)
+
+
+def test_degree_cv_auto_layout_and_bucketed_refusal():
+    from graphdyn.ops import bucketed as jb
+    from graphdyn_torch.config import DynamicsConfig, SAConfig
+    from graphdyn_torch.ops import bucketed as tb
+    from graphdyn_torch.search.fused import fused_anneal
+
+    assert tb.BUCKETED_CV_THRESHOLD == jb.BUCKETED_CV_THRESHOLD
+    # a star with a tail: degree CV far above the threshold
+    star = np.array([[0, i] for i in range(1, 60)] + [[1, 2], [3, 4]])
+    hub_j, hub_t = jg.graph_from_edges(60, star), tg.graph_from_edges(60, star)
+    graphs = [(jg.random_regular_graph(50, 3, seed=0),
+               tg.random_regular_graph(50, 3, seed=0)),
+              (jg.erdos_renyi_graph(80, 2.0 / 80, seed=1),
+               tg.erdos_renyi_graph(80, 2.0 / 80, seed=1)),
+              (hub_j, hub_t)]
+    for g_j, g_t in graphs:
+        assert tg.degree_cv(g_t.deg) == jg.degree_cv(g_j.deg)
+        assert tb.auto_layout(g_t.deg) == jb.auto_layout(g_j.deg)
+        assert tb.auto_layout(g_t.deg, threshold=0.3) == \
+            jb.auto_layout(g_j.deg, threshold=0.3)
+    assert tb.auto_layout(hub_t.deg) == "bucketed"
+    assert tg.degree_cv(np.zeros(0)) == 0.0 == tg.degree_cv(np.zeros(3))
+    cfg = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
+    for layout in ("auto", "bucketed"):
+        with pytest.raises(NotImplementedError, match="A13"):
+            fused_anneal(hub_t, cfg, n_replicas=2, layout=layout,
+                         device="cpu")

@@ -14,10 +14,14 @@ import pytest
 import torch
 
 from graphdyn_torch import graphs as tg
+from graphdyn_torch.config import DynamicsConfig, SAConfig
 from graphdyn_torch.models import consensus as tc
 from graphdyn_torch.ops import dynamics as td
+from graphdyn_torch.ops import fused as tfu
+from graphdyn_torch.ops import fused_cuda
 from graphdyn_torch.ops import packed as tp
 from graphdyn_torch.ops import packed_cuda
+from graphdyn_torch.search import fused as tsf
 from graphdyn_torch.utils.platform import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,7 +54,13 @@ def test_importing_every_port_module_loads_no_jax():
     assert out["bad"] == []
     for name in ("graphdyn_torch.ops.packed", "graphdyn_torch.ops.packed_cuda",
                  "graphdyn_torch.models.consensus", "graphdyn_torch.cli",
-                 "graphdyn_torch.interop", "graphdyn_torch.observe"):
+                 "graphdyn_torch.interop", "graphdyn_torch.observe",
+                 "graphdyn_torch.ops.lut", "graphdyn_torch.ops.chromatic",
+                 "graphdyn_torch.ops.fused", "graphdyn_torch.ops.fused_cuda",
+                 "graphdyn_torch.ops.cuda_build",
+                 "graphdyn_torch.ops.bucketed",
+                 "graphdyn_torch.search.fused",
+                 "graphdyn_torch.search.reference"):
         assert name in out["modules"]
 
 
@@ -91,6 +101,9 @@ ENTRY_POINTS = {
         lambda: tc.consensus_curve_ensemble(50, 32, [0.1], 10),
     "consensus_doc": lambda: tc.consensus_doc(_small_graph(), 0, []),
     "consensus_ensemble_doc": lambda: tc.consensus_ensemble_doc(50, [], []),
+    "fused_anneal": lambda: tsf.fused_anneal(
+        _small_graph(), SAConfig(dynamics=DynamicsConfig(p=1, c=1)),
+        n_replicas=2, max_sweeps=2),
 }
 
 
@@ -105,12 +118,15 @@ def test_entry_point_without_device_refuses_on_cuda_less_host(name, monkeypatch)
     assert drawn == []
 
 
-def test_cli_without_device_refuses_on_cuda_less_host():
+@pytest.mark.parametrize("argv", [
+    ["consensus", "--n", "50", "--max-steps", "10"],
+    ["fused", "--n", "50", "--max-sweeps", "2"],
+], ids=["consensus", "fused"])
+def test_cli_without_device_refuses_on_cuda_less_host(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
     proc = subprocess.run(
-        [sys.executable, "-m", "graphdyn_torch", "consensus", "--n", "50",
-         "--max-steps", "10"],
+        [sys.executable, "-m", "graphdyn_torch", *argv],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode != 0
@@ -130,14 +146,16 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
         assert '"ok"' not in proc.stdout
 
 
-def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+@pytest.mark.parametrize("wrapper", [packed_cuda, fused_cuda],
+                         ids=["packed_step", "fused_chunk"])
+def test_kernel_build_raises_without_nvcc(wrapper, monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(packed_cuda, "_lib", None)
+    monkeypatch.setattr(wrapper, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        packed_cuda.build()
+        wrapper.build()
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        packed_cuda._library()
+        wrapper._library()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():
@@ -150,3 +168,37 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():
     before = packed_cuda.LAUNCHES
     tp.packed_rollout(nbr, deg, ext[:-1], 3)
     assert packed_cuda.LAUNCHES == before
+
+
+def _fused_cpu_inputs():
+    cfg = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
+    st, tables, static, _, _, _, _ = tsf._assemble_fused(
+        _small_graph(), cfg, n_replicas=8, seed=0, m_target=1.0, betas=None,
+        tables=None, device=torch.device("cpu"))
+    return st, tables, static
+
+
+def test_fused_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():
+    st, tables, static = _fused_cpu_inputs()
+    kw = dict(chunk_steps=3, stop_on_first=False, **static)
+    with pytest.raises(ValueError, match="not CUDA"):
+        fused_cuda.fused_chunk_cuda(st, 0, tables, **kw)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tfu.fused_chunk(st, 0, tables, kernel="cuda", **kw)
+    with pytest.raises(ValueError, match="kernel"):
+        tfu.fused_chunk(st, 0, tables, kernel="pallas", **kw)
+    before = fused_cuda.LAUNCHES
+    out = tfu.fused_chunk(st, 0, tables, kernel="auto", **kw)
+    assert int(out.steps) == 3 and int(st.steps) == 0   # plain: not in place
+    res = tsf.fused_anneal(_small_graph(),
+                           SAConfig(dynamics=DynamicsConfig(p=1, c=1)),
+                           n_replicas=4, max_sweeps=3, device="cpu")
+    assert res.kernel_used == "plain"
+    assert fused_cuda.LAUNCHES == before
+
+
+def test_fused_kernel_cuda_refused_on_cpu_device():
+    cfg = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
+    with pytest.raises(ValueError, match="device='cuda'"):
+        tsf.fused_anneal(_small_graph(), cfg, n_replicas=2, kernel="cuda",
+                         device="cpu")
