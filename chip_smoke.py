@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the two CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
-(sm_90a, both compilers started together) and holds each against its plain
-PyTorch version bit for bit. Then it drives the port's two main paths
-through the entry points a user calls, each with the launch counts set to 0
-just before it and read just after:
+Builds the three CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
+(sm_90a, the three compilers started together) and holds each against its
+plain PyTorch version: the packed step and the fused annealer bit for bit,
+the BDCM class update within its stated tolerance. Then it drives the
+port's three main paths through the entry points a user calls, each with
+the launch counts set to 0 just before it and read just after:
 
 - the packed rollout at the headline shape (d=3 RRG, n=10⁶, R=16384) and the
   config-3 consensus sweep (ER n=10⁵, c=6, R=512), checked against the JAX
@@ -15,10 +16,17 @@ just before it and read just after:
 - the fused SA annealer (``fused_anneal``) at config 1 (d=3 RRG, n=10⁴,
   R=32), runs (a) and (b) of ``fused_config1_ref.json``, held to that record
   of the JAX package's runs under the near-tie rule, and the ``fused`` CLI
-  once at its defaults.
+  once at its defaults;
+- HPr at the reference shape (RRG d=4, n=10⁴, TT=10⁴): the ``hpr`` CLI at
+  its defaults, ``hpr_ensemble(n_rep=4, group_size=4)`` and ``hpr_solve`` in
+  float64, after the CUDA path is held to the JAX package's record
+  ``hpr_ref.json``; the kernel chain against the plain chain on RRG(200, 4)
+  under the near-tie rule; and config 2 (union of 256 copies of a d=3 RRG,
+  n=10⁵, 20 sweeps) through ``hpr_solve_batch`` and the CLI.
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
-n=10⁶, R=1024).
+n=10⁶, R=1024), and the BDCM kernel per launch at the reference shape and
+at config 2.
 
 Prints, in order: phase reports, the card's name and power limit (from
 nvidia-smi), one JSON line listing the kernels with their measured times, and
@@ -30,27 +38,57 @@ without a CUDA device the script exits non-zero at once. Imports neither
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from graphdyn_torch import graphs
-from graphdyn_torch.config import DynamicsConfig, SAConfig
-from graphdyn_torch.graphs import erdos_renyi_graph, random_regular_graph
+from graphdyn_torch import cli, graphs
+from graphdyn_torch.config import DynamicsConfig, HPRConfig, SAConfig
+from graphdyn_torch.graphs import (
+    build_edge_tables,
+    erdos_renyi_graph,
+    random_regular_graph,
+)
+from graphdyn_torch.models.hpr import (
+    _BatchState,
+    _draw_union_chi,
+    hpr_ensemble,
+    hpr_solve,
+    hpr_solve_batch,
+    make_hpr_batch_chunk,
+)
+from graphdyn_torch.models.hpr_reference import (
+    hold_to_ref_record,
+    near_tie_replay,
+    port_fields,
+    port_ref_record,
+    ref_init,
+    walk_to_divergence,
+)
 from graphdyn_torch.models.consensus import (
     consensus_curve,
     consensus_point,
     er_consensus_ensemble,
 )
-from graphdyn_torch.ops import cuda_build, fused_cuda, packed_cuda
-from graphdyn_torch.ops.dynamics import run_dynamics
+from graphdyn_torch.ops import bdcm_cuda, cuda_build, fused_cuda, packed_cuda
+from graphdyn_torch.ops.bdcm import (
+    BDCMData,
+    _flat_offsets,
+    dp_contract,
+    dp_contract_grouped,
+)
+from graphdyn_torch.ops.dynamics import end_state, run_dynamics
 from graphdyn_torch.ops.fused import (
     FusedState,
     build_fused_tables,
@@ -63,6 +101,11 @@ from graphdyn_torch.ops.packed import (
     packed_end_state,
     packed_rollout,
     packed_rollout_plain,
+)
+from graphdyn_torch.pipeline.hpr_group import (
+    HPRGroupExec,
+    host_init,
+    hpr_uniforms,
 )
 from graphdyn_torch.search.fused import _assemble_fused, fused_anneal
 from graphdyn_torch.search.reference import (
@@ -82,6 +125,8 @@ ALU_OPS_PER_S = 67e12
 # paper's per-SM units, at the boost clock that gives the data sheet's 67
 # TFLOP/s f32 = 132 x 128 lanes x 2 flops x 1.98 GHz)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# float64 outside the tensor cores (H100 SXM data sheet)
+F64_FLOPS_PER_S = 34e12
 
 HEADLINE_N, HEADLINE_D, HEADLINE_R = 10**6, 3, 16384
 CONFIG3_N, CONFIG3_C, CONFIG3_R = 100_000, 6.0, 512
@@ -97,6 +142,21 @@ SCALE_N, SCALE_D, SCALE_R = 10**6, 5, 1024
 # 2 adds (the key word plus the injection index folds into one constant per
 # thread), 2 initial adds; one accurate expf counted as 10 f32 ops
 THREEFRY_OPS, EXPF_OPS = 20 * 3 + 5 * 2 + 2, 10
+# the BDCM class update (K3): the (d, T) pairs held against the plain
+# version (the register path up to M = 32, the block path above it, up to
+# the reference regime's corner (8, 4) and a high-degree class (40, 2)), and
+# the tolerance of one launch (rtol, atol): the kernel's sums run in another
+# order than the plain version's, with fused multiply-adds
+CONTRACT_PAIRS = [(1, 2), (2, 2), (3, 2), (4, 2), (5, 2), (8, 2), (40, 2),
+                  (3, 1), (20, 1), (3, 3), (2, 4), (3, 4), (8, 4)]
+# lattices above this size are checked at Ed ∈ {1, 129} only: the plain
+# version's lattice costs Ed·K·M per shift-FMA
+CONTRACT_BIG_M = 300
+CONTRACT_TOL = {torch.float32: (1e-5, 1e-7), torch.float64: (1e-12, 1e-15)}
+# HPr: the reference shape (the hpr CLI's defaults, `HPR:224-237`) and config
+# 2 (`BASELINE.md:30`), cut only in its sweep count
+HPR_N, HPR_D = 10_000, 4
+CONFIG2_N, CONFIG2_D, CONFIG2_R, CONFIG2_SWEEPS = 100_000, 3, 256, 20
 
 
 def log(msg: str) -> None:
@@ -168,12 +228,39 @@ def step_bound(g, W: int, fast: bool) -> dict:
             "no_reuse_ms": no_reuse_bytes / HBM_BYTES_PER_S * 1e3}
 
 
+def ptxas_by_type(lib_path: str, ftype: str) -> dict:
+    """Registers, spills and stack frame of the BDCM kernel's instantiations
+    for one float type, from the compiler report kept beside the library
+    (entries whose mangled name takes ``f`` or ``d`` as the first template
+    argument)."""
+    with open(f"{lib_path}.log") as f:
+        blocks = f.read().split("Compiling entry function '")[1:]
+    tag = "If" if ftype == "float" else "Id"
+    regs, spills, stack = [], [], []
+    for b in blocks:
+        name = b.split("'", 1)[0]
+        if tag not in name:
+            continue
+        regs += [int(r) for r in re.findall(r"Used (\d+) registers", b)]
+        for fr, st, ld in re.findall(r"(\d+) bytes stack frame, (\d+) bytes "
+                                     r"spill stores, (\d+) bytes spill loads", b):
+            stack.append(int(fr))
+            spills.append(int(st) + int(ld))
+    if not regs:
+        raise RuntimeError(f"no {ftype} instantiation in {lib_path}.log")
+    return {"kernels": len(regs), "registers_min": min(regs),
+            "registers_max": max(regs), "spill_bytes_max": max(spills or [0]),
+            "stack_frame_max": max(stack or [0])}
+
+
 def phase_build() -> dict:
-    """Build both kernel libraries, one nvcc each, started together; load
-    them; print each one's ptxas summary and the fused kernel's co-resident
-    grid at the two shapes it runs."""
+    """Build the three kernel libraries, one nvcc each, started together;
+    load them; print each one's ptxas summary (the BDCM kernel's float and
+    double instantiations apart) and the fused kernel's co-resident grid at
+    the two shapes it runs."""
     t0 = time.perf_counter()
-    wrappers = {"packed_step": packed_cuda, "fused_chunk": fused_cuda}
+    wrappers = {"packed_step": packed_cuda, "fused_chunk": fused_cuda,
+                "dp_contract": bdcm_cuda}
     with ThreadPoolExecutor(len(wrappers)) as pool:
         paths = dict(zip(wrappers, pool.map(lambda w: w.build(),
                                             wrappers.values())))
@@ -188,6 +275,10 @@ def phase_build() -> dict:
             f"{ptxas['kernels']} instantiations: {ptxas['registers_min']}-"
             f"{ptxas['registers_max']} registers, at most "
             f"{ptxas['spill_bytes_max']} bytes of spill stores + loads")
+    for ftype in ("float", "double"):
+        ptxas = ptxas_by_type(paths["dp_contract"], ftype)
+        out[f"dp_contract_{ftype}"] = ptxas
+        log(f"[1 build] dp_contract {ftype} instantiations: {ptxas}")
     for label, dmax, Rp in (("config 1", CONFIG1["d"], CONFIG1["replicas"]),
                             ("scale", SCALE_D, SCALE_R)):
         grid = fused_cuda.grid_info(dmax, Rp)
@@ -195,7 +286,7 @@ def phase_build() -> dict:
         log(f"[1 build] fused_chunk co-resident grid at {label} (dmax={dmax}, "
             f"Rp={Rp}): {grid['blocks_per_sm']} blocks of 256 per SM x "
             f"{grid['sms']} SMs = {grid['max_blocks']} blocks")
-    log(f"[1 build] both libraries built and loaded in {dt:.3f} s")
+    log(f"[1 build] the three libraries built and loaded in {dt:.3f} s")
     return out
 
 
@@ -829,6 +920,545 @@ def phase_fused_scale() -> dict:
             "grid_blocks": grid, "phases_us": phases, **bound}
 
 
+# ---------------------------------------------------------------------------
+# the BDCM class update (K3) and the HPr path
+# ---------------------------------------------------------------------------
+
+
+def contract_bound(G: int, Ed: int, d: int, T: int, dtype,
+                   per_group: bool = False) -> dict:
+    """The least time one BDCM class-update launch can take on the card:
+    the larger of
+
+    - bytes over HBM bandwidth: chi_in (G·Ed·d·K²), chi_old and out
+      (G·Ed·K² each) and the factor (K²·M, G times per group), each once;
+    - FMAs (2 flops each) over the card's non-tensor rate for the dtype:
+      the flat-shift DP, d·K·Σ_k (M − off_k) per edge, and the contraction,
+      K²·M per edge (the DP's loops do not depend on the data).
+
+    K = 2^T, M = (d+1)^T; f32 at 67 TFLOP/s, f64 at 34 TFLOP/s."""
+    K, M = 2**T, (d + 1) ** T
+    size = 8 if dtype == torch.float64 else 4
+    offs = _flat_offsets(d, T)
+    fma_edge = d * K * int((M - offs).sum()) + K * K * M
+    nbytes = size * (G * Ed * (d + 2) * K * K + (G if per_group else 1) * K * K * M)
+    flops = 2 * fma_edge * G * Ed
+    rate = F64_FLOPS_PER_S if dtype == torch.float64 else ALU_OPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms}
+
+
+def _contract_inputs(G, Ed, d, T, dtype, per_group, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    K, M = 2**T, (d + 1) ** T
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda", dtype=dtype)
+
+    a = rand(G, K, K, M) if per_group else rand(K, K, M)
+    return rand(G, Ed, d, K, K), a, rand(G, Ed, K, K)
+
+
+def _contract_err(k, p, dtype) -> tuple[float, float]:
+    """(max abs, max rel) of kernel output ``k`` against plain ``p``;
+    raises when any element is not finite or outside ``atol + rtol·|p|``
+    (the tolerance of :data:`CONTRACT_TOL`)."""
+    rtol, atol = CONTRACT_TOL[dtype]
+    diff = (k - p).abs()
+    if not bool(torch.isfinite(k).all()):
+        raise AssertionError("dp_contract: kernel output not finite")
+    bad = int((diff > atol + rtol * p.abs()).sum())
+    abs_err = float(diff.max()) if diff.numel() else 0.0
+    rel_err = float((diff / p.abs().clamp_min(torch.finfo(dtype).tiny)).max()) \
+        if diff.numel() else 0.0
+    if bad:
+        raise AssertionError(f"dp_contract: {bad} elements outside rtol {rtol},"
+                             f" atol {atol}: max abs {abs_err}, rel {rel_err}")
+    return abs_err, rel_err
+
+
+def phase_contract_parity() -> dict:
+    """The BDCM kernel against its plain version on the card: the (d, T)
+    of :data:`CONTRACT_PAIRS` (each printed with the gate's verdict and its
+    launch plan; every pair must be admitted), f32 and f64, the shared and
+    the per-group factor, G ∈ {1, 5}, Ed ∈ {1, 129, 10⁵} (10⁵ for lattices
+    up to :data:`CONTRACT_BIG_M`), eps_clamp ∈ {0, 1e-12}; then the
+    kernel's ms per launch at each pair's largest case (shared factor,
+    CUDA events around 20 queued launches) beside its bound. Returns the
+    max abs and rel errors per dtype and the timings."""
+    t0 = time.perf_counter()
+    errs = {torch.float32: [0.0, 0.0], torch.float64: [0.0, 0.0]}
+    timings = {}
+    n_cases, seed = 0, 0
+    for d, T in CONTRACT_PAIRS:
+        for dtype in (torch.float32, torch.float64):
+            plan = bdcm_cuda.launch_plan(d, T, dtype)
+            admitted = bdcm_cuda.bdcm_kernel_supported(d, T, dtype)
+            log(f"[11 contract parity] d={d} T={T} {str(dtype)[6:]}: "
+                f"{'admitted' if admitted else 'refused'}, plan {plan}")
+            if not admitted:
+                raise AssertionError(f"the gate refuses d={d} T={T} {dtype}")
+            cases = [(1, 1, 0.0), (5, 129, 1e-12)]
+            if (d + 1) ** T <= CONTRACT_BIG_M:
+                cases += [(1, 10**5, 1e-12), (5, 10**5, 0.0)]
+            for per_group in (False, True):
+                for G, Ed, eps in cases:
+                    seed += 1
+                    ci, a, co = _contract_inputs(G, Ed, d, T, dtype,
+                                                 per_group, seed)
+                    kw = dict(d=d, T=T, damp=0.4, eps_clamp=eps)
+                    k = dp_contract_grouped(ci, a, co, kernel="cuda", **kw)
+                    p = dp_contract_grouped(ci, a, co, kernel="plain", **kw)
+                    torch.cuda.synchronize()
+                    e_abs, e_rel = _contract_err(k, p, dtype)
+                    errs[dtype][0] = max(errs[dtype][0], e_abs)
+                    errs[dtype][1] = max(errs[dtype][1], e_rel)
+                    n_cases += 1
+                    del ci, a, co, k, p
+            G, Ed = cases[-1][:2]
+            ci, a, co = _contract_inputs(G, Ed, d, T, dtype, False, seed)
+            ms = _cuda_ms(lambda: dp_contract_grouped(
+                ci, a, co, kernel="cuda", d=d, T=T, damp=0.4), 20, lead_ms=20)
+            bound = contract_bound(G, Ed, d, T, dtype)
+            timings[f"d={d} T={T} {str(dtype)[6:]}"] = {
+                "path": plan["path"], "G": G, "Ed": Ed, "ms": ms,
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+            log(f"[11 contract timing] d={d} T={T} {str(dtype)[6:]} "
+                f"({plan['path']} path, G={G}, Ed={Ed}): kernel {ms} ms/launch,"
+                f" bound {bound['bound_ms']} ms ({bound['bound_by']})")
+            del ci, a, co
+    torch.cuda.empty_cache()
+    out = {str(dt)[6:]: {"max_abs_err": e[0], "max_rel_err": e[1]}
+           for dt, e in errs.items()}
+    log(f"[11 contract parity] {n_cases} cases within rtol/atol "
+        f"{ {str(k)[6:]: v for k, v in CONTRACT_TOL.items()} }: {out} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return out, timings
+
+
+def profile_breakdown(run, label: str, top: int = 10) -> dict:
+    """Run ``run()`` once under ``torch.profiler`` (CPU and CUDA activity)
+    and report the device time by kernel: the ``top`` kernels by self
+    device time, their share of the device total, and the device's busy
+    share of the wall time under the profiler (the profiler slows the host,
+    so the idle share it shows is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    def incl_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+
+    ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                  if e.key.startswith("aten::") and incl_us(e) > 0),
+                 key=lambda e: -incl_us(e))[:top]
+
+    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+            if dev_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    out = {"device_us": total, "wall_us": wall_us,
+           "busy_share": total / wall_us if wall_us else 0.0,
+           "top": [{"kernel": k[:90], "us": us, "share": us / total if total
+                    else 0.0, "count": c} for k, us, c in rows[:top]]}
+    log(f"[profile] {label}: device {total:.0f} us of {wall_us:.0f} us wall "
+        f"under the profiler (busy share {out['busy_share']:.3f}); top "
+        f"kernels by device time:")
+    for r in out["top"]:
+        log(f"    {r['us']:12.1f} us {r['share']:6.3f} x{r['count']:<6d} "
+            f"{r['kernel']}")
+    out["ops"] = [{"op": e.key, "shapes": str(e.input_shapes)[:120],
+                   "us": incl_us(e), "count": e.count} for e in ops]
+    log(f"[profile] {label}: top PyTorch ops by device time (inclusive, by "
+        f"input shape):")
+    for r in out["ops"]:
+        log(f"    {r['us']:12.1f} us x{r['count']:<6d} {r['op']} {r['shapes']}")
+    return out
+
+
+def _reset_bdcm_counts() -> None:
+    bdcm_cuda.LAUNCHES = 0
+
+
+def _bdcm_counts(what: str) -> int:
+    """Read the count after one run of the HPr main path: the kernel must
+    have launched (on CUDA tensors no class can run on the plain version:
+    a class the kernel does not take raises)."""
+    launches = bdcm_cuda.LAUNCHES
+    if launches <= 0:
+        raise AssertionError(f"{what}: dp_contract launches {launches}")
+    return launches
+
+
+def _check_end_state(g, s, what: str) -> None:
+    """A chain that reached m_final = 1.0 flows to all +1 under the port's
+    end_state."""
+    out = end_state(g, s, 1, 1, device="cuda").cpu().numpy()
+    if not np.all(out == 1):
+        raise AssertionError(f"{what}: m_final 1.0 but end_state is not all +1")
+
+
+def phase_hpr_ref() -> dict:
+    """The CUDA path held to ``hpr_ref.json`` (the JAX package's 3 sweeps at
+    the reference shape, f32 and f64) at rtol 1e-4 (f32) and 1e-9 (f64)."""
+    with open(os.path.join(HERE, "hpr_ref.json")) as f:
+        ref = json.load(f)["records"]
+    out = {}
+    for dtype, rtol, atol in (("float32", 1e-4, 1e-7), ("float64", 1e-9, 1e-12)):
+        got = port_ref_record(dtype, kernel="cuda", device="cuda")
+        out[dtype] = hold_to_ref_record(got, ref[dtype], rtol, atol)
+    log(f"[12 hpr ref] the CUDA path holds to hpr_ref.json: max rel err "
+        f"{out} (rtol 1e-4 f32, 1e-9 f64)")
+    return out
+
+
+def _class_launch_inputs(chi, bias_edge, idx, in_edges):
+    """One class's kernel inputs from a state, as the sweep forms them."""
+    chi_in = chi[in_edges]
+    chi_in *= bias_edge[in_edges][..., None]
+    return chi_in, chi[idx]
+
+
+def phase_hpr_ref_timing() -> dict:
+    """At the reference shape (RRG d=4, n=10⁴, one class D=3): the kernel's
+    ms per launch (CUDA events around queued launches) and the plain
+    version's, in f32 and f64, with the bound; and the G=1 executor's ms per
+    sweep by CUDA events over 200 sweeps (host-issued: a host loop of
+    PyTorch ops, so this is the rate the chain runs at)."""
+    g = random_regular_graph(HPR_N, HPR_D, seed=0)
+    out = {}
+    for dtype in ("float32", "float64"):
+        cfg = HPRConfig(dtype=dtype)
+        data = BDCMData(g, dtype=dtype)
+        ex = HPRGroupExec([(g, data)], cfg, kernel="cuda", device="cuda")
+        chi0, b0, s0 = ref_init(g.n, data.num_directed, data.K, data.np_dtype)
+        st = ex.init_state([chi0], [b0], [s0], [0])
+        st = ex.advance(st, 3)                      # warm up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st = ex.advance(st, 203)
+        end.record()
+        torch.cuda.synchronize()
+        sweep_ms = start.elapsed_time(end) / 200
+        if dtype == "float32":
+            holder = [st]
+
+            def fifty():
+                holder[0] = ex.advance(holder[0], holder[0].t + 50)
+
+            profile_breakdown(fifty,
+                              "reference shape, 50 sweeps of the G=1 executor")
+            st = holder[0]
+        K = data.K
+        bflat = st.biases.reshape(-1, 2)
+        bias_edge = torch.where(ex.sel_plus_b, bflat[ex.src, 0][..., None],
+                                bflat[ex.src, 1][..., None]).reshape(-1, K)
+        idx, in_edges = ex.tables[0]
+        chi_in, chi_old = _class_launch_inputs(st.chi.reshape(-1, K, K),
+                                               bias_edge, idx, in_edges)
+        d = ex.spec.class_ds[0]
+        kw = dict(d=d, T=data.T, damp=cfg.damp, eps_clamp=0.0)
+        a = ex.a_tilted[0]
+        k = dp_contract_grouped(chi_in, a, chi_old, kernel="cuda", **kw)
+        p = dp_contract_grouped(chi_in, a, chi_old, kernel="plain", **kw)
+        torch.cuda.synchronize()
+        err = _contract_err(k, p, data.dtype)
+        # the lead covers the host's issue of every timed call (about 60 µs
+        # per kernel call, 1 ms per plain call of ~40 ops), and the calls fit
+        # the launch queue, so the events read device time, not the host's
+        # issue rate
+        ms = _cuda_ms(lambda: dp_contract_grouped(chi_in, a, chi_old,
+                                                  kernel="cuda", **kw),
+                      500, lead_ms=150)
+        plain_ms = _cuda_ms(lambda: dp_contract_grouped(chi_in, a, chi_old,
+                                                        kernel="plain", **kw),
+                            20, lead_ms=150)
+        bound = contract_bound(1, chi_in.shape[1], d, data.T, data.dtype)
+        out[dtype] = {"ms": ms, "plain_ms": plain_ms, "sweep_ms": sweep_ms,
+                      "max_abs_err": err[0], "max_rel_err": err[1], **bound}
+        log(f"[12 hpr ref] reference shape {dtype} (Ed={chi_in.shape[1]}, "
+            f"d={d}): kernel {ms} ms/launch, plain {plain_ms} ms/launch, bound "
+            f"{bound['bound_ms']} ms ({bound['bound_by']}); kernel == plain "
+            f"within tolerance (abs {err[0]}, rel {err[1]}); G=1 executor "
+            f"{sweep_ms} ms/sweep by CUDA events over 200 sweeps")
+        del ex, st, chi_in, chi_old, k, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hpr_main() -> dict:
+    """The HPr main path at the reference shape (RRG d=4, n=10⁴, p=c=1,
+    TT=10⁴), each run with the BDCM counts set to 0 just before and read
+    just after: (a) ``python -m graphdyn_torch hpr --device cuda`` at its
+    defaults (in process, through ``cli.main``), (b) ``hpr_ensemble(n_rep=4,
+    group_size=4)``, the G=4 grid, (c) ``hpr_solve`` in float64."""
+    out = {}
+    g = random_regular_graph(HPR_N, HPR_D, seed=0)
+    TT = HPRConfig().max_sweeps
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "hpr.npz")
+        _reset_bdcm_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["hpr", "--device", "cuda", "--out", npz])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"hpr CLI returned {rc}")
+        launches = _bdcm_counts("hpr CLI (reference shape)")
+        doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+        with np.load(npz) as f:
+            conf = f["conf"][0]
+    sweeps = doc["num_steps"][0]
+    m_final = 1.0 if sweeps <= TT else 2.0
+    if set(doc) != {"solver", "mag_reached", "num_steps", "time", "out"}:
+        raise AssertionError(f"hpr CLI keys {sorted(doc)}")
+    if m_final == 1.0:
+        _check_end_state(g, conf, "hpr CLI")
+    out["cli"] = {"sweeps": sweeps, "m_final": m_final, "wall_s": wall,
+                  "ms_per_sweep": wall * 1e3 / max(sweeps, 1),
+                  "mag_reached": doc["mag_reached"][0], "launches": launches}
+    log(f"[13 hpr main] python -m graphdyn_torch hpr --device cuda: {sweeps} "
+        f"sweeps, m_final {m_final}, mag_reached {doc['mag_reached'][0]}, wall "
+        f"{wall:.3f} s = {out['cli']['ms_per_sweep']:.4f} ms/sweep (host "
+        f"clock, set-up included); dp_contract launches {launches}")
+
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    ens = hpr_ensemble(HPR_N, HPR_D, HPRConfig(), n_rep=4, group_size=4,
+                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _bdcm_counts("hpr_ensemble(n_rep=4, group_size=4)")
+    for k in range(4):
+        if ens.num_steps[k] <= TT:
+            _check_end_state(random_regular_graph(HPR_N, HPR_D, seed=k),
+                             ens.conf[k], f"ensemble rep {k}")
+    out["group4"] = {"sweeps": ens.num_steps.tolist(), "wall_s": wall,
+                     "ms_per_sweep": wall * 1e3 / max(int(ens.num_steps.max()), 1),
+                     "launches": launches}
+    log(f"[13 hpr main] hpr_ensemble(n_rep=4, group_size=4): sweeps "
+        f"{ens.num_steps.tolist()}, mag {ens.mag_reached.tolist()}, wall "
+        f"{wall:.3f} s = {out['group4']['ms_per_sweep']:.4f} ms per group "
+        f"sweep; dp_contract launches {launches}")
+
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    res = hpr_solve(g, HPRConfig(dtype="float64"), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _bdcm_counts("hpr_solve(float64)")
+    if res.chi.dtype != np.float64 or res.m_final not in (1.0, 2.0):
+        raise AssertionError(f"hpr_solve f64: {res.chi.dtype}, {res.m_final}")
+    if res.m_final == 1.0:
+        _check_end_state(g, res.s, "hpr_solve f64")
+    out["f64"] = {"sweeps": res.num_steps, "m_final": res.m_final,
+                  "wall_s": wall, "ms_per_sweep": wall * 1e3 / max(res.num_steps, 1),
+                  "launches": launches}
+    log(f"[13 hpr main] hpr_solve float64: {res.num_steps} sweeps, m_final "
+        f"{res.m_final}, wall {wall:.3f} s; dp_contract launches {launches}")
+    out["launches"] = sum(out[k]["launches"] for k in ("cli", "group4", "f64"))
+    return out
+
+
+def phase_hpr_chains() -> dict:
+    """On RRG(200, 4) in float64 with the port's stream: the kernel path's
+    chain against the plain path's, under the near-tie rule
+    (graphdyn_torch.models.hpr_reference)."""
+    g = random_regular_graph(200, 4, seed=0)
+    cfg = HPRConfig(dtype="float64")
+    t0 = time.perf_counter()
+    rk = hpr_solve(g, cfg, seed=0, kernel="cuda", device="cuda")
+    rp = hpr_solve(g, cfg, seed=0, kernel="plain", device="cuda")
+    wall = time.perf_counter() - t0
+    if (np.array_equal(rk.s, rp.s) and rk.num_steps == rp.num_steps
+            and rk.m_final == rp.m_final):
+        verdict = {"how": "equal", "sweeps": rk.num_steps,
+                   "m_final": rk.m_final}
+    else:
+        data = BDCMData(g, dtype="float64")
+        exs = {k: HPRGroupExec([(g, data)], cfg, kernel=k, device="cuda")
+               for k in ("cuda", "plain")}
+        chi0, b0, s0 = host_init(np.random.default_rng(0), data.num_directed,
+                                 data.K, g.n, np.float64)
+        sts ={k: ex.init_state([chi0], [b0], [s0], [0])
+               for k, ex in exs.items()}
+        hit = walk_to_divergence(
+            lambda st: exs["cuda"].advance(st, st.t + 1),
+            lambda st: exs["plain"].advance(st, st.t + 1),
+            port_fields, port_fields, sts["cuda"], sts["plain"],
+            cfg.max_sweeps + 2)
+        if hit is None:
+            raise AssertionError("kernel and plain chains differ in their "
+                                 "results but in no sweep")
+        prev, _, st_p = hit
+        u = hpr_uniforms(prev.seeds, prev.t, prev.t + 1, g.n, torch.float64)[0]
+        _, b_p, s_p, _ = port_fields(st_p)
+        verdict = near_tie_replay(exs["plain"], prev, u.cpu().numpy(), b_p, s_p,
+                                  eps_dtype=np.float64)
+    if rk.m_final == 1.0:
+        _check_end_state(g, rk.s, "kernel chain")
+    log(f"[14 hpr chains] RRG(200, 4) float64, port stream: kernel chain "
+        f"({rk.num_steps} sweeps, m_final {rk.m_final}) vs plain chain "
+        f"({rp.num_steps}, {rp.m_final}): passed, {verdict['how']} "
+        f"({verdict}); {wall:.3f} s")
+    return verdict
+
+
+def phase_config2_setup_timing() -> dict:
+    """Config 2 (``BASELINE.md:30``: d=3 RRG n=10⁵, 256 replicas) built
+    step by step: host set-up seconds per part (graph, edge tables, device
+    union, numpy init draw, upload); ms per sweep by CUDA events over
+    ``CONFIG2_SWEEPS`` sweeps of the chunk program; the kernel's ms per
+    launch (CUDA events, 5 launches) against its bound and the plain
+    version's (row-chunked, one launch), and kernel == plain on that
+    launch."""
+    timers = {}
+    cfg = HPRConfig(max_sweeps=CONFIG2_SWEEPS)
+    t0 = time.perf_counter()
+    g = random_regular_graph(CONFIG2_N, CONFIG2_D, seed=0)
+    timers["graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = build_edge_tables(g)
+    timers["edge_tables"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_chunk, setup = make_hpr_batch_chunk(g, cfg, CONFIG2_R, device="cuda")
+    torch.cuda.synchronize()
+    timers["device_union"] = time.perf_counter() - t0
+    R, n, twoE, K = CONFIG2_R, g.n, tables.num_directed, setup.data.K
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    chi0, b0, s0 = host_init(rng, R * twoE, K, R * n, np.float32,
+                             chi0=_draw_union_chi(rng, R, twoE, K, np.float32))
+    timers["init_draw"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = _BatchState(
+        chi=torch.from_numpy(chi0).to("cuda"),
+        biases=torch.from_numpy(b0).to("cuda"),
+        s=torch.from_numpy(s0).to("cuda"),
+        seeds=torch.arange(R, dtype=torch.int64, device="cuda"), t=0,
+        m_final=torch.zeros(R, dtype=torch.float32, device="cuda"),
+        active=torch.ones(R, dtype=torch.bool, device="cuda"),
+        steps=torch.zeros(R, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    timers["upload"] = time.perf_counter() - t0
+    del chi0, b0, s0
+    log(f"[15 config 2] RRG d={CONFIG2_D} n={CONFIG2_N} R={R} (union "
+        f"Ed={R * twoE}): host set-up seconds {timers}")
+    st = run_chunk(st, 1)                           # warm up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    st = run_chunk(st, CONFIG2_SWEEPS)
+    end.record()
+    torch.cuda.synchronize()
+    sweep_ms = start.elapsed_time(end) / (CONFIG2_SWEEPS - 1)
+    holder = [st._replace(t=CONFIG2_SWEEPS - 2)]
+
+    def one_sweep():
+        holder[0] = run_chunk(holder[0], CONFIG2_SWEEPS - 1)
+
+    profile = profile_breakdown(one_sweep, "config 2, one sweep")
+    st = holder[0]
+    # one class launch at this shape, from the state
+    data = setup.data
+    (cls,) = data.edge_classes
+    idx, in_edges = cls.idx.long(), cls.in_edges.long()
+    chi_in, chi_old = _class_launch_inputs(st.chi, setup.bias_to_edge(st.biases),
+                                           idx, in_edges)
+    del st
+    a = (torch.as_tensor(cls.A, dtype=torch.float32, device="cuda")
+         * torch.exp(-setup.lmbd * torch.as_tensor(data.x0, dtype=torch.float32,
+                                                   device="cuda"))[:, None, None])
+    kw = dict(d=cls.d, T=data.T, damp=cfg.damp, eps_clamp=0.0)
+    k = dp_contract(chi_in, a, chi_old, kernel="cuda", **kw)
+    ms = _cuda_ms(lambda: dp_contract(chi_in, a, chi_old, kernel="cuda", **kw), 5)
+    start.record()
+    p = dp_contract(chi_in, a, chi_old, kernel="plain", **kw)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = _contract_err(k, p, torch.float32)
+    bound = contract_bound(1, chi_in.shape[0], cls.d, data.T, torch.float32)
+    del chi_in, chi_old, k, p, setup, run_chunk
+    torch.cuda.empty_cache()
+    log(f"[15 config 2] {sweep_ms} ms/sweep by CUDA events over "
+        f"{CONFIG2_SWEEPS - 1} sweeps; kernel {ms} ms/launch (bound "
+        f"{bound['bound_ms']} ms, {bound['bound_by']}: {bound['bytes']} B, "
+        f"{bound['flops']} flops; {bound['bound_ms'] / ms:.3f} of it), plain "
+        f"{plain_ms} ms/launch (row-chunked); kernel == plain within tolerance "
+        f"(abs {err[0]}, rel {err[1]})")
+    return {"setup_s": timers, "sweep_ms": sweep_ms, "ms": ms,
+            "plain_ms": plain_ms, "max_abs_err": err[0], "max_rel_err": err[1],
+            "profile": profile, **bound}
+
+
+def phase_config2_main() -> dict:
+    """Config 2 through the entry points, the counts set to 0 before each:
+    ``hpr_solve_batch`` (peak device memory printed) and the CLI
+    ``hpr --batch-replicas 256 --n 100000 --d 3 --max-sweeps 20``, whose
+    JSON must equal the entry point's result."""
+    g = random_regular_graph(CONFIG2_N, CONFIG2_D, seed=0)
+    cfg = HPRConfig(max_sweeps=CONFIG2_SWEEPS)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    res = hpr_solve_batch(g, cfg, n_replicas=CONFIG2_R, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _bdcm_counts("hpr_solve_batch (config 2)")
+    peak = torch.cuda.max_memory_allocated()
+    if (res.s.shape != (CONFIG2_R, CONFIG2_N)
+            or not np.all(np.isin(res.m_final, (1.0, 2.0)))
+            or not np.all(np.abs(res.mag_reached) <= 1.0)):
+        raise AssertionError(f"config 2 result out of range: {res.m_final}")
+    log(f"[15 config 2] hpr_solve_batch: wall {wall:.3f} s, sweeps "
+        f"{sorted(set(res.num_steps.tolist()))}, m_final "
+        f"{sorted(set(res.m_final.tolist()))}, mean mag "
+        f"{float(res.mag_reached.mean())}; peak device memory {peak} B; "
+        f"dp_contract launches {launches}")
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["hpr", "--batch-replicas", str(CONFIG2_R), "--n",
+                       str(CONFIG2_N), "--d", str(CONFIG2_D), "--max-sweeps",
+                       str(CONFIG2_SWEEPS), "--device", "cuda"])
+    wall_cli = time.perf_counter() - t0
+    launches_cli = _bdcm_counts("hpr CLI (config 2)")
+    doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or doc["num_steps"] != res.num_steps.tolist() \
+            or doc["m_final"] != res.m_final.tolist():
+        raise AssertionError("config-2 CLI result differs from hpr_solve_batch")
+    log(f"[15 config 2] python -m graphdyn_torch hpr --batch-replicas 256 --n "
+        f"100000 --d 3 --max-sweeps 20: equal to hpr_solve_batch, wall "
+        f"{wall_cli:.3f} s; dp_contract launches {launches_cli}")
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "cli_wall_s": wall_cli, "peak_bytes": peak,
+            "launches_batch": launches, "launches_cli": launches_cli,
+            "launches": launches + launches_cli}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -909,6 +1539,15 @@ def main() -> int:
     phase_fused_cli(main_f)
     scale = phase_fused_scale()
 
+    # the BDCM class update (K3): parity, then the HPr main path, counted
+    contract_errs, contract_timings = phase_contract_parity()
+    ref_errs = phase_hpr_ref()
+    ref_shape = phase_hpr_ref_timing()
+    hpr_main = phase_hpr_main()
+    chains = phase_hpr_chains()
+    cfg2 = phase_config2_setup_timing()
+    cfg2_main = phase_config2_main()
+
     kernels = [{
         "name": "packed_step",
         "route": "cuda",
@@ -965,11 +1604,52 @@ def main() -> int:
         "packed_step_launches_on_fused_path":
             main_f["launches"]["packed_step"],
         "ptxas": built["fused_chunk"],
+    }, {
+        "name": "dp_contract",
+        "route": "cuda",
+        "source": "graphdyn_torch/csrc/bdcm_contract.cu",
+        "replaces": "graphdyn/ops/pallas_bdcm.py:200 (K3 dp_contract_grouped)",
+        "parity": "rtol 1e-5 (f32), 1e-12 (f64)",
+        "launches": hpr_main["launches"] + cfg2_main["launches"],
+        "max_abs_err": max([cfg2["max_abs_err"]]
+                           + [e["max_abs_err"] for e in contract_errs.values()]
+                           + [ref_shape[k]["max_abs_err"] for k in ref_shape]),
+        "max_rel_err": max([cfg2["max_rel_err"]]
+                           + [e["max_rel_err"] for e in contract_errs.values()]
+                           + [ref_shape[k]["max_rel_err"] for k in ref_shape]),
+        "ms": cfg2["ms"],
+        "plain_ms": cfg2["plain_ms"],
+        "bound_ms": cfg2["bound_ms"],
+        "bound_by": cfg2["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the rho-lattice DP "
+                        "and the factor contraction",
+        "shape": f"config 2: union of {CONFIG2_R} RRG d={CONFIG2_D} "
+                 f"n={CONFIG2_N}, f32, one class (d={CONFIG2_D - 1}, T=2)",
+        "sweep_ms": cfg2["sweep_ms"],
+        "setup_s": cfg2["setup_s"],
+        "peak_bytes": cfg2_main["peak_bytes"],
+        "reference_shape": {
+            dt: {k: v[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "sweep_ms")}
+            for dt, v in ref_shape.items()},
+        "by_class_shape": contract_timings,
+        "launches_by_run": {"hpr_cli": hpr_main["cli"]["launches"],
+                            "hpr_ensemble_g4": hpr_main["group4"]["launches"],
+                            "hpr_solve_f64": hpr_main["f64"]["launches"],
+                            "hpr_solve_batch_config2": cfg2_main["launches_batch"],
+                            "hpr_cli_config2": cfg2_main["launches_cli"]},
+        "hpr": {"cli": hpr_main["cli"], "group4": hpr_main["group4"],
+                "f64": hpr_main["f64"], "chains": chains["how"],
+                "hpr_ref_max_rel_err": ref_errs},
+        "ptxas": {"float": built["dp_contract_float"],
+                  "double": built["dp_contract_double"]},
     }]
     log(f"[10] seconds in all: {time.perf_counter() - t_start:.3f} "
         f"(sweep {sweep['sweep_wall_s']:.3f}, headline point "
         f"{point['point_wall_s']:.3f}, fused scale set-up "
-        f"{sum(scale['setup_s'].values()):.3f})")
+        f"{sum(scale['setup_s'].values()):.3f}, config-2 set-up "
+        f"{sum(cfg2['setup_s'].values()):.3f})")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,12 @@
   defaults, ``--kernel {auto,cuda,plain}`` for ``{auto,xla,pallas}`` and
   ``--device`` (default ``cuda``). It prints the reference's JSON keys, and
   with ``--out`` writes the reference's npz keys.
+- ``hpr``: HPr reinforced BP with the JAX package's flags and defaults
+  (an ensemble of ``--n-rep`` fresh RRGs, or ``--batch-replicas`` chains on
+  one graph), ``--kernel {auto,cuda,plain}`` for ``{auto,xla,pallas}`` and
+  ``--device`` (default ``cuda``). It prints the reference's JSON keys, and
+  with ``--out`` writes the reference's npz keys. ``--checkpoint`` and
+  ``--device-init`` are refused (not ported yet).
 """
 
 from __future__ import annotations
@@ -106,6 +112,58 @@ def build_parser() -> argparse.ArgumentParser:
     )
     fus.add_argument("--out", default=None,
                      help="npz path (per-replica arrays)")
+
+    hpr = sub.add_parser("hpr", help="HPr reinforced BP (`HPR_pytorch_RRG.py`)")
+    hpr.add_argument("--n", type=int, default=10_000)
+    hpr.add_argument("--d", type=int, default=4)
+    _add_dynamics_flags(hpr)
+    hpr.add_argument("--damp", type=float, default=0.4)
+    hpr.add_argument("--lmbd", type=float, default=25.0)
+    hpr.add_argument("--pie", type=float, default=0.3)
+    hpr.add_argument("--gamma", type=float, default=0.1)
+    hpr.add_argument("--max-sweeps", type=int, default=10_000)
+    hpr.add_argument("--n-rep", type=int, default=1)
+    hpr.add_argument("--seed", type=int, default=0)
+    hpr.add_argument("--out", default=None, help="npz path (`HPR:377` keys)")
+    hpr.add_argument("--checkpoint", default=None,
+                     help="not ported yet (ROADMAP A16): refused")
+    hpr.add_argument(
+        "--group-size", type=int, default=None, metavar="G",
+        help="run G repetitions at a time as one batched program (element-"
+             "wise identical to the serial loop; default min(reps, 8); 0 "
+             "forces the serial repetition loop)",
+    )
+    hpr.add_argument(
+        "--prefetch", type=int, default=2, metavar="D",
+        help="build up to D upcoming graphs on a background thread while "
+             "the current group computes (deterministic; 0 disables)",
+    )
+    hpr.add_argument(
+        "--kernel", choices=["auto", "cuda", "plain"], default="auto",
+        help="BDCM sweep core: 'auto' runs every edge class through the CUDA "
+             "kernel on the card (a class the kernel does not take, T > 4, "
+             "raises) and the plain PyTorch version on the CPU; 'cuda' "
+             "requires the card; 'plain' forces the plain version (for "
+             "tests)",
+    )
+    hpr.add_argument(
+        "--dtype", choices=["float32", "float64"], default="float32",
+        help="float64 matches the reference's solver precision "
+             "(`HPR_pytorch_RRG.py:11`)",
+    )
+    hpr.add_argument(
+        "--batch-replicas", type=int, default=0, metavar="R",
+        help="run R independent chains on ONE graph as a single batched "
+             "program (hpr_solve_batch) instead of --n-rep fresh-graph "
+             "repetitions",
+    )
+    hpr.add_argument("--device-init", action="store_true",
+                     help="not ported yet (ROADMAP A11's remainder): refused")
+    hpr.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default cuda; 'cpu' runs the plain "
+             "PyTorch version)",
+    )
     return p
 
 
@@ -179,6 +237,60 @@ def _fused_main(args, dev) -> int:
     return 0
 
 
+def _hpr_main(args, dev) -> int:
+    from graphdyn_torch.config import DynamicsConfig, HPRConfig
+    from graphdyn_torch.graphs import random_regular_graph
+    from graphdyn_torch.models.hpr import hpr_ensemble, hpr_solve_batch
+    from graphdyn_torch.utils.io import save_results_npz
+
+    cfg = HPRConfig(
+        dynamics=DynamicsConfig(p=args.p, c=args.c, rule=args.rule,
+                                tie=args.tie, attr_value=args.attr_value),
+        damp=args.damp, lmbd=args.lmbd, pie=args.pie, gamma=args.gamma,
+        max_sweeps=args.max_sweeps, dtype=args.dtype,
+    )
+    if args.batch_replicas < 0:
+        raise SystemExit("--batch-replicas must be >= 1")
+    if args.device_init and not args.batch_replicas:
+        raise SystemExit("--device-init requires --batch-replicas")
+    if args.batch_replicas:
+        g = random_regular_graph(args.n, args.d, seed=args.seed)
+        res = hpr_solve_batch(
+            g, cfg, n_replicas=args.batch_replicas, seed=args.seed,
+            checkpoint_path=args.checkpoint, device_init=args.device_init,
+            kernel=args.kernel, device=dev,
+        )
+        if args.out:
+            save_results_npz(
+                args.out, conf=res.s, mag_reached=res.mag_reached,
+                num_steps=res.num_steps, m_final=res.m_final,
+                time=res.elapsed_s,
+            )
+        print(json.dumps({
+            "solver": "hpr_batch",
+            "mag_reached": res.mag_reached.tolist(),
+            "num_steps": res.num_steps.tolist(),
+            "m_final": res.m_final.tolist(),
+            "elapsed_s": res.elapsed_s,
+            "out": args.out,
+        }))
+        return 0
+    out = hpr_ensemble(
+        args.n, args.d, cfg, n_rep=args.n_rep, seed=args.seed,
+        save_path=args.out, checkpoint_path=args.checkpoint,
+        group_size=args.group_size, prefetch=args.prefetch,
+        kernel=args.kernel, device=dev,
+    )
+    print(json.dumps({
+        "solver": "hpr",
+        "mag_reached": out.mag_reached.tolist(),
+        "num_steps": out.num_steps.tolist(),
+        "time": out.time.tolist(),
+        "out": args.out,
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from graphdyn_torch.models.consensus import (
@@ -195,6 +307,8 @@ def main(argv=None) -> int:
         raise SystemExit(str(e)) from None
     if args.cmd == "fused":
         return _fused_main(args, dev)
+    if args.cmd == "hpr":
+        return _hpr_main(args, dev)
     if args.graph == "rrg":
         g, n_iso, nbr_dev, deg_dev = rrg_consensus_ensemble(
             args.n, d=args.d, seed=args.seed, device=dev

@@ -14,9 +14,16 @@ the callers (:mod:`graphdyn_torch.models.consensus`).
 The distance-2 coloring of the fused annealer (``power_graph``,
 ``greedy_coloring``, ``validate_coloring``) and the layout statistic
 ``degree_cv`` are copied line for line too, so the same seed gives the same
-colours. Sampling methods other than the numpy ones (``networkx``,
-``native``), and the buckets, partitions, relabelings and edge tables, come
-with the slices of the port that use them (ROADMAP.md, queue A).
+colours. So are the BDCM message-passing tables (``EdgeTables``,
+``build_edge_tables``, ``degree_classes``), the batched stack of same-size
+graphs (``stack_graphs``) and the replica-major disjoint union
+(``replicate_disjoint``, ``replicate_edge_tables``). The union also has a
+device builder (``replicate_disjoint_device``,
+``replicate_edge_tables_device``) that offset-tiles the base tables with
+torch ops on the target device, so a large union never crosses the host
+link. Sampling methods other than the numpy ones (``networkx``, ``native``),
+and the buckets, partitions and relabelings, come with the slices of the
+port that use them (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class Graph(NamedTuple):
@@ -50,6 +58,50 @@ class Graph(NamedTuple):
     @property
     def num_edges(self) -> int:
         return self.edges.shape[0]
+
+
+class EdgeTables(NamedTuple):
+    """Directed-edge tables for message passing (host numpy arrays, or int32
+    torch tensors from the device union builder).
+
+    Directed edge ``e < E`` is ``(src[e], dst[e]) = edges[e]``; ``e + E`` is
+    the reversed edge. ``ghost_edge == 2E`` pads ragged rows.
+
+    Attributes:
+      src, dst:        int32[2E].
+      edge_deg:        int32[2E], number of BP-incoming messages = deg(src)-1.
+      in_edges:        int32[2E, dmax-1], incoming directed edges (k, src[e]),
+                       k ∈ ∂src[e] \\ {dst[e]}, padded with 2E.
+      node_in_edges:   int32[n, dmax], directed edges (k, i) into node i.
+      node_out_edges:  int32[n, dmax], directed edges (i, k) out of node i.
+      rev_map:         int32[2E] or None. None means the canonical halved
+                       layout (reverse of e is (e+E) mod 2E); the
+                       replica-major union carries the reversal explicitly.
+    """
+
+    src: np.ndarray
+    dst: np.ndarray
+    edge_deg: np.ndarray
+    in_edges: np.ndarray
+    node_in_edges: np.ndarray
+    node_out_edges: np.ndarray
+    rev_map: np.ndarray | None = None
+
+    @property
+    def num_directed(self) -> int:
+        return self.src.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return self.src.shape[0] // 2
+
+    def rev(self, e):
+        if self.rev_map is not None:
+            return self.rev_map[e]
+        E = self.num_edges
+        if E == 0:
+            return e
+        return (e + E) % (2 * E)
 
 
 def _not_ported(what: str):
@@ -109,6 +161,49 @@ def graph_from_edges(n: int, edges: np.ndarray, dmax: int | None = None) -> Grap
         deg=deg.astype(np.int32),
         edges=edges.astype(np.int32),
     )
+
+
+def build_edge_tables(graph: Graph) -> EdgeTables:
+    """Build directed-edge message-passing tables for a Graph."""
+    n, dmax = graph.n, graph.dmax
+    edges = graph.edges.astype(np.int64)
+    E = edges.shape[0]
+    ghost_edge = 2 * E
+    src, dst = _directed_endpoints(n, edges)
+    eid = np.arange(2 * E, dtype=np.int64)
+
+    node_in = _padded_slots(n, dst, eid, dmax, fill=ghost_edge)
+    node_out = _padded_slots(n, src, eid, dmax, fill=ghost_edge)
+
+    # Incoming messages of edge e: directed edges into src[e], minus rev(e).
+    rev = (eid + E) % (2 * E)
+    rows = node_in[src]                       # [2E, dmax]
+    drop = (rows == rev[:, None]) | (rows == ghost_edge)
+    order = np.argsort(drop, axis=1, kind="stable")  # keep (False) first
+    kept = np.take_along_axis(rows, order, axis=1)
+    kept_mask = np.take_along_axis(drop, order, axis=1)
+    width = max(dmax - 1, 1)
+    in_edges = np.where(kept_mask, ghost_edge, kept)[:, :width]
+
+    edge_deg = graph.deg[src] - 1
+
+    return EdgeTables(
+        src=src.astype(np.int32),
+        dst=dst.astype(np.int32),
+        edge_deg=edge_deg.astype(np.int32),
+        in_edges=in_edges.astype(np.int32),
+        node_in_edges=node_in.astype(np.int32),
+        node_out_edges=node_out.astype(np.int32),
+    )
+
+
+def degree_classes(values: np.ndarray) -> dict[int, np.ndarray]:
+    """Host-side grouping {degree: indices} (the notebook's degree classes,
+    `ER_BDCM_entropy.ipynb:276-295`): each class is one static DP depth."""
+    out: dict[int, np.ndarray] = {}
+    for d in np.unique(values):
+        out[int(d)] = np.where(values == d)[0].astype(np.int32)
+    return out
 
 
 def remove_isolates(graph: Graph) -> tuple[Graph, int]:
@@ -366,3 +461,174 @@ def validate_coloring(graph: Graph, colors: np.ndarray) -> list[str]:
     if chi and len(np.unique(colors)) != chi:
         problems.append(f"non-contiguous color ids (chi={chi})")
     return problems
+
+
+# ---------------------------------------------------------------------------
+# Batched stacks and replica-major disjoint unions
+# ---------------------------------------------------------------------------
+
+
+class GraphStack(NamedTuple):
+    """``G`` same-size graphs as one batched table set (host numpy arrays):
+    member ``g``'s neighbor row block is ``nbr[g]``, ghost-padded to the
+    stack-wide ``dmax`` with each member's OWN ghost index ``n`` (ghost rows
+    contribute 0 to neighbor sums, so padding a member to a wider ``dmax``
+    cannot change its dynamics)."""
+
+    nbr: np.ndarray   # int32[G, n, dmax]
+    deg: np.ndarray   # int32[G, n]
+
+    @property
+    def G(self) -> int:
+        return self.nbr.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.nbr.shape[1]
+
+    @property
+    def dmax(self) -> int:
+        return self.nbr.shape[2]
+
+
+def stack_graphs(graphs, dmax: int | None = None) -> GraphStack:
+    """Stack same-``n`` graphs into the batched ``nbr[G, n, dmax]`` layout.
+    Members with a smaller ``dmax`` are re-padded with their ghost index; a
+    member wider than ``dmax`` is refused."""
+    if not graphs:
+        raise ValueError("empty graph stack")
+    ns = {g.n for g in graphs}
+    if len(ns) != 1:
+        raise ValueError(f"stacked graphs must share n, got {sorted(ns)}")
+    n = ns.pop()
+    width = max(g.dmax for g in graphs)
+    if dmax is None:
+        dmax = width
+    elif dmax < width:
+        raise ValueError(f"dmax={dmax} < stack max degree width {width}")
+    nbr = np.full((len(graphs), n, dmax), n, np.int32)
+    for k, g in enumerate(graphs):
+        nbr[k, :, : g.dmax] = g.nbr
+    return GraphStack(
+        nbr=nbr, deg=np.stack([g.deg for g in graphs]).astype(np.int32)
+    )
+
+
+def replicate_disjoint(graph: Graph, R: int) -> Graph:
+    """Disjoint union of ``R`` copies of ``graph`` (copy r occupies nodes
+    ``[r*n, (r+1)*n)``), built by direct tiling of the base tables — equal
+    to ``graph_from_edges`` over the shifted edge list, without its sort."""
+    n = graph.n
+    E = graph.num_edges
+    dmax = graph.dmax
+    noff = np.arange(R, dtype=np.int64) * n
+    edges = (
+        graph.edges.astype(np.int64)[None] + noff[:, None, None]
+    ).reshape(R * E, 2)
+    nbr = graph.nbr.astype(np.int64)
+    # ghost slot n -> union ghost R*n; real neighbors shift per replica
+    nbr_u = np.where(
+        nbr[None] == n, R * n, nbr[None] + noff[:, None, None]
+    ).reshape(R * n, dmax)
+    return Graph(
+        nbr=nbr_u.astype(np.int32),
+        deg=np.tile(graph.deg, R).astype(np.int32),
+        edges=edges.astype(np.int32),
+    )
+
+
+def replicate_edge_tables(tables: EdgeTables, R: int, n: int) -> EdgeTables:
+    """Directed-edge tables for ``replicate_disjoint(g, R)`` in REPLICA-MAJOR
+    edge layout: replica ``r``'s directed edges occupy rows
+    ``[r·2E, (r+1)·2E)`` — copy ``r`` of the base tables with edge ids offset
+    by ``r·2E`` and node ids by ``r·n``. Every index of replica ``r`` stays
+    inside its own block; the reversal is carried in ``rev_map``."""
+    twoE = tables.num_directed
+    E = tables.num_edges
+    ghost, ghost_u = twoE, R * twoE
+    eoff = np.arange(R, dtype=np.int64) * twoE
+    noff = np.arange(R, dtype=np.int64) * n
+
+    def rep_edge_ids(t: np.ndarray) -> np.ndarray:
+        """Tile a table of (ghost-padded) directed-edge ids across replicas."""
+        t = t.astype(np.int64)
+        off = eoff.reshape((R,) + (1,) * t.ndim)
+        out = np.where(t[None] == ghost, ghost_u, t[None] + off)
+        return out.reshape((R * t.shape[0],) + t.shape[1:]).astype(np.int32)
+
+    src = (tables.src.astype(np.int64)[None] + noff[:, None]).reshape(-1)
+    dst = (tables.dst.astype(np.int64)[None] + noff[:, None]).reshape(-1)
+    base_rev = (np.arange(twoE, dtype=np.int64) + E) % max(twoE, 1)
+    rev_map = (base_rev[None] + eoff[:, None]).reshape(-1)
+    return EdgeTables(
+        src=src.astype(np.int32),
+        dst=dst.astype(np.int32),
+        edge_deg=np.tile(tables.edge_deg, R),
+        in_edges=rep_edge_ids(tables.in_edges),
+        node_in_edges=rep_edge_ids(tables.node_in_edges),
+        node_out_edges=rep_edge_ids(tables.node_out_edges),
+        rev_map=rev_map.astype(np.int32),
+    )
+
+
+def _check_i32(R: int, period: int):
+    if R * period >= 2**31:
+        raise ValueError(
+            f"union ids exceed int32 (R={R} x period={period}); split the "
+            "replicas across several smaller unions"
+        )
+
+
+def _rep_ids_device(t, R: int, period: int, ghost: int, ghost_u: int,
+                    device) -> torch.Tensor:
+    """Tile a table of (ghost-padded) ids across R replicas on ``device``:
+    replica r's copy is offset by ``r·period``; ``ghost`` maps to
+    ``ghost_u`` unshifted. Only the base table crosses to the device;
+    int32 throughout (range-guarded)."""
+    _check_i32(R, period)
+    t = torch.as_tensor(np.asarray(t).astype(np.int32), device=device)
+    off = (torch.arange(R, dtype=torch.int32, device=device) * period
+           ).reshape((R,) + (1,) * t.ndim)
+    out = torch.where(t == ghost, torch.tensor(ghost_u, dtype=torch.int32,
+                                               device=device), t + off)
+    return out.reshape((R * t.shape[0],) + tuple(t.shape[1:]))
+
+
+def replicate_disjoint_device(graph: Graph, R: int, device) -> Graph:
+    """:func:`replicate_disjoint` computed on ``device``: the returned
+    ``Graph`` holds int32 torch tensors built by offset arithmetic from the
+    base graph's host tables, so the union's ``[R·n, dmax]`` neighbor table
+    never crosses the host link. Same layout as the host builder (tested
+    equal)."""
+    n = graph.n
+    return Graph(
+        nbr=_rep_ids_device(graph.nbr, R, n, n, R * n, device),
+        deg=torch.as_tensor(graph.deg, dtype=torch.int32,
+                            device=device).repeat(R),
+        edges=_rep_ids_device(graph.edges, R, n, -1, -1, device),
+    )
+
+
+def replicate_edge_tables_device(tables: EdgeTables, R: int, n: int,
+                                 device) -> EdgeTables:
+    """:func:`replicate_edge_tables` computed on ``device`` (the same
+    replica-major layout; int32 torch tensors). See
+    :func:`replicate_disjoint_device` for why."""
+    twoE = tables.num_directed
+    E = tables.num_edges
+    ghost, ghost_u = twoE, R * twoE
+    base_rev = (np.arange(twoE, dtype=np.int64) + E) % max(twoE, 1)
+
+    def rep(t, period, g, gu):
+        return _rep_ids_device(t, R, period, g, gu, device)
+
+    return EdgeTables(
+        src=rep(tables.src, n, -1, -1),                 # no ghost nodes
+        dst=rep(tables.dst, n, -1, -1),
+        edge_deg=torch.as_tensor(tables.edge_deg, dtype=torch.int32,
+                                 device=device).repeat(R),
+        in_edges=rep(tables.in_edges, twoE, ghost, ghost_u),
+        node_in_edges=rep(tables.node_in_edges, twoE, ghost, ghost_u),
+        node_out_edges=rep(tables.node_out_edges, twoE, ghost, ghost_u),
+        rev_map=rep(base_rev, twoE, -1, -1),
+    )

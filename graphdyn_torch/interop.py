@@ -116,3 +116,49 @@ def fused_state_to_numpy(state) -> dict:
         "steps": np.int32(state.steps.item()),
         "accepted": np.int32(state.accepted.item()),
     }
+
+
+def edge_tables_from_jax(tables):
+    """The JAX package's ``EdgeTables`` (numpy fields) -> the port's, with
+    copies of every field (``rev_map`` kept as None when absent)."""
+    from graphdyn_torch.graphs import EdgeTables
+
+    return EdgeTables(*(None if f is None else np.array(f) for f in tables))
+
+
+def edge_classes_from_jax(data) -> list:
+    """The edge classes of a JAX-package ``BDCMData`` -> the port's
+    ``_EdgeClass`` tuples (numpy copies of ids, in-edges and factors)."""
+    from graphdyn_torch.ops.bdcm import _EdgeClass
+
+    return [_EdgeClass(d=int(c.d), idx=np.array(c.idx),
+                       in_edges=np.array(c.in_edges), A=np.array(c.A))
+            for c in data.edge_classes]
+
+
+def hpr_group_state_from_jax(state, seeds, device="cpu"):
+    """The JAX package's ``_HPRGroupState`` -> the port's
+    :class:`~graphdyn_torch.pipeline.hpr_group._HPRGroupState` on
+    ``device``. The reference's PRNG keys have no counterpart: ``seeds``
+    (one per member) key the port's stream."""
+    from graphdyn_torch.pipeline.hpr_group import _HPRGroupState
+
+    def t(x, dtype=None):
+        return torch.from_numpy(np.array(x, dtype)).to(device)
+
+    return _HPRGroupState(
+        chi=t(state.chi), biases=t(state.biases), s=t(state.s, np.int8),
+        seeds=t(seeds, np.int64), t=int(np.asarray(state.t)),
+        m_final=t(state.m_final, np.float32), active=t(state.active, np.bool_),
+        steps=t(state.steps, np.int32),
+    )
+
+
+def hpr_group_state_to_numpy(state) -> dict:
+    """The port's ``_HPRGroupState`` (any device) -> a dict of numpy arrays
+    in the JAX package's dtypes (``seeds`` in place of its keys)."""
+    out = {k: getattr(state, k).cpu().numpy()
+           for k in ("chi", "biases", "s", "seeds", "m_final", "active",
+                     "steps")}
+    out["t"] = np.int32(state.t)
+    return out

@@ -1,0 +1,600 @@
+"""BDCM message passing: the sweep half of ``graphdyn/ops/bdcm.py`` and the
+plain half of ``graphdyn/ops/pallas_bdcm.py``.
+
+- chi lives as ``[2E, K, K]`` (``chi[e, x_src, x_dst]``, K = 2^T) in the
+  message dtype (float32 or float64).
+- The neighbor DP is a product of shift-convolutions on the ρ-lattice
+  (:func:`_neighbor_dp`, the roll form of the JAX package's XLA path, and
+  the flat mixed-radix shift of its Pallas kernel, :func:`_flat_offsets`).
+- One edge-degree class of G instances is updated by
+  :func:`dp_contract_grouped`: the DP, the contraction against the tilted
+  factor ``A_tilted = A·exp(−λ·x_i(0))``, the ε-clamp, the normalisation by
+  ``1/max(z, tiny)`` and the damping. On a CUDA tensor it launches the
+  hand-written kernel (:mod:`graphdyn_torch.ops.bdcm_cuda`,
+  ``csrc/bdcm_contract.cu``); on a CPU tensor it runs the plain PyTorch
+  version :func:`dp_contract_grouped_plain`, the twin of the Pallas kernel
+  ``_dp_contract_kernel``. ``class_update`` is the twin of the JAX package's
+  XLA class update (a division by z after the contraction), kept for tests.
+- The sweep (:func:`make_sweep`, :func:`_sweep_core`) updates the classes
+  Gauss-Seidel style in class order, over a leading group axis, so the
+  grouped HPr executor and the single sweep run the same code.
+
+Kernel selection (``kernel=``): ``'auto'`` takes the CUDA kernel for CUDA
+tensors and the plain version for CPU tensors; ``'cuda'`` requires the
+kernel (CPU tensors raise); ``'plain'`` runs the plain version anywhere (a
+test mode). On CUDA tensors a class the kernel's admission gate
+(:func:`graphdyn_torch.ops.bdcm_cuda.bdcm_kernel_supported`, every class
+with T ≤ 4 up to high degrees) refuses raises under ``'auto'`` as under
+``'cuda'``, and a failed build or launch raises: the JAX package's runtime
+fallback (``pallas_fallback_spec``/``resilient_exec``) and its XLA
+placement of classes outside the Pallas regime have no counterpart.
+
+Not in this module yet (ROADMAP A12): ``EnsembleBDCM``/``StackedBDCM``, the
+leaf setters, the partitions, the free entropy and the m_init observables.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from graphdyn_torch.attractors import (
+    attr_mask,
+    edge_factor_tensor,
+    leaf_factor_tensor,
+    node_factor_tensor,
+    trajectories01,
+    x0_pm,
+)
+from graphdyn_torch.graphs import (
+    EdgeTables,
+    Graph,
+    _rep_ids_device,
+    build_edge_tables,
+    degree_classes,
+    replicate_disjoint_device,
+    replicate_edge_tables_device,
+)
+from graphdyn_torch.ops.packed import _row_chunk
+from graphdyn_torch.utils.platform import resolve_device
+
+KERNELS = ("auto", "cuda", "plain")
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """``'float32'``/``'float64'`` or a torch float dtype -> the torch
+    dtype; anything else raises."""
+    dt = _DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"BDCM dtype must be float32 or float64, got {dtype!r}")
+    return dt
+
+
+class _EdgeClass(NamedTuple):
+    d: int
+    idx: np.ndarray        # [Ed] directed edge ids
+    in_edges: np.ndarray   # [Ed, d] incoming directed edge ids
+    A: np.ndarray          # [K, K, (d+1)^T] λ=0 factor
+
+
+class _NodeClass(NamedTuple):
+    d: int
+    idx: np.ndarray        # [Nd] node ids
+    in_edges: np.ndarray   # [Nd, d]
+    Ai: np.ndarray         # [K, (d+1)^T]
+
+
+def _pad_class(idx: np.ndarray, in_edges: np.ndarray, bucket: int, ghost_idx: int, ghost_in: int):
+    """Pad a degree class to the next multiple of ``bucket``: padded members
+    scatter to the ghost slot ``ghost_idx`` and gather from the ghost message
+    row ``ghost_in`` (both sliced away by the sweep)."""
+    pad = (-idx.shape[0]) % bucket
+    if pad == 0:
+        return idx, in_edges
+    idx = np.concatenate([idx, np.full(pad, ghost_idx, idx.dtype)])
+    in_edges = np.concatenate(
+        [in_edges, np.full((pad, in_edges.shape[1]), ghost_in, in_edges.dtype)]
+    )
+    return idx, in_edges
+
+
+class BDCMData:
+    """Per-graph static data for the BDCM sweep (host-built numpy tables;
+    the device union of :func:`replicate_bdcm_device` holds torch tensors).
+
+    ``class_bucket``: round every degree-class size up to a multiple of this
+    (padding with ghost edges/nodes), as in the JAX package. ``dtype``:
+    ``'float32'`` or ``'float64'`` (the reference's precision), the dtype of
+    the messages and of the factor tensors once on a device.
+    """
+
+    def __init__(
+        self,
+        graph: Graph,
+        tables: EdgeTables | None = None,
+        *,
+        p: int = 1,
+        c: int = 1,
+        attr_value: int = 1,
+        rule: str = "majority",
+        tie: str = "stay",
+        class_bucket: int | None = None,
+        dtype="float32",
+    ):
+        self.dtype = as_dtype(dtype)
+        tables = tables or build_edge_tables(graph)
+        self.graph = graph
+        self.tables = tables
+        self.p, self.c = p, c
+        self.T = p + c
+        self.K = 2**self.T
+        self.attr_value = attr_value
+        self.rule, self.tie = rule, tie
+        self.padded = class_bucket is not None
+
+        self.valid = attr_mask(self.T, attr_value)          # bool[K]
+        self.x0 = x0_pm(self.T)                             # ±1[K]
+        self.leaf01 = leaf_factor_tensor(p, c, attr_value, rule, tie)  # [K,K]
+
+        ghost_edge = tables.num_directed                    # row 2E of chi_ext
+
+        eclasses = degree_classes(tables.edge_deg)
+        self.leaf_idx = eclasses.get(0, np.empty(0, np.int32))
+        self.edge_classes: list[_EdgeClass] = []
+        for d, idx in sorted(eclasses.items()):
+            if d == 0:
+                continue
+            in_edges = tables.in_edges[idx, :d]
+            if self.padded:
+                idx, in_edges = _pad_class(
+                    idx, in_edges, class_bucket, ghost_edge, ghost_edge
+                )
+            self.edge_classes.append(
+                _EdgeClass(
+                    d=int(d),
+                    idx=idx,
+                    in_edges=in_edges,
+                    A=edge_factor_tensor(d, p, c, attr_value, rule, tie),
+                )
+            )
+
+        nclasses = degree_classes(graph.deg)
+        self.node_classes: list[_NodeClass] = []
+        for d, idx in sorted(nclasses.items()):
+            if d == 0:
+                continue
+            in_edges = tables.node_in_edges[idx, :d]
+            if self.padded:
+                idx, in_edges = _pad_class(
+                    idx, in_edges, class_bucket, graph.n, ghost_edge
+                )
+            self.node_classes.append(
+                _NodeClass(
+                    d=int(d),
+                    idx=idx,
+                    in_edges=in_edges,
+                    Ai=node_factor_tensor(d, p, c, attr_value, rule, tie),
+                )
+            )
+
+        self.num_directed = tables.num_directed
+        self.num_edges = tables.num_edges
+        self.n = graph.n
+
+    @property
+    def np_dtype(self):
+        return np.float32 if self.dtype == torch.float32 else np.float64
+
+    def init_messages(self, seed=0) -> torch.Tensor:
+        """Random row-normalized chi (`ipynb:509-511`, `HPR:101-103`), the
+        JAX package's numpy draw bit for bit, as a CPU tensor of the
+        message dtype. ``seed`` may be an int or a ``np.random.Generator``
+        (shared stream)."""
+        rng = np.random.default_rng(seed)
+        chi = rng.random((self.num_directed, self.K, self.K))
+        chi /= chi.sum(axis=(1, 2), keepdims=True)
+        return torch.from_numpy(chi.astype(self.np_dtype))
+
+
+def replicate_bdcm_device(base: BDCMData, R: int, device) -> BDCMData:
+    """R-replica disjoint-union ``BDCMData`` in the replica-major layout
+    (:func:`graphdyn_torch.graphs.replicate_edge_tables`), with every
+    union-sized table built on ``device`` by offset-tiling the base graph's
+    host tables (:func:`graphdyn_torch.graphs._rep_ids_device`): only the
+    base tables cross the host link. The degree-class structure of a
+    disjoint union of R copies is the base structure tiled."""
+    import copy
+
+    g, t = base.graph, base.tables
+    n, twoE = g.n, t.num_directed
+    ghost, ghost_u = twoE, R * twoE
+
+    def rep(ids, period, gh, gh_u):
+        return _rep_ids_device(ids, R, period, gh, gh_u, device)
+
+    u = copy.copy(base)
+    u.graph = replicate_disjoint_device(g, R, device)
+    u.tables = replicate_edge_tables_device(t, R, n, device)
+    u.leaf_idx = rep(base.leaf_idx, twoE, ghost, ghost_u)
+    u.edge_classes = [
+        _EdgeClass(d=cls.d, idx=rep(cls.idx, twoE, ghost, ghost_u),
+                   in_edges=rep(cls.in_edges, twoE, ghost, ghost_u), A=cls.A)
+        for cls in base.edge_classes
+    ]
+    u.node_classes = [
+        _NodeClass(d=cls.d, idx=rep(cls.idx, n, g.n, R * g.n),
+                   in_edges=rep(cls.in_edges, twoE, ghost, ghost_u),
+                   Ai=cls.Ai)
+        for cls in base.node_classes
+    ]
+    u.num_directed = R * twoE
+    u.num_edges = R * t.num_edges
+    u.n = R * n
+    return u
+
+
+# ---------------------------------------------------------------------------
+# the class update: XLA twin (class_update) and kernel twin (plain DP)
+# ---------------------------------------------------------------------------
+
+
+def _neighbor_dp(chi_in: torch.Tensor, d: int, T: int, K: int) -> torch.Tensor:
+    """ρ-lattice DP: LL[e, x_i, ρ] = Σ over assignments of the d incoming
+    source trajectories of Π_D chi_in[e, D, x_k(D), x_i] with ρ = Σ x_k.
+
+    ``chi_in``: [E, d, K, K] indexed [edge, slot, x_src, x_dst].
+    Returns [E, K, (d+1)^T] (flattened lattice, mixed-radix row-major).
+    The shifts are rolls over the T lattice axes; they never wrap nonzero
+    mass (after D steps every coordinate is ≤ D < d+1)."""
+    X01 = trajectories01(T)
+    Ed = chi_in.shape[0]
+    lat_axes = tuple(range(2, 2 + T))
+    LL = torch.zeros((Ed, K) + (d + 1,) * T, dtype=chi_in.dtype,
+                     device=chi_in.device)
+    LL[(slice(None), slice(None)) + (0,) * T] = 1.0
+    for D in range(d):
+        acc = torch.zeros_like(LL)
+        for k_idx in range(K):
+            shift = tuple(int(b) for b in X01[k_idx])
+            shifted = torch.roll(LL, shift, lat_axes) if any(shift) else LL
+            w = chi_in[:, D, k_idx, :]
+            acc = acc + shifted * w[(...,) + (None,) * T]
+        LL = acc
+    return LL.reshape(Ed, K, -1)
+
+
+def _contract(a: torch.Tensor, LL: torch.Tensor) -> torch.Tensor:
+    """chi2[..., xi, xj] = Σ_m a[..., xi, xj, m]·LL[..., xi, m], as an
+    elementwise product and a sum over the fixed last axis (no BLAS call,
+    whose blocking could depend on the batch extent)."""
+    return (a * LL[..., :, None, :]).sum(dim=-1)
+
+
+def class_update(chi_in, A, tilt, chi_old, *, d, T, K, damp, eps_clamp):
+    """The twin of the JAX package's XLA per-degree-class update: neighbor
+    DP, factor contraction, λ-tilt, ε-clamp, normalisation by division,
+    damping. ``chi_in``: [Ed, d, K, K]; ``A``: [K, K, M]; ``tilt``: [K]."""
+    LL = _neighbor_dp(chi_in, d, T, K)                  # [Ed, K, M]
+    chi2 = _contract(A[None], LL) * tilt[None, :, None]
+    chi2 = torch.clamp_min(chi2, eps_clamp)
+    # safe denominator: an empty attractor set yields all-zero messages
+    z = chi2.sum(dim=(1, 2), keepdim=True)
+    chi2 = chi2 / torch.clamp_min(z, torch.finfo(chi2.dtype).tiny)
+    return damp * chi2 + (1.0 - damp) * chi_old
+
+
+def _flat_offsets(d: int, T: int) -> np.ndarray:
+    """off_k for every trajectory k: mixed-radix flat shift on the (d+1)^T
+    lattice."""
+    X01 = trajectories01(T)                       # [K, T]
+    radix = (d + 1) ** np.arange(T - 1, -1, -1)   # [T]
+    return (X01 * radix).sum(axis=1).astype(np.int64)
+
+
+def dp_contract_grouped_plain(chi_in: torch.Tensor, a_tilted: torch.Tensor,
+                              chi_old: torch.Tensor, *, d: int, T: int,
+                              damp: float, eps_clamp: float = 0.0
+                              ) -> torch.Tensor:
+    """The plain PyTorch twin of the Pallas kernel ``_dp_contract_kernel``
+    (``graphdyn/ops/pallas_bdcm.py:130``) on any device: the flat
+    mixed-radix shift DP with ping-pong buffers over the d incoming slots,
+    the contraction against ``a_tilted`` (rank 3 ``[K, K, M]`` shared by
+    every group, or rank 4 ``[G, K, K, M]`` per group), the ε-clamp, the
+    normalisation by ``1/max(z, tiny)`` and the damping.
+
+    ``chi_in``: [G, Ed, d, K, K]; ``chi_old``: [G, Ed, K, K]; returns
+    [G, Ed, K, K] in ``chi_in``'s dtype. Rows are processed in chunks whose
+    temporaries stay within 256 MB; every op is elementwise or a reduction
+    over a fixed trailing axis, so a row's result does not depend on G, Ed
+    or the chunk."""
+    G, Ed = chi_in.shape[0], chi_in.shape[1]
+    K, M = 2**T, (d + 1) ** T
+    dtype = chi_in.dtype
+    offs = [int(o) for o in _flat_offsets(d, T)]
+    a = a_tilted.to(dtype)
+    a = a[:, None] if a.ndim == 4 else a[None, None]    # [G|1, 1, K, K, M]
+    tiny = torch.finfo(dtype).tiny
+    out = torch.empty((G, Ed, K, K), dtype=dtype, device=chi_in.device)
+    rows = _row_chunk(G * chi_in.element_size() * (2 * K * M + 2 * K * K * M))
+    for e0 in range(0, Ed, rows):
+        ci = chi_in[:, e0:e0 + rows]
+        LL = torch.zeros(ci.shape[:2] + (K, M), dtype=dtype, device=ci.device)
+        LL[..., 0] = 1.0
+        for D in range(d):
+            acc = torch.zeros_like(LL)
+            for k in range(K):
+                off = offs[k]
+                w = ci[:, :, D, k, :, None]                  # [G, r, K, 1]
+                if off == 0:
+                    acc += LL * w
+                else:
+                    acc[..., off:] += LL[..., :M - off] * w
+            LL = acc
+        chi2 = torch.clamp_min(_contract(a, LL), eps_clamp)   # [G, r, K, K]
+        z = chi2.sum(dim=(2, 3), keepdim=True)
+        inv = 1.0 / torch.clamp_min(z, tiny)
+        out[:, e0:e0 + rows] = (damp * chi2 * inv
+                                + (1.0 - damp) * chi_old[:, e0:e0 + rows])
+    return out
+
+
+def class_mode(d: int, T: int, dtype, kernel: str, device) -> str:
+    """The sweep core of one edge class: ``'cuda'`` (the kernel) or
+    ``'plain'``, from ``kernel`` and the device type of the tensors.
+    Raises for ``'cuda'`` on a non-CUDA device, and on a CUDA device for a
+    class the kernel's gate refuses, under ``'auto'`` as under ``'cuda'``."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    dev = torch.device(device).type
+    if kernel == "plain" or (kernel == "auto" and dev == "cpu"):
+        return "plain"
+    if dev != "cuda":
+        raise ValueError(
+            f"kernel={kernel!r} launches the CUDA BDCM kernel; the tensors "
+            f"are on {device}"
+        )
+    from graphdyn_torch.ops import bdcm_cuda
+
+    if not bdcm_cuda.bdcm_kernel_supported(d, T, dtype):
+        raise ValueError(
+            f"the CUDA BDCM kernel refuses the class d={d}, T={T}, "
+            f"dtype={dtype} ({bdcm_cuda.refusal_reason(d, T, dtype)})"
+        )
+    return "cuda"
+
+
+def dp_contract_grouped(chi_in: torch.Tensor, a_tilted: torch.Tensor,
+                        chi_old: torch.Tensor, *, d: int, T: int,
+                        damp: float, eps_clamp: float = 0.0,
+                        kernel: str = "auto") -> torch.Tensor:
+    """DP + contraction + normalise + damp for one edge-degree class of G
+    instances, the counterpart of ``graphdyn.ops.pallas_bdcm.
+    dp_contract_grouped`` (the group axis is the kernel grid's second
+    dimension). ``a_tilted``'s rank selects the shared (3) or per-group (4)
+    variant. See the module docstring for ``kernel``. Returns
+    [G, Ed, K, K]."""
+    mode = class_mode(d, T, chi_in.dtype, kernel, chi_in.device)
+    if mode == "plain":
+        return dp_contract_grouped_plain(chi_in, a_tilted, chi_old, d=d, T=T,
+                                         damp=damp, eps_clamp=eps_clamp)
+    from graphdyn_torch.ops import bdcm_cuda
+
+    return bdcm_cuda.dp_contract_cuda(chi_in, a_tilted, chi_old, d=d, T=T,
+                                      damp=damp, eps_clamp=eps_clamp)
+
+
+def dp_contract(chi_in, a_tilted, chi_old, *, d: int, T: int, damp: float,
+                eps_clamp: float = 0.0, kernel: str = "auto") -> torch.Tensor:
+    """One class of one instance: the G=1 instance of
+    :func:`dp_contract_grouped` (shared ``a_tilted``). ``chi_in``:
+    [Ed, d, K, K]; returns [Ed, K, K]."""
+    return dp_contract_grouped(chi_in[None], a_tilted, chi_old[None], d=d,
+                               T=T, damp=damp, eps_clamp=eps_clamp,
+                               kernel=kernel)[0]
+
+
+# ---------------------------------------------------------------------------
+# the sweep
+# ---------------------------------------------------------------------------
+
+
+class _SweepSpec(NamedTuple):
+    """Static configuration of one sweep: the JAX package's ``_SweepSpec``
+    with a per-class mode tuple (``'cuda'`` or ``'plain'``) in place of its
+    Pallas modes."""
+
+    T: int
+    K: int
+    damp: float
+    eps_clamp: float
+    mask_invalid_src: bool
+    with_bias: bool
+    padded: bool
+    class_ds: tuple          # per-class neighbor count d
+    modes: tuple             # per-class 'cuda' | 'plain'
+
+
+def resolve_modes(class_ds, *, T: int, dtype, kernel: str, device) -> tuple:
+    """Per-class modes of a sweep (:func:`class_mode` for each class)."""
+    return tuple(class_mode(int(d), T, dtype, kernel, device)
+                 for d in class_ds)
+
+
+def _long(t, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(t) if isinstance(t, np.ndarray) else t,
+                           device=device).to(torch.int64)
+
+
+def _flat_ids(tabs, rows: int, device) -> torch.Tensor:
+    """Stack G per-member id tables into one int64 tensor of ids into the
+    ``[G·rows]`` flattening of a ``[G, rows, ...]`` tensor (member g's ids
+    offset by ``g·rows``)."""
+    t = torch.stack([_long(x, device) for x in tabs])
+    off = torch.arange(t.shape[0], dtype=torch.int64, device=device) * rows
+    return t + off.reshape((-1,) + (1,) * (t.ndim - 1))
+
+
+def _sweep_core(chi: torch.Tensor, a_tilted, bias_edge, valid,
+                tables, spec: _SweepSpec) -> torch.Tensor:
+    """One Gauss-Seidel sweep over a group of G instances.
+
+    ``chi``: [G, rows, K, K] (with the ghost row already appended when the
+    classes are padded); ``a_tilted``: per class ``[K, K, M]``;
+    ``bias_edge``: [G, rows, K] or None; ``valid``: bool[K] (used with
+    ``mask_invalid_src``); ``tables``: per class ``(idx [G, Ed], in_edges
+    [G, Ed, d])`` int64 ids into the ``[G·rows]`` flattening. Returns a new
+    [G, rows, K, K] tensor; ``chi`` is not written."""
+    G, rows, K = chi.shape[0], chi.shape[1], spec.K
+    new = chi.reshape(G * rows, K, K).clone()
+    bias = None if bias_edge is None else bias_edge.reshape(G * rows, K)
+    for (d, mode), a, (idx, in_edges) in zip(
+        zip(spec.class_ds, spec.modes), a_tilted, tables
+    ):
+        chi_in = new[in_edges]                             # [G, Ed, d, K, K]
+        if spec.with_bias:
+            chi_in *= bias[in_edges][..., None]
+        if spec.mask_invalid_src:
+            chi_in *= valid[:, None]
+        upd = dp_contract_grouped(chi_in, a, new[idx], d=d, T=spec.T,
+                                  damp=spec.damp, eps_clamp=spec.eps_clamp,
+                                  kernel=mode)
+        del chi_in
+        new.index_copy_(0, idx.reshape(-1), upd.reshape(-1, K, K))
+    return new.reshape(G, rows, K, K)
+
+
+def tilted_factors(As, x0: torch.Tensor, lmbd) -> list:
+    """``A·exp(−λ·x_i(0))`` per class (the tilt folded into the factor, as
+    the JAX package's kernel path does), in ``x0``'s dtype and device."""
+    tilt = torch.exp(-lmbd * x0)
+    return [A * tilt[:, None, None] for A in As]
+
+
+def make_sweep(
+    data: BDCMData,
+    *,
+    damp: float,
+    eps_clamp: float = 0.0,
+    mask_invalid_src: bool = True,
+    with_bias: bool = False,
+    kernel: str = "auto",
+    device=None,
+):
+    """Build the BDCM sweep ``(chi, lmbd[, bias_edge]) -> chi'`` for chi
+    ``[2E, K, K]`` on ``device`` (default CUDA; raises on a CUDA-less host
+    unless given ``device='cpu'``).
+
+    ``bias_edge``: [2E, K] multiplicative weight on each message when
+    consumed (the HPr reinforcement bias ``b_k(x_k(0))`` gathered to edge
+    shape, `HPR_pytorch_RRG.py:128-133,188`). ``mask_invalid_src`` zeroes
+    invalid-endpoint source trajectories (the entropy variant; HPr leaves
+    them to decay). The modes of the classes are resolved here (see the
+    module docstring) and kept in ``sweep.spec``."""
+    dev = resolve_device(device)
+    dt = data.dtype
+    K = data.K
+    rows = data.num_directed + (1 if data.padded else 0)
+    spec = _SweepSpec(
+        T=data.T, K=K, damp=float(damp), eps_clamp=float(eps_clamp),
+        mask_invalid_src=bool(mask_invalid_src), with_bias=bool(with_bias),
+        padded=data.padded,
+        class_ds=tuple(cls.d for cls in data.edge_classes),
+        modes=resolve_modes([cls.d for cls in data.edge_classes], T=data.T,
+                            dtype=dt, kernel=kernel, device=dev),
+    )
+    tables = [(_flat_ids([cls.idx], rows, dev),
+               _flat_ids([cls.in_edges], rows, dev))
+              for cls in data.edge_classes]
+    As = [torch.as_tensor(cls.A, dtype=dt, device=dev)
+          for cls in data.edge_classes]
+    valid = torch.as_tensor(data.valid, dtype=dt, device=dev)
+    x0 = torch.as_tensor(data.x0, dtype=dt, device=dev)
+
+    def sweep(chi, lmbd, bias_edge=None):
+        if with_bias and bias_edge is None:
+            raise ValueError("this sweep was built with_bias=True: pass "
+                             "bias_edge")
+        n_real = chi.shape[0]
+        if spec.padded:
+            # ghost row 2E: gathered by padded class members only; their
+            # updates scatter back to it and are sliced off
+            chi = torch.cat([chi, torch.full((1, K, K), 1.0 / (K * K),
+                                             dtype=chi.dtype,
+                                             device=chi.device)])
+            if with_bias:
+                bias_edge = torch.cat([bias_edge, bias_edge.new_ones(1, K)])
+        out = _sweep_core(
+            chi[None], tilted_factors(As, x0, lmbd),
+            bias_edge[None] if with_bias else None, valid, tables, spec)[0]
+        return out[:n_real]
+
+    sweep.spec = spec
+    return sweep
+
+
+def marginals_group(chi: torch.Tensor, rev: torch.Tensor,
+                    out_edges: torch.Tensor, sel_plus: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """Node marginals of G instances (the HPr marginal computation,
+    `HPR_pytorch_RRG.py:147-167`): per directed edge, the pair sums split
+    by the source trajectory's initial value, ε-clamped and normalised, then
+    multiplied over each node's outgoing edges; ghost slots multiply by 1.
+
+    ``chi``: [G, 2E, K, K]; ``rev``: int64 [G, 2E] ids into the [G·2E]
+    flattening; ``out_edges``: int64 [G, n, dmax] ids into the
+    [G·(2E+1)] flattening of the ghost-extended pair sums; ``sel_plus``:
+    [K] in chi's dtype. Returns [G, n, 2]. The per-edge sums are computed
+    in row chunks (temporaries within 256 MB)."""
+    G, twoE, K = chi.shape[0], chi.shape[1], chi.shape[2]
+    flat = chi.reshape(G * twoE, K, K)
+    rev = rev.reshape(-1)
+    sel = sel_plus[None, :, None]
+    Zp = torch.empty(G * twoE, dtype=chi.dtype, device=chi.device)
+    Zm = torch.empty_like(Zp)
+    rows = _row_chunk(4 * K * K * chi.element_size())
+    for e0 in range(0, G * twoE, rows):
+        c = flat[e0:e0 + rows]
+        P = c * flat[rev[e0:e0 + rows]].transpose(1, 2)
+        Zp[e0:e0 + rows] = (P * sel).sum(dim=(1, 2))
+        Zm[e0:e0 + rows] = (P * (1.0 - sel)).sum(dim=(1, 2))
+    Zp = torch.clamp_min(Zp, eps)
+    Zm = torch.clamp_min(Zm, eps)
+    tot = Zp + Zm
+    Zp, Zm = Zp / tot, Zm / tot
+    ones = Zp.new_ones(G, 1)
+    Zp_ext = torch.cat([Zp.reshape(G, twoE), ones], dim=1).reshape(-1)
+    Zm_ext = torch.cat([Zm.reshape(G, twoE), ones], dim=1).reshape(-1)
+    mp = torch.prod(Zp_ext[out_edges], dim=-1)
+    mm = torch.prod(Zm_ext[out_edges], dim=-1)
+    marg = torch.stack([mp, mm], dim=-1)
+    return marg / marg.sum(dim=-1, keepdim=True)
+
+
+def marginal_tables(datas, device):
+    """``(rev, out_edges, sel_plus)`` of :func:`marginals_group` for the
+    instances ``datas`` (one per group member)."""
+    twoE = datas[0].num_directed
+    rev = _flat_ids([d.tables.rev_map if d.tables.rev_map is not None
+                     else d.tables.rev(np.arange(twoE)) for d in datas],
+                    twoE, device)
+    out = _flat_ids([d.tables.node_out_edges for d in datas], twoE + 1, device)
+    sel = torch.as_tensor(datas[0].x0 == 1, dtype=datas[0].dtype,
+                          device=device)
+    return rev, out, sel
+
+
+def make_marginals(data: BDCMData, eps: float = 1e-15, device=None):
+    """Build ``chi -> marg[n, 2]``: per-node probabilities of x_i(0)=+1
+    (col 0) / −1 (col 1), the HPr marginal computation
+    (`HPR_pytorch_RRG.py:147-167`), on ``device`` (default CUDA). No
+    endpoint-validity mask (faithful to the reference)."""
+    dev = resolve_device(device)
+    rev, out_edges, sel = marginal_tables([data], dev)
+
+    def marginals(chi):
+        return marginals_group(chi[None], rev, out_edges, sel, eps)[0]
+
+    return marginals

@@ -2,10 +2,11 @@
 identical ``nbr``/``deg``/``edges`` arrays (both are host numpy)."""
 
 import numpy as np
+import torch
 import pytest
 
 from graphdyn import graphs as jg
-from graphdyn_torch import graphs as tg
+from graphdyn_torch import graphs as tg, interop
 
 
 def _assert_same(a, b):
@@ -148,3 +149,78 @@ def test_degree_cv_auto_layout_and_bucketed_refusal():
         with pytest.raises(NotImplementedError, match="A13"):
             fused_anneal(hub_t, cfg, n_replicas=2, layout=layout,
                          device="cpu")
+
+
+TABLE_CASES = {
+    "rrg": lambda m: m.random_regular_graph(60, 4, seed=2),
+    "er": lambda m: m.erdos_renyi_graph(80, 2.5 / 80, seed=3),  # isolates
+}
+
+
+def _same_tables(a, b):
+    for f in ("src", "dst", "edge_deg", "in_edges", "node_in_edges",
+              "node_out_edges", "rev_map"):
+        x, y = getattr(a, f), getattr(b, f)
+        if y is None:
+            assert x is None, f
+            continue
+        x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+        np.testing.assert_array_equal(x, np.asarray(y), err_msg=f)
+        assert x.dtype == np.asarray(y).dtype, f
+    assert a.num_directed == b.num_directed and a.num_edges == b.num_edges
+
+
+@pytest.mark.parametrize("gname", list(TABLE_CASES))
+def test_edge_tables_classes_stack_and_unions_identical(gname):
+    g_j, g_t = TABLE_CASES[gname](jg), TABLE_CASES[gname](tg)
+    t_j, t_t = jg.build_edge_tables(g_j), tg.build_edge_tables(g_t)
+    _same_tables(t_t, t_j)
+    e = np.arange(t_j.num_directed)
+    np.testing.assert_array_equal(t_t.rev(e), t_j.rev(e))
+    for values in (t_j.edge_deg, g_j.deg):
+        c_j, c_t = jg.degree_classes(values), tg.degree_classes(values)
+        assert list(c_t) == list(c_j)
+        for d in c_j:
+            np.testing.assert_array_equal(c_t[d], c_j[d])
+            assert c_t[d].dtype == c_j[d].dtype
+    for R in (1, 3):
+        _assert_same(jg.replicate_disjoint(g_j, R), tg.replicate_disjoint(g_t, R))
+        u_j = jg.replicate_edge_tables(t_j, R, g_j.n)
+        u_t = tg.replicate_edge_tables(t_t, R, g_t.n)
+        _same_tables(u_t, u_j)
+        e = np.arange(u_j.num_directed)
+        np.testing.assert_array_equal(u_t.rev(e), u_j.rev(e))
+    # the stack re-pads narrower members with their own ghost index
+    others = [TABLE_CASES[gname](jg), jg.random_regular_graph(g_j.n, 2, seed=9)]
+    s_j = jg.stack_graphs([g_j] + others)
+    s_t = tg.stack_graphs([g_t] + [interop.graph_from_arrays(o.nbr, o.deg, o.edges)
+                                   for o in others])
+    np.testing.assert_array_equal(s_t.nbr, s_j.nbr)
+    np.testing.assert_array_equal(s_t.deg, s_j.deg)
+    assert (s_t.G, s_t.n, s_t.dmax) == (s_j.G, s_j.n, s_j.dmax)
+    with pytest.raises(ValueError, match="share n"):
+        tg.stack_graphs([g_t, tg.random_regular_graph(10, 3, seed=0)])
+    with pytest.raises(ValueError, match="dmax"):
+        tg.stack_graphs([g_t], dmax=1)
+
+
+@pytest.mark.parametrize("gname", list(TABLE_CASES))
+def test_device_union_builder_equals_host(gname):
+    """The torch union builders (offset-tiled on the target device) equal
+    the host builders of both packages, the pattern of
+    tests/test_hpr.py:310; the int32 range guard refuses overflowing
+    unions."""
+    g = TABLE_CASES[gname](tg)
+    t = tg.build_edge_tables(g)
+    R = 3
+    _same_tables(tg.replicate_edge_tables_device(t, R, g.n, "cpu"),
+                 tg.replicate_edge_tables(t, R, g.n))
+    gd, gh = tg.replicate_disjoint_device(g, R, "cpu"), tg.replicate_disjoint(g, R)
+    for f in ("nbr", "deg", "edges"):
+        x = getattr(gd, f)
+        assert x.dtype == torch.int32
+        np.testing.assert_array_equal(x.numpy(), getattr(gh, f), err_msg=f)
+    with pytest.raises(ValueError, match="int32"):
+        tg._check_i32(2**16, 2**15)
+    with pytest.raises(ValueError, match="int32"):
+        tg.replicate_disjoint_device(g, 2**31 // g.n + 1, "cpu")

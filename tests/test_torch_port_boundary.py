@@ -15,7 +15,11 @@ import torch
 
 from graphdyn_torch import graphs as tg
 from graphdyn_torch.config import DynamicsConfig, SAConfig
+from graphdyn_torch.config import HPRConfig
 from graphdyn_torch.models import consensus as tc
+from graphdyn_torch.models import hpr as th
+from graphdyn_torch.ops import bdcm as tb
+from graphdyn_torch.ops import bdcm_cuda
 from graphdyn_torch.ops import dynamics as td
 from graphdyn_torch.ops import fused as tfu
 from graphdyn_torch.ops import fused_cuda
@@ -60,7 +64,14 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.ops.cuda_build",
                  "graphdyn_torch.ops.bucketed",
                  "graphdyn_torch.search.fused",
-                 "graphdyn_torch.search.reference"):
+                 "graphdyn_torch.search.reference",
+                 "graphdyn_torch.attractors", "graphdyn_torch.ops.bdcm",
+                 "graphdyn_torch.ops.bdcm_cuda", "graphdyn_torch.pipeline",
+                 "graphdyn_torch.pipeline.groups",
+                 "graphdyn_torch.pipeline.prefetch",
+                 "graphdyn_torch.pipeline.hpr_group",
+                 "graphdyn_torch.models.hpr",
+                 "graphdyn_torch.models.hpr_reference"):
         assert name in out["modules"]
 
 
@@ -104,6 +115,12 @@ ENTRY_POINTS = {
     "fused_anneal": lambda: tsf.fused_anneal(
         _small_graph(), SAConfig(dynamics=DynamicsConfig(p=1, c=1)),
         n_replicas=2, max_sweeps=2),
+    "hpr_solve": lambda: th.hpr_solve(_small_graph(), HPRConfig(max_sweeps=2)),
+    "hpr_solve_batch": lambda: th.hpr_solve_batch(
+        _small_graph(), HPRConfig(max_sweeps=2), n_replicas=2),
+    "hpr_ensemble": lambda: th.hpr_ensemble(20, 3, HPRConfig(max_sweeps=2)),
+    "make_sweep": lambda: tb.make_sweep(tb.BDCMData(_small_graph()), damp=0.4),
+    "make_marginals": lambda: tb.make_marginals(tb.BDCMData(_small_graph())),
 }
 
 
@@ -121,7 +138,9 @@ def test_entry_point_without_device_refuses_on_cuda_less_host(name, monkeypatch)
 @pytest.mark.parametrize("argv", [
     ["consensus", "--n", "50", "--max-steps", "10"],
     ["fused", "--n", "50", "--max-sweeps", "2"],
-], ids=["consensus", "fused"])
+    ["hpr", "--n", "50", "--max-sweeps", "2"],
+    ["hpr", "--n", "50", "--max-sweeps", "2", "--batch-replicas", "2"],
+], ids=["consensus", "fused", "hpr", "hpr_batch"])
 def test_cli_without_device_refuses_on_cuda_less_host(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
@@ -146,8 +165,8 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
         assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("wrapper", [packed_cuda, fused_cuda],
-                         ids=["packed_step", "fused_chunk"])
+@pytest.mark.parametrize("wrapper", [packed_cuda, fused_cuda, bdcm_cuda],
+                         ids=["packed_step", "fused_chunk", "dp_contract"])
 def test_kernel_build_raises_without_nvcc(wrapper, monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -202,3 +221,64 @@ def test_fused_kernel_cuda_refused_on_cpu_device():
     with pytest.raises(ValueError, match="device='cuda'"):
         tsf.fused_anneal(_small_graph(), cfg, n_replicas=2, kernel="cuda",
                          device="cpu")
+
+
+def _contract_cpu_inputs(d=3, T=2, G=2, Ed=5):
+    K, M = 2**T, (d + 1) ** T
+    gen = torch.Generator().manual_seed(0)
+    return (torch.rand((G, Ed, d, K, K), generator=gen),
+            torch.rand((K, K, M), generator=gen),
+            torch.rand((G, Ed, K, K), generator=gen))
+
+
+def test_bdcm_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():
+    ci, a, co = _contract_cpu_inputs()
+    kw = dict(d=3, T=2, damp=0.4)
+    with pytest.raises(ValueError, match="not CUDA"):
+        bdcm_cuda.dp_contract_cuda(ci, a, co, **kw)
+    with pytest.raises(ValueError, match="CUDA BDCM kernel"):
+        tb.dp_contract_grouped(ci, a, co, kernel="cuda", **kw)
+    with pytest.raises(ValueError, match="kernel"):
+        tb.dp_contract_grouped(ci, a, co, kernel="pallas", **kw)
+    with pytest.raises(ValueError, match="CUDA BDCM kernel"):
+        th.hpr_solve(_small_graph(), HPRConfig(max_sweeps=2), kernel="cuda",
+                     device="cpu")
+    before = bdcm_cuda.LAUNCHES
+    out = tb.dp_contract_grouped(ci, a, co, kernel="auto", **kw)
+    assert out.shape == co.shape
+    res = th.hpr_solve(_small_graph(), HPRConfig(max_sweeps=3), device="cpu")
+    assert res.num_steps >= 1
+    th.hpr_solve_batch(_small_graph(), HPRConfig(max_sweeps=3), n_replicas=2,
+                       device="cpu")
+    assert bdcm_cuda.LAUNCHES == before
+
+
+def test_bdcm_gate_refused_class_raises_under_cuda_and_counts_under_auto():
+    """The gate admits the whole reference regime (T <= 4, d <= 8) in both
+    dtypes, and high degrees beyond it. On a CUDA device a class it refuses
+    raises under kernel='auto' as under 'cuda': nothing runs on the plain
+    version there, so there is no count of plain classes to keep. The mode
+    resolution needs no card: it reads only the device type."""
+    f32, f64 = torch.float32, torch.float64
+    for dt in (f32, f64):
+        for T in range(1, 5):
+            for d in range(1, 9):
+                assert bdcm_cuda.bdcm_kernel_supported(d, T, dt), (d, T, dt)
+    for d, T, dt in ((40, 2, f32), (119, 2, f64), (12, 4, f32), (9, 4, f64)):
+        assert bdcm_cuda.bdcm_kernel_supported(d, T, dt)
+    assert [bdcm_cuda.launch_plan(d, T, f32)["path"]
+            for d, T in ((2, 2), (3, 2), (8, 1), (5, 2), (3, 3), (8, 4))] == \
+        ["register"] * 3 + ["block"] * 3
+    for d, T, dt in ((1, 5, f32), (0, 2, f32), (120, 2, f64), (10, 4, f64),
+                     (13, 4, f32), (3, 2, torch.float16)):
+        assert not bdcm_cuda.bdcm_kernel_supported(d, T, dt)
+        for kernel in ("cuda", "auto"):
+            with pytest.raises(ValueError, match="refuses"):
+                tb.class_mode(d, T, dt, kernel, "cuda")
+    assert tb.resolve_modes([3, 40], T=2, dtype=f32, kernel="auto",
+                            device="cuda") == ("cuda", "cuda")
+    assert tb.resolve_modes([3], T=2, dtype=f32, kernel="auto",
+                            device="cpu") == ("plain",)
+    assert not hasattr(bdcm_cuda, "PLAIN_CLASSES")
+    with pytest.raises(ValueError, match="not"):
+        bdcm_cuda.check_launch(*_contract_cpu_inputs(), d=3, T=2)
