@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
-(sm_90a, the three compilers started together) and holds each against its
-plain PyTorch version: the packed step and the fused annealer bit for bit,
-the BDCM class update within its stated tolerance. Then it drives the
-port's three main paths through the entry points a user calls, each with
-the launch counts set to 0 just before it and read just after:
+Builds the four CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
+(sm_90a, the four compilers started together) and holds each against its
+plain PyTorch version: the packed step, the fused annealer and the row
+gather bit for bit, the BDCM class update within its stated tolerance. Then
+it drives the port's main paths through the entry points a user calls, each
+with the launch counts set to 0 just before it and read just after:
 
 - the packed rollout at the headline shape (d=3 RRG, n=10⁶, R=16384) and the
   config-3 consensus sweep (ER n=10⁵, c=6, R=512), checked against the JAX
@@ -22,11 +22,21 @@ the launch counts set to 0 just before it and read just after:
   float64, after the CUDA path is held to the JAX package's record
   ``hpr_ref.json``; the kernel chain against the plain chain on RRG(200, 4)
   under the near-tie rule; and config 2 (union of 256 copies of a d=3 RRG,
-  n=10⁵, 20 sweeps) through ``hpr_solve_batch`` and the CLI.
+  n=10⁵, 20 sweeps) through ``hpr_solve_batch`` and the CLI;
+- the row-gather probe (``python -m graphdyn_torch.scripts.gather_probe`` at
+  its defaults, every line matching ``index_select``), then the port's own
+  gather widths (W = 1, 16, 32, 512) timed beside ``index_select``;
+- the entropy λ-ladders: ``entropy_sweep`` in float64 on the golden
+  instance (the ten notebook triples within 5e-3, ``entropy_ref.json``
+  within 1e-9), the record's reduced config-4 union in float64 and float32
+  (and two runs equal bit for bit), ``entropy_grid`` grouped == serial bit
+  for bit, config 4 at full width through ``entropy_ensemble_union`` (64 ER
+  instances, n=1000, c=1.5, 32 λ, max_sweeps 400, float32), the congruent
+  ensemble on 64 RRG(1000, 3), and the ``entropy`` CLI at its defaults.
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
-n=10⁶, R=1024), and the BDCM kernel per launch at the reference shape and
-at config 2.
+n=10⁶, R=1024), and the BDCM kernel per launch at the reference shape, at
+config 2 and at each class of config 4's union and of the golden instance.
 
 Prints, in order: phase reports, the card's name and power limit (from
 nvidia-smi), one JSON line listing the kernels with their measured times, and
@@ -54,11 +64,24 @@ import numpy as np
 import torch
 
 from graphdyn_torch import cli, graphs
-from graphdyn_torch.config import DynamicsConfig, HPRConfig, SAConfig
+from graphdyn_torch.config import (
+    DynamicsConfig,
+    EntropyConfig,
+    HPRConfig,
+    SAConfig,
+)
 from graphdyn_torch.graphs import (
     build_edge_tables,
     erdos_renyi_graph,
     random_regular_graph,
+)
+from graphdyn_torch.models import entropy_reference as eref
+from graphdyn_torch.models.entropy import (
+    entropy_ensemble,
+    entropy_ensemble_union,
+    entropy_grid,
+    entropy_sweep,
+    lambda_ladder,
 )
 from graphdyn_torch.models.hpr import (
     _BatchState,
@@ -81,14 +104,23 @@ from graphdyn_torch.models.consensus import (
     consensus_point,
     er_consensus_ensemble,
 )
-from graphdyn_torch.ops import bdcm_cuda, cuda_build, fused_cuda, packed_cuda
+from graphdyn_torch.ops import (
+    bdcm_cuda,
+    cuda_build,
+    fused_cuda,
+    gather_cuda,
+    packed_cuda,
+)
 from graphdyn_torch.ops.bdcm import (
     BDCMData,
     _flat_offsets,
     dp_contract,
     dp_contract_grouped,
+    make_fixed_point,
+    tilt_vector,
 )
 from graphdyn_torch.ops.dynamics import end_state, run_dynamics
+from graphdyn_torch.ops.gather import row_gather, row_gather_plain
 from graphdyn_torch.ops.fused import (
     FusedState,
     build_fused_tables,
@@ -102,11 +134,13 @@ from graphdyn_torch.ops.packed import (
     packed_rollout,
     packed_rollout_plain,
 )
+from graphdyn_torch.plotting import masked_mean
 from graphdyn_torch.pipeline.hpr_group import (
     HPRGroupExec,
     host_init,
     hpr_uniforms,
 )
+from graphdyn_torch.scripts import gather_probe
 from graphdyn_torch.search.fused import _assemble_fused, fused_anneal
 from graphdyn_torch.search.reference import (
     hold_to_record,
@@ -157,6 +191,28 @@ CONTRACT_TOL = {torch.float32: (1e-5, 1e-7), torch.float64: (1e-12, 1e-15)}
 # 2 (`BASELINE.md:30`), cut only in its sweep count
 HPR_N, HPR_D = 10_000, 4
 CONFIG2_N, CONFIG2_D, CONFIG2_R, CONFIG2_SWEEPS = 100_000, 3, 256, 20
+# the row gather (P): the widths held against index_select, and the port's
+# own gathers as (label, n_src, W, n_idx): the rows and the gathers per step
+# of each main path (config 1: n+1 rows of one word, 3 neighbours each;
+# config 3: ER n=10^5, c=6; HPr config 2: 64-byte chi rows of the 256-copy
+# union, two incoming messages per directed edge; the fused scale shape: d=5,
+# n=10^6; the headline: d=3, n=10^6, 2 KB rows)
+GATHER_PARITY_WIDTHS = (1, 3, 16, 32, 128, 512, 1024)
+# the entropy λ-ladders: config 4 at full width (`BASELINE.md:32`,
+# `benchmarks/config4_bdcm_entropy.py:22-55,133`: 64 ER(1000, 1.5/999)
+# instances, seed k, 32 λ in linspace(0, 3.1, 32), max_sweeps 400, float32);
+# the congruent ensemble at the same λ and config (64 RRG(1000, 3)); the
+# grouped-vs-serial grid through the kernel
+CONFIG4_N, CONFIG4_C, CONFIG4_G, CONFIG4_L = 1000, 1.5, 64, 32
+CONFIG4_LMBD_MAX, CONFIG4_MAX_SWEEPS = 3.1, 400
+GROUPED_GRID = dict(n=300, deg=(1.0, 1.5, 2.0), num_rep=3, lmbd_max=0.6)
+GATHER_PORT_SHAPES = (
+    ("config 1 (W=1)", 10_001, 1, 30_000),
+    ("config 3 (W=16)", 99_785, 16, 600_000),
+    ("HPr config 2 chi rows (W=16)", 76_800_000, 16, 153_600_000),
+    ("fused scale (W=32)", 1_000_001, 32, 5_000_000),
+    ("headline (W=512)", 1_000_001, 512, 3_000_000),
+)
 
 
 def log(msg: str) -> None:
@@ -254,13 +310,13 @@ def ptxas_by_type(lib_path: str, ftype: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Build the three kernel libraries, one nvcc each, started together;
+    """Build the four kernel libraries, one nvcc each, started together;
     load them; print each one's ptxas summary (the BDCM kernel's float and
     double instantiations apart) and the fused kernel's co-resident grid at
     the two shapes it runs."""
     t0 = time.perf_counter()
     wrappers = {"packed_step": packed_cuda, "fused_chunk": fused_cuda,
-                "dp_contract": bdcm_cuda}
+                "dp_contract": bdcm_cuda, "row_gather": gather_cuda}
     with ThreadPoolExecutor(len(wrappers)) as pool:
         paths = dict(zip(wrappers, pool.map(lambda w: w.build(),
                                             wrappers.values())))
@@ -286,7 +342,7 @@ def phase_build() -> dict:
         log(f"[1 build] fused_chunk co-resident grid at {label} (dmax={dmax}, "
             f"Rp={Rp}): {grid['blocks_per_sm']} blocks of 256 per SM x "
             f"{grid['sms']} SMs = {grid['max_blocks']} blocks")
-    log(f"[1 build] the three libraries built and loaded in {dt:.3f} s")
+    log(f"[1 build] the four libraries built and loaded in {dt:.3f} s")
     return out
 
 
@@ -989,8 +1045,9 @@ def phase_contract_parity() -> dict:
     the per-group factor, G ∈ {1, 5}, Ed ∈ {1, 129, 10⁵} (10⁵ for lattices
     up to :data:`CONTRACT_BIG_M`), eps_clamp ∈ {0, 1e-12}; then the
     kernel's ms per launch at each pair's largest case (shared factor,
-    CUDA events around 20 queued launches) beside its bound. Returns the
-    max abs and rel errors per dtype and the timings."""
+    CUDA events around 20 queued launches) beside its bound and the plain
+    version's (one call). Returns the max abs and rel errors per dtype and
+    the timings."""
     t0 = time.perf_counter()
     errs = {torch.float32: [0.0, 0.0], torch.float64: [0.0, 0.0]}
     timings = {}
@@ -1024,13 +1081,17 @@ def phase_contract_parity() -> dict:
             ci, a, co = _contract_inputs(G, Ed, d, T, dtype, False, seed)
             ms = _cuda_ms(lambda: dp_contract_grouped(
                 ci, a, co, kernel="cuda", d=d, T=T, damp=0.4), 20, lead_ms=20)
+            plain_ms = _cuda_ms(lambda: dp_contract_grouped(
+                ci, a, co, kernel="plain", d=d, T=T, damp=0.4), 1, lead_ms=20)
             bound = contract_bound(G, Ed, d, T, dtype)
             timings[f"d={d} T={T} {str(dtype)[6:]}"] = {
                 "path": plan["path"], "G": G, "Ed": Ed, "ms": ms,
-                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+                "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"]}
             log(f"[11 contract timing] d={d} T={T} {str(dtype)[6:]} "
                 f"({plan['path']} path, G={G}, Ed={Ed}): kernel {ms} ms/launch,"
-                f" bound {bound['bound_ms']} ms ({bound['bound_by']})")
+                f" plain {plain_ms} ms, bound {bound['bound_ms']} ms "
+                f"({bound['bound_by']})")
             del ci, a, co
     torch.cuda.empty_cache()
     out = {str(dt)[6:]: {"max_abs_err": e[0], "max_rel_err": e[1]}
@@ -1097,9 +1158,9 @@ def _reset_bdcm_counts() -> None:
 
 
 def _bdcm_counts(what: str) -> int:
-    """Read the count after one run of the HPr main path: the kernel must
-    have launched (on CUDA tensors no class can run on the plain version:
-    a class the kernel does not take raises)."""
+    """Read the count after one run of an HPr or entropy main path: the
+    kernel must have launched (on CUDA tensors no class can run on the plain
+    version: a class the kernel does not take raises)."""
     launches = bdcm_cuda.LAUNCHES
     if launches <= 0:
         raise AssertionError(f"{what}: dp_contract launches {launches}")
@@ -1459,6 +1520,409 @@ def phase_config2_main() -> dict:
             "launches": launches + launches_cli}
 
 
+# ---------------------------------------------------------------------------
+# the row gather (P) and its probe
+# ---------------------------------------------------------------------------
+
+
+def phase_gather_parity() -> dict:
+    """The row-gather kernel against ``index_select``, bit for bit: W in
+    :data:`GATHER_PARITY_WIDTHS` (single words and 16-byte vectors, one warp
+    per row and several rows per warp), n_idx in {1, 255, 1000, 100003}
+    (not multiples of 256), indices drawn with repeats from a small source,
+    words with the top bit set (every bit pattern is drawn), a source whose
+    rows are not 16-byte aligned, and every depth the kernel takes."""
+    t0 = time.perf_counter()
+    n_cases, seed = 0, 0
+
+    def case(src, idx, depth):
+        nonlocal n_cases
+        got = row_gather(src, idx, kernel="cuda", depth=depth)
+        want = row_gather_plain(src, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(
+                f"row_gather: {bad} words differ from index_select at W="
+                f"{src.shape[1]}, n_idx={idx.shape[0]}, depth={depth}")
+        n_cases += 1
+
+    for W in GATHER_PARITY_WIDTHS:
+        for n_src, n_idx in ((7, 1), (50, 255), (1000, 1000), (4099, 100003)):
+            seed += 1
+            src, idx = gather_probe.draw(n_src, n_idx, W, seed, "cuda")
+            if n_src < n_idx and int(torch.unique(idx).numel()) == n_idx:
+                raise AssertionError("the parity draw has no repeated index")
+            if not bool((src < 0).any()):
+                raise AssertionError("the parity draw has no top-bit word")
+            for depth in gather_cuda.DEPTHS:
+                case(src, idx, depth)
+        # rows that start 4 bytes past a 16-byte boundary: single words
+        flat = torch.empty(1000 * W + 1, dtype=torch.int32, device="cuda")
+        flat.random_(-2**31, 2**31)
+        src = flat[1:].view(1000, W)
+        idx = torch.randint(0, 1000, (777,), dtype=torch.int32, device="cuda")
+        case(src, idx, gather_cuda.DEFAULT_DEPTH)
+    dt = time.perf_counter() - t0
+    log(f"[16 gather parity] row_gather == index_select bit for bit in "
+        f"{n_cases} cases (W in {GATHER_PARITY_WIDTHS}, n_idx in {{1, 255, "
+        f"1000, 100003}}, repeated indices, top-bit words, unaligned rows, "
+        f"depths {gather_cuda.DEPTHS}) in {dt:.3f} s")
+    return {"cases": n_cases, "max_abs_err": 0.0}
+
+
+def phase_gather_probe() -> dict:
+    """P's main path, counted: the probe's ``main()`` at its defaults (n_src
+    10⁶, W in {128, 512, 1024}, n_idx = 3·10⁶·128/W), in process, with the
+    launch count set to 0 just before and read just after; every line must
+    match ``index_select``. Then the port's own row widths at the shapes
+    their main paths gather (:data:`GATHER_PORT_SHAPES`), each timed beside
+    ``index_select`` and the byte bound."""
+    gather_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = gather_probe.main([])
+    wall = time.perf_counter() - t0
+    launches = gather_cuda.LAUNCHES
+    if rc != 0 or launches <= 0:
+        raise AssertionError(f"gather probe: rc {rc}, row_gather launches "
+                             f"{launches}")
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+    if len(rows) != 6 or not all(r["matches_torch"] for r in rows):
+        raise AssertionError(f"gather probe lines: {rows}")
+    for r in rows:
+        log(f"[17 gather probe] {r['impl']:18s} W={r['W']:5d} n_idx="
+            f"{r['n_idx']} ({r['n_distinct']} distinct): {r['ms']} ms, {r['rows_per_s']:.4e} rows/s, "
+            f"{r['GBps']:.2f} GB/s, {r['bound_share']:.4f} of the "
+            f"{r['bound_ms']} ms byte bound")
+    log(f"[17 gather probe] python -m graphdyn_torch.scripts.gather_probe: "
+        f"wall {wall:.3f} s; row_gather launches {launches}")
+    port = {}
+    for label, n_src, W, n_idx in GATHER_PORT_SHAPES:
+        src, idx = gather_probe.draw(n_src, n_idx, W, 0, "cuda")
+        lib, ker = gather_probe.measure(src, idx,
+                                        depth=gather_cuda.DEFAULT_DEPTH)
+        if not ker["matches_torch"]:
+            raise AssertionError(f"row_gather differs at {label}")
+        port[label] = {"W": W, "n_src": n_src, "n_idx": n_idx,
+                       "n_distinct": ker["n_distinct"], "ms": ker["ms"], "library_ms": lib["ms"],
+                       "bound_ms": ker["bound_ms"],
+                       "rows_per_s": ker["rows_per_s"],
+                       "library_rows_per_s": lib["rows_per_s"],
+                       "GBps": ker["GBps"], "library_GBps": lib["GBps"],
+                       "bound_share": ker["bound_share"],
+                       "library_bound_share": lib["bound_share"]}
+        log(f"[17 gather port widths] {label} (n_src={n_src}, W={W}, n_idx="
+            f"{n_idx}, {ker['n_distinct']} distinct): kernel {ker['ms']} ms ({ker['rows_per_s']:.4e} rows/s,"
+            f" {ker['GBps']:.2f} GB/s, {ker['bound_share']:.4f} of the bound "
+            f"{ker['bound_ms']} ms); index_select {lib['ms']} ms "
+            f"({lib['rows_per_s']:.4e} rows/s, {lib['bound_share']:.4f})")
+        del src, idx
+        torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "wall_s": wall, "port": port}
+
+
+# ---------------------------------------------------------------------------
+# the entropy λ-ladders (K3 on the entropy path)
+# ---------------------------------------------------------------------------
+
+
+def _class_report(data: BDCMData, label: str) -> list:
+    """Every edge class of ``data``: its (d, Ed), the kernel's verdict and
+    its launch plan; every class must be admitted."""
+    out = []
+    for cls in data.edge_classes:
+        plan = bdcm_cuda.launch_plan(cls.d, data.T, data.dtype)
+        if not bdcm_cuda.bdcm_kernel_supported(cls.d, data.T, data.dtype):
+            raise AssertionError(f"{label}: the kernel refuses d={cls.d}")
+        out.append({"d": cls.d, "Ed": int(cls.idx.shape[0]),
+                    "path": plan["path"]})
+    log(f"[18 entropy classes] {label} (T={data.T}, {str(data.dtype)[6:]}): "
+        f"{out}")
+    return out
+
+
+def _class_timings(data: BDCMData, label: str, lmbd: float) -> list:
+    """Each edge class of ``data`` launched alone at its own size with the
+    shared factor at ``lmbd`` on random row-normalised inputs: the kernel's
+    ms per launch (CUDA events over 20 queued launches), the plain
+    version's (one call) and the bound; kernel == plain within the stated
+    tolerance."""
+    out = []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    dt, T, K = data.dtype, data.T, data.K
+    tilt = tilt_vector(lmbd, data.x0, dt).to("cuda")
+    for cls in data.edge_classes:
+        d, Ed = cls.d, int(cls.idx.shape[0])
+        a = torch.as_tensor(cls.A, dtype=dt, device="cuda") * tilt[:, None, None]
+        ci = torch.rand((1, Ed, d, K, K), generator=gen, device="cuda",
+                        dtype=dt)
+        co = torch.rand((1, Ed, K, K), generator=gen, device="cuda", dtype=dt)
+        kw = dict(d=d, T=T, damp=0.1, eps_clamp=0.0)
+        k = dp_contract_grouped(ci, a, co, kernel="cuda", **kw)
+        p = dp_contract_grouped(ci, a, co, kernel="plain", **kw)
+        torch.cuda.synchronize()
+        err = _contract_err(k, p, dt)
+        ms = _cuda_ms(lambda: dp_contract_grouped(ci, a, co, kernel="cuda",
+                                                  **kw), 20, lead_ms=20)
+        plain_ms = _cuda_ms(lambda: dp_contract_grouped(
+            ci, a, co, kernel="plain", **kw), 1, lead_ms=20)
+        bound = contract_bound(1, Ed, d, T, dt)
+        row = {"d": d, "Ed": Ed, "M": (d + 1) ** T,
+               "path": bdcm_cuda.launch_plan(d, T, dt)["path"], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+               "bound_by": bound["bound_by"], "max_abs_err": err[0],
+               "max_rel_err": err[1]}
+        out.append(row)
+        log(f"[18 entropy classes] {label} d={d} Ed={Ed} ({row['path']} "
+            f"path): kernel {ms} ms/launch, plain {plain_ms} ms, bound "
+            f"{bound['bound_ms']} ms ({bound['bound_by']}); kernel == plain "
+            f"within tolerance (abs {err[0]}, rel {err[1]})")
+        del ci, co, k, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_entropy_golden(ref: dict) -> dict:
+    """``entropy_sweep`` in float64 over λ = 0..0.9 on the golden instance
+    (rebuilt from the record's edges): the ten notebook triples within 5e-3,
+    the JAX package's curve within 1e-9 (sweep counts under the near-tie
+    rule), K3 launches counted; then its classes timed one by one."""
+    g = eref.golden_graph(ref)
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    res = entropy_sweep(g, eref.golden_config(), seed=eref.GOLDEN_SEED,
+                        device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _bdcm_counts("entropy_sweep (golden instance, f64)")
+    tri = eref.hold_golden_triples(res)
+    held = eref.hold_curve(eref.curve_record(res), ref["golden"]["float64"],
+                           atol=1e-9, eps=1e-6)
+    log(f"[18 entropy golden] entropy_sweep float64 on the seed-9425 "
+        f"instance (n={g.n}, {g.num_edges} edges): sweeps "
+        f"{res.sweeps.tolist()}, wall {wall:.3f} s; triples within {tri} "
+        f"(<= 5e-3); entropy_ref.json held: {held}; dp_contract launches "
+        f"{launches}")
+    sub, _ = graphs.remove_isolates(g)
+    data = BDCMData(sub, dtype="float64")
+    classes = _class_report(data, "golden instance")
+    timings = _class_timings(data, "golden instance", 0.5)
+    return {"wall_s": wall, "sweeps": res.sweeps.tolist(), "launches":
+            launches, "triples_err": tri, "ref": held, "classes": classes,
+            "timings": timings}
+
+
+def phase_entropy_union_ref(ref: dict) -> dict:
+    """The reduced config-4 union of the record (4 × ER(300, 1.5/299), 8 λ,
+    max_sweeps 400) through ``entropy_ensemble_union``: float64 within 1e-9
+    under the near-tie rule, float32 within 1e-4 (sweep counts within 2);
+    two float32 runs equal bit for bit."""
+    out, launches = {}, 0
+    for dtype, atol in (("float64", 1e-9), ("float32", 1e-4)):
+        _reset_bdcm_counts()
+        res = entropy_ensemble_union(eref.union_graphs(),
+                                     eref.union_config(dtype),
+                                     seed=eref.UNION_SHAPE["seed"],
+                                     lambdas=eref.union_lambdas(),
+                                     device="cuda")
+        launches += _bdcm_counts(f"entropy_ensemble_union (reduced, {dtype})")
+        got, want = eref.curve_record(res), ref["union"][dtype]
+        if dtype == "float64":
+            out[dtype] = eref.hold_curve(got, want, atol=atol, eps=1e-6)
+        else:
+            if (got["lambdas"] != want["lambdas"]
+                    or got["nonconverged"] != want["nonconverged"]
+                    or np.abs(np.subtract(got["sweeps"],
+                                          want["sweeps"])).max() > 2):
+                raise AssertionError(f"reduced union f32: {got} vs {want}")
+            err = max(float(np.abs(np.subtract(got[f], want[f])).max())
+                      for f in eref.CURVE_FIELDS)
+            if err > atol:
+                raise AssertionError(f"reduced union f32 off by {err}")
+            out[dtype] = {"max_abs_err": err, "sweeps": got["sweeps"]}
+            _reset_bdcm_counts()
+            again = entropy_ensemble_union(eref.union_graphs(),
+                                           eref.union_config(dtype),
+                                           seed=eref.UNION_SHAPE["seed"],
+                                           lambdas=eref.union_lambdas(),
+                                           device="cuda")
+            launches += _bdcm_counts("entropy_ensemble_union (again)")
+            if not (np.array_equal(again.ent, res.ent)
+                    and np.array_equal(again.m_init, res.m_init)):
+                raise AssertionError("two union runs differ")
+    log(f"[19 entropy union ref] reduced config-4 union held to "
+        f"entropy_ref.json: {out}; a second float32 run equal bit for bit; "
+        f"dp_contract launches {launches}")
+    out["launches"] = launches
+    return out
+
+
+def phase_entropy_grouped() -> dict:
+    """``entropy_grid`` on the card with group sizes 0 (serial), 3 and 8
+    over a 9-cell grid (:data:`GROUPED_GRID`, cells stopping at different λ
+    allowed): every result array equal bit for bit, through the kernel."""
+    gg = GROUPED_GRID
+    cfg = EntropyConfig(lmbd_max=gg["lmbd_max"], num_rep=gg["num_rep"])
+    runs, launches = {}, 0
+    for G in (0, 3, 8):
+        _reset_bdcm_counts()
+        t0 = time.perf_counter()
+        runs[G] = entropy_grid(gg["n"], np.asarray(gg["deg"]), cfg, seed=0,
+                               group_size=G, device="cuda")
+        runs[f"wall{G}"] = time.perf_counter() - t0
+        launches += _bdcm_counts(f"entropy_grid(group_size={G})")
+    for G in (3, 8):
+        for f in runs[0]._fields:
+            if not np.array_equal(getattr(runs[G], f), getattr(runs[0], f)):
+                raise AssertionError(f"grouped G={G} != serial in {f}")
+    log(f"[20 entropy grouped] entropy_grid n={gg['n']} deg {gg['deg']} x "
+        f"{gg['num_rep']} reps: group sizes 3 and 8 equal the serial loop "
+        f"bit for bit (n_lambda {runs[0].n_lambda.tolist()}); walls serial "
+        f"{runs['wall0']:.3f} s, G=3 {runs['wall3']:.3f} s, G=8 "
+        f"{runs['wall8']:.3f} s; dp_contract launches {launches}")
+    return {"launches": launches, "walls": {G: runs[f"wall{G}"]
+                                            for G in (0, 3, 8)}}
+
+
+def _config4_graphs():
+    return [erdos_renyi_graph(CONFIG4_N, CONFIG4_C / (CONFIG4_N - 1), seed=k)
+            for k in range(CONFIG4_G)]
+
+
+def _config4_config() -> EntropyConfig:
+    return EntropyConfig(max_sweeps=CONFIG4_MAX_SWEEPS)
+
+
+def _config4_lambdas() -> np.ndarray:
+    return np.linspace(0.0, CONFIG4_LMBD_MAX, CONFIG4_L)
+
+
+def _ladder_report(res, wall: float, G: int) -> dict:
+    curve = {"m_init": masked_mean(res.m_init, axis=1).tolist(),
+             "ent1": masked_mean(res.ent1, axis=1).tolist()}
+    return {"wall_s": wall, "lambdas": int(res.lambdas.size),
+            "graph_lambda_points_per_s": res.lambdas.size * G / wall,
+            "sweeps": res.sweeps.tolist(),
+            "nonconverged": float(res.nonconverged),
+            "finite": bool(np.isfinite(res.m_init).all()
+                           and not np.isnan(res.ent1).any()),
+            "member_mean": curve}
+
+
+def phase_config4_main() -> dict:
+    """Config 4 at full width through ``entropy_ensemble_union``: wall time,
+    graph-λ-points/s, sweeps per λ, nonconverged, the K3 launches, peak
+    device memory; the union's classes (every one admitted) timed one by
+    one; the device breakdown of one fixed point under the profiler."""
+    t0 = time.perf_counter()
+    gs = _config4_graphs()
+    t_graphs = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()       # earlier phases' live tensors
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    res = entropy_ensemble_union(gs, _config4_config(), seed=0,
+                                 lambdas=_config4_lambdas(), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _bdcm_counts("entropy_ensemble_union (config 4)")
+    peak = torch.cuda.max_memory_allocated() - held
+    rep = _ladder_report(res, wall, CONFIG4_G)
+    if not rep["finite"] or res.ent.shape != (res.lambdas.size, CONFIG4_G):
+        raise AssertionError(f"config 4 result: {rep}")
+    log(f"[21 config 4] entropy_ensemble_union, {CONFIG4_G} x ER(n="
+        f"{CONFIG4_N}, c={CONFIG4_C}), {CONFIG4_L} lambda in [0, "
+        f"{CONFIG4_LMBD_MAX}], max_sweeps {CONFIG4_MAX_SWEEPS}, float32: wall "
+        f"{wall:.3f} s (graphs {t_graphs:.3f} s before it), "
+        f"{rep['lambdas']} lambda visited, "
+        f"{rep['graph_lambda_points_per_s']:.4f} graph-lambda-points/s, "
+        f"sweeps {rep['sweeps']}, nonconverged {rep['nonconverged']}; peak "
+        f"device memory of the run {peak} B (above the {held} B the earlier "
+        f"phases hold); dp_contract launches {launches}; member "
+        f"means {rep['member_mean']}")
+    subs = [graphs.remove_isolates(g)[0] for g in gs]
+    union = graphs.disjoint_union(subs)[0]
+    data = BDCMData(union)
+    classes = _class_report(data, "config-4 union")
+    timings = _class_timings(data, "config-4 union", 0.5)
+    fp = make_fixed_point(data, EntropyConfig(max_sweeps=64), device="cuda")
+    if set(fp.spec.modes) != {"cuda"}:
+        raise AssertionError(f"config-4 classes off the kernel: {fp.spec.modes}")
+    log(f"[21 config 4] every one of the {len(fp.spec.modes)} edge classes "
+        f"runs through the kernel (modes {fp.spec.modes}); 0 on the plain "
+        f"version")
+    chi0 = data.init_messages(0).to("cuda")
+    fp(chi0, 0.0)                                    # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fp(chi0, 0.0)
+    torch.cuda.synchronize()
+    fp_wall = time.perf_counter() - t0
+    profile = profile_breakdown(lambda: fp(chi0, 0.0),
+                                "config 4, one fixed point of 64 sweeps")
+    # the profiler slows the host's issue, so its own busy share is a lower
+    # bound; the device time it sums over the fixed point's wall time
+    # without it is the device's busy share in the run
+    busy = profile["device_us"] * 1e-6 / fp_wall
+    log(f"[21 config 4] one fixed point of 64 sweeps: {fp_wall * 1e3:.3f} ms "
+        f"wall without the profiler ({fp_wall * 1e3 / 64:.4f} ms/sweep); "
+        f"device busy share {busy:.4f}")
+    return {"launches": launches, "peak_bytes": peak, "graphs_s": t_graphs,
+            **rep, "classes": classes, "timings": timings,
+            "profile": profile, "fp64_wall_s": fp_wall, "busy_share": busy}
+
+
+def phase_congruent_ensemble() -> dict:
+    """``entropy_ensemble`` on 64 × RRG(1000, 3) at config 4's λ and config:
+    one launch per sweep over the ensemble axis (the shared factor)."""
+    gs = [random_regular_graph(CONFIG4_N, 3, seed=k) for k in range(CONFIG4_G)]
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    res = entropy_ensemble(gs, _config4_config(), seed=0,
+                           lambdas=_config4_lambdas(), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _bdcm_counts("entropy_ensemble (64 RRG)")
+    rep = _ladder_report(res, wall, CONFIG4_G)
+    if not rep["finite"]:
+        raise AssertionError(f"congruent ensemble result: {rep}")
+    log(f"[22 congruent ensemble] entropy_ensemble, {CONFIG4_G} x RRG(n="
+        f"{CONFIG4_N}, d=3), config 4's lambda and config: wall {wall:.3f} s, "
+        f"{rep['lambdas']} lambda visited, "
+        f"{rep['graph_lambda_points_per_s']:.4f} graph-lambda-points/s, "
+        f"sweeps {rep['sweeps']}, nonconverged {rep['nonconverged']}; "
+        f"dp_contract launches {launches}")
+    return {"launches": launches, **rep}
+
+
+def phase_entropy_cli() -> dict:
+    """``python -m graphdyn_torch entropy --device cuda`` at its defaults
+    (n=1000, deg 1.0 1.5 2.0, num_rep 3, the grouped entropy_grid), in
+    process, with its wall time and the reference's JSON keys."""
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["entropy", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _bdcm_counts("entropy CLI")
+    doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or set(doc) != {"solver", "deg", "ent1_first_lambda",
+                               "counts", "out", "plot"}:
+        raise AssertionError(f"entropy CLI: rc {rc}, keys {sorted(doc)}")
+    if not np.all(np.isfinite(doc["ent1_first_lambda"])):
+        raise AssertionError(f"entropy CLI: {doc}")
+    log(f"[23 entropy cli] python -m graphdyn_torch entropy --device cuda "
+        f"(defaults: n=1000, deg 1.0 1.5 2.0, num_rep 3, lambda 0..12 step "
+        f"0.1, {lambda_ladder(EntropyConfig()).size} points): wall {wall:.3f} "
+        f"s; counts {doc['counts']}; ent1 at lambda 0 "
+        f"{doc['ent1_first_lambda']}; dp_contract launches {launches}")
+    return {"wall_s": wall, "launches": launches, "counts": doc["counts"]}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1548,6 +2012,27 @@ def main() -> int:
     cfg2 = phase_config2_setup_timing()
     cfg2_main = phase_config2_main()
 
+    # the row gather (P): parity, then its main path (the probe), counted
+    gather_err = phase_gather_parity()
+    probe = phase_gather_probe()
+
+    # the entropy λ-ladders through K3, each run counted
+    with open(os.path.join(HERE, "entropy_ref.json")) as f:
+        eref_doc = json.load(f)
+    golden = phase_entropy_golden(eref_doc)
+    union_ref = phase_entropy_union_ref(eref_doc)
+    grouped = phase_entropy_grouped()
+    cfg4 = phase_config4_main()
+    congruent = phase_congruent_ensemble()
+    ent_cli = phase_entropy_cli()
+    entropy_launches = {"entropy_sweep_golden_f64": golden["launches"],
+                        "entropy_ensemble_union_reduced": union_ref["launches"],
+                        "entropy_grid_grouped_vs_serial": grouped["launches"],
+                        "entropy_ensemble_union_config4": cfg4["launches"],
+                        "entropy_ensemble_rrg": congruent["launches"],
+                        "entropy_cli": ent_cli["launches"]}
+    probe512 = {r["impl"]: r for r in probe["rows"] if r["W"] == 512}
+
     kernels = [{
         "name": "packed_step",
         "route": "cuda",
@@ -1610,7 +2095,8 @@ def main() -> int:
         "source": "graphdyn_torch/csrc/bdcm_contract.cu",
         "replaces": "graphdyn/ops/pallas_bdcm.py:200 (K3 dp_contract_grouped)",
         "parity": "rtol 1e-5 (f32), 1e-12 (f64)",
-        "launches": hpr_main["launches"] + cfg2_main["launches"],
+        "launches": hpr_main["launches"] + cfg2_main["launches"]
+        + sum(entropy_launches.values()),
         "max_abs_err": max([cfg2["max_abs_err"]]
                            + [e["max_abs_err"] for e in contract_errs.values()]
                            + [ref_shape[k]["max_abs_err"] for k in ref_shape]),
@@ -1638,13 +2124,59 @@ def main() -> int:
                             "hpr_ensemble_g4": hpr_main["group4"]["launches"],
                             "hpr_solve_f64": hpr_main["f64"]["launches"],
                             "hpr_solve_batch_config2": cfg2_main["launches_batch"],
-                            "hpr_cli_config2": cfg2_main["launches_cli"]},
+                            "hpr_cli_config2": cfg2_main["launches_cli"],
+                            **entropy_launches},
+        "entropy": {
+            "config4": {k: cfg4[k] for k in (
+                "wall_s", "lambdas", "graph_lambda_points_per_s", "sweeps",
+                "nonconverged", "peak_bytes", "graphs_s", "member_mean",
+                "fp64_wall_s", "busy_share")},
+            "config4_profile": {k: cfg4["profile"][k] for k in (
+                "device_us", "wall_us", "busy_share", "top")},
+            "config4_classes": cfg4["timings"],
+            "golden_classes": golden["timings"],
+            "golden": {k: golden[k] for k in ("wall_s", "sweeps",
+                                              "triples_err", "ref")},
+            "union_ref": {k: v for k, v in union_ref.items()
+                          if k != "launches"},
+            "grouped_walls_s": grouped["walls"],
+            "congruent": {k: congruent[k] for k in (
+                "wall_s", "lambdas", "graph_lambda_points_per_s", "sweeps",
+                "nonconverged")},
+            "cli_wall_s": ent_cli["wall_s"],
+        },
         "hpr": {"cli": hpr_main["cli"], "group4": hpr_main["group4"],
                 "f64": hpr_main["f64"], "chains": chains["how"],
                 "hpr_ref_max_rel_err": ref_errs},
         "ptxas": {"float": built["dp_contract_float"],
                   "double": built["dp_contract_double"]},
+    }, {
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "graphdyn_torch/csrc/row_gather.cu",
+        "replaces": "scripts/pallas_gather_probe.py:63 (P pallas_gather, "
+                    "pallas_call at :104)",
+        "parity": "bit-exact",
+        "launches": probe["launches"],
+        "max_abs_err": gather_err["max_abs_err"],
+        "ms": probe512["cuda_row_gather"]["ms"],
+        "plain_ms": probe512["torch_index_select"]["ms"],
+        "bound_ms": probe512["cuda_row_gather"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": probe512["torch_index_select"]["ms"],
+        "library_note": "torch.index_select on the same int32 indices; the "
+                        "plain version is that call, so plain_ms is its time",
+        "shape": f"probe W=512, n_src=10^6, n_idx="
+                 f"{probe512['cuda_row_gather']['n_idx']}",
+        "probe": probe["rows"],
+        "port_widths": probe["port"],
+        "parity_cases": gather_err["cases"],
+        "ptxas": built["row_gather"],
     }]
+    log(f"[24 entropy] wall seconds: golden {golden['wall_s']:.3f}, "
+        f"config 4 {cfg4['wall_s']:.3f}, congruent {congruent['wall_s']:.3f},"
+        f" CLI {ent_cli['wall_s']:.3f}; row_gather probe "
+        f"{probe['wall_s']:.3f}")
     log(f"[10] seconds in all: {time.perf_counter() - t_start:.3f} "
         f"(sweep {sweep['sweep_wall_s']:.3f}, headline point "
         f"{point['point_wall_s']:.3f}, fused scale set-up "

@@ -14,6 +14,12 @@
   ``--device`` (default ``cuda``). It prints the reference's JSON keys, and
   with ``--out`` writes the reference's npz keys. ``--checkpoint`` and
   ``--device-init`` are refused (not ported yet).
+- ``entropy``: the BDCM entropy λ-ladders with the JAX package's flags and
+  defaults (the grouped ``entropy_grid``, or ``--union G`` ER members per
+  degree through ``entropy_ensemble_union``), ``--kernel {auto,cuda,plain}``
+  and ``--device`` (default ``cuda``). It prints the reference's JSON keys,
+  and with ``--out`` writes the reference's npz keys. ``--checkpoint`` and
+  ``--plot`` are refused (not ported yet).
 """
 
 from __future__ import annotations
@@ -164,6 +170,68 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device to run on (default cuda; 'cpu' runs the plain "
              "PyTorch version)",
     )
+
+    ent = sub.add_parser("entropy", help="BDCM entropy λ-sweep (notebook)")
+    ent.add_argument("--n", type=int, default=1000)
+    ent.add_argument("--deg", type=float, nargs="+", default=[1.0, 1.5, 2.0])
+    _add_dynamics_flags(ent)
+    ent.add_argument("--lmbd-max", type=float, default=12.0)
+    ent.add_argument("--lmbd-step", type=float, default=0.1)
+    ent.add_argument("--eps", type=float, default=1e-6)
+    ent.add_argument("--damp", type=float, default=0.1)
+    ent.add_argument("--max-sweeps", type=int, default=1300)
+    ent.add_argument("--ent-floor", type=float, default=-0.05)
+    ent.add_argument(
+        "--plateau-eps", type=float, default=0.0,
+        help="stop the ladder when (m_init, ent1) move less than this for "
+             "--plateau-patience consecutive lambda (0 = off, reference "
+             "behavior; useful at p+c>=3 where the curve floors at positive "
+             "ent1)")
+    ent.add_argument("--plateau-patience", type=int, default=3)
+    ent.add_argument("--num-rep", type=int, default=3)
+    ent.add_argument("--seed", type=int, default=0)
+    ent.add_argument("--verbose", action="store_true")
+    ent.add_argument("--out", default=None, help="npz path (`ipynb:515` keys)")
+    ent.add_argument("--checkpoint", default=None,
+                     help="not ported yet (ROADMAP A16): refused")
+    ent.add_argument(
+        "--group-size", type=int, default=None, metavar="G",
+        help="advance G grid cells' λ-ladders at a time as ONE batched "
+             "program over stacked ragged BDCM tables (element-wise "
+             "identical to the serial cell loop; default min(cells, 8); 0 "
+             "forces the serial cell loop)",
+    )
+    ent.add_argument(
+        "--prefetch", type=int, default=2, metavar="D",
+        help="build up to D upcoming grid cells' ER graphs + BDCM tables "
+             "on a background thread while the current cells sweep "
+             "(deterministic; 0 disables)",
+    )
+    ent.add_argument(
+        "--kernel", choices=["auto", "cuda", "plain"], default="auto",
+        help="BDCM sweep core: 'auto' runs every edge class through the CUDA "
+             "kernel on the card (a class the kernel does not take raises) "
+             "and the plain PyTorch version on the CPU; 'cuda' requires the "
+             "card; 'plain' forces the plain version (for tests)",
+    )
+    ent.add_argument(
+        "--dtype", choices=["float32", "float64"], default="float32",
+        help="float64 matches the reference's precision",
+    )
+    ent.add_argument("--plot", default=None, metavar="PNG",
+                     help="not ported yet (ROADMAP A17: plotting): refused")
+    ent.add_argument(
+        "--union", type=int, default=None, metavar="G",
+        help="instead of the deg x rep grid, run each degree as ONE "
+             "disjoint-union program over G ER instances "
+             "(entropy_ensemble_union — per-member phi/m_init by block "
+             "reductions); npz keys gain a member axis",
+    )
+    ent.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default cuda; 'cpu' runs the plain "
+             "PyTorch version)",
+    )
     return p
 
 
@@ -291,6 +359,76 @@ def _hpr_main(args, dev) -> int:
     return 0
 
 
+def _entropy_main(args, dev) -> int:
+    import numpy as np
+
+    from graphdyn_torch.config import DynamicsConfig, EntropyConfig
+    from graphdyn_torch.graphs import erdos_renyi_graph
+    from graphdyn_torch.models.entropy import (
+        entropy_ensemble_union,
+        entropy_grid,
+    )
+    from graphdyn_torch.utils.io import save_results_npz
+
+    if args.plot:
+        raise SystemExit("--plot is not ported to graphdyn_torch yet "
+                         "(ROADMAP.md A17: plotting)")
+    if args.checkpoint:
+        raise SystemExit("--checkpoint is not ported to graphdyn_torch yet "
+                         "(ROADMAP.md A16: checkpoints and resilience)")
+    cfg = EntropyConfig(
+        dynamics=DynamicsConfig(p=args.p, c=args.c, rule=args.rule,
+                                tie=args.tie, attr_value=args.attr_value),
+        lmbd_max=args.lmbd_max, lmbd_step=args.lmbd_step, eps=args.eps,
+        damp=args.damp, max_sweeps=args.max_sweeps, ent_floor=args.ent_floor,
+        num_rep=args.num_rep, plateau_eps=args.plateau_eps,
+        plateau_patience=args.plateau_patience, dtype=args.dtype,
+    )
+    if args.union is not None:
+        per_deg = []                       # indexed by degree position
+        for di, deg in enumerate(args.deg):
+            graphs = [erdos_renyi_graph(args.n, deg / (args.n - 1),
+                                        seed=args.seed + 1000 * di + k)
+                      for k in range(args.union)]
+            per_deg.append(entropy_ensemble_union(
+                graphs, cfg, seed=args.seed + 1000 * di,
+                verbose=args.verbose, kernel=args.kernel, device=dev,
+            ))
+        if args.out:
+            save_results_npz(
+                args.out, deg=np.asarray(args.deg),
+                **{f"{k}_deg{di}": getattr(per_deg[di], k)
+                   for di in range(len(args.deg))
+                   for k in ("lambdas", "ent", "m_init", "ent1", "sweeps")},
+            )
+        print(json.dumps({
+            "solver": "entropy_union",
+            "deg": list(args.deg),
+            "members": args.union,
+            "ent1_first_lambda": {str(deg): per_deg[di].ent1[0].tolist()
+                                  for di, deg in enumerate(args.deg)},
+            "nonconverged": {str(deg): per_deg[di].nonconverged
+                             for di, deg in enumerate(args.deg)},
+            "out": args.out,
+            "plot": args.plot,
+        }))
+        return 0
+    out = entropy_grid(
+        args.n, np.asarray(args.deg), cfg, seed=args.seed,
+        verbose=args.verbose, save_path=args.out, prefetch=args.prefetch,
+        group_size=args.group_size, kernel=args.kernel, device=dev,
+    )
+    print(json.dumps({
+        "solver": "entropy",
+        "deg": out.deg.tolist(),
+        "ent1_first_lambda": out.ent1[:, :, 0].tolist(),
+        "counts": out.counts.tolist(),
+        "out": args.out,
+        "plot": args.plot,
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from graphdyn_torch.models.consensus import (
@@ -309,6 +447,8 @@ def main(argv=None) -> int:
         return _fused_main(args, dev)
     if args.cmd == "hpr":
         return _hpr_main(args, dev)
+    if args.cmd == "entropy":
+        return _entropy_main(args, dev)
     if args.graph == "rrg":
         g, n_iso, nbr_dev, deg_dev = rrg_consensus_ensemble(
             args.n, d=args.d, seed=args.seed, device=dev

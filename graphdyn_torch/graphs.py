@@ -16,8 +16,10 @@ The distance-2 coloring of the fused annealer (``power_graph``,
 ``degree_cv`` are copied line for line too, so the same seed gives the same
 colours. So are the BDCM message-passing tables (``EdgeTables``,
 ``build_edge_tables``, ``degree_classes``), the batched stack of same-size
-graphs (``stack_graphs``) and the replica-major disjoint union
-(``replicate_disjoint``, ``replicate_edge_tables``). The union also has a
+graphs (``stack_graphs``), the disjoint union of arbitrary graphs
+(``disjoint_union``, the entropy union's layout) and the replica-major
+disjoint union (``replicate_disjoint``, ``replicate_edge_tables``). The
+replica union also has a
 device builder (``replicate_disjoint_device``,
 ``replicate_edge_tables_device``) that offset-tiles the base tables with
 torch ops on the target device, so a large union never crosses the host
@@ -512,6 +514,30 @@ def stack_graphs(graphs, dmax: int | None = None) -> GraphStack:
     return GraphStack(
         nbr=nbr, deg=np.stack([g.deg for g in graphs]).astype(np.int32)
     )
+
+
+def disjoint_union(graphs) -> tuple[Graph, np.ndarray, np.ndarray]:
+    """Disjoint union of arbitrary graphs (graph k's nodes shifted by the
+    cumulative node count). Returns ``(union, node_gid, edge_gid)``:
+    ``node_gid[i]`` / ``edge_gid[e]`` is the member index of union node i /
+    undirected union edge e (edges keep per-graph order, concatenated, so
+    each member's nodes and edges are one contiguous block). The union's
+    degree classes are the merged classes of its members."""
+    G = len(graphs)
+    if G == 0:
+        raise ValueError("empty union")
+    ns = [g.n for g in graphs]
+    offs = np.cumsum([0] + ns)
+    edges = [
+        g.edges.astype(np.int64) + offs[k] for k, g in enumerate(graphs)
+        if g.num_edges
+    ]
+    edges = (
+        np.concatenate(edges) if edges else np.empty((0, 2), np.int64)
+    )
+    node_gid = np.repeat(np.arange(G), ns)
+    edge_gid = np.repeat(np.arange(G), [g.num_edges for g in graphs])
+    return graph_from_edges(int(offs[-1]), edges), node_gid, edge_gid
 
 
 def replicate_disjoint(graph: Graph, R: int) -> Graph:

@@ -162,3 +162,52 @@ def hpr_group_state_to_numpy(state) -> dict:
                      "steps")}
     out["t"] = np.int32(state.t)
     return out
+
+
+def bdcm_data_from_jax(data):
+    """A JAX-package ``BDCMData`` -> the port's, holding numpy copies of its
+    graph, edge tables, edge and node classes (ids, in-edges, factors), leaf
+    ids, validity mask, x0 and leaf factor, in the same dtype: both packages
+    then sweep and observe the same tables."""
+    from graphdyn_torch.ops.bdcm import BDCMData, _NodeClass, as_dtype
+
+    out = BDCMData.__new__(BDCMData)
+    out.dtype = as_dtype(np.dtype(data.dtype).name)
+    out.graph = graph_from_arrays(data.graph.nbr, data.graph.deg,
+                                  data.graph.edges)
+    out.tables = edge_tables_from_jax(data.tables)
+    out.p, out.c, out.T, out.K = data.p, data.c, data.T, data.K
+    out.attr_value, out.rule, out.tie = data.attr_value, data.rule, data.tie
+    out.padded = data.padded
+    out.valid = np.array(data.valid)
+    out.x0 = np.array(data.x0)
+    out.leaf01 = np.array(data.leaf01)
+    out.leaf_idx = np.array(data.leaf_idx)
+    out.edge_classes = edge_classes_from_jax(data)
+    out.node_classes = [_NodeClass(d=int(c.d), idx=np.array(c.idx),
+                                   in_edges=np.array(c.in_edges),
+                                   Ai=np.array(c.Ai))
+                        for c in data.node_classes]
+    out.num_directed = data.num_directed
+    out.num_edges = data.num_edges
+    out.n = data.n
+    return out
+
+
+def stacked_bdcm_from_jax(stk):
+    """A JAX-package ``StackedBDCM`` -> the port's, stacked from the same
+    per-cell tables (:func:`bdcm_data_from_jax` of each cell)."""
+    from graphdyn_torch.ops.bdcm import stack_bdcm
+
+    return stack_bdcm([bdcm_data_from_jax(d) for d in stk.datas])
+
+
+def chi_from_jax(chi, device="cpu") -> torch.Tensor:
+    """A chi array or stack of the JAX package (``[2E, K, K]``, ``[G, 2E,
+    K, K]``) -> a tensor of the same dtype on ``device``."""
+    return torch.from_numpy(np.array(chi)).to(device)
+
+
+def chi_to_numpy(chi: torch.Tensor) -> np.ndarray:
+    """A chi tensor of the port (any device) -> numpy, for the JAX package."""
+    return chi.detach().cpu().numpy()

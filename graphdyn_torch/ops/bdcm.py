@@ -29,8 +29,16 @@ with T ≤ 4 up to high degrees) refuses raises under ``'auto'`` as under
 fallback (``pallas_fallback_spec``/``resilient_exec``) and its XLA
 placement of classes outside the Pallas regime have no counterpart.
 
-Not in this module yet (ROADMAP A12): ``EnsembleBDCM``/``StackedBDCM``, the
-leaf setters, the partitions, the free entropy and the m_init observables.
+The entropy half: the closed-form leaf messages (:func:`make_leaf_setter`),
+the edge and node partition functions, the free entropy φ and the m_init
+observables (:func:`make_free_entropy`, :func:`make_mean_m_init`), the
+chunked fixed point (:func:`fixed_point_sweeps`, :func:`make_fixed_point`:
+masked sweeps with the delta on the device and one host read per chunk),
+the congruent ensemble (:class:`EnsembleBDCM` and its makers, the ensemble
+as the kernel's group axis) and the ragged cell stack
+(:class:`StackedBDCM`). The tilt ``exp(−λ·x_i(0))`` and the leaf message
+are computed on the host at a fixed size per λ (:func:`tilt_vector`), so a
+cell's factor has the same bits in any group and on any device.
 """
 
 from __future__ import annotations
@@ -492,7 +500,8 @@ def make_sweep(
     shape, `HPR_pytorch_RRG.py:128-133,188`). ``mask_invalid_src`` zeroes
     invalid-endpoint source trajectories (the entropy variant; HPr leaves
     them to decay). The modes of the classes are resolved here (see the
-    module docstring) and kept in ``sweep.spec``."""
+    module docstring) and kept in ``sweep.spec``; the device tables, the
+    λ=0 factors and the validity mask in ``sweep.args``."""
     dev = resolve_device(device)
     dt = data.dtype
     K = data.K
@@ -532,6 +541,7 @@ def make_sweep(
         return out[:n_real]
 
     sweep.spec = spec
+    sweep.args = (tables, As, valid)
     return sweep
 
 
@@ -598,3 +608,543 @@ def make_marginals(data: BDCMData, eps: float = 1e-15, device=None):
         return marginals_group(chi[None], rev, out_edges, sel, eps)[0]
 
     return marginals
+
+
+# ---------------------------------------------------------------------------
+# the entropy half: leaves, partition functions, φ and m_init
+# ---------------------------------------------------------------------------
+
+
+def tilt_vector(lmbd: float, x0: np.ndarray, dtype) -> torch.Tensor:
+    """``exp(−λ·x_i(0))`` per trajectory, ``[K]`` in ``dtype`` on the CPU.
+    x0 is ±1, so the vector holds ``exp(−λ)`` and ``exp(λ)``: both come from
+    one fixed-size exp, so a cell's tilt is the same bits whatever group it
+    runs in and on whatever device the sweep runs (a vectorised exp over a
+    longer tensor may round a lane differently from the scalar one)."""
+    dt = as_dtype(dtype)
+    e = torch.exp(torch.tensor([-float(lmbd), float(lmbd)], dtype=dt))
+    plus = torch.as_tensor(np.asarray(x0) == 1)
+    return torch.where(plus, e[0], e[1])
+
+
+def leaf_message(lmbd: float, leaf01: np.ndarray, x0: np.ndarray,
+                 dtype) -> torch.Tensor:
+    """The closed-form message of a leaf edge (d = 0): the λ-tilted bare
+    factor, normalised (`ipynb:403-417`), ``[K, K]`` in ``dtype`` on the
+    CPU (one fixed-size computation per λ, as :func:`tilt_vector`)."""
+    dt = as_dtype(dtype)
+    t = torch.as_tensor(leaf01, dtype=dt) * tilt_vector(lmbd, x0, dt)[:, None]
+    return t / t.sum()
+
+
+def make_leaf_setter(data: BDCMData, device=None):
+    """``(chi, lmbd) -> chi`` writing the closed-form leaf messages (d = 0
+    edges) into a copy of ``chi`` (`ipynb:403-417`); the identity when the
+    graph has no leaf edges. ``lmbd`` is a host float."""
+    dev = resolve_device(device)
+    leaf_idx = _long(data.leaf_idx, dev)
+
+    def set_leaves(chi, lmbd):
+        if leaf_idx.numel() == 0:
+            return chi
+        t = leaf_message(lmbd, data.leaf01, data.x0, data.dtype).to(dev)
+        out = chi.clone()
+        out[leaf_idx] = t
+        return out
+
+    return set_leaves
+
+
+def _require_halved_layout(data, what: str) -> None:
+    """The Z_ij/φ/m_init observables pair forward and reverse messages by
+    slicing chi into halves (``chi[:E]``/``chi[E:]``); a permuted edge layout
+    (``EdgeTables.rev_map`` set, e.g. the replica-major union tables) breaks
+    that pairing."""
+    if getattr(data.tables, "rev_map", None) is not None:
+        raise ValueError(
+            f"{what} requires the canonical [forward | reverse] directed-edge "
+            "layout; got permuted tables (rev_map set). Build BDCMData from "
+            "build_edge_tables(...) for partition-function observables."
+        )
+
+
+def _mask2(valid: np.ndarray, dtype, device) -> torch.Tensor:
+    v = torch.as_tensor(valid, dtype=dtype, device=device)
+    return v[:, None] * v[None, :]
+
+
+def _pair_products(chi: torch.Tensor, mask2: torch.Tensor) -> torch.Tensor:
+    """P[..., e, x_u, x_v] = chi[e] · chi[e+E]ᵀ restricted to endpoint-valid
+    trajectories, for chi ``[..., 2E, K, K]`` in the halved layout."""
+    E = chi.shape[-3] // 2
+    return chi[..., :E, :, :] * chi[..., E:, :, :].transpose(-1, -2) * mask2
+
+
+def edge_partition(chi, mask2, eps_clamp: float) -> torch.Tensor:
+    """Z_ij per undirected edge, ``[..., E]`` (`ipynb:146-155`)."""
+    return torch.clamp_min(_pair_products(chi, mask2).sum(dim=(-1, -2)),
+                           eps_clamp)
+
+
+def make_edge_partition(data: BDCMData, eps_clamp: float = 0.0, device=None):
+    """``chi -> Z_ij[E]``: per-undirected-edge partition function over
+    endpoint-valid trajectories only (`ipynb:146-155`)."""
+    _require_halved_layout(data, "make_edge_partition")
+    mask2 = _mask2(data.valid, data.dtype, resolve_device(device))
+    return lambda chi: edge_partition(chi, mask2, float(eps_clamp))
+
+
+def _node_z(chi_ext, tilt, valid, ntables, T: int, K: int, n_out: int):
+    """Z_i before the clamp, ``[n_out]``: per node class, the all-neighbor
+    DP of the valid-masked incoming messages against ``Ai``, tilted by x_i's
+    initial value. ``ntables``: per class ``(d, idx, in_edges, Ai)`` on the
+    device; ``chi_ext`` carries the ghost row when classes are padded."""
+    out = chi_ext.new_zeros(n_out)
+    for d, idx, in_edges, Ai in ntables:
+        chi_in = chi_ext[in_edges] * valid[:, None]
+        LL = _neighbor_dp(chi_in, d, T, K)                 # [Nd, K, M]
+        z = ((Ai[None] * LL).sum(dim=-1) * tilt).sum(dim=-1)
+        out[idx] = z
+    return out
+
+
+def _node_tables(data: BDCMData, device):
+    return [(cls.d, _long(cls.idx, device), _long(cls.in_edges, device),
+             torch.as_tensor(cls.Ai, dtype=data.dtype, device=device))
+            for cls in data.node_classes]
+
+
+def make_node_partition(data: BDCMData, eps_clamp: float = 0.0, device=None):
+    """``(chi, lmbd) -> Z_i[n]``: per-node partition function via the
+    all-neighbor DP against ``Ai`` (`ipynb:157-222`), clamped at
+    ``eps_clamp``. Nodes of degree 0 get ``eps_clamp``: the entropy
+    pipeline removes isolates first (`ipynb:283-291`)."""
+    dev = resolve_device(device)
+    ntables = _node_tables(data, dev)
+    valid = torch.as_tensor(data.valid, dtype=data.dtype, device=dev)
+    K, n = data.K, data.n
+
+    def zi(chi, lmbd):
+        tilt = tilt_vector(lmbd, data.x0, data.dtype).to(dev)
+        if data.padded:
+            chi = torch.cat([chi, chi.new_full((1, K, K), 1.0 / (K * K))])
+        z = _node_z(chi, tilt, valid, ntables, data.T, K,
+                    n + 1 if data.padded else n)
+        return torch.clamp_min(z[:n], float(eps_clamp))
+
+    return zi
+
+
+def make_free_entropy(data: BDCMData, *, n_total: int, n_iso: int,
+                      eps_clamp: float = 0.0, device=None):
+    """``(chi, lmbd) -> φ``: the Bethe free entropy density ``(Σ ln Z_i −
+    Σ ln Z_ij − λ·n_iso)/n_total`` (`ipynb:318-322`) with the analytic
+    isolated-node term, as a 0-d tensor; ``−inf`` when some Z_i sits at the
+    clamp floor (an empty attractor set), never the NaN that ``(−inf) −
+    (−inf)`` would give."""
+    _require_halved_layout(data, "make_free_entropy")
+    dev = resolve_device(device)
+    zi_fn = make_node_partition(data, eps_clamp, device=dev)
+    mask2 = _mask2(data.valid, data.dtype, dev)
+    n_iso_t = torch.tensor(n_iso, dtype=data.dtype, device=dev)
+    n_total_t = torch.tensor(n_total, dtype=data.dtype, device=dev)
+
+    def phi(chi, lmbd):
+        zi = zi_fn(chi, lmbd)
+        zij = edge_partition(chi, mask2, float(eps_clamp))
+        lm = torch.tensor(lmbd, dtype=data.dtype, device=dev)
+        val = (torch.log(zi).sum() - torch.log(zij).sum()
+               - lm * n_iso_t) / n_total_t
+        return torch.where((zi <= eps_clamp).any(), -torch.inf, val)
+
+    return phi
+
+
+def m_init_terms(chi, mask2, x0, deg_u, deg_v, eps_clamp: float):
+    """Each undirected edge's share of the BP mean initial magnetization
+    (the summand of `ipynb:325-338`), ``[..., E]``; 0 where Z_ij vanished
+    (sits at the clamp floor), not 0/0."""
+    P = _pair_products(chi, mask2)
+    Zij = torch.clamp_min(P.sum(dim=(-1, -2)), eps_clamp)
+    wu = x0[:, None] / deg_u[..., None, None]
+    wv = x0[None, :] / deg_v[..., None, None]
+    s = ((wu + wv) * P).sum(dim=(-1, -2))
+    tiny = torch.finfo(chi.dtype).tiny
+    return torch.where(Zij > eps_clamp, s / torch.clamp_min(Zij, tiny),
+                       torch.zeros_like(s))
+
+
+def make_m_init_edge_terms(data: BDCMData, eps_clamp: float = 0.0,
+                           device=None):
+    """``chi -> s[E]``: each undirected edge's contribution to the BP mean
+    initial magnetization, before the edge sum (the union ensemble sums it
+    per member)."""
+    _require_halved_layout(data, "make_m_init_edge_terms")
+    dev = resolve_device(device)
+    mask2 = _mask2(data.valid, data.dtype, dev)
+    x0 = torch.as_tensor(data.x0, dtype=data.dtype, device=dev)
+    edges = data.graph.edges.astype(np.int64)
+    deg = torch.as_tensor(data.graph.deg, dtype=data.dtype, device=dev)
+    deg_u = deg[_long(edges[:, 0], dev)]
+    deg_v = deg[_long(edges[:, 1], dev)]
+    return lambda chi: m_init_terms(chi, mask2, x0, deg_u, deg_v,
+                                    float(eps_clamp))
+
+
+def make_mean_m_init(data: BDCMData, *, n_total: int, n_iso: int,
+                     eps_clamp: float = 0.0, device=None):
+    """``chi -> m_init``: the BP mean initial magnetization (`ipynb:325-338`)
+    as a 0-d tensor; each isolated node contributes +1 (it must sit at the
+    attractor value)."""
+    dev = resolve_device(device)
+    terms = make_m_init_edge_terms(data, eps_clamp, device=dev)
+    n_iso_t = torch.tensor(n_iso, dtype=data.dtype, device=dev)
+    n_total_t = torch.tensor(n_total, dtype=data.dtype, device=dev)
+    return lambda chi: (terms(chi).sum() + n_iso_t) / n_total_t
+
+
+# ---------------------------------------------------------------------------
+# fixed points: a chunk of masked sweeps with no host read
+# ---------------------------------------------------------------------------
+
+CHUNK_SWEEPS = 16     # sweeps per chunk between two host reads
+
+
+def lane_delta(new: torch.Tensor, old: torch.Tensor, lanes: int) -> torch.Tensor:
+    """``max|new − old|`` per lane (the leading ``lanes`` blocks of the
+    flattened tensors), ``[lanes]``; ``−inf`` for lanes without entries (the
+    max of nothing, as XLA reduces it)."""
+    diff = (new - old).abs().reshape(lanes, -1)
+    if diff.shape[1] == 0:
+        return diff.new_full((lanes,), -torch.inf)
+    return diff.amax(dim=1)
+
+
+def fixed_point_sweeps(sweep, chi, delta, t, active, *, eps: float,
+                       t_max: int, sweeps: int):
+    """Up to ``sweeps`` more sweeps of every live lane, as device ops with no
+    host read: a lane is live while ``active & (delta > eps) & (t < t_max)``
+    (the JAX package's per-lane while-loop condition; a NaN delta reads as
+    stopped), and a lane that stops keeps its chi, delta and t bit for bit
+    while the others go on. ``delta``, ``t`` and ``active`` are ``[L]``; chi's
+    leading dimension is L (one lane per group member) or 1 with L = 1 (one
+    joint fixed point over all of chi). Returns ``(chi, delta, t)``."""
+    L = delta.shape[0]
+    bcast = (L,) + (1,) * (chi.ndim - 1)
+    for _ in range(sweeps):
+        live = active & (delta > eps) & (t < t_max)
+        new = sweep(chi)
+        d_new = lane_delta(new, chi, L)
+        chi = torch.where(live.view(bcast), new, chi)
+        delta = torch.where(live, d_new, delta)
+        t = t + live.to(t.dtype)
+    return chi, delta, t
+
+
+def run_fixed_point(sweep, chi, *, eps: float, t_max: int,
+                    chunk_sweeps: int):
+    """One joint fixed point from ``chi``: sweep until ``max|Δchi| ≤ eps``
+    or ``t_max`` sweeps (`ipynb:420-432`), in chunks of ``chunk_sweeps``
+    sweeps with one host read of ``(delta, t)`` per chunk. Returns ``(chi*,
+    sweeps, delta)`` with host scalars."""
+    dev = chi.device
+    delta = torch.full((1,), torch.inf, dtype=chi.dtype, device=dev)
+    t = torch.zeros(1, dtype=torch.int32, device=dev)
+    active = torch.ones(1, dtype=torch.bool, device=dev)
+    while True:
+        chi, delta, t = fixed_point_sweeps(sweep, chi, delta, t, active,
+                                           eps=eps, t_max=t_max,
+                                           sweeps=chunk_sweeps)
+        d, tt = float(delta[0]), int(t[0])
+        if not d > eps or tt >= t_max:
+            return chi, tt, d
+
+
+def make_fixed_point(data: BDCMData, config, *, kernel: str = "auto",
+                     device=None):
+    """``(chi, lmbd) -> (chi*, sweeps, delta)``: iterate the entropy sweep
+    (invalid sources masked, one λ shared by every edge: the shared-factor
+    variant of the kernel) until ``max|Δchi| ≤ eps`` or ``max_sweeps``
+    (`ipynb:420-432`), with the tilted factors built once per λ. ``config``
+    is an :class:`~graphdyn_torch.config.EntropyConfig`."""
+    dev = resolve_device(device)
+    sweep = make_sweep(data, damp=config.damp, eps_clamp=config.eps_clamp,
+                       mask_invalid_src=True, kernel=kernel, device=dev)
+    spec = sweep.spec
+    tables, As, valid = sweep.args
+    K = data.K
+
+    def fixed_point(chi, lmbd):
+        a_t = [A * tilt_vector(lmbd, data.x0, data.dtype).to(dev)[:, None, None]
+               for A in As]
+
+        def one(c):
+            if spec.padded:
+                c = torch.cat([c, c.new_full((1, K, K), 1.0 / (K * K))])
+            return _sweep_core(c[None], a_t, None, valid, tables,
+                               spec)[0][:chi.shape[0]]
+
+        return run_fixed_point(one, chi, eps=float(config.eps),
+                               t_max=int(config.max_sweeps),
+                               chunk_sweeps=CHUNK_SWEEPS)
+
+    fixed_point.spec = spec
+    return fixed_point
+
+
+# ---------------------------------------------------------------------------
+# ensembles: congruent graphs (EnsembleBDCM) and ragged cells (StackedBDCM)
+# ---------------------------------------------------------------------------
+
+
+def _same_dynamics(datas, what: str, *, dtype: bool = False) -> None:
+    d0 = datas[0]
+    for dd in datas[1:]:
+        if ((dd.p, dd.c, dd.attr_value, dd.rule, dd.tie)
+                != (d0.p, d0.c, d0.attr_value, d0.rule, d0.tie)
+                or (dtype and dd.dtype != d0.dtype)):
+            raise ValueError(
+                f"{what} must share dynamics parameters (p, c, attr_value, "
+                f"rule, tie{', dtype' if dtype else ''}) — factor tensors are "
+                "shared"
+            )
+
+
+class EnsembleBDCM:
+    """Stacked BDCM data for an ensemble of structurally congruent graphs
+    (same n, same degree-class signature: RRG(n, d) instances, where every
+    directed edge is one class). The ensemble axis is the kernel's group
+    axis: per-class index tables stack to ``[G, Ed, ...]`` and one launch per
+    class sweeps every instance, with one λ (the shared factor)."""
+
+    def __init__(self, datas: list[BDCMData]):
+        if not datas:
+            raise ValueError("empty ensemble")
+        for dd in datas:
+            _require_halved_layout(dd, "EnsembleBDCM")   # chi[:E]/chi[E:]
+        _same_dynamics(datas, "ensemble members")
+        d0 = datas[0]
+        sig = [(c.d, c.idx.shape[0]) for c in d0.edge_classes]
+        nsig = [(c.d, c.idx.shape[0]) for c in d0.node_classes]
+        for dd in datas[1:]:
+            if (
+                dd.n != d0.n
+                or dd.T != d0.T
+                or [(c.d, c.idx.shape[0]) for c in dd.edge_classes] != sig
+                or [(c.d, c.idx.shape[0]) for c in dd.node_classes] != nsig
+                or dd.leaf_idx.size != d0.leaf_idx.size
+            ):
+                raise ValueError(
+                    "ensemble graphs must be structurally congruent "
+                    "(same n and degree-class signature)"
+                )
+        self.datas = datas
+        self.G = len(datas)
+        self.T, self.K = d0.T, d0.K
+        self.n = d0.n
+        self.num_edges = d0.num_edges
+        self.num_directed = d0.num_directed
+        self.valid = d0.valid
+        self.x0 = d0.x0
+        # stacked per-class tables: (d, idx[G, Ed], in_edges[G, Ed, d], A)
+        self.edge_classes = [
+            (cls.d, np.stack([dd.edge_classes[k].idx for dd in datas]),
+             np.stack([dd.edge_classes[k].in_edges for dd in datas]), cls.A)
+            for k, cls in enumerate(d0.edge_classes)
+        ]
+        self.node_classes = [
+            (cls.d, np.stack([dd.node_classes[k].idx for dd in datas]),
+             np.stack([dd.node_classes[k].in_edges for dd in datas]), cls.Ai)
+            for k, cls in enumerate(d0.node_classes)
+        ]
+        self.edges = np.stack([dd.graph.edges.astype(np.int64) for dd in datas])
+        self.deg = np.stack([dd.graph.deg for dd in datas])
+        self.leaf_idx = np.stack([dd.leaf_idx for dd in datas])   # [G, L]
+        self.leaf01 = d0.leaf01
+        self.dtype = d0.dtype
+
+    @property
+    def np_dtype(self):
+        return np.float32 if self.dtype == torch.float32 else np.float64
+
+    def init_messages(self, seed=0) -> torch.Tensor:
+        """[G, 2E, K, K] random row-normalized chi from one numpy stream,
+        the JAX package's draw bit for bit, as a CPU tensor."""
+        rng = np.random.default_rng(seed)
+        chi = rng.random((self.G, self.num_directed, self.K, self.K))
+        chi /= chi.sum(axis=(2, 3), keepdims=True)
+        return torch.from_numpy(chi.astype(self.np_dtype))
+
+
+class StackedBDCM:
+    """Stacked per-cell BDCM edge tables for a ragged ensemble: graphs that
+    need not be congruent (the entropy grid's ER cells). The union of the
+    cells' degree classes is taken and every class table is padded to the
+    class's largest population ``Ed_max`` across cells: padded members gather
+    from the ghost row ``2E_max`` and scatter into it. chi stacks to ``[G,
+    2E_max, K, K]``; rows past a cell's own ``2E`` hold the uniform message
+    and are never indexed, so they add 0 to the cell's delta. Only the sweep
+    tables are stacked: φ and m_init run per cell on its own ``chi[:2E]``."""
+
+    def __init__(self, datas: list[BDCMData]):
+        if not datas:
+            raise ValueError("empty cell stack")
+        _same_dynamics(datas, "stacked cells", dtype=True)
+        d0 = datas[0]
+        self.datas = datas
+        self.G = len(datas)
+        self.T, self.K = d0.T, d0.K
+        self.dtype = d0.dtype
+        self.valid = d0.valid
+        self.x0 = d0.x0
+        self.leaf01 = d0.leaf01
+        self.twoE = np.asarray([dd.num_directed for dd in datas])
+        self.num_edges = np.asarray([dd.num_edges for dd in datas])
+        self.twoE_max = int(self.twoE.max())
+        ghost = self.twoE_max                 # row 2E_max of the extended chi
+
+        def remap(arr, dd):
+            # per-cell ghost references (class_bucket padding points at the
+            # cell's own ghost row 2E_g) move to the stacked ghost row
+            out = np.asarray(arr, np.int64)
+            return np.where(out == dd.num_directed, ghost, out)
+
+        ds = sorted({cls.d for dd in datas for cls in dd.edge_classes})
+        self.edge_classes = []
+        for d in ds:
+            percell = [next((c for c in dd.edge_classes if c.d == d), None)
+                       for dd in datas]
+            Ed = max(c.idx.shape[0] for c in percell if c is not None)
+            idx = np.full((self.G, Ed), ghost, np.int64)
+            in_edges = np.full((self.G, Ed, d), ghost, np.int64)
+            A = next(c for c in percell if c is not None).A
+            for g, (dd, c) in enumerate(zip(datas, percell)):
+                if c is None:
+                    continue
+                m = c.idx.shape[0]
+                idx[g, :m] = remap(c.idx, dd)
+                in_edges[g, :m] = remap(c.in_edges, dd)
+            self.edge_classes.append((d, idx, in_edges, A))
+
+        L = max(dd.leaf_idx.size for dd in datas)
+        self.leaf_idx = np.full((self.G, L), ghost, np.int64)
+        for g, dd in enumerate(datas):
+            self.leaf_idx[g, :dd.leaf_idx.size] = remap(dd.leaf_idx, dd)
+
+    def stack_chi(self, chi_list) -> torch.Tensor:
+        """Stack per-cell chi ``[2E_g, K, K]`` to a CPU tensor ``[G,
+        2E_max, K, K]``; pad rows hold the uniform message."""
+        if len(chi_list) != self.G:
+            raise ValueError(f"need {self.G} chi arrays, got {len(chi_list)}")
+        K = self.K
+        out = torch.full((self.G, self.twoE_max, K, K), 1.0 / (K * K),
+                         dtype=self.dtype)
+        for g, (chi, e2) in enumerate(zip(chi_list, self.twoE)):
+            chi = (chi.cpu() if isinstance(chi, torch.Tensor)
+                   else torch.from_numpy(np.array(chi))).to(self.dtype)
+            if tuple(chi.shape) != (int(e2), K, K):
+                raise ValueError(
+                    f"cell {g}: chi shape {tuple(chi.shape)} != "
+                    f"{(int(e2), K, K)}")
+            out[g, :e2] = chi
+        return out
+
+
+def stack_bdcm(data_list: list[BDCMData]) -> StackedBDCM:
+    """Stack ragged per-cell BDCM tables into the ``[G, Ed_max, …]`` layout
+    of :class:`StackedBDCM`."""
+    return StackedBDCM(data_list)
+
+
+def make_ensemble_sweep(ens: EnsembleBDCM, *, damp: float,
+                        eps_clamp: float = 0.0, mask_invalid_src: bool = True,
+                        kernel: str = "auto", device=None):
+    """``(chi[G, 2E, K, K], lmbd) -> chi'``: the BDCM sweep over the
+    ensemble, one kernel launch per class with the ensemble as the group
+    axis and one λ for all (the shared factor)."""
+    dev = resolve_device(device)
+    ds = [d for d, _, _, _ in ens.edge_classes]
+    spec = _SweepSpec(
+        T=ens.T, K=ens.K, damp=float(damp), eps_clamp=float(eps_clamp),
+        mask_invalid_src=bool(mask_invalid_src), with_bias=False,
+        padded=False, class_ds=tuple(ds),
+        modes=resolve_modes(ds, T=ens.T, dtype=ens.dtype, kernel=kernel,
+                            device=dev),
+    )
+    rows = ens.num_directed
+    tables = [(_flat_ids(list(idx), rows, dev), _flat_ids(list(ie), rows, dev))
+              for _, idx, ie, _ in ens.edge_classes]
+    As = [torch.as_tensor(A, dtype=ens.dtype, device=dev)
+          for _, _, _, A in ens.edge_classes]
+    valid = torch.as_tensor(ens.valid, dtype=ens.dtype, device=dev)
+
+    def sweep(chi, lmbd):
+        tilt = tilt_vector(lmbd, ens.x0, ens.dtype).to(dev)
+        return _sweep_core(chi, [A * tilt[:, None, None] for A in As], None,
+                           valid, tables, spec)
+
+    sweep.spec = spec
+    return sweep
+
+
+def make_ensemble_free_entropy(ens: EnsembleBDCM, *, n_total: int | None = None,
+                               eps_clamp: float = 0.0, device=None):
+    """``(chi, lmbd) -> φ[G]`` for a congruent isolate-free ensemble."""
+    dev = resolve_device(device)
+    G, T, K, n = ens.G, ens.T, ens.K, ens.n
+    n_total_t = torch.tensor(n_total or n, dtype=ens.dtype, device=dev)
+    valid = torch.as_tensor(ens.valid, dtype=ens.dtype, device=dev)
+    mask2 = _mask2(ens.valid, ens.dtype, dev)
+    rows = ens.num_directed
+    ntables = [(d, _flat_ids(list(idx), n, dev), _flat_ids(list(ie), rows, dev),
+                torch.as_tensor(Ai, dtype=ens.dtype, device=dev))
+               for d, idx, ie, Ai in ens.node_classes]
+
+    def phi(chi, lmbd):
+        tilt = tilt_vector(lmbd, ens.x0, ens.dtype).to(dev)
+        zi = _node_z(chi.reshape(G * rows, K, K), tilt, valid,
+                     [(d, idx.reshape(-1), ie.reshape(-1, d), Ai)
+                      for d, idx, ie, Ai in ntables], T, K, G * n)
+        zi = torch.clamp_min(zi.reshape(G, n), float(eps_clamp))
+        zij = edge_partition(chi, mask2, float(eps_clamp))
+        val = (torch.log(zi).sum(dim=1) - torch.log(zij).sum(dim=1)) / n_total_t
+        return torch.where((zi <= eps_clamp).any(dim=1), -torch.inf, val)
+
+    return phi
+
+
+def make_ensemble_m_init(ens: EnsembleBDCM, *, n_total: int | None = None,
+                         eps_clamp: float = 0.0, device=None):
+    """``chi -> m_init[G]`` for a congruent isolate-free ensemble."""
+    dev = resolve_device(device)
+    n_total_t = torch.tensor(n_total or ens.n, dtype=ens.dtype, device=dev)
+    mask2 = _mask2(ens.valid, ens.dtype, dev)
+    x0 = torch.as_tensor(ens.x0, dtype=ens.dtype, device=dev)
+    deg = torch.as_tensor(ens.deg, dtype=ens.dtype, device=dev)   # [G, n]
+    edges = torch.as_tensor(ens.edges, device=dev)                 # [G, E, 2]
+    deg_u = torch.gather(deg, 1, edges[..., 0])
+    deg_v = torch.gather(deg, 1, edges[..., 1])
+
+    def m_init(chi):
+        s = m_init_terms(chi, mask2, x0, deg_u, deg_v, float(eps_clamp))
+        return s.sum(dim=1) / n_total_t
+
+    return m_init
+
+
+def make_ensemble_leaf_setter(ens: EnsembleBDCM, device=None):
+    """``(chi[G, ...], lmbd) -> chi``: the closed-form leaf messages of every
+    graph written into a copy (the identity without degree-0 edges)."""
+    dev = resolve_device(device)
+    rows = ens.num_directed
+    leaf_idx = _flat_ids(list(ens.leaf_idx), rows, dev).reshape(-1)
+
+    def set_leaves(chi, lmbd):
+        if leaf_idx.numel() == 0:
+            return chi
+        t = leaf_message(lmbd, ens.leaf01, ens.x0, ens.dtype).to(dev)
+        out = chi.clone()
+        out.view(-1, ens.K, ens.K)[leaf_idx] = t
+        return out
+
+    return set_leaves

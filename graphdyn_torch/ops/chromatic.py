@@ -20,6 +20,9 @@ ROADMAP.md A6's remainder.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -217,13 +220,34 @@ def accept_apply(sp_ext, end, end_all, u, class_mask, a, b, active,
     return sp_new, acc, dsend_tot
 
 
-def _anneal_factor(par: float, pow_: torch.Tensor) -> torch.Tensor:
-    """f32 ``par ** pow``: ``par`` rounded to f32 first, the power taken in
-    f64 and rounded once to f32 (the correctly rounded value; the JAX
-    package's XLA f32 ``pow`` can differ from it in the last bit — ROADMAP.md
-    C)."""
-    base = torch.tensor(par, dtype=torch.float32).to(torch.float64)
-    return (base.to(pow_.device) ** pow_.to(torch.float64)).to(torch.float32)
+@functools.lru_cache(maxsize=1)
+def _libm_powf():
+    """The C library's f32 ``powf``: the function XLA's CPU backend calls for
+    an f32 ``power`` (its LLVM IR lowers ``llvm.pow.f32`` to a ``powf``
+    call), so the same bits as the JAX package's ``par ** k``."""
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    fn.restype = ctypes.c_float
+    fn.argtypes = [ctypes.c_float, ctypes.c_float]
+    return fn
+
+
+@functools.lru_cache(maxsize=64)
+def _factor_table(par: float, n: int, device: str) -> torch.Tensor:
+    """f32 ``par ** k`` for k = 0..n as the JAX package's XLA f32 ``pow``
+    computes it on the CPU (:func:`_libm_powf`; the correctly rounded power
+    differs from it in the last bit on some exponents): a host table built
+    once per (par, n, device), as the fused path's factor tables are."""
+    powf = _libm_powf()
+    base = float(np.float32(par))
+    vals = np.array([powf(base, float(k)) for k in range(n + 1)], np.float32)
+    return torch.from_numpy(vals).to(device)
+
+
+def _anneal_factor(par: float, pow_: torch.Tensor, n: int) -> torch.Tensor:
+    """``par ** pow_`` for integer exponents in ``[0, n]``, read from
+    :func:`_factor_table` on ``pow_``'s device (no host read)."""
+    table = _factor_table(float(par), int(n), str(pow_.device))
+    return table[pow_.to(torch.int64)]
 
 
 def class_update(sp_ext, u, mask_row, anneal_pow, a, b, active,
@@ -242,8 +266,8 @@ def class_update(sp_ext, u, mask_row, anneal_pow, a, b, active,
     sp_new, acc, dsend_tot = accept_apply(
         sp_ext, end, end_all, u, mask_row, a, b, active, nbr_self, n=n,
     )
-    fac_a = _anneal_factor(par_a, anneal_pow)
-    fac_b = _anneal_factor(par_b, anneal_pow)
+    fac_a = _anneal_factor(par_a, anneal_pow, n)
+    fac_b = _anneal_factor(par_b, anneal_pow, n)
     a_cap = torch.tensor(a_cap, dtype=torch.float32, device=a.device)
     b_cap = torch.tensor(b_cap, dtype=torch.float32, device=b.device)
     a_new = torch.where(active & (a < a_cap), a * fac_a, a)

@@ -1,10 +1,10 @@
 """graphdyn_torch.pipeline — batched multi-graph ensembles with host
 prefetch (the port of ``graphdyn/pipeline``, the parts the HPr driver
 uses): ``group_ranges`` (:mod:`~graphdyn_torch.pipeline.groups`), the
-``HostPrefetcher`` (:mod:`~graphdyn_torch.pipeline.prefetch`) and the
-grouped HPr executor
-(:mod:`~graphdyn_torch.pipeline.hpr_group`). ``sa_group`` and
-``entropy_group`` come with ROADMAP A9 and A12."""
+``HostPrefetcher`` (:mod:`~graphdyn_torch.pipeline.prefetch`), the
+grouped HPr executor (:mod:`~graphdyn_torch.pipeline.hpr_group`) and the
+cell-parallel entropy ladders (:mod:`~graphdyn_torch.pipeline.
+entropy_group`). ``sa_group`` comes with ROADMAP A9."""
 
 from graphdyn_torch.pipeline.groups import group_ranges
 from graphdyn_torch.pipeline.prefetch import HostPrefetcher

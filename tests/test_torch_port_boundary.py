@@ -15,14 +15,16 @@ import torch
 
 from graphdyn_torch import graphs as tg
 from graphdyn_torch.config import DynamicsConfig, SAConfig
-from graphdyn_torch.config import HPRConfig
+from graphdyn_torch.config import EntropyConfig, HPRConfig
 from graphdyn_torch.models import consensus as tc
+from graphdyn_torch.models import entropy as tem
 from graphdyn_torch.models import hpr as th
 from graphdyn_torch.ops import bdcm as tb
 from graphdyn_torch.ops import bdcm_cuda
 from graphdyn_torch.ops import dynamics as td
 from graphdyn_torch.ops import fused as tfu
 from graphdyn_torch.ops import fused_cuda
+from graphdyn_torch.ops import gather_cuda
 from graphdyn_torch.ops import packed as tp
 from graphdyn_torch.ops import packed_cuda
 from graphdyn_torch.search import fused as tsf
@@ -71,7 +73,13 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.pipeline.prefetch",
                  "graphdyn_torch.pipeline.hpr_group",
                  "graphdyn_torch.models.hpr",
-                 "graphdyn_torch.models.hpr_reference"):
+                 "graphdyn_torch.models.hpr_reference",
+                 "graphdyn_torch.ops.gather", "graphdyn_torch.ops.gather_cuda",
+                 "graphdyn_torch.scripts.gather_probe",
+                 "graphdyn_torch.pipeline.entropy_group",
+                 "graphdyn_torch.models.entropy",
+                 "graphdyn_torch.models.entropy_reference",
+                 "graphdyn_torch.plotting"):
         assert name in out["modules"]
 
 
@@ -121,6 +129,15 @@ ENTRY_POINTS = {
     "hpr_ensemble": lambda: th.hpr_ensemble(20, 3, HPRConfig(max_sweeps=2)),
     "make_sweep": lambda: tb.make_sweep(tb.BDCMData(_small_graph()), damp=0.4),
     "make_marginals": lambda: tb.make_marginals(tb.BDCMData(_small_graph())),
+    "entropy_sweep": lambda: tem.entropy_sweep(_small_graph()),
+    "entropy_ensemble": lambda: tem.entropy_ensemble([_small_graph()] * 2),
+    "entropy_ensemble_union": lambda: tem.entropy_ensemble_union(
+        [_small_graph()] * 2),
+    "entropy_grid": lambda: tem.entropy_grid(20, [1.5]),
+    "make_fixed_point": lambda: tb.make_fixed_point(
+        tb.BDCMData(_small_graph()), EntropyConfig()),
+    "make_free_entropy": lambda: tb.make_free_entropy(
+        tb.BDCMData(_small_graph()), n_total=20, n_iso=0),
 }
 
 
@@ -140,7 +157,9 @@ def test_entry_point_without_device_refuses_on_cuda_less_host(name, monkeypatch)
     ["fused", "--n", "50", "--max-sweeps", "2"],
     ["hpr", "--n", "50", "--max-sweeps", "2"],
     ["hpr", "--n", "50", "--max-sweeps", "2", "--batch-replicas", "2"],
-], ids=["consensus", "fused", "hpr", "hpr_batch"])
+    ["entropy", "--n", "50", "--lmbd-max", "0.1"],
+    ["entropy", "--n", "50", "--lmbd-max", "0.1", "--union", "2"],
+], ids=["consensus", "fused", "hpr", "hpr_batch", "entropy", "entropy_union"])
 def test_cli_without_device_refuses_on_cuda_less_host(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
@@ -165,8 +184,10 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
         assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("wrapper", [packed_cuda, fused_cuda, bdcm_cuda],
-                         ids=["packed_step", "fused_chunk", "dp_contract"])
+@pytest.mark.parametrize("wrapper", [packed_cuda, fused_cuda, bdcm_cuda,
+                                     gather_cuda],
+                         ids=["packed_step", "fused_chunk", "dp_contract",
+                              "row_gather"])
 def test_kernel_build_raises_without_nvcc(wrapper, monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
