@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
-(sm_90a, the four compilers started together) and holds each against its
-plain PyTorch version: the packed step, the fused annealer and the row
-gather bit for bit, the BDCM class update within its stated tolerance. Then
-it drives the port's main paths through the entry points a user calls, each
-with the launch counts set to 0 just before it and read just after:
+Builds the five CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
+(sm_90a, the five compilers started together) and holds each against its
+plain PyTorch version: the packed step (node order, 16-byte vectors), the fused
+annealer and the row gather bit for bit, the BDCM sweep (one launch per
+sweep) and the per-class BDCM update within their stated
+tolerances. Then it drives the port's main paths through the entry points a
+user calls, each with the launch counts set to 0 just before it and read
+just after (every BDCM sweep on the card is one launch of the sweep kernel;
+the per-class kernel is off the main paths and must count 0 there):
 
 - the packed rollout at the headline shape (d=3 RRG, n=10⁶, R=16384) and the
   config-3 consensus sweep (ER n=10⁵, c=6, R=512), checked against the JAX
@@ -35,8 +38,12 @@ with the launch counts set to 0 just before it and read just after:
   ensemble on 64 RRG(1000, 3), and the ``entropy`` CLI at its defaults.
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
-n=10⁶, R=1024), and the BDCM kernel per launch at the reference shape, at
-config 2 and at each class of config 4's union and of the golden instance.
+n=10⁶, R=1024); the packed step and its bare gather beside
+``index_select`` at the headline and config 3; the per-class BDCM kernel
+per launch; and the BDCM sweep kernel per sweep at config 4, the congruent
+ensemble, the golden instance, the HPr reference shape and config 2, each
+beside the per-class route (PyTorch gathers, the per-class kernel and
+``index_copy_`` per class, composed here) and the plain sweep.
 
 Prints, in order: phase reports, the card's name and power limit (from
 nvidia-smi), one JSON line listing the kernels with their measured times, and
@@ -75,6 +82,7 @@ from graphdyn_torch.graphs import (
     erdos_renyi_graph,
     random_regular_graph,
 )
+from graphdyn_torch.models import entropy as entropy_models
 from graphdyn_torch.models import entropy_reference as eref
 from graphdyn_torch.models.entropy import (
     entropy_ensemble,
@@ -106,18 +114,27 @@ from graphdyn_torch.models.consensus import (
 )
 from graphdyn_torch.ops import (
     bdcm_cuda,
+    bdcm_sweep,
     cuda_build,
     fused_cuda,
     gather_cuda,
     packed_cuda,
 )
 from graphdyn_torch.ops.bdcm import (
+    CHUNK_SWEEPS,
     BDCMData,
+    EnsembleBDCM,
+    NodeBias,
+    SweepTables,
     _flat_offsets,
+    _sweep_core,
     dp_contract,
     dp_contract_grouped,
+    make_ensemble_sweep,
     make_fixed_point,
+    make_sweep,
     tilt_vector,
+    tilted_factors,
 )
 from graphdyn_torch.ops.dynamics import end_state, run_dynamics
 from graphdyn_torch.ops.gather import row_gather, row_gather_plain
@@ -135,6 +152,7 @@ from graphdyn_torch.ops.packed import (
     packed_rollout_plain,
 )
 from graphdyn_torch.plotting import masked_mean
+from graphdyn_torch.pipeline.entropy_group import EntropyCellExec
 from graphdyn_torch.pipeline.hpr_group import (
     HPRGroupExec,
     host_init,
@@ -206,6 +224,9 @@ GATHER_PARITY_WIDTHS = (1, 3, 16, 32, 128, 512, 1024)
 CONFIG4_N, CONFIG4_C, CONFIG4_G, CONFIG4_L = 1000, 1.5, 64, 32
 CONFIG4_LMBD_MAX, CONFIG4_MAX_SWEEPS = 3.1, 400
 GROUPED_GRID = dict(n=300, deg=(1.0, 1.5, 2.0), num_rep=3, lmbd_max=0.6)
+# the packed step: the widths of its one-word and uint4 threads held
+# against the plain stepper
+PARITY_WIDTHS = (1, 3, 5, 16, 33, 512)
 GATHER_PORT_SHAPES = (
     ("config 1 (W=1)", 10_001, 1, 30_000),
     ("config 3 (W=16)", 99_785, 16, 600_000),
@@ -285,7 +306,7 @@ def step_bound(g, W: int, fast: bool) -> dict:
 
 
 def ptxas_by_type(lib_path: str, ftype: str) -> dict:
-    """Registers, spills and stack frame of the BDCM kernel's instantiations
+    """Registers, spills and stack frame of a BDCM kernel's instantiations
     for one float type, from the compiler report kept beside the library
     (entries whose mangled name takes ``f`` or ``d`` as the first template
     argument)."""
@@ -310,13 +331,14 @@ def ptxas_by_type(lib_path: str, ftype: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Build the four kernel libraries, one nvcc each, started together;
-    load them; print each one's ptxas summary (the BDCM kernel's float and
+    """Build the five kernel libraries, one nvcc each, started together;
+    load them; print each one's ptxas summary (the BDCM kernels' float and
     double instantiations apart) and the fused kernel's co-resident grid at
     the two shapes it runs."""
     t0 = time.perf_counter()
     wrappers = {"packed_step": packed_cuda, "fused_chunk": fused_cuda,
-                "dp_contract": bdcm_cuda, "row_gather": gather_cuda}
+                "dp_contract": bdcm_cuda, "bdcm_sweep": bdcm_sweep,
+                "row_gather": gather_cuda}
     with ThreadPoolExecutor(len(wrappers)) as pool:
         paths = dict(zip(wrappers, pool.map(lambda w: w.build(),
                                             wrappers.values())))
@@ -331,10 +353,11 @@ def phase_build() -> dict:
             f"{ptxas['kernels']} instantiations: {ptxas['registers_min']}-"
             f"{ptxas['registers_max']} registers, at most "
             f"{ptxas['spill_bytes_max']} bytes of spill stores + loads")
-    for ftype in ("float", "double"):
-        ptxas = ptxas_by_type(paths["dp_contract"], ftype)
-        out[f"dp_contract_{ftype}"] = ptxas
-        log(f"[1 build] dp_contract {ftype} instantiations: {ptxas}")
+    for name in ("dp_contract", "bdcm_sweep"):
+        for ftype in ("float", "double"):
+            ptxas = ptxas_by_type(paths[name], ftype)
+            out[f"{name}_{ftype}"] = ptxas
+            log(f"[1 build] {name} {ftype} instantiations: {ptxas}")
     for label, dmax, Rp in (("config 1", CONFIG1["d"], CONFIG1["replicas"]),
                             ("scale", SCALE_D, SCALE_R)):
         grid = fused_cuda.grid_info(dmax, Rp)
@@ -342,15 +365,19 @@ def phase_build() -> dict:
         log(f"[1 build] fused_chunk co-resident grid at {label} (dmax={dmax}, "
             f"Rp={Rp}): {grid['blocks_per_sm']} blocks of 256 per SM x "
             f"{grid['sms']} SMs = {grid['max_blocks']} blocks")
-    log(f"[1 build] the four libraries built and loaded in {dt:.3f} s")
+    log(f"[1 build] the five libraries built and loaded in {dt:.3f} s")
     return out
 
 
 def phase_parity(g_h, g_e) -> float:
     """Kernel against plain, bit-exact, over the fast path, the general
-    path, W in {1, 16, 512}, 1/2/7 steps, the ghost row, the consensus scan,
-    and the main path's two shapes. Returns the max |kernel - plain| over
-    the words (0 when every case is bit-identical)."""
+    path, W in :data:`PARITY_WIDTHS` (one word per thread where W is not a
+    multiple of 4, a uint4 where it is), 1/2/7 steps, a dmax-63 graph (six
+    bit planes), states not 16-byte aligned (one word per thread at W = 16
+    and 512), the ghost row, the consensus scan, and the main path's two
+    shapes. Returns
+    the max |kernel - plain| over the words (0 when every case is
+    bit-identical)."""
     err = 0.0
     n_cases = 0
     t0 = time.perf_counter()
@@ -379,17 +406,50 @@ def phase_parity(g_h, g_e) -> float:
         "rrg4": random_regular_graph(4000, 4, seed=3),
         "er_ragged": erdos_renyi_graph(5000, 3.0 / 5000, seed=4),  # isolates kept
     }
+    # a ragged graph with one node of degree 63 (dmax 63: six bit planes)
+    er = erdos_renyi_graph(3000, 3.0 / 3000, seed=6)
+    hub = [(0, v) for v in range(1, 64)]
+    rest = [(u, v) for u, v in er.edges.tolist() if u != 0 and v != 0
+            and (u, v) not in hub]
+    small["dmax63"] = graphs.graph_from_edges(
+        3000, np.asarray(hub + rest, dtype=np.int64))
+    if small["dmax63"].dmax != 63:
+        raise AssertionError(f"dmax63 graph has dmax {small['dmax63'].dmax}")
     seed = 0
-    for W in (1, 16, 512):
+    for W in PARITY_WIDTHS:
         for steps in (1, 2, 7):
             for name in ("rrg3", "rrg5"):
                 for rule in ("majority", "minority"):
                     seed += 1
                     check(small[name], W, rule, "stay", steps, seed, True)
-            for name in ("rrg4", "er_ragged"):
+            for name in ("rrg4", "er_ragged", "dmax63"):
                 for rule, tie in RULE_TIES:
                     seed += 1
                     check(small[name], W, rule, tie, steps, seed, False)
+
+    # states one word off 16-byte alignment: the one-word threads at widths
+    # that are multiples of 4, one step against the plain stepper
+    for name in ("rrg3", "dmax63"):
+        g = small[name]
+        nbr, deg = _tables(g)
+        du = packed_cuda.fast_path_degree(g.deg, "majority")
+        for W in (16, 512):
+            seed += 1
+            n1 = (g.n + 1) * W
+            buf = torch.zeros(2 * n1 + 1, dtype=torch.int32, device="cuda")
+            a = buf[1:n1 + 1].view(g.n + 1, W)
+            b = buf[n1 + 1:].view(g.n + 1, W)
+            a[:g.n] = _random_words(g.n, W, seed)
+            if packed_cuda.aligned16(a) or packed_cuda.aligned16(b):
+                raise AssertionError("the unaligned case is aligned")
+            want = _stepper(nbr, deg, "majority", "stay", plain=True)(a.clone())
+            packed_cuda.packed_step(nbr, deg, a, b, minority=False,
+                                    change=False, d_uniform=du)
+            torch.cuda.synchronize()
+            if not torch.equal(b, want):
+                raise AssertionError(f"unaligned one-word step != plain: "
+                                     f"{name} W={W}")
+            n_cases += 1
 
     # the ghost row stays zero under tie=change, step by step
     g = small["er_ragged"]
@@ -432,11 +492,13 @@ def phase_parity(g_h, g_e) -> float:
 def phase_timing(g, nbr, deg, sp, reps: int, plain_reps: int) -> dict:
     """At one shape (outside the main-path count window): the kernel's time
     per launch (CUDA events around ``reps`` steps of the rollout's own
-    stepper, queued back to back), the plain version's time per step (a few
-    hundred small PyTorch ops per step at dmax 19, more than the queue holds
-    over many steps, so host gaps may remain in it), the host's wall time
-    per step of ``packed_rollout`` (Python, checks and launch included), and
-    the bound."""
+    stepper, queued back to back), the bare gather of the step's own
+    neighbour rows (every real slot of every row) by the row-gather kernel
+    and by ``index_select`` in the same call, the plain version's time per step (a
+    few hundred small PyTorch ops per step at dmax 19, more than the queue
+    holds over many steps, so host gaps may remain in it), the host's wall
+    time per step of ``packed_rollout`` (Python, checks and launch
+    included), and the bound."""
     W = sp.shape[1]
     ext = torch.cat([sp, torch.zeros(1, W, dtype=torch.int32, device="cuda")])
     for plain in (False, True):
@@ -454,7 +516,12 @@ def phase_timing(g, nbr, deg, sp, reps: int, plain_reps: int) -> dict:
         else:
             ms, fast = t, step.d_uniform > 0
         del step, state
-    del ext
+    slots = torch.arange(g.dmax, device="cuda")[None, :] < deg[:, None]
+    idx = nbr[slots].contiguous()                  # the step's real slots
+    lib, ker = gather_probe.measure(ext, idx, depth=gather_cuda.DEFAULT_DEPTH)
+    if not ker["matches_torch"]:
+        raise AssertionError("row_gather differs on the step's own rows")
+    del ext, idx, slots
     packed_rollout(nbr, deg, sp, 3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -463,6 +530,9 @@ def phase_timing(g, nbr, deg, sp, reps: int, plain_reps: int) -> dict:
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "host_ms_per_step": host_ms,
+            "plan": packed_cuda.launch_plan(W),
+            "gather_ms": ker["ms"], "index_select_ms": lib["ms"],
+            "gather_bound_ms": ker["bound_ms"],
             **step_bound(g, W, fast=fast)}
 
 
@@ -977,7 +1047,7 @@ def phase_fused_scale() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the BDCM class update (K3) and the HPr path
+# the BDCM kernels (the per-class update K3, the sweep K3′) and the HPr path
 # ---------------------------------------------------------------------------
 
 
@@ -1153,18 +1223,226 @@ def profile_breakdown(run, label: str, top: int = 10) -> dict:
     return out
 
 
+# the per-class kernel's count read at the end of every HPr and entropy
+# main-path window (each must be 0)
+_PER_CLASS_ON_MAIN_PATHS: list[int] = []
+
+
 def _reset_bdcm_counts() -> None:
     bdcm_cuda.LAUNCHES = 0
+    bdcm_sweep.LAUNCHES = 0
 
 
-def _bdcm_counts(what: str) -> int:
-    """Read the count after one run of an HPr or entropy main path: the
-    kernel must have launched (on CUDA tensors no class can run on the plain
-    version: a class the kernel does not take raises)."""
-    launches = bdcm_cuda.LAUNCHES
-    if launches <= 0:
-        raise AssertionError(f"{what}: dp_contract launches {launches}")
+def _bdcm_counts(what: str, sweeps: int) -> int:
+    """Read the counts after one run of an HPr or entropy main path: the
+    sweep kernel launched exactly ``sweeps`` times, the sweeps the run's own
+    result says it ran (:func:`_hpr_clock`, :func:`_ladder_sweeps`), and
+    the per-class kernel not at all."""
+    launches = bdcm_sweep.LAUNCHES
+    _PER_CLASS_ON_MAIN_PATHS.append(bdcm_cuda.LAUNCHES)
+    if launches <= 0 or launches != sweeps:
+        raise AssertionError(f"{what}: bdcm_sweep launches {launches}, the "
+                             f"run's sweeps {sweeps}")
+    if bdcm_cuda.LAUNCHES:
+        raise AssertionError(f"{what}: dp_contract launched "
+                             f"{bdcm_cuda.LAUNCHES} times on the main path")
     return launches
+
+
+def _ladder_sweeps(cells, group_size: int = 1) -> int:
+    """The sweeps an entropy ladder runs, from its result's sweep counts
+    per λ (``cells``: one sequence per cell, in the order the run takes
+    them): a fixed point runs whole chunks of ``CHUNK_SWEEPS`` sweeps until
+    it stops, so a cell's ladder takes the sum of its ⌈sweeps / CHUNK⌉
+    chunks; a group of cells (``run_cell_ladder``, every lane swept in each
+    chunk) runs until its slowest cell's ladder ends, and groups of
+    ``group_size`` consecutive cells run one after another."""
+    chunks = [sum(-(-int(t) // CHUNK_SWEEPS) for t in np.ravel(c))
+              for c in cells]
+    G = max(int(group_size), 1)
+    return CHUNK_SWEEPS * sum(max(chunks[i:i + G])
+                              for i in range(0, len(chunks), G))
+
+
+def _grid_sweeps(res, group_size: int | None) -> int:
+    """:func:`_ladder_sweeps` of an ``entropy_grid`` result: its cells in
+    (degree, repetition) order, ``group_size`` None meaning the function's
+    default (min(cells, 8)) and 0 the serial loop."""
+    cells = [res.sweeps[di, rep] for di in range(res.sweeps.shape[0])
+             for rep in range(res.sweeps.shape[1])]
+    G = min(len(cells), 8) if group_size is None else group_size
+    return _ladder_sweeps(cells, G)
+
+
+@contextlib.contextmanager
+def _grid_results():
+    """Collect the ``(result, group_size)`` of every ``entropy_grid`` call
+    made inside (the CLI's own call included), for their sweep counts."""
+    got = []
+    inner = entropy_models.entropy_grid
+
+    def grid(*args, **kwargs):
+        res = inner(*args, **kwargs)
+        got.append((res, kwargs.get("group_size")))
+        return res
+
+    entropy_models.entropy_grid = grid
+    try:
+        yield got
+    finally:
+        entropy_models.entropy_grid = inner
+
+
+def _hpr_clock(num_steps, TT: int, chunk: int = 200) -> int:
+    """The sweeps an HPr group runs: whole chunks until its last chain
+    stops (HPRGroupExec.run), at most TT + 2."""
+    return min(-(-int(np.max(num_steps)) // chunk) * chunk, TT + 2)
+
+
+def sweep_bound(plan, a_tilted, bias) -> dict:
+    """The least time one BDCM sweep can take on the card: the larger of
+
+    - bytes over HBM bandwidth: chi read once and written once, the int32
+      tables (every member's output row and in-edges), the int8 class ids,
+      the rows in no class, the bias (and the node form's source table) and
+      the factors, each once;
+    - FMAs (2 flops each) of the members that compute (padding members
+      compute nothing) over the dtype's non-tensor rate: per member the
+      flat-shift DP and the contraction (:func:`contract_bound`'s count).
+    """
+    esize = 8 if plan.dtype == torch.float64 else 4
+    K, T, G = 2**plan.T, plan.T, plan.G
+    nbytes = 2 * G * plan.rows * K * K * esize + plan.cid.numel() \
+        + 4 * plan.pass_rows.numel()
+    if isinstance(bias, NodeBias):
+        nbytes += bias.values.numel() * esize + 4 * plan.src.numel()
+    elif bias is not None:
+        nbytes += bias.numel() * esize
+    cid = plan.cid.long()
+    live = [int((cid[idx.long()] == c).sum())
+            for c, idx in enumerate(plan.idx)]
+    flops = 0
+    for c, (d, a) in enumerate(zip(plan.class_ds, a_tilted)):
+        M = (d + 1) ** T
+        offs = _flat_offsets(d, T)
+        flops += 2 * live[c] * (d * K * int((M - offs).sum()) + K * K * M)
+        nbytes += 4 * plan.idx[c].numel() * (1 + d) + a.numel() * esize
+    rate = F64_FLOPS_PER_S if plan.dtype == torch.float64 else ALU_OPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops, "live_members": live}
+
+
+def _class_tables(plan):
+    return [(i.long().reshape(plan.G, -1), e.long().reshape(plan.G, -1, d))
+            for i, e, d in zip(plan.idx, plan.in_edges, plan.class_ds)]
+
+
+def per_class_sweep(chi, a_tilted, bias, valid, plan, tables, *, damp, eps_clamp):
+    """The sweep as one launch per class would run it, composed here for
+    timing only (the package has no switch for it): per class PyTorch's
+    gathers of the
+    inputs and of the bias (built per sweep from the node biases), the mask
+    multiply, the per-class kernel ``dp_contract_cuda`` and
+    ``index_copy_``."""
+    G, rows, K = chi.shape[0], chi.shape[1], chi.shape[2]
+    new = chi.reshape(G * rows, K, K).clone()
+    if isinstance(bias, NodeBias):
+        bias = _edge_bias(plan, bias.values)
+    elif bias is not None:
+        bias = bias.reshape(G * rows, K)
+    for (d, a), (idx, ie) in zip(zip(plan.class_ds, a_tilted), tables):
+        chi_in = new[ie]
+        if bias is not None:
+            chi_in *= bias[ie][..., None]
+        if plan.masked:
+            chi_in *= valid[:, None]
+        upd = bdcm_cuda.dp_contract_cuda(chi_in, a, new[idx], d=d, T=plan.T,
+                                         damp=damp, eps_clamp=eps_clamp)
+        del chi_in
+        new.index_copy_(0, idx.reshape(-1), upd.reshape(-1, K, K))
+    return new.reshape(G, rows, K, K)
+
+
+def phase_sweep(label: str, chi, a_tilted, bias, valid, plan, spec, *,
+                reps: int, per_class_reps: int, plain_reps: int,
+                lead_ms: float = 150.0) -> dict:
+    """One shape of the BDCM sweep kernel (outside any count window): one
+    sweep through the kernel against the plain route (``_sweep_core`` on
+    the same CUDA tensors) within :data:`CONTRACT_TOL` on every row a class
+    updates, the kernel's rows in no class equal to the input, the plain
+    twin ``sweep_plain`` equal to the plain route on the updated rows, and
+    the per-class route's difference from the kernel; then ms per sweep by
+    CUDA events for the kernel, the per-class route and the plain route (the lead of
+    device sleep covers the host's issue of the queued calls), beside
+    :func:`sweep_bound`."""
+    kw = dict(damp=spec.damp, eps_clamp=spec.eps_clamp)
+    plain_spec = spec._replace(modes=("plain",) * len(spec.modes))
+    tabs = _class_tables(plan)
+    plain_tables = SweepTables(
+        tabs, None if plan.src is None else plan.src.long(),
+        None if plan.src is None else _sel_plus(plan, chi.device))
+
+    def kernel():
+        return bdcm_sweep.sweep_cuda(chi, a_tilted, bias, plan, **kw)
+
+    def plain():
+        return _sweep_core(chi, a_tilted, bias, valid, plain_tables,
+                           plain_spec)
+
+    def per_class():
+        return per_class_sweep(chi, a_tilted, bias, valid, plan, tabs, **kw)
+
+    K = chi.shape[2]
+    owned = plan.cid.long() != bdcm_sweep.NO_CLASS
+
+    def rows_of(t):
+        return t.reshape(-1, K, K)[owned]
+
+    k, p = rows_of(kernel()), rows_of(plain())
+    err = _contract_err(k, p, chi.dtype)
+    if not torch.equal(rows_of(bdcm_sweep.sweep_plain(chi, a_tilted, bias,
+                                                      plan, **kw)), p):
+        raise AssertionError(f"{label}: sweep_plain differs from the plain "
+                             f"route")
+    del p
+    r4 = rows_of(per_class())
+    per_class_equal = bool(torch.equal(k, r4))
+    per_class_err = float((k - r4).abs().max()) if k.numel() else 0.0
+    del k, r4
+    pr = plan.pass_rows.long()
+    if not torch.equal(kernel().reshape(-1, K, K)[pr],
+                       chi.reshape(-1, K, K)[pr]):
+        raise AssertionError(f"{label}: rows in no class not passed through")
+    if isinstance(bias, NodeBias):
+        # the per-row form of the same weights reads the same values
+        per_row = _edge_bias(plan, bias.values).reshape(plan.G, plan.rows, K)
+        if not torch.equal(
+                bdcm_sweep.sweep_cuda(chi, a_tilted, per_row, plan, **kw),
+                kernel()):
+            raise AssertionError(f"{label}: per-row bias != node bias")
+        del per_row
+    ms = _cuda_ms(kernel, reps, lead_ms=lead_ms)
+    per_class_ms = _cuda_ms(per_class, per_class_reps, lead_ms=lead_ms)
+    plain_ms = _cuda_ms(plain, plain_reps, lead_ms=lead_ms)
+    bound = sweep_bound(plan, a_tilted, bias)
+    torch.cuda.empty_cache()
+    out = {"G": plan.G, "rows": plan.rows, "classes": list(plan.class_ds),
+           "paths": list(plan.paths), "threads": plan.threads,
+           "smem": plan.smem, "ms": ms, "per_class_ms": per_class_ms,
+           "plain_ms": plain_ms, "max_abs_err": err[0], "max_rel_err": err[1],
+           "per_class_bit_equal": per_class_equal, "per_class_max_abs_diff": per_class_err, **bound}
+    log(f"[sweep] {label} ({str(chi.dtype)[6:]}, G={plan.G}, rows "
+        f"{plan.rows}, classes {list(plan.class_ds)} on {list(plan.paths)}, "
+        f"{plan.threads} threads, {plan.smem} B shared): kernel {ms} ms/sweep, "
+        f"per-class route {per_class_ms} ms/sweep, plain {plain_ms} ms/sweep, bound "
+        f"{bound['bound_ms']} ms ({bound['bound_by']}: {bound['bytes']} B, "
+        f"{bound['flops']} flops); kernel == plain within tolerance (abs "
+        f"{err[0]}, rel {err[1]}); per-class route bit-equal {per_class_equal} (max "
+        f"diff {per_class_err})")
+    return out
 
 
 def _check_end_state(g, s, what: str) -> None:
@@ -1190,18 +1468,34 @@ def phase_hpr_ref() -> dict:
 
 
 def _class_launch_inputs(chi, bias_edge, idx, in_edges):
-    """One class's kernel inputs from a state, as the sweep forms them."""
+    """One class's kernel inputs from a state, as the per-class route
+    forms them."""
     chi_in = chi[in_edges]
     chi_in *= bias_edge[in_edges][..., None]
     return chi_in, chi[idx]
 
 
+def _sel_plus(plan, device):
+    """bool [K]: the source trajectories whose node bias is column 0."""
+    return torch.as_tensor([(plan.bias_cols >> (4 * k)) & 15 == 0
+                            for k in range(2**plan.T)], device=device)
+
+
+def _edge_bias(plan, biases):
+    """The per-edge bias ``[rows, K]`` the per-class route builds from the
+    node biases (the per-class kernel takes it gathered)."""
+    src = plan.src.long()
+    return torch.where(_sel_plus(plan, biases.device), biases[src, 0, None],
+                       biases[src, 1, None])
+
+
 def phase_hpr_ref_timing() -> dict:
-    """At the reference shape (RRG d=4, n=10⁴, one class D=3): the kernel's
-    ms per launch (CUDA events around queued launches) and the plain
-    version's, in f32 and f64, with the bound; and the G=1 executor's ms per
-    sweep by CUDA events over 200 sweeps (host-issued: a host loop of
-    PyTorch ops, so this is the rate the chain runs at)."""
+    """At the reference shape (RRG d=4, n=10⁴, one class D=3), f32 and f64:
+    the G=1 executor's ms per sweep by CUDA events over 200 sweeps
+    (host-issued: a host loop of PyTorch ops, so this is the rate the chain
+    runs at); the sweep kernel per sweep beside the per-class route and the plain
+    route (:func:`phase_sweep`, with the node bias); and the per-class
+    kernel per launch against its plain version and bound."""
     g = random_regular_graph(HPR_N, HPR_D, seed=0)
     out = {}
     for dtype in ("float32", "float64"):
@@ -1228,13 +1522,16 @@ def phase_hpr_ref_timing() -> dict:
             profile_breakdown(fifty,
                               "reference shape, 50 sweeps of the G=1 executor")
             st = holder[0]
+        plan = ex.tables
+        bias = NodeBias(st.biases.reshape(-1, 2))
+        sweep = phase_sweep(f"HPr reference shape {dtype}", st.chi,
+                            ex.a_tilted, bias, None, plan, ex.sweep_spec,
+                            reps=500, per_class_reps=200, plain_reps=20)
         K = data.K
-        bflat = st.biases.reshape(-1, 2)
-        bias_edge = torch.where(ex.sel_plus_b, bflat[ex.src, 0][..., None],
-                                bflat[ex.src, 1][..., None]).reshape(-1, K)
-        idx, in_edges = ex.tables[0]
-        chi_in, chi_old = _class_launch_inputs(st.chi.reshape(-1, K, K),
-                                               bias_edge, idx, in_edges)
+        (idx, in_edges), = _class_tables(plan)
+        chi_in, chi_old = _class_launch_inputs(
+            st.chi.reshape(-1, K, K), _edge_bias(plan, bias.values), idx,
+            in_edges)
         d = ex.spec.class_ds[0]
         kw = dict(d=d, T=data.T, damp=cfg.damp, eps_clamp=0.0)
         a = ex.a_tilted[0]
@@ -1254,12 +1551,13 @@ def phase_hpr_ref_timing() -> dict:
                             20, lead_ms=150)
         bound = contract_bound(1, chi_in.shape[1], d, data.T, data.dtype)
         out[dtype] = {"ms": ms, "plain_ms": plain_ms, "sweep_ms": sweep_ms,
-                      "max_abs_err": err[0], "max_rel_err": err[1], **bound}
+                      "max_abs_err": err[0], "max_rel_err": err[1], **bound,
+                      "bdcm_sweep": sweep}
         log(f"[12 hpr ref] reference shape {dtype} (Ed={chi_in.shape[1]}, "
-            f"d={d}): kernel {ms} ms/launch, plain {plain_ms} ms/launch, bound "
-            f"{bound['bound_ms']} ms ({bound['bound_by']}); kernel == plain "
-            f"within tolerance (abs {err[0]}, rel {err[1]}); G=1 executor "
-            f"{sweep_ms} ms/sweep by CUDA events over 200 sweeps")
+            f"d={d}): per-class kernel {ms} ms/launch, plain {plain_ms} "
+            f"ms/launch, bound {bound['bound_ms']} ms ({bound['bound_by']}); "
+            f"kernel == plain within tolerance (abs {err[0]}, rel {err[1]}); "
+            f"G=1 executor {sweep_ms} ms/sweep by CUDA events over 200 sweeps")
         del ex, st, chi_in, chi_old, k, p
     torch.cuda.empty_cache()
     return out
@@ -1285,8 +1583,9 @@ def phase_hpr_main() -> dict:
         wall = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"hpr CLI returned {rc}")
-        launches = _bdcm_counts("hpr CLI (reference shape)")
         doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+        launches = _bdcm_counts("hpr CLI (reference shape)",
+                                _hpr_clock(doc["num_steps"], TT))
         with np.load(npz) as f:
             conf = f["conf"][0]
     sweeps = doc["num_steps"][0]
@@ -1301,7 +1600,7 @@ def phase_hpr_main() -> dict:
     log(f"[13 hpr main] python -m graphdyn_torch hpr --device cuda: {sweeps} "
         f"sweeps, m_final {m_final}, mag_reached {doc['mag_reached'][0]}, wall "
         f"{wall:.3f} s = {out['cli']['ms_per_sweep']:.4f} ms/sweep (host "
-        f"clock, set-up included); dp_contract launches {launches}")
+        f"clock, set-up included); bdcm_sweep launches (one per sweep) {launches}")
 
     _reset_bdcm_counts()
     t0 = time.perf_counter()
@@ -1309,7 +1608,8 @@ def phase_hpr_main() -> dict:
                        device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _bdcm_counts("hpr_ensemble(n_rep=4, group_size=4)")
+    launches = _bdcm_counts("hpr_ensemble(n_rep=4, group_size=4)",
+                            _hpr_clock(ens.num_steps, TT))
     for k in range(4):
         if ens.num_steps[k] <= TT:
             _check_end_state(random_regular_graph(HPR_N, HPR_D, seed=k),
@@ -1320,14 +1620,15 @@ def phase_hpr_main() -> dict:
     log(f"[13 hpr main] hpr_ensemble(n_rep=4, group_size=4): sweeps "
         f"{ens.num_steps.tolist()}, mag {ens.mag_reached.tolist()}, wall "
         f"{wall:.3f} s = {out['group4']['ms_per_sweep']:.4f} ms per group "
-        f"sweep; dp_contract launches {launches}")
+        f"sweep; bdcm_sweep launches (one per sweep) {launches}")
 
     _reset_bdcm_counts()
     t0 = time.perf_counter()
     res = hpr_solve(g, HPRConfig(dtype="float64"), seed=0, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _bdcm_counts("hpr_solve(float64)")
+    launches = _bdcm_counts("hpr_solve(float64)",
+                            _hpr_clock(res.num_steps, TT))
     if res.chi.dtype != np.float64 or res.m_final not in (1.0, 2.0):
         raise AssertionError(f"hpr_solve f64: {res.chi.dtype}, {res.m_final}")
     if res.m_final == 1.0:
@@ -1336,7 +1637,7 @@ def phase_hpr_main() -> dict:
                   "wall_s": wall, "ms_per_sweep": wall * 1e3 / max(res.num_steps, 1),
                   "launches": launches}
     log(f"[13 hpr main] hpr_solve float64: {res.num_steps} sweeps, m_final "
-        f"{res.m_final}, wall {wall:.3f} s; dp_contract launches {launches}")
+        f"{res.m_final}, wall {wall:.3f} s; bdcm_sweep launches (one per sweep) {launches}")
     out["launches"] = sum(out[k]["launches"] for k in ("cli", "group4", "f64"))
     return out
 
@@ -1441,7 +1742,14 @@ def phase_config2_setup_timing() -> dict:
 
     profile = profile_breakdown(one_sweep, "config 2, one sweep")
     st = holder[0]
-    # one class launch at this shape, from the state
+    plan, As, _ = setup.sweep.args
+    a_t = tilted_factors(As, torch.as_tensor(setup.data.x0, dtype=torch.float32,
+                                             device="cuda"), setup.lmbd)
+    bsweep = phase_sweep("HPr config 2", st.chi[None], a_t,
+                         NodeBias(st.biases), None, plan, setup.sweep.spec,
+                         reps=5, per_class_reps=2, plain_reps=1, lead_ms=20)
+    del a_t, plan, As
+    # one per-class launch at this shape, from the state
     data = setup.data
     (cls,) = data.edge_classes
     idx, in_edges = cls.idx.long(), cls.in_edges.long()
@@ -1471,7 +1779,7 @@ def phase_config2_setup_timing() -> dict:
         f"(abs {err[0]}, rel {err[1]})")
     return {"setup_s": timers, "sweep_ms": sweep_ms, "ms": ms,
             "plain_ms": plain_ms, "max_abs_err": err[0], "max_rel_err": err[1],
-            "profile": profile, **bound}
+            "profile": profile, **bound, "bdcm_sweep": bsweep}
 
 
 def phase_config2_main() -> dict:
@@ -1487,7 +1795,8 @@ def phase_config2_main() -> dict:
     res = hpr_solve_batch(g, cfg, n_replicas=CONFIG2_R, seed=0, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _bdcm_counts("hpr_solve_batch (config 2)")
+    launches = _bdcm_counts("hpr_solve_batch (config 2)",
+                            _hpr_clock(res.num_steps, CONFIG2_SWEEPS))
     peak = torch.cuda.max_memory_allocated()
     if (res.s.shape != (CONFIG2_R, CONFIG2_N)
             or not np.all(np.isin(res.m_final, (1.0, 2.0)))
@@ -1497,7 +1806,7 @@ def phase_config2_main() -> dict:
         f"{sorted(set(res.num_steps.tolist()))}, m_final "
         f"{sorted(set(res.m_final.tolist()))}, mean mag "
         f"{float(res.mag_reached.mean())}; peak device memory {peak} B; "
-        f"dp_contract launches {launches}")
+        f"bdcm_sweep launches (one per sweep) {launches}")
     _reset_bdcm_counts()
     t0 = time.perf_counter()
     buf = io.StringIO()
@@ -1506,14 +1815,15 @@ def phase_config2_main() -> dict:
                        str(CONFIG2_N), "--d", str(CONFIG2_D), "--max-sweeps",
                        str(CONFIG2_SWEEPS), "--device", "cuda"])
     wall_cli = time.perf_counter() - t0
-    launches_cli = _bdcm_counts("hpr CLI (config 2)")
+    launches_cli = _bdcm_counts("hpr CLI (config 2)",
+                                _hpr_clock(res.num_steps, CONFIG2_SWEEPS))
     doc = json.loads(buf.getvalue().strip().splitlines()[-1])
     if rc != 0 or doc["num_steps"] != res.num_steps.tolist() \
             or doc["m_final"] != res.m_final.tolist():
         raise AssertionError("config-2 CLI result differs from hpr_solve_batch")
     log(f"[15 config 2] python -m graphdyn_torch hpr --batch-replicas 256 --n "
         f"100000 --d 3 --max-sweeps 20: equal to hpr_solve_batch, wall "
-        f"{wall_cli:.3f} s; dp_contract launches {launches_cli}")
+        f"{wall_cli:.3f} s; bdcm_sweep launches (one per sweep) {launches_cli}")
     torch.cuda.empty_cache()
     return {"wall_s": wall, "cli_wall_s": wall_cli, "peak_bytes": peak,
             "launches_batch": launches, "launches_cli": launches_cli,
@@ -1624,7 +1934,7 @@ def phase_gather_probe() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the entropy λ-ladders (K3 on the entropy path)
+# the entropy λ-ladders (the sweep kernel on the entropy path)
 # ---------------------------------------------------------------------------
 
 
@@ -1685,26 +1995,97 @@ def _class_timings(data: BDCMData, label: str, lmbd: float) -> list:
     return out
 
 
+def _entropy_sweep_inputs(sweep, chi, lmbd: float, x0):
+    """(chi[None], the shared factors at ``lmbd``, valid, plan, spec) of a
+    :func:`make_sweep`-built entropy sweep."""
+    plan, As, valid = sweep.args
+    a_t = tilted_factors(As, torch.as_tensor(x0, dtype=valid.dtype,
+                                             device="cuda"), lmbd)
+    return chi[None], a_t, valid, plan, sweep.spec
+
+
+def phase_sweep_entropy(ref: dict) -> dict:
+    """The BDCM sweep kernel on the entropy path's shapes
+    (:func:`phase_sweep`: parity with the plain route, then ms per sweep
+    beside the per-class route and the plain route): config 4's union (f32, 8
+    classes, register and block paths, leaf rows passed through), the same
+    union padded with ghost rows (class_bucket 32), the congruent ensemble
+    (64 × RRG(1000, 3), G=64), the golden instance (f64, the per-group
+    factor at G=1) and a grid of 8 ER(300) cells at 8 λ (G=8, per-group
+    factor, ghost rows)."""
+    out = {}
+    subs = [graphs.remove_isolates(g)[0] for g in _config4_graphs()]
+    union = graphs.disjoint_union(subs)[0]
+    for label, bucket, reps in (("config 4 union", None, 200),
+                                ("config 4 union, padded", 32, 20)):
+        data = BDCMData(union, class_bucket=bucket)
+        sweep = make_sweep(data, damp=0.1, eps_clamp=0.0, device="cuda")
+        chi = data.init_messages(0).to("cuda")
+        if bucket:
+            K = data.K
+            chi = torch.cat([chi, chi.new_full((1, K, K), 1.0 / (K * K))])
+        c, a_t, valid, plan, spec = _entropy_sweep_inputs(sweep, chi, 0.5,
+                                                          data.x0)
+        out[label] = phase_sweep(label, c, a_t, None, valid, plan, spec,
+                                 reps=reps, per_class_reps=max(reps // 4, 2),
+                                 plain_reps=3)
+    gs = [random_regular_graph(CONFIG4_N, 3, seed=k) for k in range(CONFIG4_G)]
+    ens = EnsembleBDCM([BDCMData(g) for g in gs])
+    sweep = make_ensemble_sweep(ens, damp=0.1, device="cuda")
+    plan, As, valid = sweep.args
+    a_t = tilted_factors(As, torch.as_tensor(ens.x0, dtype=ens.dtype,
+                                             device="cuda"), 0.5)
+    out["congruent ensemble"] = phase_sweep(
+        "congruent ensemble", ens.init_messages(0).to("cuda"), a_t, None,
+        valid, plan, sweep.spec, reps=200, per_class_reps=50, plain_reps=3)
+    g = eref.golden_graph(ref)
+    sub, n_iso = graphs.remove_isolates(g)
+    data = BDCMData(sub, dtype="float64")
+    ex = EntropyCellExec([(data, g.n, n_iso)], eref.golden_config(),
+                         device="cuda")
+    out["golden"] = phase_sweep(
+        "golden instance", ex.stack_chi([data.init_messages(0)]),
+        ex.factors([0.5]), None, ex.valid, ex.tables, ex.spec, reps=200,
+        per_class_reps=50, plain_reps=3)
+    gg = GROUPED_GRID
+    cells = []
+    for k, deg in enumerate(gg["deg"] * 3):
+        sub, n_iso = graphs.remove_isolates(erdos_renyi_graph(
+            gg["n"], deg / (gg["n"] - 1), seed=k))
+        cells.append((BDCMData(sub, class_bucket=64), gg["n"], n_iso))
+    cells = cells[:8]
+    ex = EntropyCellExec(cells, EntropyConfig(), device="cuda")
+    out["grid G=8"] = phase_sweep(
+        "entropy grid, 8 cells", ex.stack_chi(
+            [c[0].init_messages(k) for k, c in enumerate(cells)]),
+        ex.factors([0.1 * k for k in range(8)]), None, ex.valid, ex.tables,
+        ex.spec, reps=100, per_class_reps=25, plain_reps=3)
+    return out
+
+
 def phase_entropy_golden(ref: dict) -> dict:
     """``entropy_sweep`` in float64 over λ = 0..0.9 on the golden instance
     (rebuilt from the record's edges): the ten notebook triples within 5e-3,
     the JAX package's curve within 1e-9 (sweep counts under the near-tie
-    rule), K3 launches counted; then its classes timed one by one."""
+    rule), the sweep kernel's launches counted (one per sweep, none of the
+    per-class kernel); then its classes timed one by one through the
+    per-class kernel."""
     g = eref.golden_graph(ref)
     _reset_bdcm_counts()
     t0 = time.perf_counter()
     res = entropy_sweep(g, eref.golden_config(), seed=eref.GOLDEN_SEED,
                         device="cuda")
     wall = time.perf_counter() - t0
-    launches = _bdcm_counts("entropy_sweep (golden instance, f64)")
+    launches = _bdcm_counts("entropy_sweep (golden instance, f64)",
+                            _ladder_sweeps([res.sweeps]))
     tri = eref.hold_golden_triples(res)
     held = eref.hold_curve(eref.curve_record(res), ref["golden"]["float64"],
                            atol=1e-9, eps=1e-6)
     log(f"[18 entropy golden] entropy_sweep float64 on the seed-9425 "
         f"instance (n={g.n}, {g.num_edges} edges): sweeps "
         f"{res.sweeps.tolist()}, wall {wall:.3f} s; triples within {tri} "
-        f"(<= 5e-3); entropy_ref.json held: {held}; dp_contract launches "
-        f"{launches}")
+        f"(<= 5e-3); entropy_ref.json held: {held}; bdcm_sweep launches "
+        f"(one per sweep) {launches}")
     sub, _ = graphs.remove_isolates(g)
     data = BDCMData(sub, dtype="float64")
     classes = _class_report(data, "golden instance")
@@ -1727,7 +2108,8 @@ def phase_entropy_union_ref(ref: dict) -> dict:
                                      seed=eref.UNION_SHAPE["seed"],
                                      lambdas=eref.union_lambdas(),
                                      device="cuda")
-        launches += _bdcm_counts(f"entropy_ensemble_union (reduced, {dtype})")
+        launches += _bdcm_counts(f"entropy_ensemble_union (reduced, {dtype})",
+                                 _ladder_sweeps([res.sweeps]))
         got, want = eref.curve_record(res), ref["union"][dtype]
         if dtype == "float64":
             out[dtype] = eref.hold_curve(got, want, atol=atol, eps=1e-6)
@@ -1748,13 +2130,14 @@ def phase_entropy_union_ref(ref: dict) -> dict:
                                            seed=eref.UNION_SHAPE["seed"],
                                            lambdas=eref.union_lambdas(),
                                            device="cuda")
-            launches += _bdcm_counts("entropy_ensemble_union (again)")
+            launches += _bdcm_counts("entropy_ensemble_union (again)",
+                                     _ladder_sweeps([again.sweeps]))
             if not (np.array_equal(again.ent, res.ent)
                     and np.array_equal(again.m_init, res.m_init)):
                 raise AssertionError("two union runs differ")
     log(f"[19 entropy union ref] reduced config-4 union held to "
         f"entropy_ref.json: {out}; a second float32 run equal bit for bit; "
-        f"dp_contract launches {launches}")
+        f"bdcm_sweep launches (one per sweep) {launches}")
     out["launches"] = launches
     return out
 
@@ -1772,7 +2155,8 @@ def phase_entropy_grouped() -> dict:
         runs[G] = entropy_grid(gg["n"], np.asarray(gg["deg"]), cfg, seed=0,
                                group_size=G, device="cuda")
         runs[f"wall{G}"] = time.perf_counter() - t0
-        launches += _bdcm_counts(f"entropy_grid(group_size={G})")
+        launches += _bdcm_counts(f"entropy_grid(group_size={G})",
+                                 _grid_sweeps(runs[G], G))
     for G in (3, 8):
         for f in runs[0]._fields:
             if not np.array_equal(getattr(runs[G], f), getattr(runs[0], f)):
@@ -1781,7 +2165,7 @@ def phase_entropy_grouped() -> dict:
         f"{gg['num_rep']} reps: group sizes 3 and 8 equal the serial loop "
         f"bit for bit (n_lambda {runs[0].n_lambda.tolist()}); walls serial "
         f"{runs['wall0']:.3f} s, G=3 {runs['wall3']:.3f} s, G=8 "
-        f"{runs['wall8']:.3f} s; dp_contract launches {launches}")
+        f"{runs['wall8']:.3f} s; bdcm_sweep launches (one per sweep) {launches}")
     return {"launches": launches, "walls": {G: runs[f"wall{G}"]
                                             for G in (0, 3, 8)}}
 
@@ -1813,9 +2197,10 @@ def _ladder_report(res, wall: float, G: int) -> dict:
 
 def phase_config4_main() -> dict:
     """Config 4 at full width through ``entropy_ensemble_union``: wall time,
-    graph-λ-points/s, sweeps per λ, nonconverged, the K3 launches, peak
-    device memory; the union's classes (every one admitted) timed one by
-    one; the device breakdown of one fixed point under the profiler."""
+    graph-λ-points/s, sweeps per λ, nonconverged, the sweep kernel's
+    launches, peak device memory; the union's classes (every one admitted)
+    timed one by one; the device breakdown of one fixed point under the
+    profiler."""
     t0 = time.perf_counter()
     gs = _config4_graphs()
     t_graphs = time.perf_counter() - t0
@@ -1827,7 +2212,8 @@ def phase_config4_main() -> dict:
                                  lambdas=_config4_lambdas(), device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _bdcm_counts("entropy_ensemble_union (config 4)")
+    launches = _bdcm_counts("entropy_ensemble_union (config 4)",
+                            _ladder_sweeps([res.sweeps]))
     peak = torch.cuda.max_memory_allocated() - held
     rep = _ladder_report(res, wall, CONFIG4_G)
     if not rep["finite"] or res.ent.shape != (res.lambdas.size, CONFIG4_G):
@@ -1840,7 +2226,7 @@ def phase_config4_main() -> dict:
         f"{rep['graph_lambda_points_per_s']:.4f} graph-lambda-points/s, "
         f"sweeps {rep['sweeps']}, nonconverged {rep['nonconverged']}; peak "
         f"device memory of the run {peak} B (above the {held} B the earlier "
-        f"phases hold); dp_contract launches {launches}; member "
+        f"phases hold); bdcm_sweep launches (one per sweep) {launches}; member "
         f"means {rep['member_mean']}")
     subs = [graphs.remove_isolates(g)[0] for g in gs]
     union = graphs.disjoint_union(subs)[0]
@@ -1884,7 +2270,8 @@ def phase_congruent_ensemble() -> dict:
                            lambdas=_config4_lambdas(), device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _bdcm_counts("entropy_ensemble (64 RRG)")
+    launches = _bdcm_counts("entropy_ensemble (64 RRG)",
+                            _ladder_sweeps([res.sweeps]))
     rep = _ladder_report(res, wall, CONFIG4_G)
     if not rep["finite"]:
         raise AssertionError(f"congruent ensemble result: {rep}")
@@ -1893,7 +2280,7 @@ def phase_congruent_ensemble() -> dict:
         f"{rep['lambdas']} lambda visited, "
         f"{rep['graph_lambda_points_per_s']:.4f} graph-lambda-points/s, "
         f"sweeps {rep['sweeps']}, nonconverged {rep['nonconverged']}; "
-        f"dp_contract launches {launches}")
+        f"bdcm_sweep launches (one per sweep) {launches}")
     return {"launches": launches, **rep}
 
 
@@ -1904,11 +2291,13 @@ def phase_entropy_cli() -> dict:
     _reset_bdcm_counts()
     t0 = time.perf_counter()
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), _grid_results() as grids:
         rc = cli.main(["entropy", "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _bdcm_counts("entropy CLI")
+    if len(grids) != 1:
+        raise AssertionError(f"entropy CLI: {len(grids)} entropy_grid calls")
+    launches = _bdcm_counts("entropy CLI", _grid_sweeps(*grids[0]))
     doc = json.loads(buf.getvalue().strip().splitlines()[-1])
     if rc != 0 or set(doc) != {"solver", "deg", "ent1_first_lambda",
                                "counts", "out", "plot"}:
@@ -1919,7 +2308,7 @@ def phase_entropy_cli() -> dict:
         f"(defaults: n=1000, deg 1.0 1.5 2.0, num_rep 3, lambda 0..12 step "
         f"0.1, {lambda_ladder(EntropyConfig()).size} points): wall {wall:.3f} "
         f"s; counts {doc['counts']}; ent1 at lambda 0 "
-        f"{doc['ent1_first_lambda']}; dp_contract launches {launches}")
+        f"{doc['ent1_first_lambda']}; bdcm_sweep launches (one per sweep) {launches}")
     return {"wall_s": wall, "launches": launches, "counts": doc["counts"]}
 
 
@@ -1963,7 +2352,10 @@ def main() -> int:
         f"({head['bound_by']}: {head['bytes']} B at {HBM_BYTES_PER_S:.3e} "
         f"B/s); no-reuse traffic {head['no_reuse_bytes']} B = "
         f"{head['no_reuse_ms']} ms; library_ms null (no single PyTorch call "
-        f"computes a packed majority step)")
+        f"computes a packed majority step); plan {head['plan']}; "
+        f"the step's own gather: row_gather {head['gather_ms']} ms, "
+        f"index_select {head['index_select_ms']} ms (bound "
+        f"{head['gather_bound_ms']} ms)")
     sp_e = draw_packed_biased(3, g_e.n, CONFIG3_R // 32, 0.0, device="cuda")
     cfg3 = phase_timing(g_e, nbr_e, deg_e, sp_e, reps=200, plain_reps=3)
     log(f"[3 config 3] ER n={g_e.n} c={CONFIG3_C} R={CONFIG3_R}: kernel "
@@ -1971,7 +2363,9 @@ def main() -> int:
         f"{cfg3['host_ms_per_step']} ms/step; plain PyTorch "
         f"{cfg3['plain_ms']} ms/step; bound {cfg3['bound_ms']} ms "
         f"({cfg3['bound_by']}: {cfg3['bytes']} B); no-reuse traffic "
-        f"{cfg3['no_reuse_bytes']} B = {cfg3['no_reuse_ms']} ms")
+        f"{cfg3['no_reuse_bytes']} B = {cfg3['no_reuse_ms']} ms; plan "
+        f"{cfg3['plan']}; the step's own gather: row_gather {cfg3['gather_ms']} ms, index_select "
+        f"{cfg3['index_select_ms']} ms")
 
     # the main path, counted: headline rollout, config-3 sweep, headline point
     packed_cuda.LAUNCHES = 0
@@ -2003,8 +2397,13 @@ def main() -> int:
     phase_fused_cli(main_f)
     scale = phase_fused_scale()
 
-    # the BDCM class update (K3): parity, then the HPr main path, counted
+    # the BDCM kernels: the per-class update's parity, the sweep kernel's
+    # parity and timing on the entropy shapes, then the HPr main path,
+    # counted (the HPr shapes' sweep timings run inside phases 12 and 15)
+    with open(os.path.join(HERE, "entropy_ref.json")) as f:
+        eref_doc = json.load(f)
     contract_errs, contract_timings = phase_contract_parity()
+    sweep_ent = phase_sweep_entropy(eref_doc)
     ref_errs = phase_hpr_ref()
     ref_shape = phase_hpr_ref_timing()
     hpr_main = phase_hpr_main()
@@ -2016,9 +2415,7 @@ def main() -> int:
     gather_err = phase_gather_parity()
     probe = phase_gather_probe()
 
-    # the entropy λ-ladders through K3, each run counted
-    with open(os.path.join(HERE, "entropy_ref.json")) as f:
-        eref_doc = json.load(f)
+    # the entropy λ-ladders through the sweep kernel, each run counted
     golden = phase_entropy_golden(eref_doc)
     union_ref = phase_entropy_union_ref(eref_doc)
     grouped = phase_entropy_grouped()
@@ -2032,6 +2429,16 @@ def main() -> int:
                         "entropy_ensemble_rrg": congruent["launches"],
                         "entropy_cli": ent_cli["launches"]}
     probe512 = {r["impl"]: r for r in probe["rows"] if r["W"] == 512}
+    sweep_shapes = {**sweep_ent,
+                    "HPr reference shape f32": ref_shape["float32"]["bdcm_sweep"],
+                    "HPr reference shape f64": ref_shape["float64"]["bdcm_sweep"],
+                    "HPr config 2": cfg2["bdcm_sweep"]}
+    sweep_launches = {"hpr_cli": hpr_main["cli"]["launches"],
+                      "hpr_ensemble_g4": hpr_main["group4"]["launches"],
+                      "hpr_solve_f64": hpr_main["f64"]["launches"],
+                      "hpr_solve_batch_config2": cfg2_main["launches_batch"],
+                      "hpr_cli_config2": cfg2_main["launches_cli"],
+                      **entropy_launches}
 
     kernels = [{
         "name": "packed_step",
@@ -2052,9 +2459,14 @@ def main() -> int:
         "spin_updates_per_s": rate,
         "host_ms_per_step": head["host_ms_per_step"],
         "no_reuse_ms": head["no_reuse_ms"],
+        "design": "node order, 16-byte vectors, batched loads",
+        "plan": head["plan"],
+        "gather_ms": head["gather_ms"],
+        "index_select_ms": head["index_select_ms"],
         "config3": {k: cfg3[k] for k in ("ms", "plain_ms", "host_ms_per_step",
                                          "bound_ms", "bound_by",
-                                         "no_reuse_ms")},
+                                         "no_reuse_ms", "plan",
+                                         "gather_ms", "index_select_ms")},
         "build_s": built["build_s"],
         "ptxas": built["packed_step"],
     }, {
@@ -2095,8 +2507,9 @@ def main() -> int:
         "source": "graphdyn_torch/csrc/bdcm_contract.cu",
         "replaces": "graphdyn/ops/pallas_bdcm.py:200 (K3 dp_contract_grouped)",
         "parity": "rtol 1e-5 (f32), 1e-12 (f64)",
-        "launches": hpr_main["launches"] + cfg2_main["launches"]
-        + sum(entropy_launches.values()),
+        # off the main paths since the sweep kernel: its counts read at the
+        # end of every HPr and entropy window (each checked to be 0)
+        "launches": sum(_PER_CLASS_ON_MAIN_PATHS),
         "max_abs_err": max([cfg2["max_abs_err"]]
                            + [e["max_abs_err"] for e in contract_errs.values()]
                            + [ref_shape[k]["max_abs_err"] for k in ref_shape]),
@@ -2120,12 +2533,6 @@ def main() -> int:
                                    "sweep_ms")}
             for dt, v in ref_shape.items()},
         "by_class_shape": contract_timings,
-        "launches_by_run": {"hpr_cli": hpr_main["cli"]["launches"],
-                            "hpr_ensemble_g4": hpr_main["group4"]["launches"],
-                            "hpr_solve_f64": hpr_main["f64"]["launches"],
-                            "hpr_solve_batch_config2": cfg2_main["launches_batch"],
-                            "hpr_cli_config2": cfg2_main["launches_cli"],
-                            **entropy_launches},
         "entropy": {
             "config4": {k: cfg4[k] for k in (
                 "wall_s", "lambdas", "graph_lambda_points_per_s", "sweeps",
@@ -2150,6 +2557,35 @@ def main() -> int:
                 "hpr_ref_max_rel_err": ref_errs},
         "ptxas": {"float": built["dp_contract_float"],
                   "double": built["dp_contract_double"]},
+    }, {
+        "name": "bdcm_sweep",
+        "route": "cuda",
+        "source": "graphdyn_torch/csrc/bdcm_sweep.cu",
+        "replaces": "graphdyn/ops/pallas_bdcm.py:200 (K3 dp_contract_grouped, "
+                    "pallas_call at :280) with the class loop around it, "
+                    "graphdyn/ops/bdcm.py:330-372",
+        "parity": "rtol 1e-5 (f32), 1e-12 (f64) per sweep",
+        "launches": sum(sweep_launches.values()),
+        "max_abs_err": max(v["max_abs_err"] for v in sweep_shapes.values()),
+        "max_rel_err": max(v["max_rel_err"] for v in sweep_shapes.values()),
+        "ms": cfg2["bdcm_sweep"]["ms"],
+        "plain_ms": cfg2["bdcm_sweep"]["plain_ms"],
+        "bound_ms": cfg2["bdcm_sweep"]["bound_ms"],
+        "bound_by": cfg2["bdcm_sweep"]["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a BDCM sweep",
+        "unit": "per sweep",
+        "shape": f"config 2: union of {CONFIG2_R} RRG d={CONFIG2_D} "
+                 f"n={CONFIG2_N}, f32, one class, node bias",
+        "per_class_route_ms": cfg2["bdcm_sweep"]["per_class_ms"],
+        "by_shape": {k: {f: v[f] for f in (
+            "G", "classes", "paths", "threads", "smem", "ms", "per_class_ms",
+            "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "max_rel_err", "per_class_bit_equal", "per_class_max_abs_diff")}
+            for k, v in sweep_shapes.items()},
+        "launches_by_run": sweep_launches,
+        "ptxas": {"float": built["bdcm_sweep_float"],
+                  "double": built["bdcm_sweep_double"]},
     }, {
         "name": "row_gather",
         "route": "cuda",

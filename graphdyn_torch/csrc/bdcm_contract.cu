@@ -44,10 +44,13 @@
 //   edge's K destination rows one after another: each DP step sums, per m,
 //   the K shifted entries in trajectory order; the contraction is reduced
 //   over the block, and the edge's clamped chi2 waits in shared memory for z.
-// Grid: (⌈Ed·K / block⌉, G) or (min(Ed, 2^31−1), G). Each thread's order of
-// operations does not depend on G or Ed. Templated on float and double: the
-// reference solver runs in float64. No tensor cores: the contraction is a
-// short dot product.
+// The per-edge bodies of both paths live in bdcm_dp.cuh, shared with the
+// one-launch sweep kernel (bdcm_sweep.cu), which runs the main paths; this
+// entry is the per-class counterpart of the JAX package's public
+// dp_contract_grouped. Grid: (⌈Ed·K / block⌉, G) or (min(Ed, 2^31−1), G).
+// Each thread's order of operations does not depend on G or Ed. Templated
+// on float and double: the reference solver runs in float64. No tensor
+// cores: the contraction is a short dot product.
 //
 // C interface (bound with ctypes): graphdyn_bdcm_contract takes the launch
 // plan (path, threads per block, dynamic shared bytes) from the caller,
@@ -55,53 +58,15 @@
 // launch, 0 on success, cudaErrorInvalidValue for a plan or shape outside
 // them. It launches on the given stream and does not synchronise.
 
-#include <cfloat>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bdcm_dp.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;          // at most, per block
-constexpr int kRegMaxM = 32;           // the register path's lattices
-constexpr int kSmemDefault = 48 * 1024;
-constexpr int kSmemMax = 232448;       // per block, after the opt-in attribute
-
-__host__ __device__ constexpr int ipow(int b, int e)
-{
-    return e == 0 ? 1 : b * ipow(b, e - 1);
-}
-
-// flat lattice shift of trajectory k (product([1, 0]) order: bit t of the
-// trajectory is 1 - bit (T-1-t) of k)
-__host__ __device__ constexpr int flat_offset(int k, int d, int T)
-{
-    int off = 0;
-    for (int t = 0; t < T; ++t) off = off * (d + 1) + (1 - ((k >> (T - 1 - t)) & 1));
-    return off;
-}
-
-template <typename F> __device__ __forceinline__ F tiny_of();
-template <> __device__ __forceinline__ float tiny_of<float>() { return FLT_MIN; }
-template <> __device__ __forceinline__ double tiny_of<double>() { return DBL_MIN; }
-
-template <typename F> __device__ __forceinline__ F fmax_of(F a, F b) { return a > b ? a : b; }
-
-// z over the K lanes of one edge, the remaining contraction and damping;
-// v[] holds this thread's clamped row chi2[x_i, ·]
-template <typename F, int K>
-__device__ __forceinline__ void finish(const F (&v)[K], F zpart, bool live,
-                                       const F* __restrict__ old,
-                                       F* __restrict__ out, F damp, F omd)
-{
-    F z = zpart;
-#pragma unroll
-    for (int o = K / 2; o >= 1; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
-    const F inv = F(1) / fmax_of(z, tiny_of<F>());
-    if (!live) return;
-#pragma unroll
-    for (int j = 0; j < K; ++j) out[j] = damp * v[j] * inv + omd * old[j];
-}
+using namespace bdcm;
 
 template <typename F, int D, int T>
 __global__ void __launch_bounds__(kThreads)
@@ -123,42 +88,9 @@ dp_contract_reg(const F* __restrict__ chi_in, const F* __restrict__ a,
     const int xi = (int)(tid % K);
     const bool live = e < Ed;
     const long long row = g * Ed + (live ? e : 0);
-    const F* ci = chi_in + row * (long long)(D * K * K);
-
-    F ll[M];
-#pragma unroll
-    for (int m = 0; m < M; ++m) ll[m] = F(0);
-    ll[0] = F(1);
-#pragma unroll
-    for (int s = 0; s < D; ++s) {
-        F acc[M];
-#pragma unroll
-        for (int m = 0; m < M; ++m) acc[m] = F(0);
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-            const int off = flat_offset(k, D, T);
-            const F w = live ? ci[(s * K + k) * K + xi] : F(0);
-#pragma unroll
-            for (int m = 0; m < M; ++m)
-                if (m >= off) acc[m] += ll[m - off] * w;
-        }
-#pragma unroll
-        for (int m = 0; m < M; ++m) ll[m] = acc[m];
-    }
-
-    const F* arow = a_s + xi * K * M;
-    F v[K];
-    F zpart = F(0);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-        F sum = F(0);
-#pragma unroll
-        for (int m = 0; m < M; ++m) sum += arow[j * M + m] * ll[m];
-        v[j] = fmax_of(sum, eps);
-        zpart += v[j];
-    }
-    finish<F, K>(v, zpart, live, chi_old + row * (K * K) + xi * K,
-                 out + row * (K * K) + xi * K, damp, omd);
+    reg_edge<F, D, T>(chi_in + row * (long long)(D * K * K), a_s + xi * K * M,
+                      xi, live, chi_old + row * (K * K) + xi * K,
+                      out + row * (K * K) + xi * K, damp, omd, eps);
 }
 
 template <typename F, int T>
@@ -170,72 +102,16 @@ dp_contract_block(const F* __restrict__ chi_in, const F* __restrict__ a,
 {
     constexpr int K = 1 << T;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    F* ll = reinterpret_cast<F*>(smem_raw);   // [M] the row being built
-    F* acc = ll + M;                          // [M] the next one
-    F* chi2 = acc + M;                        // [K, K] the edge's clamped rows
-    F* part = chi2 + K * K;                   // [warps, K] contraction partials
-    const int warps = blockDim.x / 32;
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    F* smem = reinterpret_cast<F*>(smem_raw);
     const long long g = blockIdx.y;
     const F* a_g = a + g * a_group_stride;
-    int offs[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) offs[k] = flat_offset(k, d, T);
-
     for (long long e = blockIdx.x; e < Ed; e += gridDim.x) {
         const long long row = g * Ed + e;
         const F* ci = chi_in + row * (long long)(d * K * K);
-        for (int xi = 0; xi < K; ++xi) {
-            for (int m = threadIdx.x; m < M; m += blockDim.x)
-                ll[m] = m == 0 ? F(1) : F(0);
-            __syncthreads();
-            for (int s = 0; s < d; ++s) {
-                F w[K];
-#pragma unroll
-                for (int k = 0; k < K; ++k) w[k] = __ldg(ci + (s * K + k) * K + xi);
-                for (int m = threadIdx.x; m < M; m += blockDim.x) {
-                    F sum = F(0);
-#pragma unroll
-                    for (int k = 0; k < K; ++k)
-                        if (m >= offs[k]) sum += ll[m - offs[k]] * w[k];
-                    acc[m] = sum;
-                }
-                __syncthreads();
-                F* tmp = ll; ll = acc; acc = tmp;
-            }
-            const F* arow = a_g + (long long)xi * K * M;
-            F c[K];
-#pragma unroll
-            for (int j = 0; j < K; ++j) c[j] = F(0);
-            for (int m = threadIdx.x; m < M; m += blockDim.x) {
-                const F l = ll[m];
-#pragma unroll
-                for (int j = 0; j < K; ++j) c[j] += __ldg(arow + j * M + m) * l;
-            }
-#pragma unroll
-            for (int j = 0; j < K; ++j) {
-#pragma unroll
-                for (int o = 16; o >= 1; o >>= 1)
-                    c[j] += __shfl_xor_sync(0xffffffffu, c[j], o);
-            }
-            if (lane == 0) {
-#pragma unroll
-                for (int j = 0; j < K; ++j) part[warp * K + j] = c[j];
-            }
-            __syncthreads();
-            if (threadIdx.x < K) {
-                F sum = F(0);
-                for (int w2 = 0; w2 < warps; ++w2) sum += part[w2 * K + threadIdx.x];
-                chi2[xi * K + threadIdx.x] = fmax_of(sum, eps);
-            }
-        }
-        __syncthreads();
-        F z = F(0);
-        for (int j = 0; j < K * K; ++j) z += chi2[j];
-        const F inv = F(1) / fmax_of(z, tiny_of<F>());
-        for (int j = threadIdx.x; j < K * K; j += blockDim.x)
-            out[row * (K * K) + j] = damp * chi2[j] * inv + omd * chi_old[row * (K * K) + j];
-        __syncthreads();
+        block_edge<F, T>(
+            [ci](int s, int k, int xi) { return __ldg(ci + (s * K + k) * K + xi); },
+            a_g, d, M, chi_old + row * (K * K), out + row * (K * K), damp, omd,
+            eps, smem);
     }
 }
 
@@ -330,7 +206,7 @@ extern "C" int graphdyn_bdcm_contract(
     for (int t = 0; t < T && M <= kSmemMax; ++t) M *= d + 1;
     // the shared bytes each path indexes
     const long long need = path == 0 ? K * K * M * esize
-                         : (2 * M + K * K + threads / 32 * K) * esize;
+                         : block_smem_elems(M, K, threads) * esize;
     if ((path != 0 && path != 1) || (path == 0 && (M > kRegMaxM || d > 8))
         || need > smem)
         return (int)cudaErrorInvalidValue;

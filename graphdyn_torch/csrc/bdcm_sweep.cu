@@ -1,0 +1,429 @@
+// One Gauss-Seidel BDCM sweep of G instances in one cooperative launch: every
+// edge-degree class in order, the gathers of the class inputs, the bias or
+// the validity mask, the DP and contraction, and the write of the updated
+// rows, with a grid barrier between two classes.
+//
+// Replaces, on the main paths, the class loop around the Pallas TPU kernel
+//   K3  graphdyn/ops/pallas_bdcm.py:200  dp_contract_grouped
+// that the JAX package's sweep runs (graphdyn/ops/bdcm.py:330-372: XLA
+// gathers, the kernel, a scatter, per class), and computes what
+// graphdyn_torch/ops/bdcm.py:_sweep_core computes on the CPU, up to the
+// order of the sums inside the DP (the per-edge bodies are those of
+// bdcm_contract.cu, shared through bdcm_dp.cuh).
+//
+// Semantics. Jacobi inside a class, Gauss-Seidel across classes: class c
+// reads the rows that classes < c updated in this sweep and the pre-sweep
+// rows of every other. The kernel reads by class id (cid: one int8 per row,
+// 127 for a row in no class): a row with cid < c is read from the output,
+// where an earlier phase wrote it; any other from the input, which nothing
+// writes. Each class writes its members' rows straight into the output, and
+// the rows in no class (leaf edges, ghost rows, pad rows) are copied through
+// once, so there is no scratch buffer and no scatter. A member whose output
+// row's cid is not c is a padding member (it points at a ghost row): it
+// computes nothing and writes nothing. Rows read from the output use L2-only
+// loads (ld.global.cg), since they were written by other blocks earlier in
+// the same launch; rows and tables of the input use the read-only path.
+//
+// What bounds it on an H100. The work a sweep needs: chi read once and
+// written once, the int32 tables and the class ids, the bias or mask, the
+// factors, and the DP's FMAs. At HPr config 2 (union of 256 copies of a d=3
+// RRG, n=1e5: 7.68e7 rows of 64 bytes, one class, d=2, T=2) that is about
+// 11 GB, 3.3 ms at 3.35 TB/s; the in-edges' rows are random 64-byte reads,
+// two per edge. At config 4 (64 ER(1000, 1.5) instances, 8 classes) a sweep
+// moves ~10 MB: latency, the launch and the 7 grid barriers set the pace.
+//
+// Design.
+// - One launch per sweep, a grid sized by occupancy (cooperative launch),
+//   the phases in class order separated by cg::this_grid().sync().
+// - Register path (M ≤ 32, d ≤ 8; templated on (D, T)): blocks walk tiles
+//   of blockDim/K edges of one group. The block first gathers the tile's
+//   d·K·K inputs from chi through in_edges with 16-byte vector loads (a
+//   K×K row is 16 B at T=1 f32, 64 B at T=2 f32, 128 B at T=2 f64), weighs
+//   each value by its bias and mask in registers and stages it in shared
+//   memory (one edge's inputs padded so the K lanes of the 32/K edges of a
+//   warp read distinct banks); then each thread runs reg_edge for its
+//   (edge, x_i). The factor is staged once per phase (shared) or whenever
+//   the tile's group changes (per group).
+// - Block path (larger lattices): one edge per block, grid-strided, the
+//   inputs read straight from chi through in_edges into block_edge.
+// - Bias. Per-row weights bias[r, k] (bias_src null, stride K, col(k) = k)
+//   or the node form: biases[src[r], col(k)] with col(k) = 0 where the
+//   source trajectory starts at +1 (stride 2), so no per-edge bias tensor
+//   exists; the caller packs col(k) into bias_cols.
+//   The product (chi · bias) · valid[k] is taken before the DP in the order
+//   and type of the plain version.
+// - Each edge's order of operations depends neither on G nor on the grid,
+//   so grouped and serial sweeps agree bit for bit.
+//
+// C interface (bound with ctypes): graphdyn_bdcm_sweep takes the per-class
+// tables and paths, the block size and the dynamic shared bytes from the
+// caller's plan (graphdyn_torch/ops/bdcm_sweep.py), checks them against the
+// kernel's bounds and returns the cudaError_t of the launch, 0 on success,
+// cudaErrorInvalidValue for a plan outside them. It launches on the given
+// stream and does not synchronise.
+
+#include <climits>
+#include <cstdint>
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "bdcm_dp.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace bdcm;
+
+constexpr int kMaxClasses = 64;
+
+struct ClassDesc {
+    const int32_t* idx;       // [G·Ed] output rows, ids into the [G·rows] rows
+    const int32_t* in_edges;  // [G·Ed, d] incoming rows
+    const void* a;            // tilted factor [K, K, M] or [G, K, K, M]
+    long long Ed;             // members per group
+    long long a_stride;       // elements from one group's factor to the next
+    int d, path;              // path 0: register, 1: block
+};
+
+struct Params {
+    const void* chi_in;
+    void* chi_out;
+    const signed char* cid;        // [G·rows]
+    const int32_t* pass_rows;      // [n_pass] rows in no class
+    long long n_pass;
+    const void* bias;              // null: no bias
+    const int32_t* bias_src;       // null: one bias row per chi row
+    long long bias_stride;
+    unsigned long long bias_cols;  // 4 bits per k: the bias column of x_k
+    int masked;                    // multiply by valid[k]
+    unsigned valid_bits;           // bit k: valid[k]
+    long long G;
+    int n_classes;
+    double damp, eps;
+    ClassDesc cls[kMaxClasses];
+};
+
+template <typename F> struct Vec16;
+template <> struct Vec16<float> { using T = float4; };
+template <> struct Vec16<double> { using T = double2; };
+
+// 16 bytes of chi at p into v: the output through L2 only (written by
+// earlier phases of this launch), the input through the read-only path
+template <typename F>
+__device__ __forceinline__ void load16(const F* p, bool from_out,
+                                       F (&v)[16 / sizeof(F)])
+{
+    using V = typename Vec16<F>::T;
+    const V* q = reinterpret_cast<const V*>(p);
+    const V t = from_out ? __ldcg(q) : __ldg(q);
+    if constexpr (sizeof(F) == 4) {
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+        v[0] = t.x; v[1] = t.y;
+    }
+}
+
+template <typename F>
+__device__ __forceinline__ F load1(const F* p, bool from_out)
+{
+    return from_out ? __ldcg(p) : __ldg(p);
+}
+
+// chi[r, k, ·] as the DP consumes it: times the bias of the source, then
+// times valid[k] (the plain version's two multiplies, in its order)
+template <typename F>
+__device__ __forceinline__ F weigh(const Params& p, F x, long long r, int k)
+{
+    if (p.bias) {
+        const long long br = p.bias_src ? (long long)__ldg(p.bias_src + r) : r;
+        const int col = (int)((p.bias_cols >> (4 * k)) & 15u);
+        x = x * __ldg(static_cast<const F*>(p.bias) + br * p.bias_stride + col);
+    }
+    if (p.masked) x = x * F((p.valid_bits >> k) & 1u);
+    return x;
+}
+
+// edge stride of the register path's staging, in elements: the edge's
+// D·K·K inputs padded to ≡ K (mod 32), so the 32/K edges of a warp start
+// K banks apart
+__host__ __device__ constexpr int stage_stride(int D, int K)
+{
+    return D * K * K + ((K - (D * K * K) % 32) % 32 + 32) % 32;
+}
+
+template <typename F, int D, int T>
+__device__ void reg_phase(const Params& p, const ClassDesc& cd, int c, F* smem)
+{
+    constexpr int K = 1 << T;
+    constexpr int KK = K * K;
+    constexpr int M = ipow(D + 1, T);
+    constexpr int V = 16 / sizeof(F);          // values per 16-byte chunk
+    constexpr int RC = KK / V;                 // chunks per K×K row
+    constexpr int ES = stage_stride(D, K);
+    const int Et = blockDim.x / K;             // edges per tile
+    F* stage = smem;                           // [Et, ES]
+    F* a_s = smem + Et * ES;                   // [K, K, M]
+    const F* in = static_cast<const F*>(p.chi_in);
+    F* out = static_cast<F*>(p.chi_out);
+    const long long Ed = cd.Ed;
+    const long long tpg = (Ed + Et - 1) / Et;  // tiles per group
+    const long long tiles = p.G * tpg;
+    const F damp = (F)p.damp, omd = (F)(1.0 - p.damp), eps = (F)p.eps;
+    long long staged = -1;
+
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const long long g = tile / tpg;
+        const long long e0 = (tile - g * tpg) * Et;
+        const long long ag = cd.a_stride ? g : 0;
+        if (ag != staged) {
+            __syncthreads();
+            const F* a_g = static_cast<const F*>(cd.a) + ag * cd.a_stride;
+            for (int i = threadIdx.x; i < KK * M; i += blockDim.x)
+                a_s[i] = __ldg(a_g + i);
+            staged = ag;
+        }
+        for (int q = threadIdx.x; q < Et * D * RC; q += blockDim.x) {
+            const int el = q / (D * RC);
+            const int rem = q - el * (D * RC);
+            const int s = rem / RC, ch = rem - s * RC;
+            const long long e = e0 + el;
+            F v[V];
+#pragma unroll
+            for (int j = 0; j < V; ++j) v[j] = F(0);
+            if (e < Ed) {
+                // the member's row and its in-edge are independent loads,
+                // then the class ids and the chi row; no row has a class
+                // before the first, so phase 0 reads the input unchecked.
+                // A padding member's in-edges are ghost rows, which exist:
+                // its row is loaded and dropped.
+                const long long m = g * Ed + e;
+                const long long row = __ldg(cd.idx + m);
+                const long long r = __ldg(cd.in_edges + m * D + s);
+                const bool upd = c > 0 && __ldg(p.cid + r) < c;
+                const bool live = __ldg(p.cid + row) == c;
+                load16<F>((upd ? out : in) + r * KK + ch * V, upd, v);
+#pragma unroll
+                for (int j = 0; j < V; ++j)
+                    v[j] = live ? weigh<F>(p, v[j], r, (ch * V + j) / K)
+                                : F(0);
+            }
+            F* dst = stage + el * ES + s * KK + ch * V;
+#pragma unroll
+            for (int j = 0; j < V; ++j) dst[j] = v[j];
+        }
+        __syncthreads();
+        const int el = threadIdx.x / K;
+        const int xi = threadIdx.x - el * K;
+        const long long e = e0 + el;
+        bool live = false;
+        long long row = 0;
+        if (e < Ed) {
+            row = __ldg(cd.idx + g * Ed + e);
+            live = __ldg(p.cid + row) == c;
+        }
+        reg_edge<F, D, T>(stage + el * ES, a_s + xi * K * M, xi, live,
+                          in + row * KK + xi * K, out + row * KK + xi * K,
+                          damp, omd, eps);
+        __syncthreads();
+    }
+}
+
+template <typename F, int T>
+__device__ void reg_dispatch(const Params& p, const ClassDesc& cd, int c,
+                             F* smem)
+{
+    // the instantiations are exactly the classes with M ≤ 32 and d ≤ 8,
+    // which the C entry checks
+    if constexpr (T == 1) {
+        switch (cd.d) {
+            case 1: reg_phase<F, 1, 1>(p, cd, c, smem); break;
+            case 2: reg_phase<F, 2, 1>(p, cd, c, smem); break;
+            case 3: reg_phase<F, 3, 1>(p, cd, c, smem); break;
+            case 4: reg_phase<F, 4, 1>(p, cd, c, smem); break;
+            case 5: reg_phase<F, 5, 1>(p, cd, c, smem); break;
+            case 6: reg_phase<F, 6, 1>(p, cd, c, smem); break;
+            case 7: reg_phase<F, 7, 1>(p, cd, c, smem); break;
+            default: reg_phase<F, 8, 1>(p, cd, c, smem); break;
+        }
+    } else if constexpr (T == 2) {
+        switch (cd.d) {
+            case 1: reg_phase<F, 1, 2>(p, cd, c, smem); break;
+            case 2: reg_phase<F, 2, 2>(p, cd, c, smem); break;
+            case 3: reg_phase<F, 3, 2>(p, cd, c, smem); break;
+            default: reg_phase<F, 4, 2>(p, cd, c, smem); break;
+        }
+    } else if constexpr (T == 3) {
+        if (cd.d == 1) reg_phase<F, 1, 3>(p, cd, c, smem);
+        else reg_phase<F, 2, 3>(p, cd, c, smem);
+    } else {
+        reg_phase<F, 1, 4>(p, cd, c, smem);
+    }
+}
+
+template <typename F, int T>
+__device__ void block_phase(const Params& p, const ClassDesc& cd, int c,
+                            F* smem)
+{
+    constexpr int K = 1 << T;
+    constexpr int KK = K * K;
+    const int d = cd.d;
+    int M = 1;
+    for (int t = 0; t < T; ++t) M *= d + 1;
+    const F* in = static_cast<const F*>(p.chi_in);
+    F* out = static_cast<F*>(p.chi_out);
+    const F damp = (F)p.damp, omd = (F)(1.0 - p.damp), eps = (F)p.eps;
+    const long long members = p.G * cd.Ed;
+    for (long long m = blockIdx.x; m < members; m += gridDim.x) {
+        const long long g = m / cd.Ed;
+        const long long row = __ldg(cd.idx + m);
+        if (__ldg(p.cid + row) != c) continue;     // padding: the whole block
+        const int32_t* ie = cd.in_edges + m * d;
+        auto w_of = [&](int s, int k, int xi) {
+            const long long r = __ldg(ie + s);
+            const bool upd = __ldg(p.cid + r) < c;
+            const long long o = r * KK + k * K + xi;
+            return weigh<F>(p, load1<F>((upd ? out : in) + o, upd), r, k);
+        };
+        block_edge<F, T>(w_of, static_cast<const F*>(cd.a) + g * cd.a_stride,
+                         d, M, in + row * KK, out + row * KK, damp, omd, eps,
+                         smem);
+    }
+}
+
+template <typename F, int T>
+__global__ void __launch_bounds__(kThreads)
+bdcm_sweep_kernel(const __grid_constant__ Params p)
+{
+    constexpr int KK = (1 << T) * (1 << T);
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    F* smem = reinterpret_cast<F*>(smem_raw);
+    cg::grid_group grid = cg::this_grid();
+    const F* in = static_cast<const F*>(p.chi_in);
+    F* out = static_cast<F*>(p.chi_out);
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long nthreads = (long long)gridDim.x * blockDim.x;
+    for (long long i = tid; i < p.n_pass * KK; i += nthreads) {
+        const long long r = __ldg(p.pass_rows + i / KK);
+        out[r * KK + i % KK] = __ldg(in + r * KK + i % KK);
+    }
+    for (int c = 0; c < p.n_classes; ++c) {
+        if (c > 0) grid.sync();
+        const ClassDesc& cd = p.cls[c];
+        if (cd.path == 0) reg_dispatch<F, T>(p, cd, c, smem);
+        else block_phase<F, T>(p, cd, c, smem);
+    }
+}
+
+using KernelFn = void (*)(const Params);
+
+template <typename F>
+KernelFn kernel_for(int T)
+{
+    switch (T) {
+        case 1: return bdcm_sweep_kernel<F, 1>;
+        case 2: return bdcm_sweep_kernel<F, 2>;
+        case 3: return bdcm_sweep_kernel<F, 3>;
+        default: return bdcm_sweep_kernel<F, 4>;
+    }
+}
+
+// the shared elements a class needs at this block size
+long long class_smem_elems(int d, int T, int path, int threads)
+{
+    const int K = 1 << T;
+    long long M = 1;
+    for (int t = 0; t < T && M <= kSmemMax; ++t) M *= d + 1;
+    if (path == 1) return block_smem_elems(M, K, threads);
+    return (long long)(threads / K) * stage_stride(d, K) + (long long)K * K * M;
+}
+
+}  // namespace
+
+// cls_ptrs: n_classes × (idx, in_edges, a) device pointers; cls_ints:
+// n_classes × (Ed, a_stride, d, path). threads and smem are the plan's
+// (graphdyn_torch/ops/bdcm_sweep.py:build_plan); the grid is the
+// co-resident one, capped by the widest phase's work.
+extern "C" int graphdyn_bdcm_sweep(
+    const void* chi_in, void* chi_out, const void* cid, const void* pass_rows,
+    long long n_pass, const void* bias, const void* bias_src,
+    long long bias_stride, unsigned long long bias_cols, int masked,
+    unsigned valid_bits, long long G, int T, int is_double, int n_classes,
+    const long long* cls_ptrs, const long long* cls_ints, double damp,
+    double eps, int threads, int smem, void* stream)
+{
+    if (!chi_in || !chi_out || !cid || (n_pass > 0 && !pass_rows) || n_pass < 0
+        || G < 1 || T < 1 || T > 4 || n_classes < 0 || n_classes > kMaxClasses
+        || threads < 32 || threads > kThreads || threads % 32 != 0 || smem < 0
+        || smem > kSmemMax || (bias && bias_stride < 1))
+        return (int)cudaErrorInvalidValue;
+    const int K = 1 << T;
+    const long long esize = is_double ? 8 : 4;
+    Params p;
+    p.chi_in = chi_in;
+    p.chi_out = chi_out;
+    p.cid = static_cast<const signed char*>(cid);
+    p.pass_rows = static_cast<const int32_t*>(pass_rows);
+    p.n_pass = n_pass;
+    p.bias = bias;
+    p.bias_src = static_cast<const int32_t*>(bias_src);
+    p.bias_stride = bias_stride;
+    p.bias_cols = bias_cols;
+    p.masked = masked;
+    p.valid_bits = valid_bits;
+    p.G = G;
+    p.n_classes = n_classes;
+    p.damp = damp;
+    p.eps = eps;
+    // no more blocks than the widest phase has work for
+    long long want = (n_pass * K * K + threads - 1) / threads;
+    for (int c = 0; c < n_classes; ++c) {
+        ClassDesc& cd = p.cls[c];
+        cd.idx = reinterpret_cast<const int32_t*>(cls_ptrs[3 * c]);
+        cd.in_edges = reinterpret_cast<const int32_t*>(cls_ptrs[3 * c + 1]);
+        cd.a = reinterpret_cast<const void*>(cls_ptrs[3 * c + 2]);
+        cd.Ed = cls_ints[4 * c];
+        cd.a_stride = cls_ints[4 * c + 1];
+        cd.d = (int)cls_ints[4 * c + 2];
+        cd.path = (int)cls_ints[4 * c + 3];
+        if (cd.Ed < 0 || cd.d < 1 || cd.a_stride < 0
+            || (cd.Ed > 0 && (!cd.idx || !cd.in_edges || !cd.a))
+            || (cd.path != 0 && cd.path != 1)
+            || class_smem_elems(cd.d, T, cd.path, threads) * esize > smem)
+            return (int)cudaErrorInvalidValue;
+        long long M = 1;
+        for (int t = 0; t < T; ++t) M *= cd.d + 1;
+        if (cd.path == 0 && (M > kRegMaxM || cd.d > kRegMaxD))
+            return (int)cudaErrorInvalidValue;
+        const long long items = cd.path == 0
+            ? G * ((cd.Ed + threads / K - 1) / (threads / K)) : G * cd.Ed;
+        if (items > want) want = items;
+    }
+    const KernelFn fn = is_double ? kernel_for<double>(T) : kernel_for<float>(T);
+    cudaError_t err;
+    if (smem > kSmemDefault) {
+        err = cudaFuncSetAttribute((const void*)fn,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    int dev = 0, sms = 0, coop = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (!coop) return (int)cudaErrorNotSupported;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)fn,
+                                                        threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    const long long cap = (long long)per_sm * sms;
+    const int blocks = (int)(want < 1 ? 1 : (want < cap ? want : cap));
+    void* args[] = {&p};
+    err = cudaLaunchCooperativeKernel((const void*)fn, dim3(blocks),
+                                      dim3(threads), args, (size_t)smem,
+                                      static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}

@@ -8,8 +8,8 @@ tilted entropy ``s(m_init) = φ + λ·m_init``; stop early when the entropy
 crosses ``ent_floor`` or a fixed point fails (the reference's ``counts``
 sentinel, `ipynb:429-431,446-447`), or on the opt-in plateau.
 
-The sweeps run on the device with the BDCM kernel on the card
-(:mod:`graphdyn_torch.ops.bdcm_cuda`); each fixed point advances in chunks
+The sweeps run on the device, each one launch of the BDCM sweep kernel on
+the card (:mod:`graphdyn_torch.ops.bdcm_sweep`); each fixed point advances in chunks
 of masked sweeps with one host read per chunk (:func:`graphdyn_torch.ops.
 bdcm.fixed_point_sweeps`) where the JAX package runs a device while-loop.
 
@@ -17,7 +17,7 @@ bdcm.fixed_point_sweeps`) where the JAX package runs a device while-loop.
   (:class:`graphdyn_torch.pipeline.entropy_group.EntropyCellExec`, the
   per-group factor), so that it and the grouped grid are one program family.
 - :func:`entropy_ensemble`: congruent graphs (RRG instances), one launch per
-  class over the ensemble axis with one λ (the shared factor), one joint
+  sweep over the ensemble axis with one λ (the shared factor), one joint
   fixed point.
 - :func:`entropy_ensemble_union`: any graphs, as one disjoint union (the
   shared factor, invalid sources masked); per-member φ and m_init by
@@ -273,7 +273,7 @@ def entropy_ensemble(
 ) -> EnsembleEntropyResult:
     """The λ ladder over a structurally congruent, isolate-free graph
     ensemble (e.g. RRG(n, d) instances) as one program: one kernel launch
-    per class over the ensemble axis, one λ (the shared factor). The fixed
+    per sweep over the ensemble axis, one λ (the shared factor). The fixed
     point iterates until every instance has ``max|Δchi| ≤ eps`` (a joint
     fixed point); the entropy-floor exit needs ``all`` (default) or ``any``
     instance to cross, per ``ent_floor_mode``. ``chi0`` warm-starts from a
@@ -479,6 +479,10 @@ class EntropyGridResult(NamedTuple):
     n_lambda: np.ndarray | None = None
                                 # [deg, rep] — λ points visited (early exits
                                 # leave the tail untouched)
+    sweeps: np.ndarray | None = None
+                                # [deg, rep, λ] — fixed-point sweeps per
+                                # visited λ, 0 past n_lambda (the port's
+                                # addition; not in the saved npz)
 
 
 def entropy_grid(
@@ -531,6 +535,7 @@ def entropy_grid(
     mean_degrees_total = np.zeros((D, Rr))
     counts = np.zeros((D, Rr))
     n_lambda = np.zeros((D, Rr), np.int64)
+    sweeps = np.zeros((D, Rr, L), np.int64)
 
     from graphdyn_torch.pipeline.groups import group_ranges
     from graphdyn_torch.pipeline.prefetch import HostPrefetcher
@@ -567,6 +572,7 @@ def entropy_grid(
                 ent1[di, rep, :k] = res.ent1
                 counts[di, rep] = res.nonconverged
                 n_lambda[di, rep] = k
+                sweeps[di, rep, :k] = res.sweeps
     else:
         def build_group_cell(ci):
             # everything that depends only on the cell coordinates, so the
@@ -599,6 +605,7 @@ def entropy_grid(
                     m_init[di, rep, kk] = m0
                     ent1[di, rep, kk] = e1
                     n_lambda[di, rep] = kk + 1
+                    sweeps[di, rep, kk] = sw
                     if failed:
                         counts[di, rep] = lmv
 
@@ -614,10 +621,12 @@ def entropy_grid(
         deg=np.asarray(deg_grid), ent=ent, m_init=m_init, ent1=ent1,
         nodes_isolated=nodes_isolated, mean_degrees=mean_degrees,
         max_degrees=max_degrees, mean_degrees_total=mean_degrees_total,
-        counts=counts, n_lambda=n_lambda,
+        counts=counts, n_lambda=n_lambda, sweeps=sweeps,
     )
     if save_path:
         from graphdyn_torch.utils.io import save_results_npz
 
-        save_results_npz(save_path, **out._asdict())
+        # the reference's keys (`ipynb:515`)
+        save_results_npz(save_path, **{k: v for k, v in out._asdict().items()
+                                       if k != "sweeps"})
     return out

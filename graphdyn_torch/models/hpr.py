@@ -21,8 +21,8 @@ Three drivers:
 - :func:`hpr_ensemble`: ``n_rep`` repetitions on fresh RRGs, grouped
   (default) or serial (``group_size=0``).
 
-Each sweep runs its edge classes through the CUDA kernel on the card
-(``csrc/bdcm_contract.cu``) and through its plain PyTorch twin on the CPU.
+Each sweep is one launch of the CUDA sweep kernel on the card
+(``csrc/bdcm_sweep.cu``) and runs its plain PyTorch route on the CPU.
 The reinforcement draws come from the port's counter-based stream
 (:mod:`graphdyn_torch.pipeline.hpr_group`), or from ``uniforms=`` in tests.
 
@@ -262,7 +262,7 @@ def _make_hpr_batch_body(setup: _HPRSetup, graph: Graph, R: int, uniforms):
         return s_end.sum(dim=1, dtype=torch.int32).to(torch.float32) * inv_n
 
     def body(st: _BatchState) -> _BatchState:
-        chi_new = setup.sweep(st.chi, setup.lmbd, setup.bias_to_edge(st.biases))
+        chi_new = setup.sweep(st.chi, setup.lmbd, biases=st.biases)
         marg = setup.marginals(chi_new)                   # [R·n, 2]
         if uniforms is None:
             u = hpr_uniforms(st.seeds, st.t, st.t + 1, n, dt).reshape(R * n)

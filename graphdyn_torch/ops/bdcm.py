@@ -17,10 +17,17 @@ plain half of ``graphdyn/ops/pallas_bdcm.py``.
   XLA class update (a division by z after the contraction), kept for tests.
 - The sweep (:func:`make_sweep`, :func:`_sweep_core`) updates the classes
   Gauss-Seidel style in class order, over a leading group axis, so the
-  grouped HPr executor and the single sweep run the same code.
+  grouped HPr executor and the single sweep run the same code. On a CUDA
+  tensor a whole sweep is one launch of the sweep kernel
+  (:mod:`graphdyn_torch.ops.bdcm_sweep`, ``csrc/bdcm_sweep.cu``: every
+  class, its gathers, bias and mask inside the kernel); on a CPU tensor it
+  runs the plain route, one gather, :func:`dp_contract_grouped_plain` and
+  one ``index_copy_`` per class. :func:`dp_contract_grouped` with the
+  per-class kernel stays as the counterpart of the JAX package's public
+  function and is off the main paths.
 
-Kernel selection (``kernel=``): ``'auto'`` takes the CUDA kernel for CUDA
-tensors and the plain version for CPU tensors; ``'cuda'`` requires the
+Kernel selection (``kernel=``): ``'auto'`` takes the CUDA kernels for CUDA
+tensors and the plain versions for CPU tensors; ``'cuda'`` requires the
 kernel (CPU tensors raise); ``'plain'`` runs the plain version anywhere (a
 test mode). On CUDA tensors a class the kernel's admission gate
 (:func:`graphdyn_torch.ops.bdcm_cuda.bdcm_kernel_supported`, every class
@@ -65,6 +72,8 @@ from graphdyn_torch.graphs import (
     replicate_disjoint_device,
     replicate_edge_tables_device,
 )
+from graphdyn_torch.ops import bdcm_sweep
+from graphdyn_torch.ops.bdcm_sweep import NodeBias
 from graphdyn_torch.ops.packed import _row_chunk
 from graphdyn_torch.utils.platform import resolve_device
 
@@ -445,24 +454,64 @@ def _flat_ids(tabs, rows: int, device) -> torch.Tensor:
     return t + off.reshape((-1,) + (1,) * (t.ndim - 1))
 
 
-def _sweep_core(chi: torch.Tensor, a_tilted, bias_edge, valid,
-                tables, spec: _SweepSpec) -> torch.Tensor:
+class SweepTables(NamedTuple):
+    """The plain route's tables: per class ``(idx [G, Ed], in_edges [G, Ed,
+    d])`` int64 ids into the ``[G·rows]`` rows, and for a node-level bias
+    (:class:`~graphdyn_torch.ops.bdcm_sweep.NodeBias`) each row's source
+    node (int64 [G·rows], ids into the [G·n] nodes) and which source
+    trajectories start at +1 (bool [K]); None without one."""
+
+    classes: list
+    src: torch.Tensor | None
+    sel_plus: torch.Tensor | None
+
+
+def sweep_tables(tables, spec: _SweepSpec, *, G: int, rows: int, valid,
+                 src=None):
+    """The tables a sweep's route reads, built once where a sweep is made
+    from its int64 class tables (on their device): the kernel's
+    :class:`~graphdyn_torch.ops.bdcm_sweep.SweepPlan` when the classes run
+    on CUDA (int32 copies, class ids, the rows in no class), else
+    :class:`SweepTables`. ``src``: int64 [G·rows] source node of each row,
+    for a node-level bias."""
+    if "cuda" in spec.modes:
+        return bdcm_sweep.build_plan(
+            tables, G=G, rows=rows, T=spec.T, dtype=valid.dtype,
+            padded=spec.padded, masked=spec.mask_invalid_src, valid=valid,
+            src=src)
+    sel = None if src is None else torch.as_tensor(x0_pm(spec.T) == 1,
+                                                   device=src.device)
+    return SweepTables(list(tables), src, sel)
+
+
+def _sweep_core(chi: torch.Tensor, a_tilted, bias, valid, tables,
+                spec: _SweepSpec) -> torch.Tensor:
     """One Gauss-Seidel sweep over a group of G instances.
 
     ``chi``: [G, rows, K, K] (with the ghost row already appended when the
-    classes are padded); ``a_tilted``: per class ``[K, K, M]``;
-    ``bias_edge``: [G, rows, K] or None; ``valid``: bool[K] (used with
-    ``mask_invalid_src``); ``tables``: per class ``(idx [G, Ed], in_edges
-    [G, Ed, d])`` int64 ids into the ``[G·rows]`` flattening. Returns a new
-    [G, rows, K, K] tensor; ``chi`` is not written."""
+    classes are padded); ``a_tilted``: per class ``[K, K, M]`` or ``[G, K,
+    K, M]``; ``bias``: None, per-row weights [G, rows, K], or a
+    :class:`~graphdyn_torch.ops.bdcm_sweep.NodeBias` read through the
+    tables' source-node table; ``valid``: [K] (used with
+    ``mask_invalid_src``); ``tables``: :func:`sweep_tables`. Classes on CUDA
+    run as one launch of the sweep kernel; otherwise the plain route runs.
+    Returns a new [G, rows, K, K] tensor; ``chi`` is not written."""
+    if "cuda" in spec.modes:
+        return bdcm_sweep.sweep_cuda(chi, a_tilted, bias, tables,
+                                     damp=spec.damp, eps_clamp=spec.eps_clamp)
     G, rows, K = chi.shape[0], chi.shape[1], spec.K
     new = chi.reshape(G * rows, K, K).clone()
-    bias = None if bias_edge is None else bias_edge.reshape(G * rows, K)
+    if isinstance(bias, NodeBias):
+        b = bias.values
+        bias = torch.where(tables.sel_plus, b[tables.src, 0, None],
+                           b[tables.src, 1, None])
+    elif bias is not None:
+        bias = bias.reshape(G * rows, K)
     for (d, mode), a, (idx, in_edges) in zip(
-        zip(spec.class_ds, spec.modes), a_tilted, tables
+        zip(spec.class_ds, spec.modes), a_tilted, tables.classes
     ):
         chi_in = new[in_edges]                             # [G, Ed, d, K, K]
-        if spec.with_bias:
+        if bias is not None:
             chi_in *= bias[in_edges][..., None]
         if spec.mask_invalid_src:
             chi_in *= valid[:, None]
@@ -497,11 +546,14 @@ def make_sweep(
 
     ``bias_edge``: [2E, K] multiplicative weight on each message when
     consumed (the HPr reinforcement bias ``b_k(x_k(0))`` gathered to edge
-    shape, `HPR_pytorch_RRG.py:128-133,188`). ``mask_invalid_src`` zeroes
+    shape, `HPR_pytorch_RRG.py:128-133,188`); or, by keyword, ``biases``:
+    the node biases [n, 2] themselves, read through each edge's source node
+    (no [2E, K] tensor is built on CUDA). ``mask_invalid_src`` zeroes
     invalid-endpoint source trajectories (the entropy variant; HPr leaves
     them to decay). The modes of the classes are resolved here (see the
-    module docstring) and kept in ``sweep.spec``; the device tables, the
-    λ=0 factors and the validity mask in ``sweep.args``."""
+    module docstring) and kept in ``sweep.spec``; the route's tables
+    (:func:`sweep_tables`), the λ=0 factors and the validity mask in
+    ``sweep.args``."""
     dev = resolve_device(device)
     dt = data.dtype
     K = data.K
@@ -514,18 +566,26 @@ def make_sweep(
         modes=resolve_modes([cls.d for cls in data.edge_classes], T=data.T,
                             dtype=dt, kernel=kernel, device=dev),
     )
-    tables = [(_flat_ids([cls.idx], rows, dev),
-               _flat_ids([cls.in_edges], rows, dev))
-              for cls in data.edge_classes]
+    valid = torch.as_tensor(data.valid, dtype=dt, device=dev)
+    src = None
+    if with_bias:
+        # each row's source node; the ghost row's (never read by a real
+        # member) is node 0
+        src = _long(data.tables.src, dev)
+        if data.padded:
+            src = torch.cat([src, src.new_zeros(1)])
+    tables = sweep_tables(
+        [(_flat_ids([cls.idx], rows, dev), _flat_ids([cls.in_edges], rows, dev))
+         for cls in data.edge_classes], spec, G=1, rows=rows, valid=valid,
+        src=src)
     As = [torch.as_tensor(cls.A, dtype=dt, device=dev)
           for cls in data.edge_classes]
-    valid = torch.as_tensor(data.valid, dtype=dt, device=dev)
     x0 = torch.as_tensor(data.x0, dtype=dt, device=dev)
 
-    def sweep(chi, lmbd, bias_edge=None):
-        if with_bias and bias_edge is None:
+    def sweep(chi, lmbd, bias_edge=None, *, biases=None):
+        if with_bias and (bias_edge is None) == (biases is None):
             raise ValueError("this sweep was built with_bias=True: pass "
-                             "bias_edge")
+                             "bias_edge or biases")
         n_real = chi.shape[0]
         if spec.padded:
             # ghost row 2E: gathered by padded class members only; their
@@ -533,11 +593,16 @@ def make_sweep(
             chi = torch.cat([chi, torch.full((1, K, K), 1.0 / (K * K),
                                              dtype=chi.dtype,
                                              device=chi.device)])
-            if with_bias:
+            if bias_edge is not None:
                 bias_edge = torch.cat([bias_edge, bias_edge.new_ones(1, K)])
-        out = _sweep_core(
-            chi[None], tilted_factors(As, x0, lmbd),
-            bias_edge[None] if with_bias else None, valid, tables, spec)[0]
+        if not with_bias:
+            bias = None
+        elif biases is not None:
+            bias = NodeBias(biases)
+        else:
+            bias = bias_edge[None]
+        out = _sweep_core(chi[None], tilted_factors(As, x0, lmbd), bias, valid,
+                          tables, spec)[0]
         return out[:n_real]
 
     sweep.spec = spec
@@ -915,7 +980,7 @@ class EnsembleBDCM:
     (same n, same degree-class signature: RRG(n, d) instances, where every
     directed edge is one class). The ensemble axis is the kernel's group
     axis: per-class index tables stack to ``[G, Ed, ...]`` and one launch per
-    class sweeps every instance, with one λ (the shared factor)."""
+    sweep covers every instance, with one λ (the shared factor)."""
 
     def __init__(self, datas: list[BDCMData]):
         if not datas:
@@ -1060,7 +1125,7 @@ def make_ensemble_sweep(ens: EnsembleBDCM, *, damp: float,
                         eps_clamp: float = 0.0, mask_invalid_src: bool = True,
                         kernel: str = "auto", device=None):
     """``(chi[G, 2E, K, K], lmbd) -> chi'``: the BDCM sweep over the
-    ensemble, one kernel launch per class with the ensemble as the group
+    ensemble, one kernel launch per sweep with the ensemble as the group
     axis and one λ for all (the shared factor)."""
     dev = resolve_device(device)
     ds = [d for d, _, _, _ in ens.edge_classes]
@@ -1072,11 +1137,13 @@ def make_ensemble_sweep(ens: EnsembleBDCM, *, damp: float,
                             device=dev),
     )
     rows = ens.num_directed
-    tables = [(_flat_ids(list(idx), rows, dev), _flat_ids(list(ie), rows, dev))
-              for _, idx, ie, _ in ens.edge_classes]
+    valid = torch.as_tensor(ens.valid, dtype=ens.dtype, device=dev)
+    tables = sweep_tables(
+        [(_flat_ids(list(idx), rows, dev), _flat_ids(list(ie), rows, dev))
+         for _, idx, ie, _ in ens.edge_classes], spec, G=ens.G, rows=rows,
+        valid=valid)
     As = [torch.as_tensor(A, dtype=ens.dtype, device=dev)
           for _, _, _, A in ens.edge_classes]
-    valid = torch.as_tensor(ens.valid, dtype=ens.dtype, device=dev)
 
     def sweep(chi, lmbd):
         tilt = tilt_vector(lmbd, ens.x0, ens.dtype).to(dev)
@@ -1084,6 +1151,7 @@ def make_ensemble_sweep(ens: EnsembleBDCM, *, damp: float,
                            valid, tables, spec)
 
     sweep.spec = spec
+    sweep.args = (tables, As, valid)
     return sweep
 
 

@@ -4,7 +4,8 @@ shared library with a plain C interface, loaded with ctypes.
 A library is built at its first CUDA use, never at import, so importing the
 package needs no ``nvcc``. It lands in ``build/graphdyn_torch/`` at the repo
 root, named by the source's stem and a hash of the source and the flags, and
-is installed through a temporary name and ``os.replace``. The compiler's
+is installed through a temporary name and ``os.replace``; the hash covers
+the shared headers (``csrc/*.cuh``) too. The compiler's
 ``-Xptxas -v`` report (registers and spills per kernel) is kept beside it as
 ``<library>.log``. A missing ``nvcc`` or a failed build raises: there is no
 fallback.
@@ -13,6 +14,7 @@ fallback.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import re
@@ -55,8 +57,11 @@ def build(source: str, flags: tuple[str, ...]) -> str:
             f"graphdyn_torch: nvcc not found (PATH, or CUDA_HOME/bin); the "
             f"CUDA kernel {source} cannot be built"
         )
-    with open(src, "rb") as f:
-        text = f.read()
+    text = b""
+    # the source and every shared header it may include
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            text += f.read()
     key = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{key}.so")

@@ -193,6 +193,7 @@ class _KernelStep:
         self.d_uniform = packed_cuda.fast_path_degree(deg, rule.value)
         self.spare = None
         self.dims = None
+        self.plan = None
 
     def __call__(self, ext):
         # the launch checks run when the spare is (re)allocated; after that
@@ -201,8 +202,11 @@ class _KernelStep:
             self.spare = torch.empty_like(ext)
             self.dims = packed_cuda.check_launch(self.nbr, self.deg, ext,
                                                  self.spare)
+            self.plan = packed_cuda.launch_plan(
+                self.dims[2], aligned=packed_cuda.aligned16(ext, self.spare))
         packed_cuda._launch(self.nbr, self.deg, ext, self.spare, self.dims,
-                            self.minority, self.change, self.d_uniform)
+                            self.minority, self.change, self.d_uniform,
+                            self.plan)
         out, self.spare = self.spare, ext
         return out
 

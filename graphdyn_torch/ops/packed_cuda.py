@@ -1,10 +1,13 @@
 """The CUDA packed-step kernel: its build, its launch wrapper, its launch
-counter and its fast-path gate.
+counter, its fast-path gate and its launch plan.
 
 The kernel (``graphdyn_torch/csrc/packed_step.cu``) replaces the JAX
 package's Pallas kernels K1 (``graphdyn/ops/pallas_packed.py:
 pallas_packed_step``) and K2 (``_general_step_ext``): one synchronous packed
-majority/minority step on the ghost-extended state ``[n+1, W]``.
+majority/minority step on the ghost-extended state ``[n+1, W]``. It walks
+the state in node order with 16-byte vectors; :func:`launch_plan` chooses
+the thread's width and :func:`index_map` is the kernel's index map, word
+for word, for the tests.
 
 Build: ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, loaded with ctypes at the first CUDA use, through
@@ -26,6 +29,7 @@ from graphdyn_torch.ops import cuda_build
 SOURCE = "packed_step.cu"
 NVCC_FLAGS = cuda_build.BASE_FLAGS
 MAX_PLANES = 6          # the kernel's template range: dmax <= 63
+THREADS = 256           # per block
 
 # kernel launches made through packed_step since the last reset; a run shows
 # that its path went through the kernel by zeroing this and reading it after
@@ -53,7 +57,7 @@ def _library():
                 ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             _lib = lib
         return _lib
@@ -63,6 +67,27 @@ def n_planes(dmax: int) -> int:
     """Bit planes of the per-replica counter: bit_length(dmax) counts up to
     dmax exactly."""
     return max(int(dmax).bit_length(), 1)
+
+
+def launch_plan(W: int, *, aligned: bool = True) -> dict:
+    """The kernel's work split for rows of W words: ``U`` words per thread
+    (4, a uint4, when W is a multiple of 4 and the states are 16-byte
+    aligned; else 1) and ``VPR`` = W / U threads per row."""
+    U = 4 if W % 4 == 0 and aligned else 1
+    return {"U": U, "VPR": W // U}
+
+
+def index_map(n: int, W: int, plan: dict):
+    """Yield ``(thread, row, first_word, words)`` for every thread of a
+    launch over the ghost-extended state ``[n+1, W]`` that touches words:
+    the kernel's own arithmetic (``packed_step_kernel``), for tests."""
+    U, vpr = plan["U"], plan["VPR"]
+    total = (n + 1) * vpr
+    for t in range(-(-total // THREADS) * THREADS):
+        if t >= total:
+            continue
+        row, v = divmod(t, vpr)
+        yield t, row, v * U, U
 
 
 def fast_path_degree(deg, rule: str) -> int:
@@ -134,9 +159,10 @@ def check_launch(nbr: torch.Tensor, deg: torch.Tensor, src: torch.Tensor,
 
 
 def _launch(nbr, deg, src, dst, dims, minority: bool, change: bool,
-            d_uniform: int) -> None:
+            d_uniform: int, plan: dict) -> None:
     """Launch the kernel on the current stream with no checks: ``dims``
-    comes from :func:`check_launch` on tensors of these shapes."""
+    comes from :func:`check_launch` and ``plan`` from :func:`launch_plan` on
+    tensors of these shapes and alignment."""
     global LAUNCHES
     n, dmax, W, planes = dims
     fn = _library().graphdyn_packed_step
@@ -144,12 +170,16 @@ def _launch(nbr, deg, src, dst, dims, minority: bool, change: bool,
         rc = fn(
             nbr.data_ptr(), deg.data_ptr(), src.data_ptr(), dst.data_ptr(),
             n, dmax, W, planes, int(d_uniform > 0), int(d_uniform),
-            int(minority), int(change),
+            int(minority), int(change), plan["U"],
             torch.cuda.current_stream(src.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"packed_step: kernel launch failed, cudaError {rc}")
     LAUNCHES += 1
+
+
+def aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def packed_step(nbr: torch.Tensor, deg: torch.Tensor, src: torch.Tensor,
@@ -161,9 +191,10 @@ def packed_step(nbr: torch.Tensor, deg: torch.Tensor, src: torch.Tensor,
     ``src``/``dst``: distinct ``int32[n+1, W]`` ghost-extended states carrying
     uint32 bit patterns (row n is the ghost row; the kernel writes it 0).
     ``d_uniform`` > 0 takes the uniform-odd fast path (see
-    :func:`fast_path_degree`). The caller checks the tables once with
-    :func:`check_tables`; this wrapper checks types, devices, shapes and
-    contiguity with :func:`check_launch` on every call. Does not
-    synchronise."""
+    :func:`fast_path_degree`). The caller
+    checks the tables once with :func:`check_tables`; this wrapper checks
+    types, devices, shapes and contiguity with :func:`check_launch` on every
+    call. Does not synchronise."""
     dims = check_launch(nbr, deg, src, dst)
-    _launch(nbr, deg, src, dst, dims, minority, change, d_uniform)
+    plan = launch_plan(dims[2], aligned=aligned16(src, dst))
+    _launch(nbr, deg, src, dst, dims, minority, change, d_uniform, plan)

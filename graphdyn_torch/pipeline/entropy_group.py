@@ -8,7 +8,7 @@ program: the per-cell BDCM tables stack to ``[G, Ed_max, …]``
 (:func:`graphdyn_torch.ops.bdcm.stack_bdcm`, ragged edge counts padded with
 the ghost row), chi carries a leading cell axis, and each cell solves its
 own λ: the tilted factor is per group, ``[G, K, K, M]``, one launch of the
-BDCM kernel per class with the cell axis as its group axis.
+BDCM sweep kernel per sweep with the cell axis as its group axis.
 
 The group advances in chunks of ``CHUNK_SWEEPS`` sweeps with no host read
 inside a chunk (:func:`graphdyn_torch.ops.bdcm.fixed_point_sweeps`): each
@@ -52,6 +52,7 @@ from graphdyn_torch.ops.bdcm import (
     make_free_entropy,
     make_mean_m_init,
     resolve_modes,
+    sweep_tables,
     run_fixed_point,
     stack_bdcm,
     tilt_vector,
@@ -104,12 +105,14 @@ class EntropyCellExec:
             modes=resolve_modes(ds, T=stk.T, dtype=stk.dtype, kernel=kernel,
                                 device=dev),
         )
-        self.tables = [(_flat_ids(list(idx), self.rows, dev),
-                        _flat_ids(list(ie), self.rows, dev))
-                       for _, idx, ie, _ in stk.edge_classes]
+        self.valid = torch.as_tensor(stk.valid, dtype=stk.dtype, device=dev)
+        self.tables = sweep_tables(
+            [(_flat_ids(list(idx), self.rows, dev),
+              _flat_ids(list(ie), self.rows, dev))
+             for _, idx, ie, _ in stk.edge_classes], self.spec, G=G,
+            rows=self.rows, valid=self.valid)
         self.As = [torch.as_tensor(A, dtype=stk.dtype, device=dev)
                    for _, _, _, A in stk.edge_classes]
-        self.valid = torch.as_tensor(stk.valid, dtype=stk.dtype, device=dev)
         self.leaf_idx = _flat_ids(list(stk.leaf_idx), self.rows, dev)  # [G, L]
         K = stk.K
         self._ghost = torch.full((K, K), 1.0 / (K * K), dtype=stk.dtype,

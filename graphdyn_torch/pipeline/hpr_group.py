@@ -3,9 +3,9 @@
 
 A group of ``G`` repetitions runs as one program: the per-repetition BDCM
 index tables stack to ``[G, Ed, ...]`` ids into the flattened group axis,
-chi carries a leading group axis, and the sweep (one kernel launch per edge
-class, the group axis as the kernel grid's second dimension, one shared
-``A·tilt``), the marginals, the reinforcement and the rollout stop test run
+chi carries a leading group axis, and the sweep (one launch of the sweep
+kernel per sweep over every edge class and the group axis, one shared
+``A·tilt``, the node biases read through each edge's source), the marginals, the reinforcement and the rollout stop test run
 over the whole group. :func:`graphdyn_torch.models.hpr.hpr_solve` runs the
 G=1 instance of the same executor, so grouped == serial holds by
 construction: every op is elementwise, a gather, or a reduction over a fixed
@@ -46,6 +46,7 @@ import torch
 from graphdyn_torch.config import HPRConfig
 from graphdyn_torch.graphs import stack_graphs
 from graphdyn_torch.ops.bdcm import (
+    NodeBias,
     _flat_ids,
     _SweepSpec,
     _sweep_core,
@@ -53,6 +54,7 @@ from graphdyn_torch.ops.bdcm import (
     marginal_tables,
     marginals_group,
     resolve_modes,
+    sweep_tables,
     tilted_factors,
 )
 from graphdyn_torch.ops.dynamics import batched_rollout
@@ -194,7 +196,7 @@ class HPRGroupExec:
     every HPr chain of the drivers runs through (``hpr_solve`` at G=1, the
     grouped ensemble at G=``group_size``).
 
-    ``kernel``: ``'auto'`` runs each edge class through the CUDA kernel on
+    ``kernel``: ``'auto'`` runs each sweep through the CUDA sweep kernel on
     the card and the plain version on the CPU; ``'cuda'`` requires the
     kernel; ``'plain'`` forces the plain version (tests). ``uniforms``:
     None (the port's Threefry stream) or ``callable(t) -> [G_real, n]``, an
@@ -250,13 +252,15 @@ class HPRGroupExec:
             mask_invalid_src=False, with_bias=True, padded=False,
             class_ds=class_ds, modes=self.spec.modes,
         )
-        self.tables = [
-            (_flat_ids([dd.edge_classes[k].idx for dd in pdatas], twoE, dev),
-             _flat_ids([dd.edge_classes[k].in_edges for dd in pdatas], twoE,
-                       dev))
-            for k in range(len(class_ds))
-        ]
-        self.src = _flat_ids([dd.tables.src for dd in pdatas], n, dev)
+        # the bias of each in-edge is read through its source node
+        # (`positions_biases`, `HPR:120-133`): no [G, 2E, K] tensor
+        self.tables = sweep_tables(
+            [(_flat_ids([dd.edge_classes[k].idx for dd in pdatas], twoE, dev),
+              _flat_ids([dd.edge_classes[k].in_edges for dd in pdatas], twoE,
+                        dev))
+             for k in range(len(class_ds))], self.sweep_spec, G=G, rows=twoE,
+            valid=torch.as_tensor(d0.valid, dtype=dt, device=dev),
+            src=_flat_ids([dd.tables.src for dd in pdatas], n, dev).reshape(-1))
         self.rev, self.out_edges, self.sel_plus = marginal_tables(pdatas, dev)
         nbr = stack_graphs([it[0] for it in padded]).nbr.astype(np.int64)
         off = (np.arange(G, dtype=np.int64) * n)[:, None, None]
@@ -264,7 +268,6 @@ class HPRGroupExec:
             np.where(nbr == n, G * n, nbr + off).reshape(G * n, -1),
             dtype=torch.int32, device=dev)
         x0 = torch.as_tensor(d0.x0, dtype=dt, device=dev)
-        self.sel_plus_b = torch.as_tensor(d0.x0 == 1, device=dev)
         # one λ across the group -> the SHARED A_tilted variant
         self.a_tilted = tilted_factors(
             [torch.as_tensor(c.A, dtype=dt, device=dev)
@@ -322,15 +325,10 @@ class HPRGroupExec:
         """The terms of sweep ``st.t`` from ``st``: the new messages, the
         marginals, the threshold and the reinforced ``(biases, s)`` before
         the freeze masks (the loop body, and the near-tie replay)."""
-        G, n, K = self.G, self.spec.n, self.spec.K
-        bflat = st.biases.reshape(G * n, 2)
-        # bias of the source node at its trajectory's initial value
-        # (`positions_biases`, `HPR:120-133`): [G, 2E, K]
-        bias_edge = torch.where(self.sel_plus_b, bflat[self.src, 0][..., None],
-                                bflat[self.src, 1][..., None])
-        chi_new = _sweep_core(st.chi, self.a_tilted, bias_edge, None,
+        G, n = self.G, self.spec.n
+        chi_new = _sweep_core(st.chi, self.a_tilted,
+                              NodeBias(st.biases.reshape(G * n, 2)), None,
                               self.tables, self.sweep_spec)
-        del bias_edge
         marg = marginals_group(chi_new, self.rev, self.out_edges,
                                self.sel_plus, self.spec.eps)   # [G, n, 2]
         thr = reinforce_threshold(st.t, self.gamma, self.dtype)

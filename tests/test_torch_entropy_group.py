@@ -104,6 +104,16 @@ def test_grid_grouped_equals_serial(serial_grid, G):
                                       getattr(serial_grid, f), err_msg=f)
 
 
+def test_grid_sweeps_fill_the_visited_lambdas(serial_grid):
+    """The grid's per-λ fixed-point sweep counts (the port's addition):
+    at least one sweep at every visited λ, 0 past each cell's n_lambda."""
+    L = serial_grid.ent.shape[2]
+    visited = np.arange(L) < serial_grid.n_lambda[..., None]
+    assert serial_grid.sweeps.shape == serial_grid.ent.shape
+    assert (serial_grid.sweeps[visited] > 0).all()
+    assert (serial_grid.sweeps[~visited] == 0).all()
+
+
 def test_grid_matches_jax_grid():
     cfg = dict(lmbd_max=0.1, lmbd_step=0.1, num_rep=1)
     deg = np.array([1.2, 1.6])
