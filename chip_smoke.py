@@ -5,13 +5,15 @@
 
 Builds the five CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
 (sm_90a, the five compilers started together) and holds each against its
-plain PyTorch version: the packed step (node order, 16-byte vectors), the fused
-annealer and the row gather bit for bit, the BDCM sweep (one launch per
-sweep) and the per-class BDCM update within their stated
-tolerances. Then it drives the port's main paths through the entry points a
-user calls, each with the launch counts set to 0 just before it and read
-just after (every BDCM sweep on the card is one launch of the sweep kernel;
-the per-class kernel is off the main paths and must count 0 there):
+plain PyTorch version: the packed step (node order, 16-byte vectors), the
+fused annealer (one pass and one grid barrier per class step) and the row
+gather bit for bit, the BDCM sweep (one launch per sweep, also on an
+80-class tree, past the 64 classes it once took) and the per-class BDCM
+update within their stated tolerances. Then it drives the port's main paths
+through the entry points a user calls, each with the launch counts set to 0
+just before it and read just after (every BDCM sweep on the card is one
+launch of the sweep kernel; the per-class kernel is off the main paths and
+must count 0 there):
 
 - the packed rollout at the headline shape (d=3 RRG, n=10⁶, R=16384) and the
   config-3 consensus sweep (ER n=10⁵, c=6, R=512), checked against the JAX
@@ -38,12 +40,12 @@ the per-class kernel is off the main paths and must count 0 there):
   ensemble on 64 RRG(1000, 3), and the ``entropy`` CLI at its defaults.
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
-n=10⁶, R=1024); the packed step and its bare gather beside
-``index_select`` at the headline and config 3; the per-class BDCM kernel
-per launch; and the BDCM sweep kernel per sweep at config 4, the congruent
-ensemble, the golden instance, the HPr reference shape and config 2, each
-beside the per-class route (PyTorch gathers, the per-class kernel and
-``index_copy_`` per class, composed here) and the plain sweep.
+n=10⁶, R=1024), with its peak device memory; the packed step and its bare
+gather beside ``index_select`` at the headline and config 3; the per-class
+BDCM kernel per launch; and the BDCM sweep kernel per sweep at config 4, the
+congruent ensemble, the golden instance, the HPr reference shape and config
+2, each beside the per-class route (PyTorch gathers, the per-class kernel
+and ``index_copy_`` per class, composed here) and the plain sweep.
 
 Prints, in order: phase reports, the card's name and power limit (from
 nvidia-smi), one JSON line listing the kernels with their measured times, and
@@ -224,6 +226,9 @@ GATHER_PARITY_WIDTHS = (1, 3, 16, 32, 128, 512, 1024)
 CONFIG4_N, CONFIG4_C, CONFIG4_G, CONFIG4_L = 1000, 1.5, 64, 32
 CONFIG4_LMBD_MAX, CONFIG4_MAX_SWEEPS = 3.1, 400
 GROUPED_GRID = dict(n=300, deg=(1.0, 1.5, 2.0), num_rep=3, lmbd_max=0.6)
+# the sweep kernel past 64 edge classes: a caterpillar whose hubs have the
+# degrees 2..81 (80 classes at T=2), a few sweeps through make_sweep
+MANY_CLASS_DEGREES, MANY_CLASS_SWEEPS = tuple(range(2, 82)), 3
 # the packed step: the widths of its one-word and uint4 threads held
 # against the plain stepper
 PARITY_WIDTHS = (1, 3, 5, 16, 33, 512)
@@ -361,10 +366,12 @@ def phase_build() -> dict:
     for label, dmax, Rp in (("config 1", CONFIG1["d"], CONFIG1["replicas"]),
                             ("scale", SCALE_D, SCALE_R)):
         grid = fused_cuda.grid_info(dmax, Rp)
+        lanes, row_threads = fused_cuda.lane_plan(Rp // 32)
         out[f"grid_{label.replace(' ', '')}"] = grid
         log(f"[1 build] fused_chunk co-resident grid at {label} (dmax={dmax}, "
             f"Rp={Rp}): {grid['blocks_per_sm']} blocks of 256 per SM x "
-            f"{grid['sms']} SMs = {grid['max_blocks']} blocks")
+            f"{grid['sms']} SMs = {grid['max_blocks']} blocks; {lanes} "
+            f"lanes per class word, {row_threads} threads per class row")
     log(f"[1 build] the five libraries built and loaded in {dt:.3f} s")
     return out
 
@@ -662,18 +669,19 @@ def _state_err(a: FusedState, b: FusedState) -> float:
 
 def phase_breakdown(st0: FusedState, td, static, seed: int, steps: int) -> dict:
     """One traced launch of ``steps`` class steps from ``st0``: the mean
-    microseconds per class step of phase A (end-state evaluations of every
-    word), B (accepts of the class words) and C (bookkeeping), each
-    including the grid barrier that ends it, from the kernel's global-timer
-    stamps."""
+    microseconds per class step of the pass (ball end states and accepts of
+    the class words, from the start of the step until the last block takes
+    its ticket), the bookkeeping (the last block, per replica) and the grid
+    barrier, from the kernel's global-timer stamps."""
     trace = torch.zeros((steps, 4), dtype=torch.int64, device="cuda")
     fused_cuda.fused_chunk_cuda(_clone(st0), seed, td, chunk_steps=steps,
                                 trace=trace, **static)
     torch.cuda.synchronize()
     t = trace.cpu().double()
     d = (t[:, 1:] - t[:, :-1]) / 1e3
-    return {"A_us": float(d[:, 0].mean()), "B_us": float(d[:, 1].mean()),
-            "C_us": float(d[:, 2].mean()),
+    return {"pass_us": float(d[:, 0].mean()),
+            "bookkeeping_us": float(d[:, 1].mean()),
+            "barrier_us": float(d[:, 2].mean()),
             "step_us": float((t[:, 3] - t[:, 0]).mean() / 1e3)}
 
 
@@ -742,8 +750,10 @@ def class_step_bound(chrom, W: int) -> dict:
 def phase_fused_parity() -> float:
     """The fused kernel against its plain version on the card, bit for bit
     in every FusedState field: RRG d=3 (two rules; odd degree, no ties),
-    RRG d=4 and ragged ER (the four (rule, tie) pairs), W in {1, 2, 32},
-    chunk_steps in {1, χ, 3χ+1}, stop_on_first on and off, a betas ladder;
+    RRG d=4 and ragged ER (the four (rule, tie) pairs), W in {1, 2, 3, 32,
+    33} (the lane plan's 16 lanes per word, 8, and 1 with a class row in
+    one warp or two), chunk_steps in {1, χ, χ+1, 3χ+1}, stop_on_first on
+    and off, a betas ladder;
     the ghost row after every chunk; one chunk against the same steps split
     over two chunks; and one case at W=128, past the kernel's shared-memory
     staging of the per-replica vectors. Returns the max |kernel − plain|
@@ -759,7 +769,8 @@ def phase_fused_parity() -> float:
     # (W, chunk_steps as (multiple of chi, offset), stop_on_first, ladder,
     #  m_target)
     shapes = [(1, (0, 1), False, False, 1.0), (2, (1, 0), True, False, 0.3),
-              (32, (3, 1), False, True, 0.4)]
+              (32, (3, 1), False, True, 0.4), (3, (1, 1), False, True, 1.0),
+              (33, (1, 0), True, False, 0.5)]
     err, n_cases, stops = 0.0, 0, 0
     for name, g in small.items():
         for rule, tie in pairs[name]:
@@ -941,7 +952,7 @@ def phase_config1_timing(g) -> dict:
         f"class step; bound {bound['bound_ms']} ms ({bound['bound_by']}: "
         f"{bound['bytes']:.0f} B, {bound['int_ops']:.0f} int ops, "
         f"{bound['f32_ops']:.0f} f32 ops); phases over 2 sweeps (us per "
-        f"class step, barrier included): {phases}")
+        f"class step): {phases}")
     return {"ms": ms, "ms_repeats": times, "plain_ms": plain_ms,
             "phases_us": phases, **bound}
 
@@ -971,8 +982,10 @@ def phase_fused_cli(main: dict) -> None:
 def phase_fused_scale() -> dict:
     """Config 5's single-chip width: d=5 RRG, n=10⁶, R=1024 (W=32),
     majority/stay. Host set-up seconds; the kernel's ms per class step over
-    2 sweeps by CUDA events; the plain version's over χ steps; kernel ==
-    plain over one chunk of χ steps."""
+    2 sweeps by CUDA events, the peak device memory while timed and the
+    bytes the launch itself allocates (its accumulators: no end-state
+    scratch); the plain version's over χ steps; kernel == plain over one
+    chunk of χ steps."""
     timers = {}
     cfg = _sa_config()
     t0 = time.perf_counter()
@@ -998,12 +1011,16 @@ def phase_fused_scale() -> dict:
     log(f"[9 scale] RRG d={SCALE_D} n={SCALE_N} R={SCALE_R}: chi={chi}, class "
         f"sizes {tables.chrom.class_sizes.tolist()}; host set-up seconds "
         f"{timers}")
-    # kernel: warm-up launch, then 2 sweeps in one chunk
-    st = _clone(st0)
-    fused_cuda.fused_chunk_cuda(st, 0, td, chunk_steps=1, **static)
-    times = []
+    # kernel: warm-up launch, then 2 sweeps in one chunk, each from a clone
+    # made before the peak is reset, so the peak above what is held is what
+    # the launch itself allocates
+    fused_cuda.fused_chunk_cuda(_clone(st0), 0, td, chunk_steps=1, **static)
+    times, launch_bytes = [], 0
     for _ in range(2):
         st = _clone(st0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1011,6 +1028,9 @@ def phase_fused_scale() -> dict:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / (2 * chi))
+        launch_bytes = max(launch_bytes,
+                           torch.cuda.max_memory_allocated() - held)
+    peak = torch.cuda.max_memory_allocated()
     grid = fused_cuda.LAST_GRID_BLOCKS
     del st
     phases = phase_breakdown(st0, td, static, 0, 2 * chi)
@@ -1037,13 +1057,16 @@ def phase_fused_scale() -> dict:
         f"{bound['bound_ms']} ms ({bound['bound_by']}: {bound['bytes']:.0f} B "
         f"= {bound['bytes_ms']} ms, {bound['int_ops']:.0f} int ops = "
         f"{bound['int_ms']} ms, {bound['f32_ops']:.0f} f32 ops = "
-        f"{bound['f32_ms']} ms); phases over 2 sweeps (us per class step, "
-        f"barrier included): {phases}")
+        f"{bound['f32_ms']} ms); phases over 2 sweeps (us per class "
+        f"step): {phases}; peak device memory {peak} B while timed, of "
+        f"which the launch allocated {launch_bytes} B (a [2, n+1, W] "
+        f"end-state scratch would add {8 * (SCALE_N + 1) * W} B)")
     del k, p, st0, td
     torch.cuda.empty_cache()
     return {"ms": ms, "ms_repeats": times, "plain_ms": plain_ms,
             "max_abs_err": err, "setup_s": timers, "chi": chi,
-            "grid_blocks": grid, "phases_us": phases, **bound}
+            "grid_blocks": grid, "phases_us": phases, "peak_bytes": peak,
+            "launch_bytes": launch_bytes, **bound}
 
 
 # ---------------------------------------------------------------------------
@@ -1303,7 +1326,7 @@ def sweep_bound(plan, a_tilted, bias) -> dict:
     """The least time one BDCM sweep can take on the card: the larger of
 
     - bytes over HBM bandwidth: chi read once and written once, the int32
-      tables (every member's output row and in-edges), the int8 class ids,
+      tables (every member's output row and in-edges), the int16 class ids,
       the rows in no class, the bias (and the node form's source table) and
       the factors, each once;
     - FMAs (2 flops each) of the members that compute (padding members
@@ -1312,7 +1335,8 @@ def sweep_bound(plan, a_tilted, bias) -> dict:
     """
     esize = 8 if plan.dtype == torch.float64 else 4
     K, T, G = 2**plan.T, plan.T, plan.G
-    nbytes = 2 * G * plan.rows * K * K * esize + plan.cid.numel() \
+    nbytes = 2 * G * plan.rows * K * K * esize \
+        + plan.cid.numel() * plan.cid.element_size() \
         + 4 * plan.pass_rows.numel()
     if isinstance(bias, NodeBias):
         nbytes += bias.values.numel() * esize + 4 * plan.src.numel()
@@ -2063,6 +2087,59 @@ def phase_sweep_entropy(ref: dict) -> dict:
     return out
 
 
+def _caterpillar(degrees):
+    """A tree of hubs in a path, hub k of degree ``degrees[k]`` (leaves make
+    up the rest), from the port's ``graph_from_edges``: one BDCM edge class
+    per hub degree (d = degree − 1)."""
+    H = len(degrees)
+    edges = [(k, k + 1) for k in range(H - 1)]
+    n = H
+    for k, D in enumerate(degrees):
+        for _ in range(D - (k > 0) - (k < H - 1)):
+            edges.append((k, n))
+            n += 1
+    return graphs.graph_from_edges(n, np.array(edges))
+
+
+def phase_sweep_many_classes() -> dict:
+    """The sweep kernel past the 64 classes it once took: a caterpillar
+    whose hubs have the degrees MANY_CLASS_DEGREES (80 edge classes, d = 1
+    to 80, register and block paths) at T=2, in float32 and float64, each
+    held to the plain route within :data:`CONTRACT_TOL` and timed
+    (:func:`phase_sweep`); then the package's sweep (``make_sweep``) run
+    MANY_CLASS_SWEEPS times with the kernel's count set to 0 just before:
+    one launch per sweep."""
+    g = _caterpillar(MANY_CLASS_DEGREES)
+    out = {}
+    for dt in ("float32", "float64"):
+        data = BDCMData(g, dtype=dt)
+        sweep = make_sweep(data, damp=0.1, eps_clamp=0.0, device="cuda")
+        if len(sweep.spec.class_ds) <= 64:
+            raise AssertionError(f"many-class graph has only "
+                                 f"{len(sweep.spec.class_ds)} classes")
+        chi = data.init_messages(0).to("cuda")
+        c, a_t, valid, plan, spec = _entropy_sweep_inputs(sweep, chi, 0.5,
+                                                          data.x0)
+        label = f"{len(plan.class_ds)} classes ({dt})"
+        res = phase_sweep(label, c, a_t, None, valid, plan, spec, reps=20,
+                          per_class_reps=3, plain_reps=2)
+        bdcm_sweep.LAUNCHES = 0
+        x = chi
+        for _ in range(MANY_CLASS_SWEEPS):
+            x = sweep(x, 0.5)
+        torch.cuda.synchronize()
+        res["launches"] = bdcm_sweep.LAUNCHES
+        if res["launches"] != MANY_CLASS_SWEEPS or not bool(
+                torch.isfinite(x).all()):
+            raise AssertionError(f"{label}: {res['launches']} launches for "
+                                 f"{MANY_CLASS_SWEEPS} sweeps (or a value "
+                                 f"not finite)")
+        log(f"[sweep] {label}: make_sweep's sweep x{MANY_CLASS_SWEEPS} = "
+            f"{res['launches']} launches of the sweep kernel")
+        out[label] = res
+    return out
+
+
 def phase_entropy_golden(ref: dict) -> dict:
     """``entropy_sweep`` in float64 over λ = 0..0.9 on the golden instance
     (rebuilt from the record's edges): the ten notebook triples within 5e-3,
@@ -2404,6 +2481,7 @@ def main() -> int:
         eref_doc = json.load(f)
     contract_errs, contract_timings = phase_contract_parity()
     sweep_ent = phase_sweep_entropy(eref_doc)
+    sweep_many = phase_sweep_many_classes()
     ref_errs = phase_hpr_ref()
     ref_shape = phase_hpr_ref_timing()
     hpr_main = phase_hpr_main()
@@ -2429,7 +2507,7 @@ def main() -> int:
                         "entropy_ensemble_rrg": congruent["launches"],
                         "entropy_cli": ent_cli["launches"]}
     probe512 = {r["impl"]: r for r in probe["rows"] if r["W"] == 512}
-    sweep_shapes = {**sweep_ent,
+    sweep_shapes = {**sweep_ent, **sweep_many,
                     "HPr reference shape f32": ref_shape["float32"]["bdcm_sweep"],
                     "HPr reference shape f64": ref_shape["float64"]["bdcm_sweep"],
                     "HPr config 2": cfg2["bdcm_sweep"]}
@@ -2484,11 +2562,16 @@ def main() -> int:
         "library_ms": None,
         "library_note": "no PyTorch call computes a fused SA class step",
         "unit": "per class step",
+        "design": "one pass per class step: ball-local end states in "
+                  "registers, lanes over replica pairs, the last block's "
+                  "bookkeeping, one grid barrier",
         "shape": f"RRG d={SCALE_D} n={SCALE_N} W={SCALE_R // 32}",
         "bound_terms_ms": {k: scale[k] for k in ("bytes_ms", "int_ms",
                                                   "f32_ms")},
         "grid_blocks": scale["grid_blocks"],
         "phases_us": scale["phases_us"],
+        "peak_bytes": scale["peak_bytes"],
+        "launch_bytes": scale["launch_bytes"],
         "setup_s": scale["setup_s"],
         "config1": {
             "shape": f"RRG d={CONFIG1['d']} n={CONFIG1['n']} W=1",
@@ -2584,6 +2667,8 @@ def main() -> int:
             "max_rel_err", "per_class_bit_equal", "per_class_max_abs_diff")}
             for k, v in sweep_shapes.items()},
         "launches_by_run": sweep_launches,
+        "many_classes_launches": {k: v["launches"]
+                                  for k, v in sweep_many.items()},
         "ptxas": {"float": built["bdcm_sweep_float"],
                   "double": built["bdcm_sweep_double"]},
     }, {

@@ -13,8 +13,8 @@
 //
 // Semantics. Jacobi inside a class, Gauss-Seidel across classes: class c
 // reads the rows that classes < c updated in this sweep and the pre-sweep
-// rows of every other. The kernel reads by class id (cid: one int8 per row,
-// 127 for a row in no class): a row with cid < c is read from the output,
+// rows of every other. The kernel reads by class id (cid: one int16 per row,
+// 32767 for a row in no class): a row with cid < c is read from the output,
 // where an earlier phase wrote it; any other from the input, which nothing
 // writes. Each class writes its members' rows straight into the output, and
 // the rows in no class (leaf edges, ghost rows, pad rows) are copied through
@@ -56,11 +56,13 @@
 //   so grouped and serial sweeps agree bit for bit.
 //
 // C interface (bound with ctypes): graphdyn_bdcm_sweep takes the per-class
-// tables and paths, the block size and the dynamic shared bytes from the
-// caller's plan (graphdyn_torch/ops/bdcm_sweep.py), checks them against the
-// kernel's bounds and returns the cudaError_t of the launch, 0 on success,
-// cudaErrorInvalidValue for a plan outside them. It launches on the given
-// stream and does not synchronise.
+// descriptors (tables, factor, sizes, path) twice, on the host for its
+// checks and in device memory for the kernel, so the class count is bounded
+// only by the int16 class id; and the block size and the dynamic shared
+// bytes from the caller's plan (graphdyn_torch/ops/bdcm_sweep.py). It checks
+// them against the kernel's bounds and returns the cudaError_t of the
+// launch, 0 on success, cudaErrorInvalidValue for a plan outside them. It
+// launches on the given stream and does not synchronise.
 
 #include <climits>
 #include <cstdint>
@@ -75,21 +77,26 @@ namespace {
 
 using namespace bdcm;
 
-constexpr int kMaxClasses = 64;
+// class ids are int16; kNoClass marks a row in no class
+constexpr int kNoClass = 32767;
+constexpr int kMaxClasses = kNoClass;
 
+// one class's descriptor: seven 64-bit words, as the wrapper packs them
 struct ClassDesc {
     const int32_t* idx;       // [G·Ed] output rows, ids into the [G·rows] rows
     const int32_t* in_edges;  // [G·Ed, d] incoming rows
     const void* a;            // tilted factor [K, K, M] or [G, K, K, M]
     long long Ed;             // members per group
     long long a_stride;       // elements from one group's factor to the next
-    int d, path;              // path 0: register, 1: block
+    long long d;
+    long long path;           // 0: register, 1: block
 };
+static_assert(sizeof(ClassDesc) == 7 * sizeof(long long), "descriptor words");
 
 struct Params {
     const void* chi_in;
     void* chi_out;
-    const signed char* cid;        // [G·rows]
+    const int16_t* cid;            // [G·rows]
     const int32_t* pass_rows;      // [n_pass] rows in no class
     long long n_pass;
     const void* bias;              // null: no bias
@@ -101,7 +108,7 @@ struct Params {
     long long G;
     int n_classes;
     double damp, eps;
-    ClassDesc cls[kMaxClasses];
+    const ClassDesc* cls;          // [n_classes], device memory
 };
 
 template <typename F> struct Vec16;
@@ -267,7 +274,7 @@ __device__ void block_phase(const Params& p, const ClassDesc& cd, int c,
 {
     constexpr int K = 1 << T;
     constexpr int KK = K * K;
-    const int d = cd.d;
+    const int d = (int)cd.d;
     int M = 1;
     for (int t = 0; t < T; ++t) M *= d + 1;
     const F* in = static_cast<const F*>(p.chi_in);
@@ -309,7 +316,7 @@ bdcm_sweep_kernel(const __grid_constant__ Params p)
     }
     for (int c = 0; c < p.n_classes; ++c) {
         if (c > 0) grid.sync();
-        const ClassDesc& cd = p.cls[c];
+        const ClassDesc cd = p.cls[c];
         if (cd.path == 0) reg_dispatch<F, T>(p, cd, c, smem);
         else block_phase<F, T>(p, cd, c, smem);
     }
@@ -340,20 +347,22 @@ long long class_smem_elems(int d, int T, int path, int threads)
 
 }  // namespace
 
-// cls_ptrs: n_classes × (idx, in_edges, a) device pointers; cls_ints:
-// n_classes × (Ed, a_stride, d, path). threads and smem are the plan's
-// (graphdyn_torch/ops/bdcm_sweep.py:build_plan); the grid is the
+// cls_host: n_classes × (idx, in_edges, a, Ed, a_stride, d, path), the
+// ClassDesc words, read here for the checks and the grid; cls_dev: the same
+// words in device memory, which the kernel reads. threads and smem are the
+// plan's (graphdyn_torch/ops/bdcm_sweep.py:build_plan); the grid is the
 // co-resident one, capped by the widest phase's work.
 extern "C" int graphdyn_bdcm_sweep(
     const void* chi_in, void* chi_out, const void* cid, const void* pass_rows,
     long long n_pass, const void* bias, const void* bias_src,
     long long bias_stride, unsigned long long bias_cols, int masked,
     unsigned valid_bits, long long G, int T, int is_double, int n_classes,
-    const long long* cls_ptrs, const long long* cls_ints, double damp,
+    const long long* cls_host, const void* cls_dev, double damp,
     double eps, int threads, int smem, void* stream)
 {
     if (!chi_in || !chi_out || !cid || (n_pass > 0 && !pass_rows) || n_pass < 0
         || G < 1 || T < 1 || T > 4 || n_classes < 0 || n_classes > kMaxClasses
+        || (n_classes > 0 && (!cls_host || !cls_dev))
         || threads < 32 || threads > kThreads || threads % 32 != 0 || smem < 0
         || smem > kSmemMax || (bias && bias_stride < 1))
         return (int)cudaErrorInvalidValue;
@@ -362,7 +371,7 @@ extern "C" int graphdyn_bdcm_sweep(
     Params p;
     p.chi_in = chi_in;
     p.chi_out = chi_out;
-    p.cid = static_cast<const signed char*>(cid);
+    p.cid = static_cast<const int16_t*>(cid);
     p.pass_rows = static_cast<const int32_t*>(pass_rows);
     p.n_pass = n_pass;
     p.bias = bias;
@@ -375,21 +384,17 @@ extern "C" int graphdyn_bdcm_sweep(
     p.n_classes = n_classes;
     p.damp = damp;
     p.eps = eps;
+    p.cls = static_cast<const ClassDesc*>(cls_dev);
     // no more blocks than the widest phase has work for
     long long want = (n_pass * K * K + threads - 1) / threads;
     for (int c = 0; c < n_classes; ++c) {
-        ClassDesc& cd = p.cls[c];
-        cd.idx = reinterpret_cast<const int32_t*>(cls_ptrs[3 * c]);
-        cd.in_edges = reinterpret_cast<const int32_t*>(cls_ptrs[3 * c + 1]);
-        cd.a = reinterpret_cast<const void*>(cls_ptrs[3 * c + 2]);
-        cd.Ed = cls_ints[4 * c];
-        cd.a_stride = cls_ints[4 * c + 1];
-        cd.d = (int)cls_ints[4 * c + 2];
-        cd.path = (int)cls_ints[4 * c + 3];
-        if (cd.Ed < 0 || cd.d < 1 || cd.a_stride < 0
+        const ClassDesc& cd =
+            reinterpret_cast<const ClassDesc*>(cls_host)[c];
+        if (cd.Ed < 0 || cd.d < 1 || cd.d > 65535 || cd.a_stride < 0
             || (cd.Ed > 0 && (!cd.idx || !cd.in_edges || !cd.a))
             || (cd.path != 0 && cd.path != 1)
-            || class_smem_elems(cd.d, T, cd.path, threads) * esize > smem)
+            || class_smem_elems((int)cd.d, T, (int)cd.path, threads) * esize
+                   > smem)
             return (int)cudaErrorInvalidValue;
         long long M = 1;
         for (int t = 0; t < T; ++t) M *= cd.d + 1;

@@ -20,12 +20,14 @@ twin; it equals ``_sweep_core``'s plain route bit for bit on every real
 row.
 
 :func:`build_plan` runs once where a sweep is made, on the sweep's device:
-int32 copies of the class tables, the int8 class id of every row, the rows
+int32 copies of the class tables, the int16 class id of every row, the rows
 in no class, the int32 source-node table of a node-level bias, and the
 launch shape (the block size and the largest dynamic shared memory over the
-classes). A class the kernel refuses, or more classes than it takes,
-raises: there is no fallback to the per-class route or the plain version
-on a CUDA tensor.
+classes). The kernel reads the classes' descriptors (tables, factor, sizes,
+path) from device memory, which :func:`sweep_cuda` fills once per set of
+factors and keeps with the plan, so the class count is bounded only by the
+int16 class id. A class the kernel refuses raises: there is no fallback to
+the per-class route or the plain version on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -42,8 +44,11 @@ from graphdyn_torch.ops import bdcm_cuda, cuda_build
 
 SOURCE = "bdcm_sweep.cu"
 NVCC_FLAGS = cuda_build.BASE_FLAGS
-MAX_CLASSES = 64           # the kernel's class table
-NO_CLASS = 127             # the class id of a row in no class
+NO_CLASS = 32767           # the class id (int16) of a row in no class
+MAX_CLASSES = NO_CLASS     # class ids 0 .. NO_CLASS - 1
+DESC_WORDS = 7             # a class descriptor: idx, in_edges, a, Ed,
+#                            a_stride, d, path (csrc/bdcm_sweep.cu ClassDesc)
+_DESC_CACHE_MAX = 64       # descriptor sets kept per plan
 
 # kernel launches made through sweep_cuda since the last reset; a run shows
 # that its path went through the kernel by zeroing this and reading it
@@ -77,11 +82,13 @@ class SweepPlan(NamedTuple):
     Ed: tuple                 # members per group, per class
     idx: tuple                # per class int32 [G·Ed] output rows
     in_edges: tuple           # per class int32 [G·Ed, d] input rows
-    cid: torch.Tensor         # int8 [G·rows]
+    cid: torch.Tensor         # int16 [G·rows]
     pass_rows: torch.Tensor   # int32 rows in no class
     src: torch.Tensor | None  # int32 [G·rows] source node of each row
     threads: int
     smem: int
+    descs: dict               # the class descriptors in device memory, by
+    #                           their host words (sweep_cuda fills it)
 
 
 def build() -> str:
@@ -103,7 +110,7 @@ def _library():
                                            ctypes.c_ulonglong, ctypes.c_int,
                                            ctypes.c_uint, ctypes.c_longlong]
                 + [ctypes.c_int] * 3
-                + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
                 + [ctypes.c_double, ctypes.c_double, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
             )
@@ -176,7 +183,7 @@ def build_plan(tables, *, G: int, rows: int, T: int, dtype, padded: bool,
                          f"{total} rows")
     class_ds = tuple(int(ie.shape[-1]) for _, ie in tables)
     paths, threads, smem = launch_shape(class_ds, T, dtype)
-    cid = torch.full((total,), NO_CLASS, dtype=torch.int8, device=dev)
+    cid = torch.full((total,), NO_CLASS, dtype=torch.int16, device=dev)
     count = torch.zeros(total, dtype=torch.int32, device=dev)
     idx32, ie32, Eds, bounds = [], [], [], []
     for c, (idx, ie) in enumerate(tables):
@@ -204,7 +211,7 @@ def build_plan(tables, *, G: int, rows: int, T: int, dtype, padded: bool,
         class_ds=class_ds, paths=paths, Ed=tuple(Eds), idx=tuple(idx32),
         in_edges=tuple(ie32), cid=cid, pass_rows=pass_rows.contiguous(),
         src=None if src is None else src.to(torch.int32).contiguous(),
-        threads=threads, smem=smem)
+        threads=threads, smem=smem, descs={})
 
 
 def _check(chi, a_tilted, bias, plan: SweepPlan):
@@ -267,6 +274,36 @@ def bias_args(bias, plan: SweepPlan):
     return bias, None, K, sum(k << (4 * k) for k in range(K))
 
 
+def class_descriptors(a_tilted, plan: SweepPlan) -> np.ndarray:
+    """The kernel's class descriptors, int64 ``[classes, DESC_WORDS]``: per
+    class the device addresses of its output rows, its in-edges and its
+    factor, its members per group, the factor's group stride (0 when
+    shared), d, and its path."""
+    K = 2**plan.T
+    out = np.zeros((len(plan.class_ds), DESC_WORDS), np.int64)
+    for c, (a, d) in enumerate(zip(a_tilted, plan.class_ds)):
+        out[c] = (plan.idx[c].data_ptr(), plan.in_edges[c].data_ptr(),
+                  a.data_ptr(), plan.Ed[c],
+                  K * K * (d + 1) ** plan.T if a.ndim == 4 else 0, d,
+                  bdcm_cuda.PATHS[plan.paths[c]])
+    return out
+
+
+def _device_descriptors(host: np.ndarray, plan: SweepPlan, device):
+    """``host``'s words in device memory, copied once per distinct set and
+    kept in ``plan.descs`` (at most ``_DESC_CACHE_MAX``, the oldest
+    dropped): a sweep repeated with the same factors copies nothing. The
+    words are plain values, so a set equal to a kept one is that one."""
+    key = host.tobytes()
+    descs = plan.descs.get(key)
+    if descs is None:
+        if len(plan.descs) >= _DESC_CACHE_MAX:
+            plan.descs.pop(next(iter(plan.descs)))
+        descs = torch.from_numpy(host.reshape(-1).copy()).to(device)
+        plan.descs[key] = descs
+    return descs
+
+
 def sweep_cuda(chi: torch.Tensor, a_tilted, bias, plan: SweepPlan, *,
                damp: float, eps_clamp: float) -> torch.Tensor:
     """One sweep of ``chi`` [G, rows, K, K] in one launch on the current
@@ -278,19 +315,9 @@ def sweep_cuda(chi: torch.Tensor, a_tilted, bias, plan: SweepPlan, *,
     _check(chi, a_tilted, bias, plan)
     v, src, stride, cols = bias_args(bias, plan)
     out = torch.empty_like(chi)
-    K = 2**plan.T
     n = len(plan.class_ds)
-    ptrs = (ctypes.c_longlong * max(3 * n, 1))()
-    ints = (ctypes.c_longlong * max(4 * n, 1))()
-    for c, (a, d) in enumerate(zip(a_tilted, plan.class_ds)):
-        M = (d + 1) ** plan.T
-        ptrs[3 * c] = plan.idx[c].data_ptr()
-        ptrs[3 * c + 1] = plan.in_edges[c].data_ptr()
-        ptrs[3 * c + 2] = a.data_ptr()
-        ints[4 * c] = plan.Ed[c]
-        ints[4 * c + 1] = K * K * M if a.ndim == 4 else 0
-        ints[4 * c + 2] = d
-        ints[4 * c + 3] = bdcm_cuda.PATHS[plan.paths[c]]
+    host = class_descriptors(a_tilted, plan)
+    descs = _device_descriptors(host, plan, chi.device)
     fn = _library().graphdyn_bdcm_sweep
     with torch.cuda.device(chi.device):
         rc = fn(chi.data_ptr(), out.data_ptr(), plan.cid.data_ptr(),
@@ -299,7 +326,9 @@ def sweep_cuda(chi: torch.Tensor, a_tilted, bias, plan: SweepPlan, *,
                 None if v is None else v.data_ptr(),
                 None if src is None else src.data_ptr(), stride, cols,
                 int(plan.masked), plan.valid_bits, plan.G,
-                plan.T, int(chi.dtype == torch.float64), n, ptrs, ints,
+                plan.T, int(chi.dtype == torch.float64), n,
+                host.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+                descs.data_ptr() if n else None,
                 float(damp), float(eps_clamp), plan.threads, plan.smem,
                 torch.cuda.current_stream(chi.device).cuda_stream)
     if rc != 0:

@@ -5,7 +5,8 @@ One class step (class ``c = steps mod χ``) on the ghost-extended packed
 state:
 
 - two LUT one-step evaluations, ``end(s)`` and ``end(s ⊕ class)``
-  (:func:`graphdyn_torch.ops.lut.lut_one_step`);
+  (:func:`graphdyn_torch.ops.lut.lut_one_step`), needed only at the balls
+  ``{i} ∪ N(i)`` of the class rows and evaluated only there;
 - the exact per-site ``ΔΣs_end`` from disjoint-ball popcounts, the f32
   ``ΔE``, and a Metropolis accept against Threefry-2x32 counter uniforms
   keyed by ``(seed, FUSED_STREAM_TAG + replica pair)`` with counter
@@ -19,10 +20,19 @@ A chunk runs up to ``chunk_steps`` class steps while any replica is active
 implementations that give the same state bit for bit:
 
 - the hand-written CUDA kernel (:mod:`graphdyn_torch.ops.fused_cuda`): one
-  cooperative launch per chunk, the whole loop inside it;
+  cooperative launch per chunk, the whole loop inside it, one pass over the
+  class rows per class step;
 - the plain PyTorch version here (:func:`fused_chunk_plain`): a host loop
   of class steps, which :func:`fused_chunk` runs for CPU tensors and which
-  the chip smoke test holds the kernel against on the card.
+  the chip smoke test holds the kernel against on the card. It keeps the
+  kernel's decomposition: the class rows in chunks, each chunk evaluating
+  its balls' end states on the state as it stands and flipping its rows in
+  place (:func:`_class_chunk`).
+
+The one pass is exact because a class's balls are disjoint: two rows of a
+class lie at distance ≥ 3 (a distance-2 colouring), so no row that one class
+row's decision reads is a row another decision writes.
+:func:`fused_device_tables` refuses class masks without that property.
 
 Words are ``torch.int32`` with the reference's uint32 bit patterns; the
 Threefry arithmetic runs in int64 masked to 32 bits (torch's CPU build has
@@ -48,8 +58,8 @@ from graphdyn_torch.ops.chromatic import (
     _unpack_pm1,
     build_chromatic_tables,
 )
-from graphdyn_torch.ops.lut import lut_node_masks, lut_one_step, update_lut
-from graphdyn_torch.ops.packed import WORD, _row_chunk
+from graphdyn_torch.ops.lut import _count_eq_masks, lut_node_masks, update_lut
+from graphdyn_torch.ops.packed import _csa_add_one, _row_chunk
 
 # key word 1 of the fused proposal stream (key word 0 is the run seed)
 FUSED_STREAM_TAG = 0x464C5554  # b"FLUT"
@@ -191,32 +201,72 @@ class FusedDeviceTables(NamedTuple):
     b_caps: torch.Tensor      # f32[Rp]
     class_ptr: torch.Tensor   # int32[χ+1]: class c's rows are
     class_rows: torch.Tensor  # class_rows[class_ptr[c]:class_ptr[c+1]]
+    max_class: int            # the largest class's row count
+
+
+def _ball_owners(nbr_self, rows, n: int):
+    """The balls ``{i} ∪ N(i)`` of ``rows`` (int64 ``[k, dmax+1]``), each
+    row's repeated slots and ghost slots set to the ghost index ``n``, and
+    how many of the balls hold each node (int64 ``[n+1]``)."""
+    ball, _ = nbr_self.index_select(0, rows.long()).long().clamp(0, n).sort(1)
+    ball[:, 1:][ball[:, 1:] == ball[:, :-1]] = n
+    return ball, torch.bincount(ball.reshape(-1), minlength=n + 1)
+
+
+def _overlap_reason(nbr_self, rows, c: int, n: int) -> str:
+    """Which two rows of class ``c`` have overlapping balls, and how."""
+    ball, hold = _ball_owners(nbr_self, rows, n)
+    node = int(torch.nonzero(hold[:n] > 1)[0])
+    i, j = rows[torch.nonzero((ball == node).any(1)).flatten()[:2]].tolist()
+    how = ("adjacent" if node in (i, j)
+           else f"both neighbours of row {node}")
+    return (f"rows {i} and {j} of class {c} are {how}: their balls "
+            f"{{i}} ∪ N(i) overlap")
 
 
 def fused_device_tables(masks_ext, facs, nbr_ext, nbr_self, lut_masks,
                         a_caps, b_caps) -> FusedDeviceTables:
     """Assemble :class:`FusedDeviceTables` from the seven tensors (all on
     one device; words as int32), deriving the class row lists: the rows
-    where ``masks_ext[c, :n]`` is set, in ascending order. Refuses gather
-    tables with indices outside ``[0, n]`` (n is the ghost row), which the
-    CUDA kernel would read out of bounds with: one host read, here, so no
-    chunk launch needs one."""
+    where ``masks_ext[c, :n]`` is set, in ascending order. With one host
+    read, here, so that no chunk launch needs one, refuses
+
+    - gather tables with indices outside ``[0, n]`` (n is the ghost row),
+      which the CUDA kernel would read out of bounds with;
+    - class masks with two rows at distance ≤ 2 (adjacent, or sharing a
+      neighbour), whose balls ``{i} ∪ N(i)`` overlap: the kernel decides a
+      class's rows in one pass, in place and in no set order, which is
+      exact only when no row one decision reads is a row another writes.
+      :func:`graphdyn_torch.ops.chromatic.build_chromatic_tables`'s
+      distance-2 colourings have disjoint balls."""
     n = masks_ext.shape[1] - 1
-    bounds = torch.stack([nbr_ext.min(), nbr_ext.max(), nbr_self.min(),
-                          nbr_self.max()]).tolist()
+    rows = [torch.nonzero(masks_ext[c, :n] != 0).flatten().to(torch.int32)
+            for c in range(masks_ext.shape[0])]
+    held = [_ball_owners(nbr_self, r, n)[1][:n].max() if r.numel()
+            else nbr_self.new_zeros((), dtype=torch.int64) for r in rows]
+    vals = torch.stack([nbr_ext.min(), nbr_ext.max(), nbr_self.min(),
+                        nbr_self.max()] + [h.to(nbr_ext.dtype) for h in held]
+                       ).tolist()
+    bounds, held = vals[:4], vals[4:]
     if min(bounds) < 0 or max(bounds) > n:
         raise ValueError(
             f"fused gather tables out of range: indices in [{min(bounds)}, "
             f"{max(bounds)}], must be within [0, {n}]"
         )
-    rows = [torch.nonzero(masks_ext[c, :n] != 0).flatten().to(torch.int32)
-            for c in range(masks_ext.shape[0])]
+    for c, h in enumerate(held):
+        if h > 1:
+            raise ValueError(
+                "fused class masks are not a distance-2 colouring: "
+                + _overlap_reason(nbr_self, rows[c], c, n)
+                + " (the one-pass class step needs disjoint balls; "
+                "build_chromatic_tables makes such masks)")
     counts = torch.tensor([0] + [r.numel() for r in rows], dtype=torch.int64)
     class_ptr = torch.cumsum(counts, 0).to(torch.int32).to(masks_ext.device)
     class_rows = (torch.cat(rows) if rows else
                   masks_ext.new_zeros(0, dtype=torch.int32))
     return FusedDeviceTables(masks_ext, facs, nbr_ext, nbr_self, lut_masks,
-                             a_caps, b_caps, class_ptr, class_rows)
+                             a_caps, b_caps, class_ptr, class_rows,
+                             int(counts.max()))
 
 
 class FusedState(NamedTuple):
@@ -269,37 +319,89 @@ def class_decisions(st: FusedState, seed, tables: FusedDeviceTables,
     return dsend, u, delta_e, acc
 
 
+def ball_end_states(sp_ext: torch.Tensor, tables: FusedDeviceTables,
+                    rows: torch.Tensor, c: int, *, n: int, dmax: int):
+    """``end(s)`` and ``end(s ⊕ class c)`` at ``rows`` only: int32
+    ``[len(rows), W]`` each, the rows of :func:`graphdyn_torch.ops.lut.
+    lut_one_step`
+    applied to ``sp_ext`` and to ``sp_ext`` with class ``c``'s mask XORed
+    in, evaluated row by row as the kernel does (one gather of a row's
+    neighbours and one read of its LUT masks serve both). The ghost row's
+    words are 0."""
+    rows = rows.long()
+    mask = tables.masks_ext[c]
+    nb = tables.nbr_ext.index_select(0, rows).long()
+    n_planes = max(int(dmax).bit_length(), 1)
+    shape = (rows.numel(), sp_ext.shape[1])
+    pl0 = [sp_ext.new_zeros(shape) for _ in range(n_planes)]
+    pl1 = [sp_ext.new_zeros(shape) for _ in range(n_planes)]
+    for j in range(dmax):
+        x = sp_ext.index_select(0, nb[:, j])
+        _csa_add_one(pl0, x)
+        _csa_add_one(pl1, x ^ mask.index_select(0, nb[:, j])[:, None])
+    own = sp_ext.index_select(0, rows)
+    own_all = own ^ mask.index_select(0, rows)[:, None]
+    e, ea = sp_ext.new_zeros(shape), sp_ext.new_zeros(shape)
+    for cnt, (eq0, eq1) in enumerate(zip(_count_eq_masks(pl0, dmax),
+                                         _count_eq_masks(pl1, dmax))):
+        m0 = tables.lut_masks[cnt, 0].index_select(0, rows)[:, None]
+        m1 = tables.lut_masks[cnt, 1].index_select(0, rows)[:, None]
+        e = e | (eq0 & ((own & m1) | (~own & m0)))
+        ea = ea | (eq1 & ((own_all & m1) | (~own_all & m0)))
+    ghost = (rows == n)[:, None]
+    return e.masked_fill(ghost, 0), ea.masked_fill(ghost, 0)
+
+
+def _class_chunk(st: FusedState, seed, tables: FusedDeviceTables,
+                 rows: torch.Tensor, c: int, end, end_all, *, n: int,
+                 dmax: int, invert=None):
+    """Decide the class rows ``rows`` of class ``c`` and flip them in place
+    in ``st.sp_ext``, as one stretch of the kernel's pass: each row's ball
+    end states are evaluated on the state as it stands (into ``end`` and
+    ``end_all``, ``[n+1, W]`` buffers, at the ball rows), then
+    :func:`class_decisions`. Exact for any order of a class's rows and any
+    cut into chunks: the balls are disjoint (:func:`fused_device_tables`),
+    so no row one decision reads is written by another. ``invert`` (bool
+    ``[len(rows), Rp]``) flips chosen decisions. Returns ``(dsend int32[k,
+    Rp], acc bool[k, Rp])``."""
+    ball = tables.nbr_self.index_select(0, rows).reshape(-1).long()
+    e, ea = ball_end_states(st.sp_ext, tables, ball, c, n=n, dmax=dmax)
+    end[ball] = e
+    end_all[ball] = ea
+    dsend, _, _, acc = class_decisions(st, seed, tables, rows, end, end_all,
+                                       n=n)
+    if invert is not None:
+        acc = acc ^ invert
+    st.sp_ext[rows] = st.sp_ext[rows] ^ _pack_bool(acc, st.sp_ext.shape[1])
+    return dsend, acc
+
+
 def _fused_class_step(st: FusedState, seed, tables: FusedDeviceTables, *,
                       n: int, dmax: int, chi: int, target_sum: int,
                       invert=None) -> FusedState:
     """One fused class step, the counterpart of the reference's
     ``_fused_class_step`` with its uniforms (``_fused_cond_body``'s
-    body): LUT end-state evaluations, per-site accepts of the class rows,
-    additive ``Σs_end``, anneal with the cap checked before the multiply,
-    first passage and freeze. ``st`` is not written. ``invert`` (bool
-    ``[|class|, Rp]``, the near-tie replay) flips chosen decisions."""
+    body): LUT end-state evaluations at the class rows' balls, per-site
+    accepts of the class rows (in row chunks, each flipped in place before
+    the next is evaluated, :func:`_class_chunk`), additive ``Σs_end``,
+    anneal with the cap checked before the multiply, first passage and
+    freeze. ``st`` is not written. ``invert`` (bool ``[|class|, Rp]``, the
+    near-tie replay) flips chosen decisions."""
     step = int(st.steps)
     c = step % chi
-    mask_row_ext = tables.masks_ext[c]
-    end = lut_one_step(st.sp_ext, tables.nbr_ext, tables.lut_masks,
-                       n=n, dmax=dmax)
-    end_all = lut_one_step(st.sp_ext ^ mask_row_ext[:, None], tables.nbr_ext,
-                           tables.lut_masks, n=n, dmax=dmax)
     rows = _class_rows(tables, c)
-    W = st.sp_ext.shape[1]
     Rp = st.a.shape[0]
-    sp_new = st.sp_ext.clone()
-    dsend_tot = torch.zeros(Rp, dtype=torch.int64, device=sp_new.device)
-    n_acc = torch.zeros((), dtype=torch.int64, device=sp_new.device)
+    cur = st._replace(sp_ext=st.sp_ext.clone())
+    end, end_all = torch.zeros_like(cur.sp_ext), torch.zeros_like(cur.sp_ext)
+    dsend_tot = torch.zeros(Rp, dtype=torch.int64, device=cur.sp_ext.device)
+    n_acc = torch.zeros((), dtype=torch.int64, device=cur.sp_ext.device)
     # ~16 f32/int32/int64 [rows, Rp] temporaries live at once
     chunk = _row_chunk(16 * 8 * Rp)
     for i0 in range(0, rows.numel(), chunk):
-        r = rows[i0:i0 + chunk]
-        dsend, _, _, acc = class_decisions(st, seed, tables, r, end, end_all,
-                                           n=n)
-        if invert is not None:
-            acc = acc ^ invert[i0:i0 + chunk]
-        sp_new[r] = st.sp_ext[r] ^ _pack_bool(acc, W)
+        dsend, acc = _class_chunk(
+            cur, seed, tables, rows[i0:i0 + chunk], c, end, end_all, n=n,
+            dmax=dmax, invert=None if invert is None
+            else invert[i0:i0 + chunk])
         dsend_tot += (dsend * acc).sum(dim=0)
         n_acc += acc.sum()
     fa, fb = tables.facs[c, 0], tables.facs[c, 1]
@@ -310,7 +412,7 @@ def _fused_class_step(st: FusedState, seed, tables: FusedDeviceTables, *,
     steps = st.steps + 1
     hit = act & (sum_end >= target_sum)
     t_target = torch.where(hit, steps, st.t_target)
-    return FusedState(sp_new, sum_end, a_new, b_new, t_target, act & ~hit,
+    return FusedState(cur.sp_ext, sum_end, a_new, b_new, t_target, act & ~hit,
                       steps, _wrap_i32(st.accepted.to(torch.int64) + n_acc))
 
 

@@ -5,8 +5,12 @@ The kernel (``graphdyn_torch/csrc/fused_anneal.cu``) replaces the JAX
 package's Pallas kernel K4 (``graphdyn/ops/pallas_anneal.py:433``,
 ``fused_chunk_pallas``): up to ``chunk_steps`` fused SA class steps in one
 cooperative launch, the loop condition evaluated on the device, no host read
-within the chunk. It computes what :func:`graphdyn_torch.ops.fused.
-fused_chunk_plain` computes, bit for bit.
+within the chunk. Each class step is one pass over the class rows (each
+evaluates the LUT end states of its own ball in registers and writes its
+flips in place) and one grid barrier; the last block to finish the pass does
+the per-replica bookkeeping. It computes what :func:`graphdyn_torch.ops.
+fused.fused_chunk_plain` computes, bit for bit. :func:`lane_plan` is its
+thread mapping, chosen here and checked by :func:`index_map`.
 
 It is built with ``--fmad=false`` (its one float decision, ``u <
 exp(−ΔE)``, must see ``ΔE`` rounded op by op as the plain version rounds
@@ -28,6 +32,7 @@ from graphdyn_torch.ops.fused import (
     FusedState,
     _check_seed,
 )
+from graphdyn_torch.ops.packed import WORD
 
 SOURCE = "fused_anneal.cu"
 NVCC_FLAGS = cuda_build.BASE_FLAGS + ("--fmad=false",)
@@ -57,8 +62,9 @@ def _library():
             fn = lib.graphdyn_fused_chunk
             fn.restype = ctypes.c_int
             fn.argtypes = (
-                [ctypes.c_void_p] * 19
-                + [ctypes.c_longlong, ctypes.c_longlong]
+                [ctypes.c_void_p] * 18
+                + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_longlong]
                 + [ctypes.c_int] * 5
                 + [ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
                    ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -84,6 +90,39 @@ def grid_info(dmax: int, Rp: int) -> dict:
         raise RuntimeError(f"fused_chunk: occupancy query failed, cudaError {rc}")
     return {"blocks_per_sm": per_sm.value, "sms": sms.value,
             "max_blocks": per_sm.value * sms.value}
+
+
+def lane_plan(W: int) -> tuple[int, int]:
+    """``(lanes, row_threads)`` of the kernel at W words per row: the
+    threads that share one class word (each takes every ``lanes``-th of its
+    16 replica pairs, and the ball rows likewise), and the threads one class
+    row takes, its W words padded to a power of two below 32 or a multiple
+    of 32 above, times ``lanes``. So a warp covers whole class rows or a run
+    of one row's words, and a word's lanes are one aligned segment of a
+    warp: 16 lanes at W = 1 and 2, fewer as W grows, 1 from W = 17."""
+    if W < 1:
+        raise ValueError(f"W must be >= 1, got {W}")
+    padded = -(-W // WORD) * WORD if W >= WORD else 1 << (W - 1).bit_length()
+    lanes = min(16, max(1, WORD // padded))
+    return lanes, padded * lanes
+
+
+def index_map(rows: int, W: int) -> np.ndarray:
+    """The kernel's work items for ``rows`` class rows at W words, from
+    :func:`lane_plan`, as int64 ``[items, 3]`` of (class row, word, replica
+    pair within the word), one line per (thread, pair) the kernel runs:
+    thread t takes class row ``t // row_threads``, word ``(t % row_threads)
+    // lanes`` (none past W) and pairs ``lane, lane + lanes, ...`` of it."""
+    lanes, rt = lane_plan(W)
+    t = np.arange(rows * rt, dtype=np.int64)
+    r = t % rt
+    row, word, lane = t // rt, r // lanes, r % lanes
+    keep = word < W
+    row, word, lane = row[keep], word[keep], lane[keep]
+    per = 16 // lanes
+    pair = lane[:, None] + lanes * np.arange(per, dtype=np.int64)[None, :]
+    return np.stack([np.repeat(row, per), np.repeat(word, per),
+                     pair.reshape(-1)], axis=1)
 
 
 _STATE_TYPES = {"sp_ext": torch.int32, "sum_end": torch.int32,
@@ -137,6 +176,9 @@ def check_launch(state: FusedState, tables: FusedDeviceTables, *, n: int,
                              f"{shape}")
     if tables.class_rows.ndim != 1 or tables.class_rows.shape[0] > n * chi:
         raise ValueError("fused_chunk: class_rows must be 1-D, at most n*chi")
+    if not 0 <= tables.max_class <= n:
+        raise ValueError(f"fused_chunk: max_class={tables.max_class} outside "
+                         f"[0, {n}]")
     return W, Rp
 
 
@@ -146,15 +188,16 @@ def fused_chunk_cuda(state: FusedState, seed, tables: FusedDeviceTables, *,
                      trace: torch.Tensor | None = None) -> FusedState:
     """Launch one chunk on the current CUDA stream; returns ``state``,
     whose tensors the kernel updated in place (the reference's donation
-    contract: the state buffers are input and output). Allocates the
-    ``[2, n+1, W]`` end-state scratch and the accumulators per call; raises
-    if they do not fit device memory (torch's allocator) or if the grid
+    contract: the state buffers are input and output). Allocates only the
+    ``Rp + 3`` accumulator words per call (no end-state scratch: each class
+    row evaluates its ball's end states in registers); raises if the grid
     cannot be co-resident. Does not synchronise. The tables' index ranges
-    were checked once when :func:`graphdyn_torch.ops.fused.
-    fused_device_tables` built them. ``trace`` (int64 ``[K, 4]`` on the state's device) receives the global
-    timer in ns at the start of each of the first K class steps and after
-    each of its three phases (A: end-state evaluations, B: accepts, C:
-    bookkeeping), each stamp taken after the grid barrier that ends it."""
+    and the disjointness of the class balls were checked once when
+    :func:`graphdyn_torch.ops.fused.fused_device_tables` built them.
+    ``trace`` (int64 ``[K, 4]`` on the state's device) receives the global
+    timer in ns for each of the first K class steps: at its start, at the
+    end of the pass (when the last block finishes it), at the end of the
+    bookkeeping, and after the grid barrier."""
     global LAUNCHES, LAST_GRID_BLOCKS
     W, Rp = check_launch(state, tables, n=n, dmax=dmax, chi=chi)
     seed = _check_seed(seed)
@@ -167,8 +210,8 @@ def fused_chunk_cuda(state: FusedState, seed, tables: FusedDeviceTables, *,
                               or not trace.is_contiguous()):
         raise ValueError("fused_chunk: trace must be a contiguous int64 "
                          "[K, 4] tensor on the state's device")
-    end = torch.empty((2, n + 1, W), dtype=torch.int32, device=dev)
-    work = torch.zeros(Rp + 2, dtype=torch.int32, device=dev)
+    work = torch.zeros(Rp + 3, dtype=torch.int32, device=dev)
+    lanes, row_threads = lane_plan(W)
     inv_n = float(np.float32(1.0) / np.float32(n))
     blocks = ctypes.c_int(0)
     fn = _library().graphdyn_fused_chunk
@@ -177,9 +220,10 @@ def fused_chunk_cuda(state: FusedState, seed, tables: FusedDeviceTables, *,
         state.active, state.steps, state.accepted,
         tables.masks_ext, tables.facs, tables.nbr_ext, tables.nbr_self,
         tables.lut_masks, tables.a_caps, tables.b_caps, tables.class_ptr,
-        tables.class_rows, end, work)]
+        tables.class_rows, work)]
     with torch.cuda.device(dev):
-        rc = fn(*ptrs, n, W, dmax, chi, int(target_sum), int(chunk_steps),
+        rc = fn(*ptrs, n, W, dmax, chi, int(tables.max_class), lanes,
+                row_threads, int(target_sum), int(chunk_steps),
                 int(bool(stop_on_first)), seed, inv_n,
                 None if trace is None else trace.data_ptr(),
                 0 if trace is None else trace.shape[0], ctypes.byref(blocks),

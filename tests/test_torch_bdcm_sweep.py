@@ -28,6 +28,7 @@ from graphdyn import graphs as jg
 from graphdyn.ops import bdcm as jb
 from graphdyn_torch import interop
 from graphdyn_torch.config import EntropyConfig
+from graphdyn_torch.graphs import graph_from_edges
 from graphdyn_torch.ops import bdcm as tb
 from graphdyn_torch.ops import bdcm_cuda
 from graphdyn_torch.ops import bdcm_sweep as bs
@@ -229,7 +230,7 @@ def test_sweep_plan_refusals():
     with pytest.raises(ValueError, match="refuses"):
         bs.launch_shape((500,), 2, torch.float64)
     with pytest.raises(ValueError, match="at most"):
-        bs.launch_shape(tuple(range(1, 66)), 1, torch.float32)
+        bs.launch_shape((1,) * (bs.MAX_CLASSES + 1), 1, torch.float32)
     idx = torch.tensor([[0, 1]])
     ie = torch.tensor([[[2], [3]]])
     kw = dict(G=1, rows=4, T=1, dtype=torch.float32, padded=False,
@@ -248,18 +249,65 @@ def test_sweep_limit_is_the_class_count_only(T, dtype):
     """What the one-launch sweep refuses beyond the per-class kernel's gate:
     more than ``MAX_CLASSES`` edge classes, and nothing else. Every class
     the per-class gate admits fits the sweep's one block size beside a
-    class of d = 1; 64 classes run, 65 raise."""
+    class of d = 1; the class table lives in device memory, so the limit is
+    the int16 class id's (32767 classes, the no-class id above them):
+    several hundred classes run, 32768 raise."""
     admitted = [d for d in range(1, 400)
                 if bdcm_cuda.bdcm_kernel_supported(d, T, dtype)]
     assert admitted
     for d in admitted:
         paths, threads, smem = bs.launch_shape((1, d), T, dtype)
         assert smem <= bdcm_cuda.SMEM_MAX and threads <= bdcm_cuda.THREADS
-    many = tuple(admitted[i % len(admitted)] for i in range(bs.MAX_CLASSES))
-    bs.launch_shape(many, T, dtype)
+    assert bs.MAX_CLASSES == bs.NO_CLASS == 2**15 - 1
+    many = tuple(admitted[i % len(admitted)] for i in range(500))
+    paths, _, _ = bs.launch_shape(many, T, dtype)
+    assert len(paths) == 500
     with pytest.raises(ValueError, match=f"at most {bs.MAX_CLASSES} edge "
                                          f"classes, got {bs.MAX_CLASSES + 1}"):
-        bs.launch_shape(many + (1,), T, dtype)
+        bs.launch_shape((1,) * (bs.MAX_CLASSES + 1), T, dtype)
+
+
+def _caterpillar(degrees):
+    """A tree of hubs in a path, hub k of degree ``degrees[k]`` (leaves make
+    up the rest): one edge class per hub degree, d = degree − 1."""
+    H = len(degrees)
+    edges = [(k, k + 1) for k in range(H - 1)]
+    n = H
+    for k, D in enumerate(degrees):
+        for _ in range(D - (k > 0) - (k < H - 1)):
+            edges.append((k, n))
+            n += 1
+    return graph_from_edges(n, np.array(edges))
+
+
+@pytest.mark.parametrize("dt", ["float32", "float64"])
+def test_sweep_plan_and_twin_beyond_64_classes(dt):
+    """A sweep of 66 edge classes (hub degrees 2..67, T = 1): the plan's
+    int16 class ids, its 66 class descriptors (the words the kernel reads
+    from device memory), and the twin equal to the plain route bit for bit
+    on every row a class owns."""
+    data = tb.BDCMData(_caterpillar(range(2, 68)), p=0, c=1, dtype=dt)
+    sweep = tb.make_sweep(data, damp=0.1, device="cpu")
+    plan = _plan_of(sweep, 1, data.num_directed, data)
+    assert plan.class_ds == tuple(range(1, 67))
+    assert plan.cid.dtype == torch.int16
+    _, As, valid = sweep.args
+    a_t = tb.tilted_factors(As, torch.as_tensor(data.x0, dtype=data.dtype),
+                            0.5)
+    desc = bs.class_descriptors(a_t, plan)
+    assert desc.shape == (66, bs.DESC_WORDS)
+    assert desc[:, 3].tolist() == list(plan.Ed)
+    assert desc[:, 5].tolist() == list(plan.class_ds)
+    assert desc[:, 6].tolist() == [bdcm_cuda.PATHS[p] for p in plan.paths]
+    assert desc[:, 2].tolist() == [a.data_ptr() for a in a_t]
+    chi = data.init_messages(3)[None]
+    kw = dict(damp=0.1, eps_clamp=0.0)
+    twin = bs.sweep_plain(chi, a_t, None, plan, **kw)
+    route = tb._sweep_core(chi, a_t, None, valid, sweep.args[0], sweep.spec)
+    owned = plan.cid.long() != bs.NO_CLASS
+    K = data.K
+    assert torch.equal(twin.reshape(-1, K, K)[owned],
+                       route.reshape(-1, K, K)[owned])
 
 
 def test_sweep_cuda_refuses_cpu_tensors():
