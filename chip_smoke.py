@@ -37,7 +37,17 @@ must count 0 there):
   (and two runs equal bit for bit), ``entropy_grid`` grouped == serial bit
   for bit, config 4 at full width through ``entropy_ensemble_union`` (64 ER
   instances, n=1000, c=1.5, 32 λ, max_sweeps 400, float32), the congruent
-  ensemble on 64 RRG(1000, 3), and the ``entropy`` CLI at its defaults.
+  ensemble on 64 RRG(1000, 3), and the ``entropy`` CLI at its defaults;
+- the SA searches, plain PyTorch on the card (no TPU kernel lies on their
+  path): injected-stream chains on the card equal to the same chains on the
+  CPU (RRG n=300 d=4 and a ragged ER graph, full and light-cone), counter-
+  stream chains that reach consensus rolled out to all +1, the chromatic
+  chain and the tempering ladder card == CPU; then the ``sa`` CLI at its
+  defaults (n=10⁴, d=4, p=3, grouped G=5) and with ``--rollout-mode
+  lightcone`` (serial), which must agree bit for bit, with steps/s, host
+  reads and the device's busy share over one chunk; the ``chromatic`` CLI
+  and the ``temper`` CLI at their defaults. The step budgets of ``sa`` and
+  ``temper`` are cut to 10⁴ (a chain at those defaults takes ~10⁸ steps).
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
 n=10⁶, R=1024), with its peak device memory; the packed step and its bare
@@ -45,7 +55,9 @@ gather beside ``index_select`` at the headline and config 3; the per-class
 BDCM kernel per launch; and the BDCM sweep kernel per sweep at config 4, the
 congruent ensemble, the golden instance, the HPr reference shape and config
 2, each beside the per-class route (PyTorch gathers, the per-class kernel
-and ``index_copy_`` per class, composed here) and the plain sweep.
+and ``index_copy_`` per class, composed here) and the plain sweep; and the
+row gather against ``index_select`` in turns, 9 repeats each, at the
+probe's widths and the headline step's gather (median and range).
 
 Prints, in order: phase reports, the card's name and power limit (from
 nvidia-smi), one JSON line listing the kernels with their measured times, and
@@ -85,6 +97,7 @@ from graphdyn_torch.graphs import (
     random_regular_graph,
 )
 from graphdyn_torch.models import entropy as entropy_models
+from graphdyn_torch.models import sa as sa_models
 from graphdyn_torch.models import entropy_reference as eref
 from graphdyn_torch.models.entropy import (
     entropy_ensemble,
@@ -109,6 +122,7 @@ from graphdyn_torch.models.hpr_reference import (
     ref_init,
     walk_to_divergence,
 )
+from graphdyn_torch.models.sa import simulated_annealing
 from graphdyn_torch.models.consensus import (
     consensus_curve,
     consensus_point,
@@ -140,6 +154,8 @@ from graphdyn_torch.ops.bdcm import (
 )
 from graphdyn_torch.ops.dynamics import end_state, run_dynamics
 from graphdyn_torch.ops.gather import row_gather, row_gather_plain
+from graphdyn_torch.ops.lightcone import build_lightcone_tables
+from graphdyn_torch.ops.chromatic import build_chromatic_tables
 from graphdyn_torch.ops.fused import (
     FusedState,
     build_fused_tables,
@@ -154,6 +170,7 @@ from graphdyn_torch.ops.packed import (
     packed_rollout_plain,
 )
 from graphdyn_torch.plotting import masked_mean
+from graphdyn_torch.pipeline import sa_group
 from graphdyn_torch.pipeline.entropy_group import EntropyCellExec
 from graphdyn_torch.pipeline.hpr_group import (
     HPRGroupExec,
@@ -161,12 +178,14 @@ from graphdyn_torch.pipeline.hpr_group import (
     hpr_uniforms,
 )
 from graphdyn_torch.scripts import gather_probe
+from graphdyn_torch.search.chromatic import chromatic_anneal
 from graphdyn_torch.search.fused import _assemble_fused, fused_anneal
 from graphdyn_torch.search.reference import (
     hold_to_record,
     result_record,
     run_record,
 )
+from graphdyn_torch.search.tempering import temper_search
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -239,6 +258,16 @@ GATHER_PORT_SHAPES = (
     ("fused scale (W=32)", 1_000_001, 32, 5_000_000),
     ("headline (W=512)", 1_000_001, 512, 3_000_000),
 )
+
+
+# the SA searches: the card-vs-CPU parity graphs and stream length; the
+# main paths' step budgets, cut from the default 2n^3 (clamped to 2^31-2),
+# since a chain at the sa CLI's defaults takes ~10^8 steps to consensus
+# (physics_r04.json)
+SA_PARITY_N, SA_PARITY_L = 300, 2000
+SA_MAIN_STEPS, TEMPER_MAIN_STEPS = 10_000, 10_000
+# repeats of each implementation in the interleaved gather timing
+GATHER_REPS = 9
 
 
 def log(msg: str) -> None:
@@ -2389,6 +2418,436 @@ def phase_entropy_cli() -> dict:
     return {"wall_s": wall, "launches": launches, "counts": doc["counts"]}
 
 
+# ---------------------------------------------------------------------------
+# the SA searches: the serial chain (full and light-cone), the grouped `sa`
+# ensemble, the chromatic chain and the tempering ladder (plain PyTorch on
+# the card: no TPU kernel lies on this path)
+# ---------------------------------------------------------------------------
+
+
+def _same_sa(got, want, what: str) -> None:
+    """``num_steps``, ``s`` and ``m_final`` equal, ``mag_reached`` within
+    1e-6."""
+    for name in ("num_steps", "s", "m_final"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"{what}: {name} differs")
+    err = float(np.max(np.abs(got.mag_reached.astype(np.float64)
+                              - want.mag_reached.astype(np.float64))))
+    if err > 1e-6:
+        raise AssertionError(f"{what}: mag_reached differs by {err}")
+
+
+def _check_sa_consensus(g, res, p: int, c: int, what: str) -> int:
+    """Every chain reported at m_final = 1 rolls out to all +1 under the
+    port's end_state on the card; returns how many there were."""
+    hits = np.flatnonzero(res.m_final == 1.0)
+    for k in hits:
+        out = end_state(g, res.s[k], p, c, device="cuda").cpu().numpy()
+        if not np.all(out == 1):
+            raise AssertionError(f"{what}: chain {k} m_final 1.0 but its "
+                                 "end state is not all +1")
+    return int(hits.size)
+
+
+def _check_ensemble_consensus(res, args, what: str) -> int:
+    """``_check_sa_consensus`` for each repetition of an ``sa`` ensemble
+    (repetition k on RRG(n, d) drawn from ``seed + k``)."""
+    hits = 0
+    for k in np.flatnonzero(res.m_final == 1.0):
+        g = random_regular_graph(args.n, args.d, seed=args.seed + int(k))
+        out = end_state(g, res.conf[k], args.p, args.c,
+                        device="cuda").cpu().numpy()
+        if not np.all(out == 1):
+            raise AssertionError(f"{what}: repetition {k} m_final 1.0 but "
+                                 "its end state is not all +1")
+        hits += 1
+    return hits
+
+
+def phase_sa_parity() -> dict:
+    """Injected-stream chains on the card against the same chains on the
+    CPU in the port, full and light-cone: RRG n=300, d=4, (p, c) = (3, 1),
+    R=4, and a ragged ER graph with isolates (n=300, c=3); then counter-
+    stream chains (card == CPU by construction) on RRG(24, 3) at p=2, which
+    reach consensus, each checked to roll out to all +1; then the chromatic
+    chain and the tempering ladder, card == CPU, at small sizes."""
+    log(f"[26 searches] card: {card_line()}")
+    out = {}
+    cases = {"RRG n=300 d=4": random_regular_graph(SA_PARITY_N, 4, seed=0),
+             "ER n=300 c=3": erdos_renyi_graph(SA_PARITY_N, 3.0 / 299,
+                                               seed=1)}
+    cfg = SAConfig(dynamics=DynamicsConfig(p=3, c=1))
+    rng = np.random.default_rng(5)
+    for label, g in cases.items():
+        R, L = 4, SA_PARITY_L
+        kw = dict(s0=(2 * rng.integers(0, 2, size=(R, g.n)) - 1).astype(np.int8),
+                  proposals=rng.integers(0, g.n, size=(R, L)).astype(np.int32),
+                  uniforms=rng.random(size=(R, L)))
+        t0 = time.perf_counter()
+        cpu = simulated_annealing(g, cfg, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = simulated_annealing(g, cfg, device="cuda", **kw)
+        t_card = time.perf_counter() - t0
+        _same_sa(card, cpu, f"sa parity {label} full")
+        lc = simulated_annealing(g, cfg, device="cuda",
+                                 rollout_mode="lightcone", **kw)
+        _same_sa(lc, card, f"sa parity {label} light-cone vs full")
+        accepts = int(np.sum(cpu.s != kw["s0"]))
+        out[label] = {"steps": cpu.num_steps.tolist(),
+                      "m_final": cpu.m_final.tolist(),
+                      "card_s": t_card, "cpu_s": t_cpu}
+        log(f"[26 sa parity] {label}, p=3 c=1, R={R}, {L} injected steps: "
+            f"card == CPU (num_steps {card.num_steps.tolist()}, s, m_final "
+            f"{card.m_final.tolist()} equal, mag_reached within 1e-6), "
+            f"light-cone == full on the card; {accepts} spins differ from "
+            f"s0; wall card {t_card:.3f} s, CPU {t_cpu:.3f} s")
+    g = random_regular_graph(24, 3, seed=2)
+    cfg2 = SAConfig(dynamics=DynamicsConfig(p=2, c=1))
+    kw = dict(n_replicas=4, seed=3, max_steps=5000)
+    card = simulated_annealing(g, cfg2, device="cuda", **kw)
+    _same_sa(card, simulated_annealing(g, cfg2, device="cpu", **kw),
+             "sa parity counter stream")
+    hits = _check_sa_consensus(g, card, 2, 1, "sa parity counter stream")
+    if hits == 0:
+        raise AssertionError("sa parity: no counter-stream chain reached "
+                             "consensus")
+    log(f"[26 sa parity] counter stream, RRG(24, 3) p=2 c=1, R=4: card == "
+        f"CPU (num_steps {card.num_steps.tolist()}); {hits} chains at "
+        f"m_final 1 each roll out to all +1 on the card")
+    chrom_kw = dict(n_replicas=40, seed=1, m_target=0.6, max_sweeps=30,
+                    chunk_sweeps=8)
+    gc = random_regular_graph(SA_PARITY_N, 3, seed=4)
+    ccfg = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
+    a = chromatic_anneal(gc, ccfg, device="cuda", **chrom_kw)
+    b = chromatic_anneal(gc, ccfg, device="cpu", **chrom_kw)
+    for name in a._fields:
+        if not np.array_equal(np.asarray(getattr(a, name)),
+                              np.asarray(getattr(b, name))):
+            raise AssertionError(f"chromatic parity: {name} differs")
+    log(f"[26 sa parity] chromatic_anneal RRG(300, 3), R=40 (W=2), "
+        f"{a.sweeps} sweeps: card == CPU in every field (accepted "
+        f"{a.accepted}, steps_to_target {a.steps_to_target[:6].tolist()}...)")
+    tmp_kw = dict(n_lanes=4, seed=2, max_steps=900, swap_interval=100,
+                  m_target=0.6, beta_max=8.0)
+    gt = random_regular_graph(64, 3, seed=0)
+    a = temper_search(gt, ccfg, device="cuda", **tmp_kw)
+    b = temper_search(gt, ccfg, device="cpu", **tmp_kw)
+    for name in a._fields:
+        if not np.array_equal(np.asarray(getattr(a, name)),
+                              np.asarray(getattr(b, name))):
+            raise AssertionError(f"temper parity: {name} differs")
+    log(f"[26 sa parity] temper_search RRG(64, 3), 4 lanes, 900 steps: card "
+        f"== CPU in every field (swaps {a.swap_accepts}/{a.swap_attempts})")
+    return out
+
+
+def _sa_profile(label: str, run) -> dict:
+    run()                                      # warm-up
+    torch.cuda.synchronize()
+    return profile_breakdown(run, label, top=6)
+
+
+def phase_sa_main() -> dict:
+    """The ``sa`` CLI at its defaults (n=10⁴, d=4, p=3, c=1, n_stat=5, the
+    grouped G=5 ensemble, full rollout), with ``--max-steps`` cut to
+    :data:`SA_MAIN_STEPS`, through ``cli._sa_main`` (the command's code,
+    which prints its JSON); then the same with ``--rollout-mode lightcone``,
+    which runs the serial repetition loop. The two must give the same
+    chains bit for bit (a group equals the serial chains of the same seeds,
+    and light-cone equals full). Host reads are counted; the device's busy
+    share is read by the profiler over one chunk of each mode."""
+    out = {}
+    dev = torch.device("cuda")
+    for mode in ("full", "lightcone"):
+        argv = ["sa", "--device", "cuda", "--max-steps", str(SA_MAIN_STEPS)]
+        if mode == "lightcone":
+            argv += ["--rollout-mode", "lightcone"]
+        args = cli.build_parser().parse_args(argv)
+        sa_models.HOST_READS = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = cli._sa_main(args, dev)
+        wall = time.perf_counter() - t0
+        doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if set(doc) != {"solver", "mag_reached", "num_steps", "m_final",
+                        "out"}:
+            raise AssertionError(f"sa CLI keys {sorted(doc)}")
+        if not (np.all(np.isfinite(res.mag_reached))
+                and res.conf.shape == (5, args.n)):
+            raise AssertionError(f"sa CLI {mode}: bad result")
+        reads = sa_models.HOST_READS
+        steps = res.num_steps.astype(np.int64)
+        chains = 1 if mode == "full" else 5   # chains per program
+        per_chain = reads / chains
+        bound = (int(steps.max()) if mode == "full" else int(steps.sum())
+                 ) / sa_models.CHUNK_STEPS + chains
+        if reads > bound:
+            raise AssertionError(f"sa {mode}: {reads} host reads > {bound}")
+        hits = _check_ensemble_consensus(res, args, f"sa CLI {mode}")
+        out[mode] = {"res": res, "wall_s": wall, "host_reads": reads,
+                     "host_reads_per_chain": per_chain,
+                     "chain_steps_per_s": float(steps.sum()) / wall,
+                     "consensus_chains": hits}
+        log(f"[27 sa main] sa CLI defaults, --rollout-mode {mode} "
+            f"({'grouped G=5' if mode == 'full' else 'serial'}), "
+            f"--max-steps {SA_MAIN_STEPS} (cut from 2n^3, clamped to "
+            f"2^31-2): num_steps {steps.tolist()}, mag_reached "
+            f"{res.mag_reached.tolist()}, m_final {res.m_final.tolist()}; "
+            f"wall {wall:.3f} s, {out[mode]['chain_steps_per_s']:.1f} chain "
+            f"steps/s (set-up included); host reads {reads} "
+            f"({per_chain:.1f} per chain, chunk {sa_models.CHUNK_STEPS} "
+            f"steps); consensus chains {hits}")
+    full, lc = out["full"]["res"], out["lightcone"]["res"]
+    for name in full._fields:
+        if not np.array_equal(getattr(full, name), getattr(lc, name)):
+            raise AssertionError(f"sa main: grouped full != serial light-cone "
+                                 f"in {name}")
+    log("[27 sa main] the grouped full-rollout ensemble equals the serial "
+        "light-cone chains of the same seeds bit for bit (every field)")
+    # one chunk of each mode: its wall by the host clock (ending in a
+    # sync), then the same chunk under the profiler for its device time;
+    # eager and replayed from a CUDA graph
+    cfg = SAConfig(dynamics=DynamicsConfig(p=3, c=1))
+    graphs = [random_regular_graph(10_000, 4, seed=k) for k in range(5)]
+    preps = [sa_models.prepare_sa_inputs(g, cfg, n_replicas=1, seed=k)
+             for k, g in enumerate(graphs)]
+    _, idx, st, consts, static = sa_group._assemble_group(
+        graphs, preps, list(range(5)), cfg, dtype="float32", group_size=5,
+        device=dev)
+    K = sa_models.CHUNK_STEPS
+    g = graphs[0]
+    tables = build_lightcone_tables(g, 3, device=dev)
+    st1 = sa_models._sa_init(
+        None, torch.from_numpy(preps[0][2]).to(dev),
+        sa_models.chain_keys(0, 1, dev),
+        torch.full((1,), cfg.a0_frac * g.n, device=dev),
+        torch.full((1,), cfg.b0_frac * g.n, device=dev), rollout_steps=3,
+        R_coef=1, C_coef=1, lightcone=True,
+        nbr=torch.from_numpy(g.nbr).to(dev))
+    consts1 = sa_models.sa_consts(cfg, g.n, torch.float32, dev)
+    dummy = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    chunks = {
+        "full": (st, lambda s_: sa_group._sa_group_loop(
+            idx, s_, consts, chunk_steps=K, **static)),
+        "lightcone": (st1, lambda s_: sa_models._sa_loop(
+            None, s_, consts1, dummy, dummy, rollout_steps=3, R_coef=1,
+            C_coef=1, max_steps=2**31 - 2, injected=False, stream_len=1,
+            chunk_steps=K, lc_tables=tables)),
+    }
+    for mode, (s0_, fn) in chunks.items():
+        calls = {"eager": fn,
+                 "graph": sa_models.chunk_caller(fn)}
+        for how, call in calls.items():
+            call(s0_)                          # warm-up (captures the graph)
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                call(s0_)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            out[mode][f"{how}_wall_us_per_step"] = (
+                float(np.median(walls)) * 1e6 / K)
+        # the same kernels either way: the device time of a replay
+        prof = profile_breakdown(lambda: calls["graph"](s0_),
+                                 f"sa {mode}, one chunk of {K} steps "
+                                 f"(graph replay)", top=6)
+        dev_us = prof["device_us"] / K
+        out[mode]["device_us_per_step"] = dev_us
+        for how in calls:
+            wall_us = out[mode][f"{how}_wall_us_per_step"]
+            out[mode][f"{how}_busy_share"] = dev_us / wall_us
+            log(f"[27 sa main] {mode}, one chunk of {K} steps, {how}: "
+                f"{wall_us:.2f} us per step of wall (host clock, median of "
+                f"3 chunks), {dev_us:.2f} us of device time (profiler, "
+                f"graph replay): busy share {dev_us / wall_us:.4f}")
+    return out
+
+
+def phase_chromatic_main() -> dict:
+    """The ``chromatic`` CLI at its defaults (n=10⁴, d=3, p=c=1, 32
+    replicas, m_target 0.9, max_sweeps 5000, 64 sweeps per chunk) through
+    ``cli._chromatic_main``; each replica that reached the target is checked
+    against its rolled-out end state on the card."""
+    args = cli.build_parser().parse_args(["chromatic", "--device", "cuda"])
+    packed_cuda.LAUNCHES = 0
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = cli._chromatic_main(args, torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    # read before the checks and timing runs below, which launch it again
+    launches = packed_cuda.LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"chromatic CLI: {launches} packed_step "
+                             "launches, expected 1 (the initial end sums)")
+    doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if set(doc) != {"solver", "chi", "sweeps", "device_steps", "accepted",
+                    "m_end", "steps_to_target", "sweeps_to_target", "out"}:
+        raise AssertionError(f"chromatic CLI keys {sorted(doc)}")
+    g = random_regular_graph(args.n, args.d, seed=args.seed)
+    end = end_state(g, res.s, 1, 1, device="cuda").cpu().numpy()
+    m_end = end.astype(np.float64).sum(axis=1) / g.n
+    if not np.array_equal(m_end, res.m_end):
+        raise AssertionError("chromatic CLI: m_end is not the rolled-out "
+                             "end state's magnetization")
+    reached = res.steps_to_target >= 0
+    if not np.all(res.m_end[reached] >= args.m_target):
+        raise AssertionError("chromatic CLI: a replica past its first "
+                             "passage is below the target")
+    run_sweeps = -(-res.sweeps // args.chunk_sweeps) * args.chunk_sweeps
+    # the sweep rate without the set-up: one 64-sweep chunk on prebuilt
+    # tables at m_target 1.0 (no replica stops), its wall by the host clock
+    # ending in a read, and its device time under the profiler
+    tables = build_chromatic_tables(g, seed=args.seed)
+    cfg = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
+
+    def sweeps64():
+        return chromatic_anneal(g, cfg, n_replicas=32, seed=args.seed,
+                                m_target=1.0, max_sweeps=64, chunk_sweeps=64,
+                                tables=tables, device="cuda")
+
+    sweeps64()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r64 = sweeps64()
+    wall64 = time.perf_counter() - t0
+    prof = profile_breakdown(sweeps64, "chromatic, 64 sweeps on prebuilt "
+                             "tables", top=6)
+    if r64.sweeps != 64:
+        raise AssertionError(f"chromatic timing run: {r64.sweeps} sweeps")
+    out = {"wall_s": wall, "sweeps": res.sweeps, "chi": res.chi,
+           "sweeps_per_s": res.sweeps / wall,
+           "run_sweeps_per_s": run_sweeps / wall,
+           "timed_sweeps_per_s": 64 / wall64,
+           "timed_busy_share": prof["device_us"] / (wall64 * 1e6),
+           "class_steps_per_s": res.device_steps / wall,
+           "first_passage_sweeps": res.sweeps_to_target.tolist(),
+           "reached": int(reached.sum()),
+           "packed_step_launches": launches}
+    log(f"[28 chromatic main] chromatic CLI defaults: chi {res.chi}, "
+        f"{res.sweeps} sweeps ({res.device_steps} class steps; the chunk "
+        f"ran {run_sweeps} sweeps, those after the last first passage "
+        f"masked no-ops: {out['run_sweeps_per_s']:.2f} sweeps/s run), "
+        f"wall {wall:.3f} s = {out['sweeps_per_s']:.2f} sweeps/s, "
+        f"{out['class_steps_per_s']:.1f} class steps/s (set-up included); "
+        f"{out['reached']}/32 replicas at m_end >= 0.9, first-passage "
+        f"sweeps min {res.sweeps_to_target[reached].min() if reached.any() else -1} "
+        f"median {np.median(res.sweeps_to_target[reached]) if reached.any() else -1} "
+        f"max {res.sweeps_to_target.max()}; m_end equals the rolled-out end "
+        f"states; packed_step launches in the CLI run (the initial end "
+        f"sums) {launches}")
+    log(f"[28 chromatic main] 64 sweeps on prebuilt tables (m_target 1.0, "
+        f"no replica stops): {wall64:.3f} s = {out['timed_sweeps_per_s']:.2f} "
+        f"sweeps/s, {64 * res.chi / wall64:.1f} class steps/s; device "
+        f"{prof['device_us'] / 1e3:.3f} ms: busy share "
+        f"{out['timed_busy_share']:.4f}")
+    return out
+
+
+def phase_temper_main() -> dict:
+    """The ``temper`` CLI at its defaults (n=10⁴, d=3, p=1, 8 lanes, β
+    geomspace(1, 64), swap interval 1000, m_target 1.0) with ``--max-steps``
+    cut to :data:`TEMPER_MAIN_STEPS`, through ``cli._temper_main``."""
+    args = cli.build_parser().parse_args(
+        ["temper", "--device", "cuda", "--max-steps", str(TEMPER_MAIN_STEPS)])
+    sa_models.HOST_READS = 0
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = cli._temper_main(args, torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if set(doc) != {"solver", "lanes", "lane_shards", "betas", "num_steps",
+                    "m_final", "t_target", "steps_to_target", "target_lane",
+                    "swap_attempts", "swap_accepts", "swap_acceptance_rate",
+                    "out"}:
+        raise AssertionError(f"temper CLI keys {sorted(doc)}")
+    g = random_regular_graph(args.n, args.d, seed=args.seed)
+    hits = _check_sa_consensus(g, res, 1, 1, "temper CLI")
+    steps = res.num_steps.astype(np.int64)
+    pair = [f"{int(a)}/{int(t)}" for a, t in zip(res.pair_accepts,
+                                                 res.pair_attempts)]
+    out = {"wall_s": wall, "lane_steps_per_s": float(steps.sum()) / wall,
+           "ladder_steps_per_s": float(steps.max()) / wall,
+           "pair_accepts": res.pair_accepts.tolist(),
+           "pair_attempts": res.pair_attempts.tolist(),
+           "swap_acceptance_rate": res.swap_acceptance_rate,
+           "host_reads": sa_models.HOST_READS, "consensus_lanes": hits,
+           "num_steps": steps.tolist()}
+    log(f"[29 temper main] temper CLI defaults, --max-steps "
+        f"{TEMPER_MAIN_STEPS} (cut from 2n^3): num_steps {steps.tolist()}, "
+        f"m_final {res.m_final.tolist()}, t_target {res.t_target.tolist()}; "
+        f"wall {wall:.3f} s = {out['ladder_steps_per_s']:.1f} ladder steps/s "
+        f"({out['lane_steps_per_s']:.1f} lane steps/s, set-up included); "
+        f"swap accepts/attempts per lane pair (k, k+1): {pair}, overall "
+        f"{res.swap_acceptance_rate:.4f}; host reads "
+        f"{sa_models.HOST_READS}; lanes at consensus {hits}, each rolled out "
+        f"to all +1")
+    return out
+
+
+def phase_gather_interleaved() -> dict:
+    """P against ``index_select`` in turns (P, I, I, P, ...), ``GATHER_REPS``
+    repeats of each, every repeat the mean of ``gather_probe.ITERS`` queued
+    calls by CUDA events: at the probe's widths (n_src 10⁶, W in {128, 512,
+    1024}, its n_idx rule and seeds) and at the headline step's own gather
+    (n_src 10⁶+1, W=512, 3·10⁶ rows). Reports the median and the range of
+    each; P is slower beyond the spread where its fastest repeat is slower
+    than index_select's slowest."""
+    shapes = [(f"probe W={W}", 1_000_000, W,
+               gather_probe.probe_n_idx(3_000_000, W), W)
+              for W in (128, 512, 1024)]
+    shapes.append(("headline (W=512)", 1_000_001, 512, 3_000_000, 0))
+    out = {}
+    for label, n_src, W, n_idx, seed in shapes:
+        src, idx = gather_probe.draw(n_src, n_idx, W, seed, "cuda")
+        fns = {"P": lambda: row_gather(src, idx, kernel="cuda",
+                                       depth=gather_cuda.DEFAULT_DEPTH),
+               "index_select": lambda: src.index_select(0, idx)}
+        if not torch.equal(fns["P"](), fns["index_select"]()):
+            raise AssertionError(f"row_gather differs at {label}")
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        times = {"P": [], "index_select": []}
+        order = ("P", "index_select")
+        for r in range(GATHER_REPS):
+            for impl in (order if r % 2 == 0 else order[::-1]):
+                times[impl].append(gather_probe.cuda_ms(fns[impl],
+                                                        gather_probe.ITERS))
+        n_distinct = int(torch.unique(idx).numel())
+        bound = gather_probe.gather_bound(n_idx, W, n_distinct)["bound_ms"]
+        row = {"W": W, "n_src": n_src, "n_idx": n_idx, "bound_ms": bound,
+               "reps": GATHER_REPS}
+        for impl, ts in times.items():
+            row[impl] = {"median_ms": float(np.median(ts)),
+                         "min_ms": float(min(ts)), "max_ms": float(max(ts)),
+                         "ms": ts}
+        slower = row["P"]["min_ms"] > row["index_select"]["max_ms"]
+        faster = row["P"]["max_ms"] < row["index_select"]["min_ms"]
+        row["verdict"] = ("P slower beyond the spread" if slower else
+                          "P faster beyond the spread" if faster else
+                          "within the spread")
+        out[label] = row
+        log(f"[30 gather interleaved] {label} (n_src={n_src}, n_idx={n_idx}), "
+            f"{GATHER_REPS} repeats each in turns: P median "
+            f"{row['P']['median_ms']:.5f} ms (range "
+            f"{row['P']['min_ms']:.5f}-{row['P']['max_ms']:.5f}), "
+            f"index_select median {row['index_select']['median_ms']:.5f} ms "
+            f"(range {row['index_select']['min_ms']:.5f}-"
+            f"{row['index_select']['max_ms']:.5f}); bound {bound:.5f} ms; "
+            f"{row['verdict']}")
+        del src, idx
+        torch.cuda.empty_cache()
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2506,7 +2965,15 @@ def main() -> int:
                         "entropy_ensemble_union_config4": cfg4["launches"],
                         "entropy_ensemble_rrg": congruent["launches"],
                         "entropy_cli": ent_cli["launches"]}
+    # the SA searches (plain PyTorch on the card): parity, then each
+    # command's main path; then P against index_select, in turns
+    sa_parity = phase_sa_parity()
+    sa_main = phase_sa_main()
+    chrom_main = phase_chromatic_main()
+    temper_main = phase_temper_main()
+    gather_turns = phase_gather_interleaved()
     probe512 = {r["impl"]: r for r in probe["rows"] if r["W"] == 512}
+    turns512 = gather_turns["probe W=512"]
     sweep_shapes = {**sweep_ent, **sweep_many,
                     "HPr reference shape f32": ref_shape["float32"]["bdcm_sweep"],
                     "HPr reference shape f64": ref_shape["float64"]["bdcm_sweep"],
@@ -2546,6 +3013,7 @@ def main() -> int:
                                          "no_reuse_ms", "plan",
                                          "gather_ms", "index_select_ms")},
         "build_s": built["build_s"],
+        "launches_on_chromatic_path": chrom_main["packed_step_launches"],
         "ptxas": built["packed_step"],
     }, {
         "name": "fused_chunk",
@@ -2680,20 +3148,33 @@ def main() -> int:
         "parity": "bit-exact",
         "launches": probe["launches"],
         "max_abs_err": gather_err["max_abs_err"],
-        "ms": probe512["cuda_row_gather"]["ms"],
-        "plain_ms": probe512["torch_index_select"]["ms"],
-        "bound_ms": probe512["cuda_row_gather"]["bound_ms"],
+        "ms": turns512["P"]["median_ms"],
+        "plain_ms": turns512["index_select"]["median_ms"],
+        "bound_ms": turns512["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": probe512["torch_index_select"]["ms"],
+        "library_ms": turns512["index_select"]["median_ms"],
         "library_note": "torch.index_select on the same int32 indices; the "
                         "plain version is that call, so plain_ms is its time",
-        "shape": f"probe W=512, n_src=10^6, n_idx="
-                 f"{probe512['cuda_row_gather']['n_idx']}",
+        "timing": f"median of {GATHER_REPS} repeats each, P and "
+                  "index_select in turns",
+        "shape": f"probe W=512, n_src=10^6, n_idx={turns512['n_idx']}",
+        "interleaved": {k: {f: v[f] for f in ("W", "n_idx", "bound_ms",
+                                               "P", "index_select",
+                                               "verdict")}
+                        for k, v in gather_turns.items()},
         "probe": probe["rows"],
         "port_widths": probe["port"],
         "parity_cases": gather_err["cases"],
         "ptxas": built["row_gather"],
     }]
+    log(f"[31 searches] SA parity walls (card / CPU, s): "
+        + ", ".join(f"{k} {v['card_s']:.3f} / {v['cpu_s']:.3f}"
+                    for k, v in sa_parity.items())
+        + f"; sa main {sa_main['full']['wall_s']:.3f} s full grouped, "
+        f"{sa_main['lightcone']['wall_s']:.3f} s light-cone serial "
+        f"(busy, graph replay {sa_main['full']['graph_busy_share']:.4f} / "
+        f"{sa_main['lightcone']['graph_busy_share']:.4f}); chromatic "
+        f"{chrom_main['wall_s']:.3f} s; temper {temper_main['wall_s']:.3f} s")
     log(f"[24 entropy] wall seconds: golden {golden['wall_s']:.3f}, "
         f"config 4 {cfg4['wall_s']:.3f}, congruent {congruent['wall_s']:.3f},"
         f" CLI {ent_cli['wall_s']:.3f}; row_gather probe "

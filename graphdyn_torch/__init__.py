@@ -13,9 +13,13 @@ package, so each counterpart is found under the same name:
   chromatic class step and the fused annealer chunk, one cooperative CUDA
   launch per chunk (``csrc/fused_anneal.cu``) on the GPU.
 - ``graphdyn_torch.search``    — the fused SA annealer driver
-  (``fused_anneal``) and the near-tie comparison against recorded runs.
+  (``fused_anneal``), the chromatic sweeps (``chromatic_anneal``), the
+  tempering ladder (``temper_search``) and the near-tie comparison against
+  recorded runs.
 - ``graphdyn_torch.observe``   — magnetization, consensus fraction.
-- ``graphdyn_torch.models``    — the opinion-consensus m(0) sweep.
+- ``graphdyn_torch.models``    — the opinion-consensus m(0) sweep, the
+  serial SA chain (``simulated_annealing``, ``sa_ensemble``), HPr and the
+  BDCM entropy ladders.
 - ``graphdyn_torch.interop``   — numpy bridges to the JAX package's arrays.
 
 Entry points take ``device=`` and default to CUDA; without a CUDA device they

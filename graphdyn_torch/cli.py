@@ -20,6 +20,17 @@
   and ``--device`` (default ``cuda``). It prints the reference's JSON keys,
   and with ``--out`` writes the reference's npz keys. ``--checkpoint`` and
   ``--plot`` are refused (not ported yet).
+- ``sa``: the SA initialization search (`SA_RRG.py`), ``n_stat`` fresh RRGs
+  through ``sa_ensemble`` (grouped by default, serial with
+  ``--rollout-mode lightcone`` or ``--group-size 0``); ``temper``: the
+  replica-exchange ladder (``temper_search``); ``chromatic``: the chromatic
+  block sweeps (``chromatic_anneal``). The reference's flags and defaults,
+  ``--device`` for ``--backend``; each prints the reference's JSON keys and
+  with ``--out`` writes its npz keys. Refused with the reason (not ported
+  yet): ``--sharded``/``--shards``/``--lane-shards`` (A15), ``--checkpoint``
+  (A16), ``--layout bucketed`` (A13) and ``--layout streamed`` (A14).
+  ``sa --chunk-steps`` is the number of masked MCMC steps between two host
+  reads (default 256; the chain does not depend on it).
 """
 
 from __future__ import annotations
@@ -232,7 +243,146 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device to run on (default cuda; 'cpu' runs the plain "
              "PyTorch version)",
     )
+    _add_search_parsers(sub)
     return p
+
+
+def _add_device_flag(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default cuda; 'cpu' runs on the CPU)",
+    )
+
+
+def _add_not_ported_checkpoint_flags(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--checkpoint", default=None,
+                    help="not ported yet (ROADMAP A16): refused")
+    ap.add_argument("--checkpoint-interval", type=float, default=30.0,
+                    help="with --checkpoint (not ported yet)")
+    ap.add_argument("--max-save-retries", type=int, default=None,
+                    metavar="N", help="with --checkpoint (not ported yet)")
+
+
+def _add_search_parsers(sub) -> None:
+    """The SA search commands: ``sa``, ``temper`` and ``chromatic``."""
+    sa = sub.add_parser("sa", help="SA initialization search (`SA_RRG.py`)")
+    sa.add_argument("--n", type=int, default=10_000)
+    sa.add_argument("--d", type=int, default=4)
+    _add_dynamics_flags(sa, p_default=3)
+    _add_sa_schedule_flags(sa)
+    sa.add_argument("--n-stat", type=int, default=5)
+    sa.add_argument("--max-steps", type=int, default=None)
+    sa.add_argument("--seed", type=int, default=0)
+    _add_device_flag(sa)
+    sa.add_argument("--out", default=None,
+                    help="npz path (`SA_RRG.py:92` keys)")
+    _add_not_ported_checkpoint_flags(sa)
+    sa.add_argument(
+        "--group-size", type=int, default=None, metavar="G",
+        help="run G repetitions at a time as ONE batched program (element-"
+             "wise identical to the serial loop; default: auto, min(reps, "
+             "8); 0 forces the serial repetition loop)",
+    )
+    sa.add_argument(
+        "--prefetch", type=int, default=2, metavar="D",
+        help="build up to D upcoming graphs on a background thread while "
+             "the current group computes (deterministic; 0 disables)",
+    )
+    sa.add_argument(
+        "--rollout-mode", choices=["full", "lightcone"], default="full",
+        help="candidate evaluation: full graph re-roll (reference cost "
+             "structure) or O(ball) light-cone roll vs a cached trajectory "
+             "(bit-identical chains; runs the serial repetition loop)",
+    )
+    sa.add_argument("--sharded", action="store_true",
+                    help="not ported yet (ROADMAP A15): refused")
+    sa.add_argument("--n-replicas", type=int, default=32,
+                    help="replica count for --sharded (not ported yet)")
+    sa.add_argument(
+        "--chunk-steps", type=int, default=None, metavar="K",
+        help="masked MCMC steps per chunk between two host reads (default "
+             "256); splitting the loop cannot change the chain",
+    )
+    sa.add_argument("--shards", type=int, default=None, metavar="P",
+                    help="not ported yet (ROADMAP A15): refused")
+    sa.add_argument("--ladder-max-frac", type=float, default=None,
+                    help="with --sharded (not ported yet)")
+    sa.add_argument(
+        "--layout", choices=["auto", "padded", "bucketed", "streamed"],
+        default="auto",
+        help="node layout of the per-repetition driver: auto and padded run "
+             "the padded tables; bucketed (ROADMAP A13) and streamed (A14) "
+             "are not ported yet and are refused",
+    )
+    sa.add_argument("--stream-chunks", type=int, default=4, metavar="K",
+                    help="with --layout streamed (not ported yet)")
+
+    tmp = sub.add_parser(
+        "temper",
+        help="replica-exchange (parallel tempering) SA search: K lanes on "
+             "the batched replica axis anneal in lockstep with seeded "
+             "even/odd swap moves at chunk boundaries",
+    )
+    tmp.add_argument("--n", type=int, default=10_000)
+    tmp.add_argument("--d", type=int, default=3)
+    _add_dynamics_flags(tmp, p_default=1)
+    _add_sa_schedule_flags(tmp)
+    tmp.add_argument("--lanes", type=int, default=8,
+                     help="temperature-ladder lanes K (one batched program)")
+    tmp.add_argument(
+        "--beta-min", type=float, default=1.0,
+        help="drive ladder lower rung: lane k scales (b0, b-cap) by beta_k "
+             "in geomspace(beta-min, beta-max, lanes); beta=1 is the "
+             "reference chain",
+    )
+    tmp.add_argument("--beta-max", type=float, default=64.0)
+    tmp.add_argument(
+        "--swap-interval", type=int, default=1000, metavar="K",
+        help="MCMC steps between swap moves, also the chunk (one host read "
+             "each); part of the chain law",
+    )
+    tmp.add_argument("--no-swaps", action="store_true",
+                     help="disable swap moves (a plain batched ladder)")
+    tmp.add_argument(
+        "--m-target", type=float, default=1.0,
+        help="first-passage record: the step a lane's rolled-out end-state "
+             "magnetization first reaches this (1.0 = consensus)",
+    )
+    tmp.add_argument("--stop-on-first", action="store_true",
+                     help="stop the whole ladder at the first lane reaching "
+                          "--m-target")
+    tmp.add_argument("--max-steps", type=int, default=None)
+    tmp.add_argument("--seed", type=int, default=0)
+    tmp.add_argument("--lane-shards", type=int, default=None, metavar="P",
+                     help="not ported yet (ROADMAP A15): refused")
+    _add_not_ported_checkpoint_flags(tmp)
+    _add_device_flag(tmp)
+    tmp.add_argument("--out", default=None, help="npz path (per-lane arrays)")
+
+    chrom = sub.add_parser(
+        "chromatic",
+        help="chromatic block-sweep annealing: a distance-2 coloring "
+             "partitions the graph into chi classes and each class step "
+             "proposes/accepts a whole independent set (p=c=1 only)",
+    )
+    chrom.add_argument("--n", type=int, default=10_000)
+    chrom.add_argument("--d", type=int, default=3)
+    _add_dynamics_flags(chrom, p_default=1)
+    _add_sa_schedule_flags(chrom)
+    chrom.add_argument("--replicas", type=int, default=32,
+                       help="independent packed chains (32 per 32-bit word)")
+    chrom.add_argument("--m-target", type=float, default=0.9)
+    chrom.add_argument("--max-sweeps", type=int, default=5000)
+    chrom.add_argument(
+        "--chunk-sweeps", type=int, default=64, metavar="S",
+        help="full sweeps per chunk (one host read each, the stop-poll "
+             "granularity)",
+    )
+    chrom.add_argument("--stop-on-first", action="store_true")
+    chrom.add_argument("--seed", type=int, default=0)
+    _add_device_flag(chrom)
+    chrom.add_argument("--out", default=None,
+                       help="npz path (per-replica arrays)")
 
 
 def _add_dynamics_flags(ap: argparse.ArgumentParser, p_default: int = 1):
@@ -429,6 +579,120 @@ def _entropy_main(args, dev) -> int:
     return 0
 
 
+def _refuse(reason: str, item: str):
+    raise SystemExit(f"{reason} is not ported to graphdyn_torch yet "
+                     f"(ROADMAP.md {item})")
+
+
+def _sa_main(args, dev):
+    """The ``sa`` command; returns the ``SAEnsembleResult``."""
+    from graphdyn_torch.models.sa import CHUNK_STEPS, sa_ensemble
+
+    if args.sharded or args.shards is not None:
+        _refuse("--sharded/--shards (the multi-device SA solver)",
+                "A15: parallel/ onto torch.distributed")
+    if args.checkpoint:
+        _refuse("--checkpoint", "A16: checkpoints and resilience")
+    if args.layout == "bucketed":
+        _refuse("--layout bucketed", "A13: ops/bucketed.py")
+    if args.layout == "streamed":
+        _refuse("--layout streamed", "A14: ops/streamed.py")
+    out = sa_ensemble(
+        args.n, args.d, _sa_config(args), n_stat=args.n_stat, seed=args.seed,
+        max_steps=args.max_steps, save_path=args.out,
+        rollout_mode=args.rollout_mode, group_size=args.group_size,
+        prefetch=args.prefetch, layout=args.layout,
+        chunk_steps=args.chunk_steps or CHUNK_STEPS, device=dev,
+    )
+    print(json.dumps({
+        "solver": "sa",
+        "mag_reached": out.mag_reached.tolist(),
+        "num_steps": out.num_steps.tolist(),
+        "m_final": out.m_final.tolist(),
+        "out": args.out,
+    }))
+    return out
+
+
+def _temper_main(args, dev):
+    """The ``temper`` command; returns the ``TemperResult``."""
+    from graphdyn_torch.graphs import random_regular_graph
+    from graphdyn_torch.search.tempering import ladder_betas, temper_search
+    from graphdyn_torch.utils.io import save_results_npz
+
+    if args.lane_shards is not None:
+        _refuse("--lane-shards", "A15: parallel/ onto torch.distributed")
+    if args.checkpoint:
+        _refuse("--checkpoint", "A16: checkpoints and resilience")
+    g = random_regular_graph(args.n, args.d, seed=args.seed)
+    res = temper_search(
+        g, _sa_config(args),
+        betas=ladder_betas(args.lanes, args.beta_min, args.beta_max),
+        seed=args.seed, max_steps=args.max_steps,
+        swap_interval=args.swap_interval, swap_moves=not args.no_swaps,
+        m_target=args.m_target, stop_on_first=args.stop_on_first,
+        device=dev,
+    )
+    if args.out:
+        save_results_npz(
+            args.out, conf=res.s, mag_reached=res.mag_reached,
+            num_steps=res.num_steps, m_final=res.m_final,
+            t_target=res.t_target, betas=res.betas,
+        )
+    print(json.dumps({
+        "solver": "temper",
+        "lanes": int(res.betas.size),
+        "lane_shards": args.lane_shards,
+        "betas": res.betas.tolist(),
+        "num_steps": res.num_steps.tolist(),
+        "m_final": res.m_final.tolist(),
+        "t_target": res.t_target.tolist(),
+        "steps_to_target": res.steps_to_target,
+        "target_lane": res.target_lane,
+        "swap_attempts": res.swap_attempts,
+        "swap_accepts": res.swap_accepts,
+        "swap_acceptance_rate": res.swap_acceptance_rate,
+        "out": args.out,
+    }))
+    return res
+
+
+def _chromatic_main(args, dev):
+    """The ``chromatic`` command; returns the ``ChromaticResult``."""
+    from graphdyn_torch.graphs import random_regular_graph
+    from graphdyn_torch.search.chromatic import chromatic_anneal
+    from graphdyn_torch.utils.io import save_results_npz
+
+    g = random_regular_graph(args.n, args.d, seed=args.seed)
+    res = chromatic_anneal(
+        g, _sa_config(args), n_replicas=args.replicas, seed=args.seed,
+        m_target=args.m_target, max_sweeps=args.max_sweeps,
+        chunk_sweeps=args.chunk_sweeps, stop_on_first=args.stop_on_first,
+        device=dev,
+    )
+    if args.out:
+        save_results_npz(
+            args.out, conf=res.s, mag_reached=res.mag_reached,
+            m_end=res.m_end, steps_to_target=res.steps_to_target,
+        )
+    print(json.dumps({
+        "solver": "chromatic",
+        "chi": res.chi,
+        "sweeps": res.sweeps,
+        "device_steps": res.device_steps,
+        "accepted": res.accepted,
+        "m_end": res.m_end.tolist(),
+        "steps_to_target": res.steps_to_target.tolist(),
+        "sweeps_to_target": res.sweeps_to_target.tolist(),
+        "out": args.out,
+    }))
+    return res
+
+
+_SEARCH_COMMANDS = {"sa": _sa_main, "temper": _temper_main,
+                    "chromatic": _chromatic_main}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from graphdyn_torch.models.consensus import (
@@ -449,6 +713,9 @@ def main(argv=None) -> int:
         return _hpr_main(args, dev)
     if args.cmd == "entropy":
         return _entropy_main(args, dev)
+    if args.cmd in _SEARCH_COMMANDS:
+        _SEARCH_COMMANDS[args.cmd](args, dev)
+        return 0
     if args.graph == "rrg":
         g, n_iso, nbr_dev, deg_dev = rrg_consensus_ensemble(
             args.n, d=args.d, seed=args.seed, device=dev

@@ -211,3 +211,100 @@ def chi_from_jax(chi, device="cpu") -> torch.Tensor:
 def chi_to_numpy(chi: torch.Tensor) -> np.ndarray:
     """A chi tensor of the port (any device) -> numpy, for the JAX package."""
     return chi.detach().cpu().numpy()
+
+
+def _tensor(x, dtype, device):
+    return torch.from_numpy(np.array(x, dtype)).to(device)
+
+
+def sa_state_from_jax(state, seeds, device="cpu"):
+    """The JAX package's ``_SAState`` -> the port's
+    :class:`~graphdyn_torch.models.sa._SAState` on ``device``. ``seeds`` are
+    the chains' stream seeds (the reference's state holds ``jax.random``
+    keys, which the port's counter stream does not use)."""
+    from graphdyn_torch.models.sa import _SAState
+
+    t = np.asarray(state.t)
+    return _SAState(
+        s=_tensor(state.s, np.int8, device),
+        sum_end=_tensor(state.sum_end, np.int32, device),
+        a=_tensor(state.a, np.asarray(state.a).dtype, device),
+        b=_tensor(state.b, np.asarray(state.b).dtype, device),
+        t=_tensor(t, t.dtype, device),
+        m_final=_tensor(state.m_final, np.asarray(state.m_final).dtype,
+                        device),
+        active=_tensor(state.active, np.bool_, device),
+        key=_tensor(np.asarray(seeds, np.int64) & 0xFFFFFFFF, np.int64,
+                    device),
+        chunk_t=_tensor(state.chunk_t, np.int32, device),
+        traj=_tensor(state.traj, np.int8, device),
+    )
+
+
+def sa_state_to_numpy(state) -> dict:
+    """The port's ``_SAState`` (any device) -> numpy arrays by field name."""
+    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def lightcone_tables_from_jax(tables, device="cpu"):
+    """The JAX package's ``LightconeTables`` -> the port's (int64 index
+    tensors on ``device``)."""
+    from graphdyn_torch.ops.lightcone import LightconeTables
+
+    return LightconeTables(
+        ball=_tensor(tables.ball, np.int64, device),
+        nbr_slot=_tensor(tables.nbr_slot, np.int64, device),
+        nbr_glob=_tensor(tables.nbr_glob, np.int64, device),
+        radius=int(tables.radius),
+        ball_max=int(tables.ball_max),
+    )
+
+
+def chrom_state_from_jax(state, device="cpu"):
+    """The JAX package's ``ChromState`` -> the port's
+    :class:`~graphdyn_torch.ops.chromatic.ChromState` on ``device``."""
+    from graphdyn_torch.ops.chromatic import ChromState
+
+    return ChromState(
+        sp=words_from_numpy(np.asarray(state.sp)).to(device),
+        sum_end=_tensor(state.sum_end, np.int32, device),
+        a=_tensor(state.a, np.float32, device),
+        b=_tensor(state.b, np.float32, device),
+        steps=_tensor(state.steps, np.int32, device),
+        sweeps=_tensor(state.sweeps, np.int32, device),
+        t_target=_tensor(state.t_target, np.int32, device),
+        active=_tensor(state.active, np.bool_, device),
+        accepted=_tensor(state.accepted, np.int32, device),
+        chunk_s=_tensor(state.chunk_s, np.int32, device),
+    )
+
+
+def temper_state_from_jax(state, seeds, device="cpu"):
+    """The JAX package's ``_TemperState`` -> the port's
+    :class:`~graphdyn_torch.search.tempering._TemperState` on ``device``
+    (``seeds``: the lanes' stream seeds; the per-pair counters start at
+    0, the reference keeps only their sums)."""
+    from graphdyn_torch.search.tempering import _TemperState
+
+    K = np.shape(state.s)[0]
+    t = np.asarray(state.t)
+    zeros = np.zeros(max(K - 1, 0), np.int32)
+    return _TemperState(
+        s=_tensor(state.s, np.int8, device),
+        sum_end=_tensor(state.sum_end, np.int32, device),
+        a=_tensor(state.a, np.asarray(state.a).dtype, device),
+        b=_tensor(state.b, np.asarray(state.b).dtype, device),
+        t=_tensor(t, t.dtype, device),
+        m_final=_tensor(state.m_final, np.asarray(state.m_final).dtype,
+                        device),
+        active=_tensor(state.active, np.bool_, device),
+        key=_tensor(np.asarray(seeds, np.int64) & 0xFFFFFFFF, np.int64,
+                    device),
+        t_target=_tensor(state.t_target, t.dtype, device),
+        chunk_t=_tensor(state.chunk_t, np.int32, device),
+        swap_round=_tensor(state.swap_round, np.int32, device),
+        swap_att=_tensor(state.swap_att, np.int32, device),
+        swap_acc=_tensor(state.swap_acc, np.int32, device),
+        pair_att=_tensor(zeros, np.int32, device),
+        pair_acc=_tensor(zeros, np.int32, device),
+    )

@@ -1,6 +1,5 @@
 """Chromatic block Metropolis: a whole independent set per device step (the
-port of the parts of ``graphdyn/ops/chromatic.py`` that the fused annealer
-and its tests use).
+port of ``graphdyn/ops/chromatic.py``).
 
 A distance-2 coloring (``greedy_coloring(power_graph(g, 2))``) puts
 same-colour sites at distance ≥ 3, so their radius-1 update balls are
@@ -13,9 +12,13 @@ Words are ``torch.int32`` with the reference's uint32 bit patterns. The host
 tables (:class:`ChromaticTables`) keep the reference's numpy dtypes, so a
 field-by-field comparison with the JAX package is direct.
 
-``ChromState``/``chromatic_chunk`` and ``search/chromatic.py`` (the chromatic
-driver, which draws its uniforms from ``jax.random`` keys) wait for
-ROADMAP.md A6's remainder.
+The chromatic chain (:class:`ChromState`, :func:`chromatic_chunk`, driven by
+``search/chromatic.py``) draws its uniforms from the port's counter stream:
+Threefry-2x32 keyed ``(seed, CHROM_STREAM_TAG + pair)``, counter ``(class
+step, node)``, each block giving replicas ``2j, 2j+1`` of its node (the
+fused stream's layout under another tag), so a sweep's draws depend only on
+the seed and the class-step index. The reference draws them from
+``jax.random``; injected uniforms (``uniforms=``) are the parity lever.
 """
 
 from __future__ import annotations
@@ -268,8 +271,9 @@ def class_update(sp_ext, u, mask_row, anneal_pow, a, b, active,
     )
     fac_a = _anneal_factor(par_a, anneal_pow, n)
     fac_b = _anneal_factor(par_b, anneal_pow, n)
-    a_cap = torch.tensor(a_cap, dtype=torch.float32, device=a.device)
-    b_cap = torch.tensor(b_cap, dtype=torch.float32, device=b.device)
+    # made on the device (a host tensor copied there would wait for it)
+    a_cap = torch.full((), a_cap, dtype=torch.float32, device=a.device)
+    b_cap = torch.full((), b_cap, dtype=torch.float32, device=b.device)
     a_new = torch.where(active & (a < a_cap), a * fac_a, a)
     b_new = torch.where(active & (b < b_cap), b * fac_b, b)
     n_acc = acc.sum().to(torch.int32)
@@ -296,3 +300,105 @@ def replica_end_sums(sp, nbr_ext, deg_ext, n: int, dmax: int,
         end = _one_step(sp_ext, nbr_ext, thr_bits, even_mask, n, dmax,
                         Rule(rule), TieBreak(tie))[:n]
     return (2 * _bit_counts(end) - n).to(torch.int32)
+
+
+#: key word 1 of the chromatic proposal stream is this tag plus the replica
+#: pair (key word 0 is the run seed); the reference folds b"CROM" into its key
+CHROM_STREAM_TAG = 0x43524F4D  # b"CROM"
+_M32 = 0xFFFFFFFF
+
+
+class ChromState(NamedTuple):
+    """Carry of the chromatic annealer (replica axis padded to ``W·32``; pad
+    replicas are frozen by ``active``)."""
+
+    sp: torch.Tensor         # int32[n, W] words
+    sum_end: torch.Tensor    # int32[Rp] — Σ s_end per replica (additive)
+    a: torch.Tensor          # f32[Rp]
+    b: torch.Tensor          # f32[Rp]
+    steps: torch.Tensor      # int32[] — class steps taken
+    sweeps: torch.Tensor     # int32[] — full sweeps taken
+    t_target: torch.Tensor   # int32[Rp] — first-passage class step, −1
+    active: torch.Tensor     # bool[Rp]
+    accepted: torch.Tensor   # int32[] — cumulative accepted flips
+    chunk_s: torch.Tensor    # int32[] — sweeps advanced this chunk
+
+
+def sweep_uniforms(seed: int, steps0: torch.Tensor, colors: torch.Tensor,
+                   Rp: int) -> torch.Tensor:
+    """f32 ``[n, Rp]`` uniforms of one sweep that starts at class step
+    ``steps0`` (a device scalar): node i's row is its draw at the class step
+    of its own colour, ``steps0 + colors[i]``, so the rows a class step
+    reads are that step's counter-stream uniforms."""
+    from graphdyn_torch.ops.fused import _bits_to_uniform, threefry2x32
+
+    n = colors.shape[0]
+    node = torch.arange(n, dtype=torch.int64, device=colors.device)[:, None]
+    pair = torch.arange(Rp // 2, dtype=torch.int64,
+                        device=colors.device)[None, :]
+    step = (steps0.to(torch.int64) + colors.to(torch.int64)[:, None]) & _M32
+    y0, y1 = threefry2x32(int(seed) & _M32, CHROM_STREAM_TAG + pair, step,
+                          node)
+    u = torch.stack(torch.broadcast_tensors(y0, y1), dim=2)
+    return _bits_to_uniform(u.reshape(n, Rp))
+
+
+def chromatic_chunk(state: ChromState, seed: int, masks, class_sizes,
+                    nbr_ext, nbr_self, deg_ext, *, n: int, dmax: int,
+                    rule: str, tie: str, par_a: float, par_b: float,
+                    a_cap: float, b_cap: float, target_sum: int,
+                    chunk_sweeps: int, stop_on_first: bool = False,
+                    uniforms=None) -> ChromState:
+    """Advance ``chunk_sweeps`` full sweeps (each one class step per colour,
+    in colour order) with no host read. A replica whose ``Σs_end`` reaches
+    ``target_sum`` records its first-passage class step and freezes. A
+    sweep starts only while a replica is active (and, with
+    ``stop_on_first``, none has reached the target), as the reference's
+    while loop tests per sweep; a sweep that does not start is a no-op
+    here, so the chunk gives the reference's state. The caller sets
+    ``chunk_s`` to 0 before the call, as the reference's driver does.
+
+    ``masks`` int32[χ, n] word masks, ``class_sizes`` int[χ]; the tables are
+    the :class:`ChromaticTables` fields as tensors on the state's device.
+    ``uniforms``: ``None`` draws the counter stream
+    (:func:`sweep_uniforms`); else an f32 ``[S, n, Rp]`` tensor whose row
+    ``k`` is class step ``k``'s uniforms (injected, for parity tests)."""
+    rule_e, tie_e = Rule(rule), TieBreak(tie)
+    n_planes = max(int(dmax).bit_length(), 1)
+    thr_bits, even_mask = _threshold_words(deg_ext, n_planes)
+    chi = masks.shape[0]
+    colors = (masks != 0).to(torch.int32).argmax(dim=0)
+    Rp = state.a.shape[0]
+    sp, sum_end, a, b = state.sp, state.sum_end, state.a, state.b
+    steps, sweeps, t_tgt = state.steps, state.sweeps, state.t_target
+    active, accepted, chunk_s = state.active, state.accepted, state.chunk_s
+    zero_row = sp.new_zeros(1, sp.shape[1])
+    for _ in range(chunk_sweeps):
+        go = active.any()
+        if stop_on_first:
+            go = go & ~(t_tgt >= 0).any()
+        if uniforms is None:
+            u_sweep = sweep_uniforms(seed, steps, colors, Rp)
+        for c in range(chi):
+            if uniforms is None:
+                u = u_sweep
+            else:
+                k = steps.clamp(max=uniforms.shape[0] - 1).reshape(1)
+                u = uniforms.index_select(0, k.to(torch.int64))[0]
+            live = active & go
+            sp_ext, dsend_tot, a, b, n_acc = class_update(
+                torch.cat([sp, zero_row]), u, masks[c], class_sizes[c], a, b,
+                live, nbr_ext, nbr_self, thr_bits, even_mask, n=n, dmax=dmax,
+                rule=rule_e, tie=tie_e, par_a=par_a, par_b=par_b,
+                a_cap=a_cap, b_cap=b_cap)
+            sp = sp_ext[:n]
+            sum_end = sum_end + dsend_tot
+            steps = steps + go.to(torch.int32)
+            hit = live & (sum_end >= target_sum)
+            t_tgt = torch.where(hit, steps, t_tgt)
+            active = active & ~hit
+            accepted = accepted + n_acc
+        sweeps = sweeps + go.to(torch.int32)
+        chunk_s = chunk_s + go.to(torch.int32)
+    return ChromState(sp, sum_end, a, b, steps, sweeps, t_tgt, active,
+                      accepted, chunk_s)

@@ -4,7 +4,8 @@ uses): ``group_ranges`` (:mod:`~graphdyn_torch.pipeline.groups`), the
 ``HostPrefetcher`` (:mod:`~graphdyn_torch.pipeline.prefetch`), the
 grouped HPr executor (:mod:`~graphdyn_torch.pipeline.hpr_group`) and the
 cell-parallel entropy ladders (:mod:`~graphdyn_torch.pipeline.
-entropy_group`). ``sa_group`` comes with ROADMAP A9."""
+entropy_group`) and the grouped SA ensemble
+(:mod:`~graphdyn_torch.pipeline.sa_group`)."""
 
 from graphdyn_torch.pipeline.groups import group_ranges
 from graphdyn_torch.pipeline.prefetch import HostPrefetcher

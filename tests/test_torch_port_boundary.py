@@ -19,15 +19,20 @@ from graphdyn_torch.config import EntropyConfig, HPRConfig
 from graphdyn_torch.models import consensus as tc
 from graphdyn_torch.models import entropy as tem
 from graphdyn_torch.models import hpr as th
+from graphdyn_torch.models import sa as tsa
 from graphdyn_torch.ops import bdcm as tb
 from graphdyn_torch.ops import bdcm_cuda
 from graphdyn_torch.ops import dynamics as td
 from graphdyn_torch.ops import fused as tfu
 from graphdyn_torch.ops import fused_cuda
 from graphdyn_torch.ops import gather_cuda
+from graphdyn_torch.ops import lightcone as tl
 from graphdyn_torch.ops import packed as tp
 from graphdyn_torch.ops import packed_cuda
+from graphdyn_torch.search import chromatic as tsc
 from graphdyn_torch.search import fused as tsf
+from graphdyn_torch.pipeline import sa_group as tsg
+from graphdyn_torch.search import tempering as tst
 from graphdyn_torch.utils.platform import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,7 +84,11 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.pipeline.entropy_group",
                  "graphdyn_torch.models.entropy",
                  "graphdyn_torch.models.entropy_reference",
-                 "graphdyn_torch.plotting"):
+                 "graphdyn_torch.plotting",
+                 "graphdyn_torch.models.sa", "graphdyn_torch.ops.lightcone",
+                 "graphdyn_torch.pipeline.sa_group",
+                 "graphdyn_torch.search.chromatic",
+                 "graphdyn_torch.search.tempering"):
         assert name in out["modules"]
 
 
@@ -138,6 +147,26 @@ ENTRY_POINTS = {
         tb.BDCMData(_small_graph()), EntropyConfig()),
     "make_free_entropy": lambda: tb.make_free_entropy(
         tb.BDCMData(_small_graph()), n_total=20, n_iso=0),
+    "simulated_annealing": lambda: tsa.simulated_annealing(
+        _small_graph(), SAConfig(), n_replicas=2, max_steps=2),
+    "sa_ensemble": lambda: tsa.sa_ensemble(20, 3, SAConfig(), n_stat=2,
+                                           max_steps=2),
+    "chromatic_anneal": lambda: tsc.chromatic_anneal(
+        _small_graph(), SAConfig(dynamics=DynamicsConfig(p=1, c=1)),
+        n_replicas=2, max_sweeps=2),
+    "temper_search": lambda: tst.temper_search(
+        _small_graph(), SAConfig(dynamics=DynamicsConfig(p=1, c=1)),
+        n_lanes=2, max_steps=2),
+    "run_sa_group": lambda: tsg.run_sa_group(
+        [_small_graph()], [tsa.prepare_sa_inputs(
+            _small_graph(), SAConfig(), n_replicas=1, seed=0, max_steps=2)],
+        [0], SAConfig()),
+    "build_lightcone_tables": lambda: tl.build_lightcone_tables(
+        _small_graph(), 2),
+    "build_lightcone_tables_device": lambda: tl.build_lightcone_tables_device(
+        _small_graph(), 2),
+    "resolve_lightcone_tables": lambda: tl.resolve_lightcone_tables(
+        _small_graph(), 2),
 }
 
 
@@ -159,7 +188,11 @@ def test_entry_point_without_device_refuses_on_cuda_less_host(name, monkeypatch)
     ["hpr", "--n", "50", "--max-sweeps", "2", "--batch-replicas", "2"],
     ["entropy", "--n", "50", "--lmbd-max", "0.1"],
     ["entropy", "--n", "50", "--lmbd-max", "0.1", "--union", "2"],
-], ids=["consensus", "fused", "hpr", "hpr_batch", "entropy", "entropy_union"])
+    ["sa", "--n", "50", "--d", "3", "--n-stat", "2", "--max-steps", "2"],
+    ["chromatic", "--n", "50", "--max-sweeps", "2"],
+    ["temper", "--n", "50", "--lanes", "2", "--max-steps", "2"],
+], ids=["consensus", "fused", "hpr", "hpr_batch", "entropy", "entropy_union",
+        "sa", "chromatic", "temper"])
 def test_cli_without_device_refuses_on_cuda_less_host(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
