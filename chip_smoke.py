@@ -28,6 +28,14 @@ must count 0 there):
   ``hpr_ref.json``; the kernel chain against the plain chain on RRG(200, 4)
   under the near-tie rule; and config 2 (union of 256 copies of a d=3 RRG,
   n=10⁵, 20 sweeps) through ``hpr_solve_batch`` and the CLI;
+- the BDCM kernels past T = 4 and past a block's shared memory: the ``hpr``
+  CLI at T = 5 (``--p 4 --c 1`` on RRG d=4, n=10⁴, 50 sweeps) in float32
+  and float64; ``make_sweep`` at T = 6 (p=5, c=1) on RRG(10³, 3); and
+  ``entropy_sweep`` at T = 4 on ER(2000, 6/1999), whose hub classes take
+  the global-lattice path (4 λ, one 16-sweep chunk per λ, the first λ held
+  against the plain ladder on the card); the first sweeps of each held
+  against the plain sweep, each timed beside its bound; a T = 7 plan
+  refused;
 - the row-gather probe (``python -m graphdyn_torch.scripts.gather_probe`` at
   its defaults, every line matching ``index_select``), then the port's own
   gather widths (W = 1, 16, 32, 512) timed beside ``index_select``;
@@ -57,7 +65,8 @@ congruent ensemble, the golden instance, the HPr reference shape and config
 2, each beside the per-class route (PyTorch gathers, the per-class kernel
 and ``index_copy_`` per class, composed here) and the plain sweep; and the
 row gather against ``index_select`` in turns, 9 repeats each, at the
-probe's widths and the headline step's gather (median and range).
+probe's widths, the headline step's gather and the port's 16- and 32-word
+rows (median and range).
 
 Prints, in order: phase reports, the card's name and power limit (from
 nvidia-smi), one JSON line listing the kernels with their measured times, and
@@ -217,18 +226,33 @@ SCALE_N, SCALE_D, SCALE_R = 10**6, 5, 1024
 THREEFRY_OPS, EXPF_OPS = 20 * 3 + 5 * 2 + 2, 10
 # the BDCM class update (K3): the (d, T) pairs held against the plain
 # version (the register path up to M = 32, the block path above it, up to
-# the reference regime's corner (8, 4) and a high-degree class (40, 2)), and
-# the tolerance of one launch (rtol, atol): the kernel's sums run in another
-# order than the plain version's, with fused multiply-adds
+# the reference regime's corner (8, 4) and a high-degree class (40, 2); T =
+# 5 and 6 on the block path (K = 32, 64); the global-lattice path past a
+# block's shared memory: (13, 4) in both dtypes, (10, 4) in f64, (7, 5),
+# (5, 6), (170, 2)), and the tolerance of one launch (rtol, atol): the
+# kernel's sums run in another order than the plain version's, with fused
+# multiply-adds
 CONTRACT_PAIRS = [(1, 2), (2, 2), (3, 2), (4, 2), (5, 2), (8, 2), (40, 2),
-                  (3, 1), (20, 1), (3, 3), (2, 4), (3, 4), (8, 4)]
+                  (3, 1), (20, 1), (3, 3), (2, 4), (3, 4), (8, 4),
+                  (1, 5), (3, 5), (2, 6), (10, 4), (13, 4), (7, 5), (5, 6),
+                  (170, 2)]
 # lattices above this size are checked at Ed ∈ {1, 129} only: the plain
-# version's lattice costs Ed·K·M per shift-FMA
+# version's lattice costs Ed·K·M per shift-FMA; above CONTRACT_HUGE_M
+# (the global-lattice pairs) at (G, Ed) ∈ {(1, 1), (2, 3)}
 CONTRACT_BIG_M = 300
+CONTRACT_HUGE_M = 10_000
 CONTRACT_TOL = {torch.float32: (1e-5, 1e-7), torch.float64: (1e-12, 1e-15)}
 # HPr: the reference shape (the hpr CLI's defaults, `HPR:224-237`) and config
-# 2 (`BASELINE.md:30`), cut only in its sweep count
+# 2 (`BASELINE.md:30`), cut only in its sweep count; HPr at T = 5 (the CLI
+# with --p 4 --c 1, its other defaults), cut to HPR_T5_SWEEPS sweeps
 HPR_N, HPR_D = 10_000, 4
+HPR_T5_SWEEPS = 50
+# T = 6: one make_sweep run on RRG(10^3, 3) at p=5, c=1 (one class, d=2,
+# M=729, K=64, the block path); the global path at T = 4: entropy_sweep on
+# ER(2000, 6/1999) at p=3, c=1, 4 λ in [0, 3], its sweeps cut to one chunk
+# of GLOBAL_MAX_SWEEPS per λ
+T6_N, T6_SWEEPS = 1000, 3
+GLOBAL_N, GLOBAL_C, GLOBAL_SEED, GLOBAL_MAX_SWEEPS = 2000, 6.0, 0, 16
 CONFIG2_N, CONFIG2_D, CONFIG2_R, CONFIG2_SWEEPS = 100_000, 3, 256, 20
 # the row gather (P): the widths held against index_select, and the port's
 # own gathers as (label, n_src, W, n_idx): the rows and the gathers per step
@@ -554,7 +578,7 @@ def phase_timing(g, nbr, deg, sp, reps: int, plain_reps: int) -> dict:
         del step, state
     slots = torch.arange(g.dmax, device="cuda")[None, :] < deg[:, None]
     idx = nbr[slots].contiguous()                  # the step's real slots
-    lib, ker = gather_probe.measure(ext, idx, depth=gather_cuda.DEFAULT_DEPTH)
+    lib, ker = gather_probe.measure(ext, idx, depth=None)
     if not ker["matches_torch"]:
         raise AssertionError("row_gather differs on the step's own rows")
     del ext, idx, slots
@@ -1139,7 +1163,13 @@ def _contract_inputs(G, Ed, d, T, dtype, per_group, seed):
         return torch.rand(shape, generator=gen, device="cuda", dtype=dtype)
 
     a = rand(G, K, K, M) if per_group else rand(K, K, M)
-    return rand(G, Ed, d, K, K), a, rand(G, Ed, K, K)
+    ci = rand(G, Ed, d, K, K)
+    if d > 40:
+        # column sums Σ_k chi[s, k, x_i] near 1, so the product of d of them
+        # stays inside float32 (U(0, 1) entries sum to ~K/2 a step: 2^170
+        # at d = 170, T = 2, past float32's range, in the plain version too)
+        ci *= 2.0 / K
+    return ci, a, rand(G, Ed, K, K)
 
 
 def _contract_err(k, p, dtype) -> tuple[float, float]:
@@ -1185,6 +1215,8 @@ def phase_contract_parity() -> dict:
             cases = [(1, 1, 0.0), (5, 129, 1e-12)]
             if (d + 1) ** T <= CONTRACT_BIG_M:
                 cases += [(1, 10**5, 1e-12), (5, 10**5, 0.0)]
+            if (d + 1) ** T > CONTRACT_HUGE_M:
+                cases = [(1, 1, 0.0), (2, 3, 1e-12)]
             for per_group in (False, True):
                 for G, Ed, eps in cases:
                     seed += 1
@@ -1530,7 +1562,7 @@ def _class_launch_inputs(chi, bias_edge, idx, in_edges):
 
 def _sel_plus(plan, device):
     """bool [K]: the source trajectories whose node bias is column 0."""
-    return torch.as_tensor([(plan.bias_cols >> (4 * k)) & 15 == 0
+    return torch.as_tensor([(plan.bias_cols >> k) & 1 == 0
                             for k in range(2**plan.T)], device=device)
 
 
@@ -1888,19 +1920,265 @@ def phase_config2_main() -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the BDCM kernels past T = 4 and past a block's shared memory
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _plain_chunks(nbytes: int = 4 << 30):
+    """The plain reference's row chunks raised from 256 MB to ``nbytes``
+    inside (fewer, larger launches on the card); a row's result does not
+    depend on the chunk
+    (``tests/test_torch_bdcm.py::test_plain_contract_rows_independent_of_
+    group_and_chunk``)."""
+    from graphdyn_torch.ops import packed
+
+    old = packed._TEMP_BYTES
+    packed._TEMP_BYTES = nbytes
+    try:
+        yield
+    finally:
+        packed._TEMP_BYTES = old
+
+
+def _sweep_vs_plain(label: str, chi, a_tilted, bias, valid, plan, spec):
+    """One sweep of ``chi`` through the kernel against the plain route on
+    the same CUDA tensors, within :data:`CONTRACT_TOL` on every row a class
+    updates; returns ``(kernel output, (abs err, rel err))``."""
+    plain_spec = spec._replace(modes=("plain",) * len(spec.modes))
+    plain_tables = SweepTables(
+        _class_tables(plan), None if plan.src is None else plan.src.long(),
+        None if plan.src is None else _sel_plus(plan, chi.device))
+    K = chi.shape[2]
+    owned = plan.cid.long() != bdcm_sweep.NO_CLASS
+    k = bdcm_sweep.sweep_cuda(chi, a_tilted, bias, plan, damp=spec.damp,
+                              eps_clamp=spec.eps_clamp)
+    p = _sweep_core(chi, a_tilted, bias, valid, plain_tables, plain_spec)
+    try:
+        err = _contract_err(k.reshape(-1, K, K)[owned],
+                            p.reshape(-1, K, K)[owned], chi.dtype)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+    return k, err
+
+
+def phase_hpr_t5() -> dict:
+    """HPr at T = 5: ``python -m graphdyn_torch hpr --device cuda --p 4 --c
+    1`` on RRG d=4, n=10⁴ (its other defaults, the sweeps cut to
+    :data:`HPR_T5_SWEEPS`) in float32 and float64, with the BDCM counts set
+    to 0 just before and read just after (K3′ launches = the sweeps); then
+    the first 3 sweeps of a chain from the CLI's init, each held against
+    the plain sweep of the same state, and ms per sweep beside
+    :func:`sweep_bound` (:func:`phase_sweep`)."""
+    g = random_regular_graph(HPR_N, HPR_D, seed=0)
+    out = {}
+    for dtype in ("float32", "float64"):
+        _reset_bdcm_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["hpr", "--device", "cuda", "--p", "4", "--c", "1",
+                           "--max-sweeps", str(HPR_T5_SWEEPS), "--dtype",
+                           dtype])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"hpr CLI --p 4 --c 1 returned {rc}")
+        doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+        launches = _bdcm_counts(f"hpr CLI --p 4 --c 1 {dtype}",
+                                _hpr_clock(doc["num_steps"], HPR_T5_SWEEPS))
+        cfg = HPRConfig(dynamics=DynamicsConfig(p=4, c=1), dtype=dtype,
+                        max_sweeps=HPR_T5_SWEEPS)
+        data = BDCMData(g, dtype=dtype, p=4, c=1)
+        ex = HPRGroupExec([(g, data)], cfg, kernel="cuda", device="cuda")
+        chi0, b0, s0 = host_init(np.random.default_rng(0), data.num_directed,
+                                 data.K, g.n, data.np_dtype)
+        st = ex.init_state([chi0], [b0], [s0], [0])
+        label = f"HPr T=5 {dtype}"
+        errs = []
+        with _plain_chunks():
+            for t in range(3):
+                bias = NodeBias(st.biases.reshape(-1, 2))
+                errs.append(_sweep_vs_plain(f"{label} sweep {t}", st.chi,
+                                            ex.a_tilted, bias, None,
+                                            ex.tables, ex.sweep_spec)[1])
+                st = ex.advance(st, st.t + 1)
+            timing = phase_sweep(label, st.chi, ex.a_tilted,
+                                 NodeBias(st.biases.reshape(-1, 2)), None,
+                                 ex.tables, ex.sweep_spec, reps=10,
+                                 per_class_reps=3, plain_reps=1)
+        out[dtype] = {"cli_sweeps": doc["num_steps"][0], "cli_wall_s": wall,
+                      "launches": launches, "first_sweeps_err": errs,
+                      "bdcm_sweep": timing}
+        log(f"[32 hpr T=5] python -m graphdyn_torch hpr --device cuda --p 4 "
+            f"--c 1 --max-sweeps {HPR_T5_SWEEPS} --dtype {dtype}: "
+            f"{doc['num_steps'][0]} sweeps, mag_reached "
+            f"{doc['mag_reached'][0]}, wall {wall:.3f} s; bdcm_sweep launches "
+            f"(one per sweep) {launches}; the first 3 sweeps against plain "
+            f"(abs, rel): {errs}; K3' {timing['ms']} ms/sweep, bound "
+            f"{timing['bound_ms']} ms ({timing['bound_by']}), paths "
+            f"{timing['paths']}")
+        del ex, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sweep_t6() -> dict:
+    """T = 6 (p=5, c=1) on RRG(10³, 3): one class, d=2, M=729, K=64, the
+    block path; in float32 and float64 the first :data:`T6_SWEEPS` sweeps
+    each held against the plain sweep, ms per sweep beside the bound
+    (:func:`phase_sweep`), then ``make_sweep``'s sweep run
+    :data:`T6_SWEEPS` times with the count set to 0 just before: one launch
+    per sweep."""
+    g = random_regular_graph(T6_N, 3, seed=0)
+    out = {}
+    for dt in ("float32", "float64"):
+        data = BDCMData(g, dtype=dt, p=5, c=1)
+        sweep = make_sweep(data, damp=0.1, eps_clamp=0.0, device="cuda")
+        chi = data.init_messages(0).to("cuda")
+        c, a_t, valid, plan, spec = _entropy_sweep_inputs(sweep, chi, 0.5,
+                                                          data.x0)
+        label = f"T=6 RRG(1000, 3) {dt}"
+        errs, x = [], c
+        with _plain_chunks():
+            for t in range(T6_SWEEPS):
+                x, err = _sweep_vs_plain(f"{label} sweep {t}", x, a_t, None,
+                                         valid, plan, spec)
+                errs.append(err)
+            res = phase_sweep(label, c, a_t, None, valid, plan, spec,
+                              reps=20, per_class_reps=5, plain_reps=1)
+        bdcm_sweep.LAUNCHES = 0
+        y = chi
+        for _ in range(T6_SWEEPS):
+            y = sweep(y, 0.5)
+        torch.cuda.synchronize()
+        res["launches"] = bdcm_sweep.LAUNCHES
+        if res["launches"] != T6_SWEEPS or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{label}: {res['launches']} launches for "
+                                 f"{T6_SWEEPS} sweeps (or a value not "
+                                 f"finite)")
+        res["first_sweeps_err"] = errs
+        log(f"[33 T=6] {label}: make_sweep's sweep x{T6_SWEEPS} = "
+            f"{res['launches']} launches; the first {T6_SWEEPS} sweeps "
+            f"against plain (abs, rel): {errs}")
+        out[dt] = res
+    return out
+
+
+def phase_entropy_global() -> dict:
+    """The global-lattice path at T = 4: ER(2000, 6/1999) (config 3's law)
+    at p=3, c=1, in float32 and float64. Its classes and their paths are
+    logged, and at least one hub class must take ``'global'`` (d ≥ 13 in
+    f32, ≥ 10 in f64); the first 3 sweeps of ``make_sweep`` at λ=0.5 each
+    held against the plain sweep, ms per sweep beside the bound
+    (:func:`phase_sweep`); then ``entropy_sweep`` at λ ∈ {0, 1, 2, 3} with
+    one chunk of :data:`GLOBAL_MAX_SWEEPS` sweeps per λ (its fixed-point
+    tolerance loosened to 1, which every damped sweep's delta is under, so
+    the ladder visits each λ: the sweep count is cut, not the width),
+    counted (K3′ launches = the sweeps), every value finite, and its first
+    λ held against the plain ladder's on the card: φ, m_init and ent1
+    within 1e-9 (f64) / 1e-4 (f32), the same sweeps (the plain ladder at
+    λ = 0 only: a plain sweep of this graph takes 1.2 s in f32, 2 s in
+    f64 on an H100, and a chunk is 16 of them)."""
+    g = erdos_renyi_graph(GLOBAL_N, GLOBAL_C / (GLOBAL_N - 1),
+                          seed=GLOBAL_SEED)
+    sub, _ = graphs.remove_isolates(g)
+    lambdas = np.array([0.0, 1.0, 2.0, 3.0])
+    out = {}
+    for dt, atol in (("float32", 1e-4), ("float64", 1e-9)):
+        label = f"ER(2000, 6) T=4 {dt}"
+        data = BDCMData(sub, dtype=dt, p=3, c=1)
+        classes = _class_report(data, label)
+        if not any(c["path"] == "global" for c in classes):
+            raise AssertionError(f"{label}: no class took the global path: "
+                                 f"{classes}")
+        sweep = make_sweep(data, damp=0.1, eps_clamp=0.0, device="cuda")
+        chi = data.init_messages(0).to("cuda")
+        c, a_t, valid, plan, spec = _entropy_sweep_inputs(sweep, chi, 0.5,
+                                                          data.x0)
+        errs, x = [], c
+        with _plain_chunks():
+            for t in range(3):
+                x, err = _sweep_vs_plain(f"{label} sweep {t}", x, a_t, None,
+                                         valid, plan, spec)
+                errs.append(err)
+            timing = phase_sweep(label, c, a_t, None, valid, plan, spec,
+                                 reps=5, per_class_reps=2, plain_reps=1)
+        del x
+        cfg = EntropyConfig(dynamics=DynamicsConfig(p=3, c=1), eps=1.0,
+                            max_sweeps=GLOBAL_MAX_SWEEPS, dtype=dt)
+        _reset_bdcm_counts()
+        t0 = time.perf_counter()
+        res = entropy_sweep(g, cfg, seed=GLOBAL_SEED, lambdas=lambdas,
+                            device="cuda")
+        wall = time.perf_counter() - t0
+        launches = _bdcm_counts(f"entropy_sweep {label}",
+                                _ladder_sweeps([res.sweeps]))
+        t0 = time.perf_counter()
+        with _plain_chunks():
+            res_p = entropy_sweep(g, cfg, seed=GLOBAL_SEED,
+                                  lambdas=lambdas[:1], kernel="plain",
+                                  device="cuda")
+        plain_wall = time.perf_counter() - t0
+        got, want = eref.curve_record(res), eref.curve_record(res_p)
+        if (got["lambdas"] != lambdas.tolist()
+                or got["sweeps"][:1] != want["sweeps"]):
+            raise AssertionError(f"{label}: kernel ladder {got} vs plain "
+                                 f"{want}")
+        phi_err = 0.0
+        for f in eref.CURVE_FIELDS:
+            a, b = np.asarray(got[f]), np.asarray(want[f])
+            if not np.all(np.isfinite(a)):
+                raise AssertionError(f"{label}: {f} not finite: {a}")
+            phi_err = max(phi_err, float(np.abs(a[:1] - b).max()))
+        if phi_err > atol:
+            raise AssertionError(f"{label}: the curve is {phi_err} off the "
+                                 f"plain ladder's (atol {atol})")
+        out[dt] = {"classes": classes, "first_sweeps_err": errs,
+                   "bdcm_sweep": timing, "launches": launches,
+                   "wall_s": wall, "plain_wall_s": plain_wall,
+                   "lambdas": got["lambdas"], "sweeps": got["sweeps"],
+                   "curve_err": phi_err}
+        log(f"[34 entropy global] entropy_sweep {label}, λ "
+            f"{got['lambdas']} of {lambdas.tolist()}, one chunk each: sweeps "
+            f"{got['sweeps']}, wall {wall:.3f} s (the plain ladder at λ=0 "
+            f"{plain_wall:.3f} s), bdcm_sweep launches (one per sweep) "
+            f"{launches}; φ, m_init, ent1 at λ=0 within {phi_err} of the "
+            f"plain ladder's (atol {atol}); the first 3 sweeps against plain "
+            f"(abs, rel): {errs}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_t7_refused() -> None:
+    """A T = 7 plan raises on the card, with its reason, before any
+    launch."""
+    for dt in (torch.float32, torch.float64):
+        try:
+            bdcm_sweep.launch_shape((2,), 7, dt)
+        except ValueError as e:
+            if "T <= 6" not in str(e):
+                raise
+            log(f"[35 T=7] launch_shape((2,), 7, {dt}) raises: {e}")
+        else:
+            raise AssertionError("a T = 7 plan was admitted")
+
+
 def phase_gather_parity() -> dict:
     """The row-gather kernel against ``index_select``, bit for bit: W in
     :data:`GATHER_PARITY_WIDTHS` (single words and 16-byte vectors, one warp
-    per row and several rows per warp), n_idx in {1, 255, 1000, 100003}
-    (not multiples of 256), indices drawn with repeats from a small source,
-    words with the top bit set (every bit pattern is drawn), a source whose
-    rows are not 16-byte aligned, and every depth the kernel takes."""
+    per row and several rows per warp), n_idx in {1, 255, 1000, 100003} (not
+    multiples of 256, a last tile part full), indices drawn with repeats
+    from a small source, words with the top bit set (every bit pattern is
+    drawn), a source whose rows are not 16-byte aligned, the plan's depth
+    and every other depth the kernel takes."""
     t0 = time.perf_counter()
     n_cases, seed = 0, 0
 
     def case(src, idx, depth):
         nonlocal n_cases
-        got = row_gather(src, idx, kernel="cuda", depth=depth)
+        got = gather_cuda.row_gather_cuda(src, idx, depth=depth)
         want = row_gather_plain(src, idx)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
@@ -1918,19 +2196,19 @@ def phase_gather_parity() -> dict:
                 raise AssertionError("the parity draw has no repeated index")
             if not bool((src < 0).any()):
                 raise AssertionError("the parity draw has no top-bit word")
-            for depth in gather_cuda.DEPTHS:
+            for depth in (None,) + gather_cuda.DEPTHS:
                 case(src, idx, depth)
         # rows that start 4 bytes past a 16-byte boundary: single words
         flat = torch.empty(1000 * W + 1, dtype=torch.int32, device="cuda")
         flat.random_(-2**31, 2**31)
         src = flat[1:].view(1000, W)
         idx = torch.randint(0, 1000, (777,), dtype=torch.int32, device="cuda")
-        case(src, idx, gather_cuda.DEFAULT_DEPTH)
+        case(src, idx, None)
     dt = time.perf_counter() - t0
     log(f"[16 gather parity] row_gather == index_select bit for bit in "
         f"{n_cases} cases (W in {GATHER_PARITY_WIDTHS}, n_idx in {{1, 255, "
         f"1000, 100003}}, repeated indices, top-bit words, unaligned rows, "
-        f"depths {gather_cuda.DEPTHS}) in {dt:.3f} s")
+        f"the plan's depth and depths {gather_cuda.DEPTHS}) in {dt:.3f} s")
     return {"cases": n_cases, "max_abs_err": 0.0}
 
 
@@ -1964,8 +2242,7 @@ def phase_gather_probe() -> dict:
     port = {}
     for label, n_src, W, n_idx in GATHER_PORT_SHAPES:
         src, idx = gather_probe.draw(n_src, n_idx, W, 0, "cuda")
-        lib, ker = gather_probe.measure(src, idx,
-                                        depth=gather_cuda.DEFAULT_DEPTH)
+        lib, ker = gather_probe.measure(src, idx, depth=None)
         if not ker["matches_torch"]:
             raise AssertionError(f"row_gather differs at {label}")
         port[label] = {"W": W, "n_src": n_src, "n_idx": n_idx,
@@ -2796,53 +3073,65 @@ def phase_gather_interleaved() -> dict:
     """P against ``index_select`` in turns (P, I, I, P, ...), ``GATHER_REPS``
     repeats of each, every repeat the mean of ``gather_probe.ITERS`` queued
     calls by CUDA events: at the probe's widths (n_src 10⁶, W in {128, 512,
-    1024}, its n_idx rule and seeds) and at the headline step's own gather
-    (n_src 10⁶+1, W=512, 3·10⁶ rows). Reports the median and the range of
-    each; P is slower beyond the spread where its fastest repeat is slower
-    than index_select's slowest."""
+    1024}, its n_idx rule and seeds), at the headline step's own gather
+    (n_src 10⁶+1, W=512, 3·10⁶ rows) and at the port's 16- and 32-word rows
+    (config 3, HPr config 2's chi rows, the fused scale shape). P is the
+    plan ``launch_plan`` picks (the vector path at its measured depth and
+    store policy). Reports the median and the range of each, beside the read-once bound
+    (each distinct source row read once) and the all-reads bound (every
+    gathered row read and written); an implementation is slower beyond the
+    spread where its fastest repeat is slower than the other's slowest."""
     shapes = [(f"probe W={W}", 1_000_000, W,
                gather_probe.probe_n_idx(3_000_000, W), W)
               for W in (128, 512, 1024)]
     shapes.append(("headline (W=512)", 1_000_001, 512, 3_000_000, 0))
+    shapes += [(label, n_src, W, n_idx, 0)
+               for label, n_src, W, n_idx in GATHER_PORT_SHAPES[1:4]]
     out = {}
     for label, n_src, W, n_idx, seed in shapes:
         src, idx = gather_probe.draw(n_src, n_idx, W, seed, "cuda")
-        fns = {"P": lambda: row_gather(src, idx, kernel="cuda",
-                                       depth=gather_cuda.DEFAULT_DEPTH),
+        plan = gather_cuda.launch_plan(W, True)
+        fns = {"P": lambda: row_gather(src, idx, kernel="cuda"),
                "index_select": lambda: src.index_select(0, idx)}
-        if not torch.equal(fns["P"](), fns["index_select"]()):
-            raise AssertionError(f"row_gather differs at {label}")
-        for fn in fns.values():
-            fn()
+        want = fns["index_select"]()
+        for impl, fn in fns.items():
+            if impl != "index_select" and not torch.equal(fn(), want):
+                raise AssertionError(f"row_gather ({impl}) differs at {label}")
+        del want
         torch.cuda.synchronize()
-        times = {"P": [], "index_select": []}
-        order = ("P", "index_select")
+        times = {impl: [] for impl in fns}
+        order = tuple(fns)
         for r in range(GATHER_REPS):
             for impl in (order if r % 2 == 0 else order[::-1]):
                 times[impl].append(gather_probe.cuda_ms(fns[impl],
                                                         gather_probe.ITERS))
         n_distinct = int(torch.unique(idx).numel())
         bound = gather_probe.gather_bound(n_idx, W, n_distinct)["bound_ms"]
+        all_reads = 2 * n_idx * W * 4 / HBM_BYTES_PER_S * 1e3
         row = {"W": W, "n_src": n_src, "n_idx": n_idx, "bound_ms": bound,
-               "reps": GATHER_REPS}
+               "all_reads_bound_ms": all_reads, "reps": GATHER_REPS,
+               "plan": plan}
         for impl, ts in times.items():
             row[impl] = {"median_ms": float(np.median(ts)),
                          "min_ms": float(min(ts)), "max_ms": float(max(ts)),
                          "ms": ts}
-        slower = row["P"]["min_ms"] > row["index_select"]["max_ms"]
-        faster = row["P"]["max_ms"] < row["index_select"]["min_ms"]
-        row["verdict"] = ("P slower beyond the spread" if slower else
-                          "P faster beyond the spread" if faster else
-                          "within the spread")
+
+        def verdict(a, b):
+            if row[a]["min_ms"] > row[b]["max_ms"]:
+                return f"{a} slower than {b} beyond the spread"
+            if row[a]["max_ms"] < row[b]["min_ms"]:
+                return f"{a} faster than {b} beyond the spread"
+            return f"{a} and {b} within the spread"
+
+        row["verdict"] = verdict("P", "index_select")
         out[label] = row
-        log(f"[30 gather interleaved] {label} (n_src={n_src}, n_idx={n_idx}), "
-            f"{GATHER_REPS} repeats each in turns: P median "
-            f"{row['P']['median_ms']:.5f} ms (range "
-            f"{row['P']['min_ms']:.5f}-{row['P']['max_ms']:.5f}), "
-            f"index_select median {row['index_select']['median_ms']:.5f} ms "
-            f"(range {row['index_select']['min_ms']:.5f}-"
-            f"{row['index_select']['max_ms']:.5f}); bound {bound:.5f} ms; "
-            f"{row['verdict']}")
+        log(f"[30 gather interleaved] {label} (n_src={n_src}, n_idx={n_idx}, "
+            f"P's plan {plan}), {GATHER_REPS} repeats each in turns: "
+            + "; ".join(f"{impl} median {row[impl]['median_ms']:.5f} ms (range "
+                        f"{row[impl]['min_ms']:.5f}-{row[impl]['max_ms']:.5f})"
+                        for impl in fns)
+            + f"; read-once bound {bound:.5f} ms, all-reads bound "
+            f"{all_reads:.5f} ms; {row['verdict']}")
         del src, idx
         torch.cuda.empty_cache()
     return out
@@ -2947,6 +3236,13 @@ def main() -> int:
     chains = phase_hpr_chains()
     cfg2 = phase_config2_setup_timing()
     cfg2_main = phase_config2_main()
+    # past T = 4 and past a block's shared memory (C2): HPr at T = 5, a
+    # T = 6 sweep, the global-lattice path at T = 4, each counted; T = 7
+    # refused
+    hpr_t5 = phase_hpr_t5()
+    t6 = phase_sweep_t6()
+    glob = phase_entropy_global()
+    phase_t7_refused()
 
     # the row gather (P): parity, then its main path (the probe), counted
     gather_err = phase_gather_parity()
@@ -2977,12 +3273,23 @@ def main() -> int:
     sweep_shapes = {**sweep_ent, **sweep_many,
                     "HPr reference shape f32": ref_shape["float32"]["bdcm_sweep"],
                     "HPr reference shape f64": ref_shape["float64"]["bdcm_sweep"],
-                    "HPr config 2": cfg2["bdcm_sweep"]}
+                    "HPr config 2": cfg2["bdcm_sweep"],
+                    **{f"HPr T=5 {dt}": v["bdcm_sweep"]
+                       for dt, v in hpr_t5.items()},
+                    **{f"T=6 RRG(1000, 3) {dt}": v for dt, v in t6.items()},
+                    **{f"ER(2000, 6) T=4 {dt}": v["bdcm_sweep"]
+                       for dt, v in glob.items()}}
     sweep_launches = {"hpr_cli": hpr_main["cli"]["launches"],
                       "hpr_ensemble_g4": hpr_main["group4"]["launches"],
                       "hpr_solve_f64": hpr_main["f64"]["launches"],
                       "hpr_solve_batch_config2": cfg2_main["launches_batch"],
                       "hpr_cli_config2": cfg2_main["launches_cli"],
+                      **{f"hpr_cli_t5_{dt}": v["launches"]
+                         for dt, v in hpr_t5.items()},
+                      **{f"make_sweep_t6_{dt}": v["launches"]
+                         for dt, v in t6.items()},
+                      **{f"entropy_sweep_global_{dt}": v["launches"]
+                         for dt, v in glob.items()},
                       **entropy_launches}
 
     kernels = [{
@@ -3137,6 +3444,14 @@ def main() -> int:
         "launches_by_run": sweep_launches,
         "many_classes_launches": {k: v["launches"]
                                   for k, v in sweep_many.items()},
+        "hpr_t5": {dt: {k: v[k] for k in ("cli_sweeps", "cli_wall_s",
+                                          "launches", "first_sweeps_err")}
+                   for dt, v in hpr_t5.items()},
+        "t6_first_sweeps_err": {dt: v["first_sweeps_err"]
+                                for dt, v in t6.items()},
+        "global_path": {dt: {k: v[k] for k in (
+            "classes", "first_sweeps_err", "launches", "wall_s", "sweeps",
+            "curve_err")} for dt, v in glob.items()},
         "ptxas": {"float": built["bdcm_sweep_float"],
                   "double": built["bdcm_sweep_double"]},
     }, {
@@ -3158,9 +3473,9 @@ def main() -> int:
         "timing": f"median of {GATHER_REPS} repeats each, P and "
                   "index_select in turns",
         "shape": f"probe W=512, n_src=10^6, n_idx={turns512['n_idx']}",
-        "interleaved": {k: {f: v[f] for f in ("W", "n_idx", "bound_ms",
-                                               "P", "index_select",
-                                               "verdict")}
+        "all_reads_bound_ms": turns512["all_reads_bound_ms"],
+        "plan": turns512["plan"],
+        "interleaved": {k: {f: v[f] for f in v if f != "n_src"}
                         for k, v in gather_turns.items()},
         "probe": probe["rows"],
         "port_widths": probe["port"],

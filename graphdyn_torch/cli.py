@@ -158,7 +158,7 @@ def build_parser() -> argparse.ArgumentParser:
     hpr.add_argument(
         "--kernel", choices=["auto", "cuda", "plain"], default="auto",
         help="BDCM sweep core: 'auto' runs every edge class through the CUDA "
-             "kernel on the card (a class the kernel does not take, T > 4, "
+             "kernel on the card (every class with T = p + c <= 6; T >= 7 "
              "raises) and the plain PyTorch version on the CPU; 'cuda' "
              "requires the card; 'plain' forces the plain version (for "
              "tests)",

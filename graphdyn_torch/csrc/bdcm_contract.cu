@@ -26,9 +26,9 @@
 // moves 12.8 MB, about 4 µs, so launch latency sets the pace there.
 //
 // Design. Row-major layouts as PyTorch holds them, no transposes: one edge's
-// D·K·K inputs are contiguous. Two paths, chosen by the caller's launch plan
+// D·K·K inputs are contiguous. Three paths, chosen by the caller's launch plan
 // (launch_plan in graphdyn_torch/ops/bdcm_cuda.py):
-// - register path (M ≤ 32, D ≤ 8: every class of the HPr main paths). One
+// - register path (M ≤ 32, D ≤ 8, T ≤ 4: the HPr main paths' classes). One
 //   thread per (edge, x_i); an edge's K threads are adjacent lanes of one
 //   warp (K ≤ 16 divides 32), so each load of chi_in[e, D, k, ·] is K
 //   adjacent values. The thread keeps its lattice row LL[x_i, 0..M) and the
@@ -38,16 +38,24 @@
 //   variant). z is reduced over the edge's K lanes with warp shuffles, then
 //   multiplied by its reciprocal, as the Pallas kernel does.
 // - block path (every larger lattice up to what one block's shared memory
-//   holds: all of T ≤ 4, D ≤ 8 and beyond). One block per (edge, group),
-//   grid-strided over the edges. The block's threads own the lattice entries
-//   m ≡ threadIdx.x (mod blockDim.x) of two rows in shared memory and run the
-//   edge's K destination rows one after another: each DP step sums, per m,
-//   the K shifted entries in trajectory order; the contraction is reduced
-//   over the block, and the edge's clamped chi2 waits in shared memory for z.
-// The per-edge bodies of both paths live in bdcm_dp.cuh, shared with the
+//   holds: all of T ≤ 4, D ≤ 8, and T = 5, 6 at small D). One block per
+//   (edge, group), grid-strided over the edges. The block's threads own the
+//   lattice entries m ≡ threadIdx.x (mod blockDim.x) of two rows in shared
+//   memory and run the edge's K destination rows one after another: each DP
+//   step sums, per m, the K shifted entries in trajectory order (the step's
+//   K weights staged in shared memory); the contraction runs in register
+//   tiles of columns and is reduced over the block, and the edge's clamped
+//   chi2 waits in shared memory for z.
+// - global path (every lattice whose two rows exceed a block's shared
+//   memory): the same per-edge body with the two rows in a device workspace
+//   of ws_slots × 2M elements from the caller; a 1-D grid of min(G·Ed,
+//   ws_slots) blocks walks the (group, edge) members, block b in slot b.
+// The per-edge bodies of the paths live in bdcm_dp.cuh, shared with the
 // one-launch sweep kernel (bdcm_sweep.cu), which runs the main paths; this
 // entry is the per-class counterpart of the JAX package's public
-// dp_contract_grouped. Grid: (⌈Ed·K / block⌉, G) or (min(Ed, 2^31−1), G).
+// dp_contract_grouped. Grid: (⌈Ed·K / block⌉, G), (min(Ed, 2^31−1), G) or
+// (min(G·Ed, ws_slots)) by path; T = 1..6 instantiated on the block and
+// global paths.
 // Each thread's order of operations does not depend on G or Ed. Templated
 // on float and double: the reference solver runs in float64. No tensor
 // cores: the contraction is a short dot product.
@@ -107,11 +115,34 @@ dp_contract_block(const F* __restrict__ chi_in, const F* __restrict__ a,
     const F* a_g = a + g * a_group_stride;
     for (long long e = blockIdx.x; e < Ed; e += gridDim.x) {
         const long long row = g * Ed + e;
-        const F* ci = chi_in + row * (long long)(d * K * K);
-        block_edge<F, T>(
+        const F* ci = chi_in + row * (long long)d * K * K;
+        lattice_edge<F, T, true>(
             [ci](int s, int k, int xi) { return __ldg(ci + (s * K + k) * K + xi); },
             a_g, d, M, chi_old + row * (K * K), out + row * (K * K), damp, omd,
-            eps, smem);
+            eps, smem, smem + 2 * M);
+    }
+}
+
+// the global path: members m = g·Ed + e over a 1-D grid of at most
+// ws_slots blocks, block b's lattice rows in slot b of ws
+template <typename F, int T>
+__global__ void __launch_bounds__(kThreads)
+dp_contract_global(const F* __restrict__ chi_in, const F* __restrict__ a,
+                   const F* __restrict__ chi_old, F* __restrict__ out,
+                   long long G, long long Ed, long long a_group_stride, int d,
+                   int M, F damp, F omd, F eps, F* ws)
+{
+    constexpr int K = 1 << T;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    F* smem = reinterpret_cast<F*>(smem_raw);
+    F* rows = ws + (long long)blockIdx.x * 2 * M;
+    for (long long row = blockIdx.x; row < G * Ed; row += gridDim.x) {
+        const long long g = row / Ed;
+        const F* ci = chi_in + row * (long long)d * K * K;
+        lattice_edge<F, T, false>(
+            [ci](int s, int k, int xi) { return __ldg(ci + (s * K + k) * K + xi); },
+            a + g * a_group_stride, d, M, chi_old + row * (K * K),
+            out + row * (K * K), damp, omd, eps, rows, smem);
     }
 }
 
@@ -120,9 +151,10 @@ struct Launch {
     const void* a;
     const void* chi_old;
     void* out;
-    long long Ed;
+    long long G, Ed;
     long long a_stride;
     int d, M;
+    void* ws;
     double damp, eps;
     dim3 grid;
     int threads, smem;
@@ -155,6 +187,25 @@ cudaError_t launch_block(const Launch& L)
     return cudaSuccess;
 }
 
+template <typename F, int T>
+cudaError_t launch_global(const Launch& L)
+{
+    if (L.smem > kSmemDefault) {
+        const cudaError_t rc = cudaFuncSetAttribute(
+            dp_contract_global<F, T>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
+        if (rc != cudaSuccess) return rc;
+    }
+    dp_contract_global<F, T><<<L.grid, L.threads, L.smem, L.stream>>>(
+        static_cast<const F*>(L.chi_in), static_cast<const F*>(L.a),
+        static_cast<const F*>(L.chi_old), static_cast<F*>(L.out), L.G, L.Ed,
+        L.a_stride, L.d, L.M, (F)L.damp, (F)(1.0 - L.damp), (F)L.eps,
+        static_cast<F*>(L.ws));
+    return cudaSuccess;
+}
+
+// an uninstantiated T (outside 1..6) or a register class outside the
+// instantiated (D, T) is refused, never run on another instantiation
 template <typename F>
 cudaError_t dispatch(const Launch& L, int path, int T)
 {
@@ -164,6 +215,19 @@ cudaError_t dispatch(const Launch& L, int path, int T)
             case 2: return launch_block<F, 2>(L);
             case 3: return launch_block<F, 3>(L);
             case 4: return launch_block<F, 4>(L);
+            case 5: return launch_block<F, 5>(L);
+            case 6: return launch_block<F, 6>(L);
+            default: return cudaErrorInvalidValue;
+        }
+    }
+    if (path == 2) {
+        switch (T) {
+            case 1: return launch_global<F, 1>(L);
+            case 2: return launch_global<F, 2>(L);
+            case 3: return launch_global<F, 3>(L);
+            case 4: return launch_global<F, 4>(L);
+            case 5: return launch_global<F, 5>(L);
+            case 6: return launch_global<F, 6>(L);
             default: return cudaErrorInvalidValue;
         }
     }
@@ -189,44 +253,53 @@ cudaError_t dispatch(const Launch& L, int path, int T)
 
 }  // namespace
 
-// path 0: the register path, 1: the block path; threads per block and
-// dynamic shared bytes as launch_plan computes them
+// path 0: the register path, 1: the block path, 2: the global path (ws:
+// ws_slots × 2M elements); threads per block and dynamic shared bytes as
+// launch_plan computes them
 extern "C" int graphdyn_bdcm_contract(
     const void* chi_in, const void* a, const void* chi_old, void* out,
     long long G, long long Ed, int d, int T, int is_double, int per_group_a,
-    double damp, double eps, int path, int threads, int smem, void* stream)
+    double damp, double eps, int path, int threads, int smem, void* ws,
+    long long ws_slots, void* stream)
 {
     if (!chi_in || !a || !chi_old || !out || G < 1 || G > 65535 || Ed < 1
-        || T < 1 || T > 4 || d < 1 || threads < 32 || threads > kThreads
+        || T < 1 || T > kMaxT || d < 1 || threads < 32 || threads > kThreads
         || threads % 32 != 0 || smem < 0 || smem > kSmemMax)
         return (int)cudaErrorInvalidValue;
     const int K = 1 << T;
     const long long esize = is_double ? 8 : 4;
     long long M = 1;
-    for (int t = 0; t < T && M <= kSmemMax; ++t) M *= d + 1;
+    for (int t = 0; t < T && M <= INT_MAX; ++t) M *= d + 1;
+    if (M > INT_MAX) return (int)cudaErrorInvalidValue;
     // the shared bytes each path indexes
     const long long need = path == 0 ? K * K * M * esize
-                         : block_smem_elems(M, K, threads) * esize;
-    if ((path != 0 && path != 1) || (path == 0 && (M > kRegMaxM || d > 8))
-        || need > smem)
+                         : path == 1 ? block_smem_elems(M, K, threads) * esize
+                         : edge_smem_elems(K, threads) * esize;
+    if (path < 0 || path > 2
+        || (path == 0 && (M > kRegMaxM || d > kRegMaxD || T > kRegMaxT))
+        || (path == 2 && (!ws || ws_slots < 1)) || need > smem)
         return (int)cudaErrorInvalidValue;
     Launch L;
     L.threads = threads;
     L.smem = smem;
     L.M = (int)M;
-    const long long blocks = path == 0 ? (Ed * K + threads - 1) / threads
-                                       : (Ed < INT_MAX ? Ed : INT_MAX);
+    long long blocks = path == 0 ? (Ed * K + threads - 1) / threads
+                     : path == 1 ? (Ed < INT_MAX ? Ed : INT_MAX)
+                     : (G * Ed < ws_slots ? G * Ed : ws_slots);
     if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
     L.chi_in = chi_in;
     L.a = a;
     L.chi_old = chi_old;
     L.out = out;
+    L.G = G;
     L.Ed = Ed;
     L.a_stride = per_group_a ? (long long)K * K * M : 0;
     L.d = d;
+    L.ws = ws;
     L.damp = damp;
     L.eps = eps;
-    L.grid = dim3((unsigned)blocks, (unsigned)G);
+    L.grid = path == 2 ? dim3((unsigned)blocks)
+                       : dim3((unsigned)blocks, (unsigned)G);
     L.stream = static_cast<cudaStream_t>(stream);
     const cudaError_t rc = is_double ? dispatch<double>(L, path, T)
                                      : dispatch<float>(L, path, T);

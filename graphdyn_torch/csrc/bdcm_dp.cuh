@@ -12,19 +12,25 @@
 //   chi2[x_i, x_j] = max(Σ_m A_tilted[x_i, x_j, m] LL[x_i, m], eps)
 //   out = damp · chi2 / max(Σ chi2, tiny) + (1 − damp) · chi_old
 //
-// - reg_edge: the register path (M ≤ 32, d ≤ 8). One thread per (edge,
+// - reg_edge: the register path (M ≤ 32, d ≤ 8, T ≤ 4). One thread per (edge,
 //   x_i); the K threads of an edge are adjacent lanes of one warp (K ≤ 16
 //   divides 32). The lattice row and the accumulator live in registers,
 //   with (D, T) template constants, so every shift-FMA has a constant
 //   register index. z is reduced over the edge's K lanes with warp
 //   shuffles, so every lane of the warp must call it, live or not.
-// - block_edge: the block path (every larger lattice up to what one block's
-//   shared memory holds). The block's threads own the lattice entries
-//   m ≡ threadIdx.x (mod blockDim.x) of two rows in shared memory and run
-//   the edge's K destination rows one after another; every thread of the
-//   block must call it.
+// - lattice_edge: the block path (the two lattice rows in shared memory,
+//   every larger lattice up to what one block's shared memory holds) and
+//   the global path (the two rows in the block's slot of a device
+//   workspace, every lattice beyond). The block's threads own the lattice
+//   entries m ≡ threadIdx.x (mod blockDim.x) of the two rows and run the
+//   edge's K destination rows one after another; on the block path the
+//   source weights of several DP steps are loaded together into shared
+//   memory, from K = 32 the offsets sit there too, and the contraction runs
+//   in register tiles of at most 16 columns, so no thread holds 64 values
+//   at T = 6; every thread of the block must call it.
 // Each thread's order of operations depends on neither the number of edges
-// nor the grid, so grouped and serial runs give the same bits.
+// nor the grid nor the path's memory, so grouped and serial runs give the
+// same bits, and a class gives the same bits on the block and global paths.
 
 #pragma once
 
@@ -37,6 +43,8 @@ namespace bdcm {
 constexpr int kThreads = 256;          // at most, per block
 constexpr int kRegMaxM = 32;           // the register path's lattices
 constexpr int kRegMaxD = 8;
+constexpr int kRegMaxT = 4;            // K ≤ 16 lanes of one warp per edge
+constexpr int kMaxT = 6;               // the instantiated horizons, 1..6
 constexpr int kSmemDefault = 48 * 1024;
 constexpr int kSmemMax = 232448;       // per block, after the opt-in attribute
 
@@ -121,75 +129,160 @@ __device__ __forceinline__ void reg_edge(const F* ci, const F* arow, int xi,
     finish<F, K>(v, zpart, live, old, out, damp, omd);
 }
 
-// Shared bytes the block path indexes: two lattice rows, the edge's K·K
-// clamped outputs, one K-row of partial sums per warp.
-__host__ __device__ inline long long block_smem_elems(long long M, int K, int threads)
+// Source weights staged per buffer on the block and global paths: the
+// weights of kWStage / K consecutive DP steps, loaded together.
+constexpr int kWStage = 256;
+
+// Shared elements the block and global paths index besides the two lattice
+// rows: the edge's K·K clamped outputs, one K-row of partial sums per warp,
+// two buffers of staged source weights (2·kWStage) and the K flat offsets
+// (ints in element slots).
+__host__ __device__ inline long long edge_smem_elems(int K, int threads)
 {
-    return 2 * M + (long long)K * K + (long long)(threads / 32) * K;
+    return (long long)K * K + (long long)(threads / 32) * K + 2LL * kWStage
+         + K;
 }
 
-// One edge on the block path. w_of(s, k, xi) returns the edge's input
-// chi_in[s, k, xi]; a_g: the edge's factor [K, K, M] (global memory);
-// old/out: the edge's chi_old and output rows ([K, K] each); smem: at least
-// block_smem_elems(M, K, blockDim.x) elements.
-template <typename F, int T, typename WOf>
-__device__ __forceinline__ void block_edge(WOf w_of, const F* __restrict__ a_g,
-                                           int d, int M, const F* old, F* out,
-                                           F damp, F omd, F eps, F* smem)
+// Shared elements of the block path: the two lattice rows and the above.
+__host__ __device__ inline long long block_smem_elems(long long M, int K, int threads)
+{
+    return 2 * M + edge_smem_elems(K, threads);
+}
+
+// One edge on the block path (rows in shared memory) or the global path
+// (rows in the block's slot of a device workspace). w_of(s, k, xi) returns
+// the edge's input chi_in[s, k, xi]; a_g: the edge's factor [K, K, M]
+// (global memory); old/out: the edge's chi_old and output rows ([K, K]
+// each); rows: the two [M] lattice rows; smem: edge_smem_elems(K,
+// blockDim.x) shared elements. Every thread of the block must call it.
+//
+// kStage (the block path): the source weights of kWStage / K consecutive
+// DP steps (all of them, for d ≤ kWStage / K) are loaded together into a
+// shared buffer, so a chain of dependent loads behind a weight (the sweep
+// kernel's in-edge, class id, row and bias) costs its latency once per
+// chunk of steps, not once per step; two buffers alternate, so one barrier
+// per step suffices. Without it (the global path, where staging measured
+// slower) each step loads its own K weights before the step's barrier. No
+// thread
+// keeps more than 16 values of a K-vector: up to K = 16 (T ≤ 4) each
+// thread copies the step's K weights and holds the K offsets in registers;
+// from K = 32 both are read from shared memory. The contraction runs the K
+// destination columns in register tiles of JT ≤ 16.
+// The sums per lattice entry and per output run in the same order on both
+// paths and at every K: per m the K shifted entries in trajectory order;
+// per column j the thread's entries m ≡ threadIdx.x (mod blockDim.x) in
+// order, then the warp's butterfly, then the warps in order.
+template <typename F, int T, bool kStage, typename WOf>
+__device__ __forceinline__ void lattice_edge(WOf w_of, const F* __restrict__ a_g,
+                                             int d, int M, const F* old, F* out,
+                                             F damp, F omd, F eps, F* rows,
+                                             F* smem)
 {
     constexpr int K = 1 << T;
-    F* ll = smem;                             // [M] the row being built
-    F* acc = ll + M;                          // [M] the next one
-    F* chi2 = acc + M;                        // [K, K] the edge's clamped rows
-    F* part = chi2 + K * K;                   // [warps, K] contraction partials
+    constexpr int JT = K < 16 ? K : 16;       // destination columns per tile
+    constexpr bool kRegW = K <= 16;           // step weights in registers
+    constexpr int SC = kWStage / K;           // DP steps per staged chunk
     const int warps = blockDim.x / 32;
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    int offs[K];
+    F* ll = rows;                             // [M] the row being built
+    F* acc = rows + M;                        // [M] the next one
+    F* chi2 = smem;                           // [K, K] the edge's clamped rows
+    F* part = chi2 + K * K;                   // [warps, K] contraction partials
+    F* wst = part + warps * K;                // [2, kWStage] staged weights
+    int* offs = reinterpret_cast<int*>(wst + 2 * kWStage);  // [K] offsets
+    int roffs[kRegW ? K : 1];
+    if constexpr (kRegW) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) offs[k] = flat_offset(k, d, T);
+        for (int k = 0; k < K; ++k) roffs[k] = flat_offset(k, d, T);
+    } else {
+        for (int k = threadIdx.x; k < K; k += blockDim.x)
+            offs[k] = flat_offset(k, d, T);
+    }
 
     for (int xi = 0; xi < K; ++xi) {
         for (int m = threadIdx.x; m < M; m += blockDim.x)
             ll[m] = m == 0 ? F(1) : F(0);
-        __syncthreads();
         for (int s = 0; s < d; ++s) {
-            F w[K];
+            const F* w;
+            F wr[kRegW ? K : 1];
+            if constexpr (kStage) {
+                const int q = s / SC;         // the chunk of step s
+                F* buf = wst + (q & 1) * kWStage;
+                if (s == q * SC) {
+                    // steps s .. s + SC - 1 (those < d): every load in
+                    // flight at once. The buffer's last readers ran chunk
+                    // q - 2, done by every thread before the barrier of
+                    // step s - 1.
+                    const int n = (d - s < SC ? d - s : SC) * K;
+                    for (int t = threadIdx.x; t < n; t += blockDim.x)
+                        buf[t] = w_of(s + t / K, t % K, xi);
+                }
+                w = buf + (s - q * SC) * K;
+            } else {
+                // step s's weights only: each thread's own copy up to
+                // K = 16, a shared buffer (two, alternating) from K = 32
+                F* buf = wst + (s & 1) * kWStage;
+                if constexpr (kRegW) {
 #pragma unroll
-            for (int k = 0; k < K; ++k) w[k] = w_of(s, k, xi);
+                    for (int k = 0; k < K; ++k) wr[k] = w_of(s, k, xi);
+                } else {
+                    for (int k = threadIdx.x; k < K; k += blockDim.x)
+                        buf[k] = w_of(s, k, xi);
+                }
+                w = buf;
+            }
+            // step s - 1 done by every thread: its row is complete, the row
+            // it read is free, and step s's weights are staged
+            __syncthreads();
+            if constexpr (kRegW && kStage) {
+#pragma unroll
+                for (int k = 0; k < K; ++k) wr[k] = w[k];
+            }
             for (int m = threadIdx.x; m < M; m += blockDim.x) {
                 F sum = F(0);
+                if constexpr (kRegW) {
 #pragma unroll
-                for (int k = 0; k < K; ++k)
-                    if (m >= offs[k]) sum += ll[m - offs[k]] * w[k];
+                    for (int k = 0; k < K; ++k)
+                        if (m >= roffs[k]) sum += ll[m - roffs[k]] * wr[k];
+                } else {
+#pragma unroll
+                    for (int k = 0; k < K; ++k) {
+                        const int o = offs[k];
+                        if (m >= o) sum += ll[m - o] * w[k];
+                    }
+                }
                 acc[m] = sum;
             }
-            __syncthreads();
             F* tmp = ll; ll = acc; acc = tmp;
         }
+        __syncthreads();
         const F* arow = a_g + (long long)xi * K * M;
-        F c[K];
+        for (int j0 = 0; j0 < K; j0 += JT) {
+            F c[JT];
 #pragma unroll
-        for (int j = 0; j < K; ++j) c[j] = F(0);
-        for (int m = threadIdx.x; m < M; m += blockDim.x) {
-            const F l = ll[m];
+            for (int j = 0; j < JT; ++j) c[j] = F(0);
+            for (int m = threadIdx.x; m < M; m += blockDim.x) {
+                const F l = ll[m];
 #pragma unroll
-            for (int j = 0; j < K; ++j) c[j] += __ldg(arow + j * M + m) * l;
-        }
+                for (int j = 0; j < JT; ++j)
+                    c[j] += __ldg(arow + (long long)(j0 + j) * M + m) * l;
+            }
 #pragma unroll
-        for (int j = 0; j < K; ++j) {
+            for (int j = 0; j < JT; ++j) {
 #pragma unroll
-            for (int o = 16; o >= 1; o >>= 1)
-                c[j] += __shfl_xor_sync(0xffffffffu, c[j], o);
-        }
-        if (lane == 0) {
+                for (int o = 16; o >= 1; o >>= 1)
+                    c[j] += __shfl_xor_sync(0xffffffffu, c[j], o);
+            }
+            if (lane == 0) {
 #pragma unroll
-            for (int j = 0; j < K; ++j) part[warp * K + j] = c[j];
+                for (int j = 0; j < JT; ++j) part[warp * K + j0 + j] = c[j];
+            }
         }
         __syncthreads();
-        if (threadIdx.x < K) {
+        for (int j = threadIdx.x; j < K; j += blockDim.x) {
             F sum = F(0);
-            for (int w2 = 0; w2 < warps; ++w2) sum += part[w2 * K + threadIdx.x];
-            chi2[xi * K + threadIdx.x] = fmax_of(sum, eps);
+            for (int w2 = 0; w2 < warps; ++w2) sum += part[w2 * K + j];
+            chi2[xi * K + j] = fmax_of(sum, eps);
         }
     }
     __syncthreads();

@@ -31,6 +31,11 @@
 // 11 GB, 3.3 ms at 3.35 TB/s; the in-edges' rows are random 64-byte reads,
 // two per edge. At config 4 (64 ER(1000, 1.5) instances, 8 classes) a sweep
 // moves ~10 MB: latency, the launch and the 7 grid barriers set the pace.
+// At T = 5 (HPr with p=4, c=1 on RRG d=4, n=1e4: one class, D=3, K=32,
+// M=1024) an edge needs D·K·M·K ≈ 3.1e6 DP FMAs and K·K·M ≈ 1.0e6 for the
+// contraction, ~1.7e11 FMAs per sweep over 4e4 rows: operations bound it
+// (~5 ms at 67 TFLOP/s f32, ~10 ms at 34 TFLOP/s f64), not the 0.3 GB of
+// chi.
 //
 // Design.
 // - One launch per sweep, a grid sized by occupancy (cooperative launch),
@@ -45,11 +50,29 @@
 //   (edge, x_i). The factor is staged once per phase (shared) or whenever
 //   the tile's group changes (per group).
 // - Block path (larger lattices): one edge per block, grid-strided, the
-//   inputs read straight from chi through in_edges into block_edge.
+//   inputs read straight from chi through in_edges into lattice_edge, the
+//   two lattice rows in shared memory.
+// - Global path (lattices whose two rows exceed a block's shared memory:
+//   T = 4 from d = 13 in f32 and d = 10 in f64, T = 5 from d = 7 / 6, T = 6
+//   from d = 5 in f32 and d = 4 in f64): the same lattice_edge with the two
+//   rows in a device workspace of ws_slots × 2M elements that the caller
+//   allocates; the first min(ws_slots, gridDim.x) blocks walk the class's
+//   edges, block b in slot b, the others wait at the next barrier. The K·K
+//   outputs and the partial sums stay in shared memory. A class gives the
+//   same bits on either path.
+// - Horizons T = 1..6 are instantiated (K ≤ 64), the register path only up
+//   to T = 4 (an edge's K lanes within one warp). Each horizon has one
+//   instantiation per set of paths a sweep may need (register; register
+//   and block; all three; at T = 5, 6 block; block and global), and a
+//   sweep runs the smallest that holds its classes: a kernel's registers
+//   are those of its widest phase, so the register path would otherwise
+//   run at the block or global phase's register count (128 against 100 at
+//   T = 2 in f64, ptxas). An uninstantiated T is refused at the C entry.
 // - Bias. Per-row weights bias[r, k] (bias_src null, stride K, col(k) = k)
 //   or the node form: biases[src[r], col(k)] with col(k) = 0 where the
 //   source trajectory starts at +1 (stride 2), so no per-edge bias tensor
-//   exists; the caller packs col(k) into bias_cols.
+//   exists; the caller packs col(k) of the node form into bit k of
+//   bias_cols.
 //   The product (chi · bias) · valid[k] is taken before the DP in the order
 //   and type of the plain version.
 // - Each edge's order of operations depends neither on G nor on the grid,
@@ -59,10 +82,12 @@
 // descriptors (tables, factor, sizes, path) twice, on the host for its
 // checks and in device memory for the kernel, so the class count is bounded
 // only by the int16 class id; and the block size and the dynamic shared
-// bytes from the caller's plan (graphdyn_torch/ops/bdcm_sweep.py). It checks
-// them against the kernel's bounds and returns the cudaError_t of the
-// launch, 0 on success, cudaErrorInvalidValue for a plan outside them. It
-// launches on the given stream and does not synchronise.
+// bytes from the caller's plan (graphdyn_torch/ops/bdcm_sweep.py), and the
+// global path's lattice workspace, which the caller allocates (the kernel
+// allocates nothing). It checks them against the kernel's bounds and
+// returns the cudaError_t of the launch, 0 on success,
+// cudaErrorInvalidValue for a plan outside them or a T with no
+// instantiation. It launches on the given stream and does not synchronise.
 
 #include <climits>
 #include <cstdint>
@@ -89,7 +114,7 @@ struct ClassDesc {
     long long Ed;             // members per group
     long long a_stride;       // elements from one group's factor to the next
     long long d;
-    long long path;           // 0: register, 1: block
+    long long path;           // 0: register, 1: block, 2: global
 };
 static_assert(sizeof(ClassDesc) == 7 * sizeof(long long), "descriptor words");
 
@@ -102,13 +127,15 @@ struct Params {
     const void* bias;              // null: no bias
     const int32_t* bias_src;       // null: one bias row per chi row
     long long bias_stride;
-    unsigned long long bias_cols;  // 4 bits per k: the bias column of x_k
+    unsigned long long bias_cols;  // bit k: the node-bias column of x_k
     int masked;                    // multiply by valid[k]
-    unsigned valid_bits;           // bit k: valid[k]
+    unsigned long long valid_bits; // bit k: valid[k]
     long long G;
     int n_classes;
     double damp, eps;
     const ClassDesc* cls;          // [n_classes], device memory
+    void* ws;                      // global path: [ws_slots, 2M] lattice rows
+    long long ws_slots;
 };
 
 template <typename F> struct Vec16;
@@ -144,7 +171,7 @@ __device__ __forceinline__ F weigh(const Params& p, F x, long long r, int k)
 {
     if (p.bias) {
         const long long br = p.bias_src ? (long long)__ldg(p.bias_src + r) : r;
-        const int col = (int)((p.bias_cols >> (4 * k)) & 15u);
+        const int col = p.bias_src ? (int)((p.bias_cols >> k) & 1u) : k;
         x = x * __ldg(static_cast<const F*>(p.bias) + br * p.bias_stride + col);
     }
     if (p.masked) x = x * F((p.valid_bits >> k) & 1u);
@@ -240,8 +267,8 @@ template <typename F, int T>
 __device__ void reg_dispatch(const Params& p, const ClassDesc& cd, int c,
                              F* smem)
 {
-    // the instantiations are exactly the classes with M ≤ 32 and d ≤ 8,
-    // which the C entry checks
+    // the instantiations are exactly the classes with M ≤ 32, d ≤ 8 and
+    // T ≤ 4, which the C entry checks
     if constexpr (T == 1) {
         switch (cd.d) {
             case 1: reg_phase<F, 1, 1>(p, cd, c, smem); break;
@@ -263,25 +290,34 @@ __device__ void reg_dispatch(const Params& p, const ClassDesc& cd, int c,
     } else if constexpr (T == 3) {
         if (cd.d == 1) reg_phase<F, 1, 3>(p, cd, c, smem);
         else reg_phase<F, 2, 3>(p, cd, c, smem);
-    } else {
+    } else if constexpr (T == 4) {
         reg_phase<F, 1, 4>(p, cd, c, smem);
     }
 }
 
-template <typename F, int T>
-__device__ void block_phase(const Params& p, const ClassDesc& cd, int c,
-                            F* smem)
+// the block path (global = false: the lattice rows in shared memory, one
+// edge per block over the whole grid) or the global path (the rows in slot
+// b of the workspace, one edge per block over the first ws_slots blocks)
+template <typename F, int T, bool global>
+__device__ void lattice_phase(const Params& p, const ClassDesc& cd, int c,
+                              F* smem)
 {
     constexpr int K = 1 << T;
     constexpr int KK = K * K;
     const int d = (int)cd.d;
     int M = 1;
     for (int t = 0; t < T; ++t) M *= d + 1;
+    const long long stride = global && p.ws_slots < gridDim.x
+        ? p.ws_slots : (long long)gridDim.x;
+    if (blockIdx.x >= stride) return;
+    F* rows = global ? static_cast<F*>(p.ws) + (long long)blockIdx.x * 2 * M
+                     : smem;
+    F* edge_smem = global ? smem : smem + 2 * M;
     const F* in = static_cast<const F*>(p.chi_in);
     F* out = static_cast<F*>(p.chi_out);
     const F damp = (F)p.damp, omd = (F)(1.0 - p.damp), eps = (F)p.eps;
     const long long members = p.G * cd.Ed;
-    for (long long m = blockIdx.x; m < members; m += gridDim.x) {
+    for (long long m = blockIdx.x; m < members; m += stride) {
         const long long g = m / cd.Ed;
         const long long row = __ldg(cd.idx + m);
         if (__ldg(p.cid + row) != c) continue;     // padding: the whole block
@@ -292,13 +328,18 @@ __device__ void block_phase(const Params& p, const ClassDesc& cd, int c,
             const long long o = r * KK + k * K + xi;
             return weigh<F>(p, load1<F>((upd ? out : in) + o, upd), r, k);
         };
-        block_edge<F, T>(w_of, static_cast<const F*>(cd.a) + g * cd.a_stride,
-                         d, M, in + row * KK, out + row * KK, damp, omd, eps,
-                         smem);
+        lattice_edge<F, T, !global>(w_of,
+                           static_cast<const F*>(cd.a) + g * cd.a_stride,
+                           d, M, in + row * KK, out + row * KK, damp, omd, eps,
+                           rows, edge_smem);
     }
 }
 
-template <typename F, int T>
+// kPaths: the paths compiled in (bit 0 register, bit 1 block, bit 2
+// global). A sweep runs the smallest instantiation that holds its classes'
+// paths (variant), so a phase never shares its registers with a phase the
+// sweep does not run.
+template <typename F, int T, int kPaths>
 __global__ void __launch_bounds__(kThreads)
 bdcm_sweep_kernel(const __grid_constant__ Params p)
 {
@@ -317,31 +358,66 @@ bdcm_sweep_kernel(const __grid_constant__ Params p)
     for (int c = 0; c < p.n_classes; ++c) {
         if (c > 0) grid.sync();
         const ClassDesc cd = p.cls[c];
-        if (cd.path == 0) reg_dispatch<F, T>(p, cd, c, smem);
-        else block_phase<F, T>(p, cd, c, smem);
+        if constexpr ((kPaths & 1) != 0)
+            if (cd.path == 0) reg_dispatch<F, T>(p, cd, c, smem);
+        if constexpr ((kPaths & 2) != 0)
+            if (cd.path == 1) lattice_phase<F, T, false>(p, cd, c, smem);
+        if constexpr ((kPaths & 4) != 0)
+            if (cd.path == 2) lattice_phase<F, T, true>(p, cd, c, smem);
     }
 }
 
 using KernelFn = void (*)(const Params);
 
-template <typename F>
-KernelFn kernel_for(int T)
+// the instantiation of horizon T for a sweep whose classes take the paths
+// in `need` (bit 0 register, bit 1 block, bit 2 global): up to T = 4 the
+// register path alone, register and block, or all three; at T = 5, 6 (no
+// register path) block, or block and global
+template <typename F, int T>
+KernelFn variant(int need)
 {
-    switch (T) {
-        case 1: return bdcm_sweep_kernel<F, 1>;
-        case 2: return bdcm_sweep_kernel<F, 2>;
-        case 3: return bdcm_sweep_kernel<F, 3>;
-        default: return bdcm_sweep_kernel<F, 4>;
+    if constexpr (T <= kRegMaxT) {
+        if ((need & ~1) == 0) return bdcm_sweep_kernel<F, T, 1>;
+        if ((need & 4) == 0) return bdcm_sweep_kernel<F, T, 3>;
+        return bdcm_sweep_kernel<F, T, 7>;
+    } else {
+        if ((need & 4) == 0) return bdcm_sweep_kernel<F, T, 2>;
+        return bdcm_sweep_kernel<F, T, 6>;
     }
 }
 
+// null for a T that has no instantiation
+template <typename F>
+KernelFn kernel_for(int T, int need)
+{
+    switch (T) {
+        case 1: return variant<F, 1>(need);
+        case 2: return variant<F, 2>(need);
+        case 3: return variant<F, 3>(need);
+        case 4: return variant<F, 4>(need);
+        case 5: return variant<F, 5>(need);
+        case 6: return variant<F, 6>(need);
+        default: return nullptr;
+    }
+}
+
+// M = (d + 1)^T, or -1 past INT_MAX (no such class is admitted)
+long long lattice_size(long long d, int T)
+{
+    long long M = 1;
+    for (int t = 0; t < T; ++t) {
+        M *= d + 1;
+        if (M > INT_MAX) return -1;
+    }
+    return M;
+}
+
 // the shared elements a class needs at this block size
-long long class_smem_elems(int d, int T, int path, int threads)
+long long class_smem_elems(long long M, int d, int T, int path, int threads)
 {
     const int K = 1 << T;
-    long long M = 1;
-    for (int t = 0; t < T && M <= kSmemMax; ++t) M *= d + 1;
     if (path == 1) return block_smem_elems(M, K, threads);
+    if (path == 2) return edge_smem_elems(K, threads);
     return (long long)(threads / K) * stage_stride(d, K) + (long long)K * K * M;
 }
 
@@ -350,22 +426,35 @@ long long class_smem_elems(int d, int T, int path, int threads)
 // cls_host: n_classes × (idx, in_edges, a, Ed, a_stride, d, path), the
 // ClassDesc words, read here for the checks and the grid; cls_dev: the same
 // words in device memory, which the kernel reads. threads and smem are the
-// plan's (graphdyn_torch/ops/bdcm_sweep.py:build_plan); the grid is the
-// co-resident one, capped by the widest phase's work.
+// plan's (graphdyn_torch/ops/bdcm_sweep.py:build_plan); ws: ws_slots × 2M
+// elements of the widest global-path class (null when no class takes that
+// path). The grid is the co-resident one, capped by the widest phase's
+// work. T outside the instantiated 1..6 is refused.
 extern "C" int graphdyn_bdcm_sweep(
     const void* chi_in, void* chi_out, const void* cid, const void* pass_rows,
     long long n_pass, const void* bias, const void* bias_src,
     long long bias_stride, unsigned long long bias_cols, int masked,
-    unsigned valid_bits, long long G, int T, int is_double, int n_classes,
-    const long long* cls_host, const void* cls_dev, double damp,
-    double eps, int threads, int smem, void* stream)
+    unsigned long long valid_bits, long long G, int T, int is_double,
+    int n_classes, const long long* cls_host, const void* cls_dev,
+    double damp, double eps, int threads, int smem, void* ws,
+    long long ws_slots, void* stream)
 {
     if (!chi_in || !chi_out || !cid || (n_pass > 0 && !pass_rows) || n_pass < 0
-        || G < 1 || T < 1 || T > 4 || n_classes < 0 || n_classes > kMaxClasses
-        || (n_classes > 0 && (!cls_host || !cls_dev))
+        || G < 1 || T < 1 || T > kMaxT || n_classes < 0
+        || n_classes > kMaxClasses || (n_classes > 0 && (!cls_host || !cls_dev))
         || threads < 32 || threads > kThreads || threads % 32 != 0 || smem < 0
-        || smem > kSmemMax || (bias && bias_stride < 1))
+        || smem > kSmemMax || (bias && bias_stride < 1) || ws_slots < 0)
         return (int)cudaErrorInvalidValue;
+    int need = 0;                  // the classes' paths, one bit each
+    for (int c = 0; c < n_classes; ++c) {
+        const long long path =
+            reinterpret_cast<const ClassDesc*>(cls_host)[c].path;
+        if (path < 0 || path > 2) return (int)cudaErrorInvalidValue;
+        need |= 1 << path;
+    }
+    const KernelFn fn = is_double ? kernel_for<double>(T, need)
+                                  : kernel_for<float>(T, need);
+    if (!fn) return (int)cudaErrorInvalidValue;
     const int K = 1 << T;
     const long long esize = is_double ? 8 : 4;
     Params p;
@@ -385,26 +474,32 @@ extern "C" int graphdyn_bdcm_sweep(
     p.damp = damp;
     p.eps = eps;
     p.cls = static_cast<const ClassDesc*>(cls_dev);
+    p.ws = ws;
+    p.ws_slots = ws_slots;
     // no more blocks than the widest phase has work for
     long long want = (n_pass * K * K + threads - 1) / threads;
     for (int c = 0; c < n_classes; ++c) {
         const ClassDesc& cd =
             reinterpret_cast<const ClassDesc*>(cls_host)[c];
-        if (cd.Ed < 0 || cd.d < 1 || cd.d > 65535 || cd.a_stride < 0
+        const long long M = cd.d >= 1 ? lattice_size(cd.d, T) : -1;
+        if (cd.Ed < 0 || M < 1 || cd.a_stride < 0
             || (cd.Ed > 0 && (!cd.idx || !cd.in_edges || !cd.a))
-            || (cd.path != 0 && cd.path != 1)
-            || class_smem_elems((int)cd.d, T, (int)cd.path, threads) * esize
+            || cd.path < 0 || cd.path > 2
+            || class_smem_elems(M, (int)cd.d, T, (int)cd.path, threads) * esize
                    > smem)
             return (int)cudaErrorInvalidValue;
-        long long M = 1;
-        for (int t = 0; t < T; ++t) M *= cd.d + 1;
-        if (cd.path == 0 && (M > kRegMaxM || cd.d > kRegMaxD))
+        if (cd.path == 0
+            && (M > kRegMaxM || cd.d > kRegMaxD || T > kRegMaxT))
             return (int)cudaErrorInvalidValue;
+        if (cd.path == 2 && (!ws || ws_slots < 1))
+            return (int)cudaErrorInvalidValue;
+        const long long members = G * cd.Ed;
         const long long items = cd.path == 0
-            ? G * ((cd.Ed + threads / K - 1) / (threads / K)) : G * cd.Ed;
+            ? G * ((cd.Ed + threads / K - 1) / (threads / K))
+            : cd.path == 1 ? members
+            : (members < ws_slots ? members : ws_slots);
         if (items > want) want = items;
     }
-    const KernelFn fn = is_double ? kernel_for<double>(T) : kernel_for<float>(T);
     cudaError_t err;
     if (smem > kSmemDefault) {
         err = cudaFuncSetAttribute((const void*)fn,

@@ -29,12 +29,15 @@ plain half of ``graphdyn/ops/pallas_bdcm.py``.
 Kernel selection (``kernel=``): ``'auto'`` takes the CUDA kernels for CUDA
 tensors and the plain versions for CPU tensors; ``'cuda'`` requires the
 kernel (CPU tensors raise); ``'plain'`` runs the plain version anywhere (a
-test mode). On CUDA tensors a class the kernel's admission gate
-(:func:`graphdyn_torch.ops.bdcm_cuda.bdcm_kernel_supported`, every class
-with T ≤ 4 up to high degrees) refuses raises under ``'auto'`` as under
-``'cuda'``, and a failed build or launch raises: the JAX package's runtime
-fallback (``pallas_fallback_spec``/``resilient_exec``) and its XLA
-placement of classes outside the Pallas regime have no counterpart.
+test mode). On CUDA tensors every class with 1 ≤ T ≤ 6 runs on a kernel
+path at any degree (register, block, or the global-lattice path for
+lattices beyond a block's shared memory), where the JAX package places the
+classes outside its Pallas regime (T ≤ 4, d ≤ 8) on XLA; a class the
+kernel's admission gate (:func:`graphdyn_torch.ops.bdcm_cuda.
+bdcm_kernel_supported`) refuses — T ≥ 7, or a factor too large for the
+card — raises under ``'auto'`` as under ``'cuda'``, and a failed build or
+launch raises: the JAX package's runtime fallback
+(``pallas_fallback_spec``/``resilient_exec``) has no counterpart.
 
 The entropy half: the closed-form leaf messages (:func:`make_leaf_setter`),
 the edge and node partition functions, the free entropy φ and the m_init

@@ -23,11 +23,16 @@ row.
 int32 copies of the class tables, the int16 class id of every row, the rows
 in no class, the int32 source-node table of a node-level bias, and the
 launch shape (the block size and the largest dynamic shared memory over the
-classes). The kernel reads the classes' descriptors (tables, factor, sizes,
-path) from device memory, which :func:`sweep_cuda` fills once per set of
-factors and keeps with the plan, so the class count is bounded only by the
-int16 class id. A class the kernel refuses raises: there is no fallback to
-the per-class route or the plain version on a CUDA tensor.
+classes) and the global path's lattice bytes per workspace slot; the
+workspace itself is the per-device, per-stream buffer of
+:func:`graphdyn_torch.ops.bdcm_cuda.workspace`, which :func:`sweep_cuda`
+takes at each launch.
+Horizons 1 ≤ T ≤ 6 run at any degree, register, block and global classes
+in one launch. The kernel reads the classes' descriptors (tables, factor,
+sizes, path) from device memory, which :func:`sweep_cuda` fills once per
+set of factors and keeps with the plan, so the class count is bounded only
+by the int16 class id. A class the kernel refuses raises: there is no
+fallback to the per-class route or the plain version on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -76,9 +81,9 @@ class SweepPlan(NamedTuple):
     dtype: torch.dtype
     masked: bool              # multiply the inputs by valid[k]
     valid_bits: int           # bit k: valid[k] != 0
-    bias_cols: int            # 4 bits per k: the node-bias column of x_k
+    bias_cols: int            # bit k: the node-bias column of x_k
     class_ds: tuple
-    paths: tuple              # per class 'register' | 'block'
+    paths: tuple              # per class 'register' | 'block' | 'global'
     Ed: tuple                 # members per group, per class
     idx: tuple                # per class int32 [G·Ed] output rows
     in_edges: tuple           # per class int32 [G·Ed, d] input rows
@@ -87,6 +92,8 @@ class SweepPlan(NamedTuple):
     src: torch.Tensor | None  # int32 [G·rows] source node of each row
     threads: int
     smem: int
+    ws_bytes: int             # the global path's lattice bytes per slot
+    ws_members: int           # the most members of one global-path class
     descs: dict               # the class descriptors in device memory, by
     #                           their host words (sweep_cuda fills it)
 
@@ -108,11 +115,13 @@ def _library():
                 [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
                                            ctypes.c_ulonglong, ctypes.c_int,
-                                           ctypes.c_uint, ctypes.c_longlong]
+                                           ctypes.c_ulonglong,
+                                           ctypes.c_longlong]
                 + [ctypes.c_int] * 3
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
                 + [ctypes.c_double, ctypes.c_double, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p]
             )
             _lib = lib
         return _lib
@@ -127,21 +136,24 @@ def stage_stride(d: int, K: int) -> int:
 def class_smem(d: int, T: int, path: str, threads: int, dtype) -> int:
     """Dynamic shared bytes a class needs at ``threads`` per block: the
     register path stages a tile's inputs and the factor, the block path
-    its lattice rows (:func:`bdcm_cuda.launch_plan`'s count)."""
+    its lattice rows and the edge's shared elements, the global path the
+    latter only (:func:`bdcm_cuda.launch_plan`'s count)."""
     esize = 8 if dtype == torch.float64 else 4
     K, M = 2**T, (d + 1) ** T
     if path == "register":
         return (threads // K * stage_stride(d, K) + K * K * M) * esize
-    return (2 * M + K * K + threads // 32 * K) * esize
+    edge = bdcm_cuda.edge_smem_elems(K, threads)
+    return (edge if path == "global" else 2 * M + edge) * esize
 
 
 def launch_shape(class_ds, T: int, dtype) -> tuple[tuple, int, int]:
     """``(paths, threads, smem)`` of a sweep over classes ``class_ds``: each
-    class's path from :func:`bdcm_cuda.launch_plan`, one block size for the
-    whole launch (the largest the classes ask for), and the largest shared
-    memory over the classes at that size. Raises for a class the kernel
-    refuses, more than :data:`MAX_CLASSES` classes, or a class whose shared
-    memory at that block size exceeds a block's."""
+    class's path from :func:`bdcm_cuda.launch_plan` (register, block and
+    global classes mix in one launch), one block size for the whole launch
+    (the largest the classes ask for), and the largest shared memory over
+    the classes at that size. Raises for a class the kernel refuses, more
+    than :data:`MAX_CLASSES` classes, or a class whose shared memory at
+    that block size exceeds a block's."""
     if len(class_ds) > MAX_CLASSES:
         raise ValueError(f"the BDCM sweep kernel takes at most {MAX_CLASSES} "
                          f"edge classes, got {len(class_ds)}")
@@ -204,14 +216,18 @@ def build_plan(tables, *, G: int, rows: int, T: int, dtype, padded: bool,
         raise ValueError("a row belongs to two edge classes")
     pass_rows = torch.nonzero(cid == NO_CLASS).reshape(-1).to(torch.int32)
     sel_plus = x0_pm(T) == 1
+    glob = [(bdcm_cuda.launch_plan(d, T, dtype)["workspace"], G * E)
+            for d, pth, E in zip(class_ds, paths, Eds) if pth == "global"]
     return SweepPlan(
         G=G, rows=rows, T=T, dtype=dtype, masked=bool(masked),
         valid_bits=_bits(torch.as_tensor(valid).cpu().numpy() != 0),
-        bias_cols=sum((0 if sel_plus[k] else 1) << (4 * k) for k in range(K)),
+        bias_cols=sum((0 if sel_plus[k] else 1) << k for k in range(K)),
         class_ds=class_ds, paths=paths, Ed=tuple(Eds), idx=tuple(idx32),
         in_edges=tuple(ie32), cid=cid, pass_rows=pass_rows.contiguous(),
         src=None if src is None else src.to(torch.int32).contiguous(),
-        threads=threads, smem=smem, descs={})
+        threads=threads, smem=smem,
+        ws_bytes=max([w for w, _ in glob], default=0),
+        ws_members=max([e for _, e in glob], default=0), descs={})
 
 
 def _check(chi, a_tilted, bias, plan: SweepPlan):
@@ -253,10 +269,10 @@ def _check(chi, a_tilted, bias, plan: SweepPlan):
 def bias_args(bias, plan: SweepPlan):
     """The kernel's bias read ``(values, src, stride, cols)``: per-row
     weights ``[G, rows, K]`` are read at row r, column k (no source table,
-    stride K, the identity columns); a :class:`NodeBias` at the source node
-    ``src[r]``, column 0 where x_k(0) = +1 else 1 (stride 2). ``cols`` packs
-    the column of trajectory k into bits 4k..4k+3; ``(None, None, 0, 0)``
-    without a bias."""
+    stride K, the identity columns; ``cols`` 0); a :class:`NodeBias` at the
+    source node ``src[r]``, column 0 where x_k(0) = +1 else 1 (stride 2),
+    ``cols`` bit k holding the column of trajectory k; ``(None, None, 0,
+    0)`` without a bias."""
     K = 2**plan.T
     if bias is None:
         return None, None, 0, 0
@@ -271,7 +287,7 @@ def bias_args(bias, plan: SweepPlan):
     if tuple(bias.shape) != (plan.G, plan.rows, K):
         raise ValueError(f"bdcm sweep: bias shape {tuple(bias.shape)} != "
                          f"{(plan.G, plan.rows, K)}")
-    return bias, None, K, sum(k << (4 * k) for k in range(K))
+    return bias, None, K, 0
 
 
 def class_descriptors(a_tilted, plan: SweepPlan) -> np.ndarray:
@@ -320,6 +336,8 @@ def sweep_cuda(chi: torch.Tensor, a_tilted, bias, plan: SweepPlan, *,
     descs = _device_descriptors(host, plan, chi.device)
     fn = _library().graphdyn_bdcm_sweep
     with torch.cuda.device(chi.device):
+        ws, slots = bdcm_cuda.workspace(chi.device, plan.ws_bytes,
+                                        plan.ws_members)
         rc = fn(chi.data_ptr(), out.data_ptr(), plan.cid.data_ptr(),
                 plan.pass_rows.data_ptr() if plan.pass_rows.numel() else None,
                 plan.pass_rows.numel(),
@@ -330,6 +348,7 @@ def sweep_cuda(chi: torch.Tensor, a_tilted, bias, plan: SweepPlan, *,
                 host.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
                 descs.data_ptr() if n else None,
                 float(damp), float(eps_clamp), plan.threads, plan.smem,
+                None if ws is None else ws.data_ptr(), slots,
                 torch.cuda.current_stream(chi.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bdcm sweep: kernel launch failed, cudaError {rc}")
@@ -361,8 +380,8 @@ def sweep_plain(chi: torch.Tensor, a_tilted, bias, plan: SweepPlan, *,
         w = None
     elif isinstance(bias, NodeBias):
         s = plan.src.to(dev).long()
-        cols = torch.tensor([(plan.bias_cols >> (4 * k)) & 15
-                             for k in range(K)], device=dev)
+        cols = torch.tensor([(plan.bias_cols >> k) & 1 for k in range(K)],
+                            device=dev)
         w = bias.values[s][:, cols]                          # [G·rows, K]
     else:
         w = bias.reshape(G * rows, K)

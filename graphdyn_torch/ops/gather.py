@@ -30,7 +30,8 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor, *, kernel: str = "auto",
     """``out[i] = src[idx[i]]`` for ``src`` int32 ``[n_src, W]`` and ``idx``
     int32 ``[n_idx]``. Indices must lie in ``[0, n_src)`` (the kernel does
     not check them). ``depth``: rows in flight per thread of the kernel
-    (``gather_cuda.DEPTHS``, default ``gather_cuda.DEFAULT_DEPTH``)."""
+    (``gather_cuda.DEPTHS``; None takes ``gather_cuda.launch_plan``'s for
+    the row width)."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     if kernel == "plain" or (kernel == "auto" and src.device.type == "cpu"):
@@ -41,4 +42,4 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor, *, kernel: str = "auto",
     from graphdyn_torch.ops import gather_cuda
 
     return gather_cuda.row_gather_cuda(
-        src, idx, depth=gather_cuda.DEFAULT_DEPTH if depth is None else depth)
+        src, idx, depth=depth)

@@ -88,7 +88,7 @@ def cuda_ms(fn, reps: int, lead_ms: float = 20.0) -> float:
     return start.elapsed_time(end) / reps
 
 
-def measure(src: torch.Tensor, idx: torch.Tensor, *, depth: int,
+def measure(src: torch.Tensor, idx: torch.Tensor, *, depth: int | None,
             iters: int = ITERS) -> list[dict]:
     """Time ``index_select`` and the kernel on the same CUDA inputs; one
     dict per implementation (see the module docstring)."""
@@ -98,6 +98,9 @@ def measure(src: torch.Tensor, idx: torch.Tensor, *, depth: int,
     match = bool(torch.equal(got, want))
     del got
     bound = gather_bound(n_idx, W, int(torch.unique(idx).numel()))
+    from graphdyn_torch.ops import gather_cuda
+
+    plan_depth = gather_cuda.launch_plan(W, True)["depth"]
     rows = []
     for impl, fn in (
         ("torch_index_select", lambda: src.index_select(0, idx)),
@@ -109,7 +112,8 @@ def measure(src: torch.Tensor, idx: torch.Tensor, *, depth: int,
         ms = cuda_ms(fn, iters)
         rows.append({
             "impl": impl, "W": W, "n_src": src.shape[0], "n_idx": n_idx,
-            **({"depth": depth} if impl == "cuda_row_gather" else {}),
+            **({"depth": depth or plan_depth} if impl == "cuda_row_gather"
+               else {}),
             "ms": ms, "rows_per_s": n_idx / (ms * 1e-3),
             "GBps": n_idx * W * 4 / (ms * 1e-3) / 1e9,
             "n_distinct": bound["n_distinct"], "bound_ms": bound["bound_ms"],
@@ -138,7 +142,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n-src", type=int, default=1_000_000)
     ap.add_argument("--n-idx", type=int, default=3 * 1_000_000)
     ap.add_argument("--widths", type=int, nargs="+", default=[128, 512, 1024])
-    ap.add_argument("--depth", type=int, default=8)
+    ap.add_argument("--depth", type=int, default=None,
+                    help="rows in flight per thread (default: the kernel's "
+                         "plan for the row width)")
     ap.add_argument("--check", action="store_true",
                     help="small-shape correctness check (the plain version "
                          "on the CPU)")

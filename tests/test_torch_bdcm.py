@@ -62,6 +62,10 @@ def _pair(make):
 GRAPHS = {
     "rrg": lambda m: m.random_regular_graph(40, 4, seed=3),
     "er": lambda m: m.erdos_renyi_graph(60, 3.0 / 60, seed=1),  # ragged, leaves
+    # small graphs for the larger lattices: T = 5 on d = 3 (RRG(10, 4)),
+    # T = 6 on d = 2 (RRG(10, 3)), T = 4 on a hub of degree 14
+    "rrg10_4": lambda m: m.random_regular_graph(10, 4, seed=2),
+    "rrg10_3": lambda m: m.random_regular_graph(10, 3, seed=2),
 }
 
 
@@ -133,25 +137,43 @@ def _class_inputs(d, T, G, Ed, dt, seed=7):
     return chi_in, A, chi_old, tilts
 
 
-@pytest.mark.parametrize("d,T", [(1, 2), (3, 2), (2, 3)])
-def test_neighbor_dp_and_class_update_match_jax(d, T, x64):
+# (d, T, Ed, dtypes): the register and block lattices at 37 edges; T = 5 and
+# 6 (K = 32, 64) and the lattices past a block's shared memory at T = 4 (the
+# card's global path: d = 13 in float32, d = 10 in float64) on one to three
+# edges, so the [Ed, K, M] lattices and the [K, K, M] factor stay small here.
+# The JAX side runs jitted: its eager roll DP compiles each of the d·K
+# shifts apart (13 s at T = 6 on one x86 CPU core).
+BOTH = ("float32", "float64")
+
+
+@pytest.mark.parametrize("d,T,Ed,dts", [
+    (1, 2, 37, BOTH), (3, 2, 37, BOTH), (2, 3, 37, BOTH), (3, 5, 3, BOTH),
+    (2, 6, 2, BOTH), (13, 4, 1, ("float32",)), (10, 4, 1, ("float64",))])
+def test_neighbor_dp_and_class_update_match_jax(d, T, Ed, dts, x64):
     K = 2**T
-    for dt in ("float32", "float64"):
-        chi_in, A, chi_old, tilts = _class_inputs(d, T, 1, 37, dt)
-        LL_j = jb._neighbor_dp(jnp.asarray(chi_in[0]), d, T, K)
+    ref = jax.jit(lambda ci, A, tl, co, eps: (
+        jb._neighbor_dp(ci, d, T, K),
+        jb.class_update(ci, A, tl, co, d=d, T=T, K=K, damp=0.3,
+                        eps_clamp=eps)))
+    for dt in dts:
+        chi_in, A, chi_old, tilts = _class_inputs(d, T, 1, Ed, dt)
         LL_t = tb._neighbor_dp(torch.from_numpy(chi_in[0]), d, T, K)
-        _close(LL_t.numpy(), LL_j, dt)
         for eps in (0.0, 1e-12):
-            want = jb.class_update(
+            LL_j, want = ref(
                 jnp.asarray(chi_in[0]), jnp.asarray(A), jnp.asarray(tilts[0]),
-                jnp.asarray(chi_old[0]), d=d, T=T, K=K, damp=0.3,
-                eps_clamp=eps)
+                jnp.asarray(chi_old[0]), jnp.asarray(eps, jnp.dtype(dt)))
+            _close(LL_t.numpy(), LL_j, dt)
             got = tb.class_update(
                 torch.from_numpy(chi_in[0]), torch.from_numpy(A),
                 torch.from_numpy(tilts[0]), torch.from_numpy(chi_old[0]),
                 d=d, T=T, K=K, damp=0.3, eps_clamp=eps)
             assert got.dtype == TDT[dt]
             _close(got.numpy(), want, dt)
+            plain = tb.dp_contract_grouped(
+                torch.from_numpy(chi_in), torch.from_numpy(
+                    A * tilts[0][:, None, None]), torch.from_numpy(chi_old),
+                d=d, T=T, damp=0.3, eps_clamp=eps, kernel="plain")
+            _close(plain[0].numpy(), want, dt)
 
 
 # The Pallas kernel's interpret mode compiles its fully unrolled body, which
@@ -239,22 +261,28 @@ def test_plain_contract_rows_independent_of_group_and_chunk(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("gname,bucket,variant", [
-    ("rrg", None, "hpr"), ("er", 16, "hpr"),
-    ("rrg", 16, "entropy"), ("er", None, "entropy"),
+@pytest.mark.parametrize("gname,bucket,variant,p,c,dts", [
+    ("rrg", None, "hpr", 1, 1, BOTH), ("er", 16, "hpr", 1, 1, BOTH),
+    ("rrg", 16, "entropy", 1, 1, BOTH), ("er", None, "entropy", 1, 1, BOTH),
+    ("rrg10_4", None, "hpr", 4, 1, BOTH),
+    # the JAX XLA sweep at T = 6 compiles for ~20 s per dtype on a CPU
+    ("rrg10_3", None, "entropy", 5, 1, ("float64",)),
 ])
-def test_make_sweep_and_marginals_match_xla(gname, bucket, variant, x64):
+def test_make_sweep_and_marginals_match_xla(gname, bucket, variant, p, c, dts,
+                                            x64):
     """One sweep through ``make_sweep`` against the JAX package's XLA sweep
     (``use_pallas=False``): the HPr variant (bias-weighted, invalid sources
     kept, eps 0) and the entropy variant (invalid sources masked, eps
-    1e-12), with and without padded classes; then the marginals."""
+    1e-12), with and without padded classes; then the marginals. At T = 2,
+    T = 5 (one class, d = 3) and T = 6 (one class, d = 2)."""
     g_j, g_t = _pair(GRAPHS[gname])
     hpr = variant == "hpr"
     kw = dict(damp=0.4, eps_clamp=0.0 if hpr else 1e-12,
               mask_invalid_src=not hpr, with_bias=hpr)
-    for dt in ("float32", "float64"):
-        dj = jb.BDCMData(g_j, class_bucket=bucket, dtype=jnp.dtype(dt))
-        dtp = tb.BDCMData(g_t, class_bucket=bucket, dtype=dt)
+    for dt in dts:
+        dj = jb.BDCMData(g_j, class_bucket=bucket, dtype=jnp.dtype(dt), p=p,
+                         c=c)
+        dtp = tb.BDCMData(g_t, class_bucket=bucket, dtype=dt, p=p, c=c)
         chi = dtp.init_messages(3)
         lmbd = 25.0 if hpr else 0.7
         args_j = [jnp.asarray(chi.numpy()), jnp.asarray(lmbd, jnp.dtype(dt))]

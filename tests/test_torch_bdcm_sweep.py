@@ -17,6 +17,8 @@ The CUDA kernel itself runs only on a GPU; ``chip_smoke.py`` holds it
 against ``sweep_plain`` and the plain ``_sweep_core`` there.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -202,7 +204,7 @@ def test_sweep_plan_tables_order_paths_and_memory():
             while stride % 32 != K % 32:
                 stride += 1
             return (256 // K * stride + K * K * M) * 4
-        return (2 * M + K * K + 8 * K) * 4
+        return (2 * M + K * K + 8 * K + 3 * K) * 4
 
     assert plan.smem == max(smem(d, p) for d, p in zip(plan.class_ds,
                                                        plan.paths))
@@ -223,12 +225,18 @@ def test_sweep_plan_tables_order_paths_and_memory():
 
 
 def test_sweep_plan_refusals():
-    """A class the kernel refuses, too many classes, a row in two classes
-    and an id outside the rows raise; there is no fallback."""
-    with pytest.raises(ValueError, match="refuses"):
-        bs.launch_shape((3,), 5, torch.float32)
-    with pytest.raises(ValueError, match="refuses"):
-        bs.launch_shape((500,), 2, torch.float64)
+    """A class the kernel refuses (T = 7; a factor the card cannot hold),
+    too many classes, a row in two classes and an id outside the rows
+    raise; there is no fallback. The two shapes refused before the
+    global-lattice path, (d=3, T=5) in f32 and (d=500, T=2) in f64, are
+    admitted: the first on the block path, the second on the global
+    path."""
+    with pytest.raises(ValueError, match="refuses.*T <= 6"):
+        bs.launch_shape((3,), 7, torch.float32)
+    with pytest.raises(ValueError, match="refuses.*cannot be allocated"):
+        bs.launch_shape((2, 20), 6, torch.float32)
+    assert bs.launch_shape((3,), 5, torch.float32)[0] == ("block",)
+    assert bs.launch_shape((500,), 2, torch.float64)[0] == ("global",)
     with pytest.raises(ValueError, match="at most"):
         bs.launch_shape((1,) * (bs.MAX_CLASSES + 1), 1, torch.float32)
     idx = torch.tensor([[0, 1]])
@@ -244,7 +252,7 @@ def test_sweep_plan_refusals():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("T", [1, 2, 3, 4])
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 5, 6])
 def test_sweep_limit_is_the_class_count_only(T, dtype):
     """What the one-launch sweep refuses beyond the per-class kernel's gate:
     more than ``MAX_CLASSES`` edge classes, and nothing else. Every class
@@ -254,7 +262,9 @@ def test_sweep_limit_is_the_class_count_only(T, dtype):
     several hundred classes run, 32768 raise."""
     admitted = [d for d in range(1, 400)
                 if bdcm_cuda.bdcm_kernel_supported(d, T, dtype)]
-    assert admitted
+    # every degree up to the first whose factor the card cannot hold
+    assert admitted == list(range(1, len(admitted) + 1))
+    assert len(admitted) >= (10 if T == 6 else 20)
     for d in admitted:
         paths, threads, smem = bs.launch_shape((1, d), T, dtype)
         assert smem <= bdcm_cuda.SMEM_MAX and threads <= bdcm_cuda.THREADS
@@ -323,10 +333,13 @@ def test_sweep_cuda_refuses_cpu_tensors():
 
 
 def test_sweep_bias_forms_read_the_same_weights():
-    """The kernel's two bias reads: per-row weights at column k, node biases
-    at column 0 where x_k(0) = +1 (else 1) through the source table. The
-    columns the wrapper passes for each, and the twin on the two forms of
-    the same weights, bit for bit."""
+    """The kernel's two bias reads: per-row weights at column k (no source
+    table, so the kernel reads the identity column and the wrapper passes
+    no column bits), node biases at column 0 where x_k(0) = +1 (else 1)
+    through the source table, bit k of the columns the wrapper passes (one
+    bit per trajectory, so K = 64 fits). The columns the wrapper passes for
+    each, and the twin on the two forms of the same weights, bit for
+    bit."""
     g_j = jg.random_regular_graph(30, 3, seed=4)
     dtp = tb.BDCMData(_port(g_j))
     sweep = tb.make_sweep(dtp, damp=0.4, mask_invalid_src=False,
@@ -342,12 +355,134 @@ def test_sweep_bias_forms_read_the_same_weights():
     _, s_row, stride_row, cols_row = bs.bias_args(per_row, plan)
     assert (stride_node, stride_row) == (2, K) and s_row is None
     assert torch.equal(s_node.long(), src)
-    assert [(cols_row >> (4 * k)) & 15 for k in range(K)] == list(range(K))
-    assert [(cols_node >> (4 * k)) & 15 for k in range(K)] == \
+    assert cols_row == 0
+    assert [(cols_node >> k) & 1 for k in range(K)] == \
         [0 if x == 1 else 1 for x in dtp.x0]
+    assert cols_node < 2**K
     _, As, _ = sweep.args
     a_t = tb.tilted_factors(As, torch.as_tensor(dtp.x0, dtype=dtp.dtype), 3.0)
     chi = dtp.init_messages(1)[None]
     kw = dict(damp=0.4, eps_clamp=0.0)
     assert torch.equal(bs.sweep_plain(chi, a_t, bs.NodeBias(biases), plan, **kw),
                        bs.sweep_plain(chi, a_t, per_row, plan, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_launch_plan_global_exactly_past_the_block_path(dtype):
+    """``launch_plan`` takes the global-lattice path exactly where the block
+    path's two lattice rows and the edge's shared elements no longer fit a
+    block's shared memory (and the class is neither a register class nor
+    refused), with 2M elements of workspace per resident block; the other
+    paths need no workspace."""
+    esize = 8 if dtype == torch.float64 else 4
+    seen = set()
+    for T in range(1, 7):
+        for d in range(1, 60):
+            plan = bdcm_cuda.launch_plan(d, T, dtype)
+            K, M = 2**T, (d + 1) ** T
+            seen.add(plan["path"])
+            if plan["path"] == "register":
+                assert T <= 4 and M <= 32 and d <= 8
+                continue
+            threads = min(256, -(-M // 32) * 32)
+            block = (2 * M + K * K + threads // 32 * K + 2 * 256 + K) * esize
+            assert plan["factor"] == K * K * M * esize
+            if block <= bdcm_cuda.SMEM_MAX:
+                assert plan == {"path": "block", "threads": threads,
+                                "smem": block, "workspace": 0,
+                                "factor": K * K * M * esize}
+            elif plan["path"] == "global":
+                assert plan["threads"] == 256
+                assert plan["smem"] == (K * K + 8 * K + 2 * 256 + K) * esize
+                assert plan["workspace"] == 2 * M * esize
+                assert plan["factor"] + plan["workspace"] <= \
+                    bdcm_cuda.DEVICE_BYTES
+            else:
+                assert plan["path"] == "refused"
+                assert plan["factor"] + 2 * M * esize > bdcm_cuda.DEVICE_BYTES
+    assert seen == {"register", "block", "global", "refused"}
+    # the first global classes at T = 4 (ROADMAP C2's table)
+    first = 13 if dtype == torch.float32 else 10
+    assert bdcm_cuda.launch_plan(first - 1, 4, dtype)["path"] == "block"
+    assert bdcm_cuda.launch_plan(first, 4, dtype)["path"] == "global"
+
+
+def test_launch_shape_mixes_the_three_paths_and_the_workspace():
+    """One sweep mixes register, block and global classes in one launch
+    (one block size, the largest shared memory over the classes); the
+    workspace per slot is the widest global class's 2M elements: at d = 18,
+    T = 4, float32, M = 19^4 = 130,321, 1,042,568 bytes; the slots are
+    min(members, 2 per SM, budget / slot), at least 1."""
+    f32 = torch.float32
+    paths, threads, smem = bs.launch_shape((1, 5, 13, 18), 4, f32)
+    assert paths == ("register", "block", "global", "global")
+    assert threads == 256
+    assert smem == max(bs.class_smem(d, 4, p, 256, f32)
+                       for d, p in zip((1, 5, 13, 18), paths))
+    assert bs.class_smem(18, 4, "global", 256, f32) == \
+        (256 + 128 + 2 * 256 + 16) * 4
+    assert bdcm_cuda.launch_plan(18, 4, f32)["workspace"] == 2 * 19**4 * 4 \
+        == 1_042_568
+    ws = bdcm_cuda.launch_plan(18, 4, f32)["workspace"]
+    assert bdcm_cuda.workspace_slots(ws, 10_000, 132) == 264
+    assert bdcm_cuda.workspace_slots(ws, 18, 132) == 18
+    assert bdcm_cuda.workspace_slots(0, 18, 132) == 0
+    assert bdcm_cuda.workspace_slots(bdcm_cuda.WS_BUDGET * 3, 5, 132) == 1
+    # a sweep's plan: a hub of degree 19 beside degree-2 and degree-6 nodes
+    edges = [(0, k) for k in range(1, 20)] + [(k, k + 1) for k in range(1, 19)]
+    edges += [(20, k) for k in (1, 3, 5, 7, 9, 11)]
+    g = graph_from_edges(21, np.array(edges))
+    dtp = tb.BDCMData(g, p=3, c=1)
+    sweep = tb.make_sweep(dtp, damp=0.1, device="cpu")
+    plan = _plan_of(sweep, 1, dtp.num_directed, dtp)
+    assert "global" in plan.paths and "block" in plan.paths
+    d_hub = max(plan.class_ds)
+    assert d_hub == 18
+    assert plan.ws_bytes == 2 * 19**4 * 4
+    assert plan.ws_members == 19             # the hub's out-edges
+
+
+def test_refusals_above_T6_and_in_the_c_entries():
+    """T = 7 is refused by the gate with its reason (the per-class wrapper's
+    check raises before any launch), and both C entries refuse a T they
+    have no instantiation for instead of running another T's: the sweep
+    kernel's ``kernel_for`` returns null past T = 6 and the entry checks
+    ``T > kMaxT``; the per-class kernel's ``dispatch`` returns
+    cudaErrorInvalidValue for any other T."""
+    for dt in (torch.float32, torch.float64):
+        assert bdcm_cuda.launch_plan(1, 7, dt)["path"] == "refused"
+        assert "T <= 6" in bdcm_cuda.refusal_reason(1, 7, dt)
+        with pytest.raises(ValueError, match="refuses"):
+            tb.class_mode(1, 7, dt, "auto", "cuda")
+    csrc = os.path.join(os.path.dirname(bs.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "bdcm_sweep.cu")) as f:
+        sweep = f.read()
+    with open(os.path.join(csrc, "bdcm_contract.cu")) as f:
+        contract = f.read()
+    with open(os.path.join(csrc, "bdcm_dp.cuh")) as f:
+        dp = f.read()
+    assert "constexpr int kMaxT = 6;" in dp
+    body = sweep[sweep.index("KernelFn kernel_for(int T, int need)"):]
+    body = body[:body.index("\n}\n")]
+    assert [f"case {t}: return variant<F, {t}>(need);" in body
+            for t in range(1, 8)] == [True] * 6 + [False]
+    # each path is compiled only into the instantiations whose set holds
+    # it, and a sweep runs the smallest set that holds its classes' paths
+    var = sweep[sweep.index("KernelFn variant(int need)"):]
+    var = var[:var.index("\n}\n")]
+    assert [f"return bdcm_sweep_kernel<F, T, {m}>;" in var
+            for m in range(1, 8)] == [True, True, True, False, False, True,
+                                      True]
+    for bit, phase in ((1, "reg_dispatch<F, T>"),
+                       (2, "lattice_phase<F, T, false>"),
+                       (4, "lattice_phase<F, T, true>")):
+        at = sweep.index(f"if constexpr ((kPaths & {bit}) != 0)")
+        assert phase in sweep[at:at + 160]
+    assert "default: return nullptr;" in body
+    assert "T > kMaxT" in sweep and "if (!fn) return (int)cudaErrorInvalidValue;" in sweep
+    assert "T > kMaxT" in contract
+    disp = contract[contract.index("cudaError_t dispatch("):]
+    for launch in ("launch_block", "launch_global"):
+        assert [f"case {t}: return {launch}<F, {t}>(L);" in disp
+                for t in range(1, 8)] == [True] * 6 + [False]
+    assert disp.count("default: return cudaErrorInvalidValue;") == 3

@@ -116,6 +116,35 @@ def test_depths_and_vector_words():
                                         torch.empty((2, 3), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("W,aligned,path,depth,streaming", [
+    (1, True, "words", 8, True), (3, True, "words", 8, True),
+    (4, True, "vector", 4, True), (4, False, "words", 8, True),
+    (8, True, "vector", 4, True), (12, True, "vector", 4, True),
+    (16, True, "vector", 4, True), (16, False, "words", 8, True),
+    (28, True, "vector", 4, True), (30, True, "words", 8, True),
+    (32, True, "vector", 2, True), (32, False, "words", 8, True),
+    (64, True, "vector", 2, True), (128, True, "vector", 2, True),
+    (256, True, "vector", 2, True), (508, True, "vector", 2, True),
+    (511, True, "words", 8, True), (512, True, "vector", 1, False),
+    (512, False, "words", 8, True), (1024, True, "vector", 1, False),
+    (513, True, "words", 8, True), (2048, True, "vector", 1, False),
+    (4096, True, "vector", 1, False), (16384, True, "vector", 1, False),
+])
+def test_launch_plan_path_selection(W, aligned, path, depth, streaming):
+    """The plan's path and depth per row width: rows of a multiple of 4
+    words (16 bytes) with both arrays 16-byte aligned take the 16-byte
+    vector path, at depth 1 with write-back stores from 512 words, depth 2
+    from 32, depth 4 below; other rows single words at depth 8, streaming.
+    A depth given to the launch replaces the plan's and keeps its path and
+    store policy."""
+    plan = gather_cuda.launch_plan(W, aligned)
+    assert plan == {"path": path, "depth": depth, "streaming": streaming}
+    assert plan["depth"] in gather_cuda.DEPTHS
+    assert gather_cuda.launch_plan(W, aligned, depth=16) == {
+        "path": path, "depth": 16, "streaming": streaming}
+    assert gather_cuda.PATHS[plan["path"]] == int(path == "vector")
+
+
 def test_probe_rule_and_bound():
     """The JAX probe's constant-bytes rule (`pallas_gather_probe.py:136`)
     and the byte bound of one gather (each distinct source row read once)."""

@@ -32,12 +32,13 @@ import jax
 import jax.numpy as jnp
 
 from graphdyn import graphs as jg
+from graphdyn.config import DynamicsConfig as jg_dyn
 from graphdyn.config import HPRConfig as JCfg
 from graphdyn.models import hpr as jh
 from graphdyn.ops import bdcm as jb
 from graphdyn.pipeline import hpr_group as jhg
 from graphdyn_torch import interop
-from graphdyn_torch.config import HPRConfig
+from graphdyn_torch.config import DynamicsConfig, HPRConfig
 from graphdyn_torch.graphs import random_regular_graph
 from graphdyn_torch.models import hpr as th
 from graphdyn_torch.models import hpr_reference as tr
@@ -133,6 +134,33 @@ def test_hpr_solve_chain_equals_jax_f64_injected(n, d, gseed, seed):
         print(f"near-tie pass, to record in PERF.md and ROADMAP C: {verdict}")
         return
     assert got.num_steps >= 1 and np.float32(got.mag_reached) == want.mag_reached
+
+
+def test_hpr_solve_chain_at_T5_equals_jax_f64_injected():
+    """HPr at p=4, c=1 (T = 5: K = 32, M = 4^5 on the d=3 class of an
+    RRG(12, 3)) in float64 with the reference's draws, 24 sweeps: the port's
+    chain equals ``graphdyn.models.hpr.hpr_solve(kernel='xla')`` in ``s``,
+    ``num_steps`` and ``m_final``, its biases and messages within 1e-9.
+    (A T = 5 sweep of RRG(40, 4) costs ~2.4 s on one CPU thread in the
+    port and ~2 s in the JAX package, so the chain is cut to a small graph
+    and 24 sweeps; on the card ``chip_smoke.py`` runs the ``hpr`` CLI at
+    p=4, c=1 on RRG(10^4, 4).)"""
+    TT, n, seed = 24, 12, 5
+    g = jg.random_regular_graph(n, 3, seed=0)
+    dyn = dict(p=4, c=1)
+    with x64():
+        want = jh.hpr_solve(g, JCfg(dynamics=jg_dyn(**dyn), dtype="float64",
+                                    max_sweeps=TT), seed=seed, kernel="xla")
+        U = jax_stream(seed, n, TT + 2, jnp.float64)
+    got = th.hpr_solve(_tgraph(g), HPRConfig(dynamics=DynamicsConfig(**dyn),
+                                             dtype="float64", max_sweeps=TT),
+                       seed=seed, uniforms=lambda t: U[t][None], device=CPU)
+    np.testing.assert_array_equal(got.s, want.s)
+    assert got.num_steps == want.num_steps and got.m_final == want.m_final
+    np.testing.assert_allclose(got.biases, np.asarray(want.biases), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(got.chi, np.asarray(want.chi), rtol=0,
+                               atol=1e-9)
 
 
 def _walk_hpr_solve(g, seed, TT, U):

@@ -308,23 +308,30 @@ def test_bdcm_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():
 
 
 def test_bdcm_gate_refused_class_raises_under_cuda_and_counts_under_auto():
-    """The gate admits the whole reference regime (T <= 4, d <= 8) in both
-    dtypes, and high degrees beyond it. On a CUDA device a class it refuses
-    raises under kernel='auto' as under 'cuda': nothing runs on the plain
-    version there, so there is no count of plain classes to keep. The mode
-    resolution needs no card: it reads only the device type."""
+    """The gate admits every class with 1 <= T <= 6 in both dtypes, up to
+    degrees whose factor the card cannot hold: the reference regime
+    (T <= 4, d <= 8), the lattices beyond a block's shared memory on the
+    global path, and T = 5, 6. On a CUDA device a class it refuses (T = 7,
+    d = 0, a factor too large, float16) raises under kernel='auto' as under
+    'cuda': nothing runs on the plain version there, so there is no count
+    of plain classes to keep. The mode resolution needs no card: it reads
+    only the device type."""
     f32, f64 = torch.float32, torch.float64
     for dt in (f32, f64):
-        for T in range(1, 5):
-            for d in range(1, 9):
+        for T in range(1, 7):
+            for d in range(1, 11):
                 assert bdcm_cuda.bdcm_kernel_supported(d, T, dt), (d, T, dt)
-    for d, T, dt in ((40, 2, f32), (119, 2, f64), (12, 4, f32), (9, 4, f64)):
+    for d, T, dt in ((40, 2, f32), (119, 2, f64), (12, 4, f32), (9, 4, f64),
+                     (1, 5, f32), (120, 2, f64), (10, 4, f64), (13, 4, f32),
+                     (20, 5, f64), (12, 6, f32)):
         assert bdcm_cuda.bdcm_kernel_supported(d, T, dt)
     assert [bdcm_cuda.launch_plan(d, T, f32)["path"]
-            for d, T in ((2, 2), (3, 2), (8, 1), (5, 2), (3, 3), (8, 4))] == \
-        ["register"] * 3 + ["block"] * 3
-    for d, T, dt in ((1, 5, f32), (0, 2, f32), (120, 2, f64), (10, 4, f64),
-                     (13, 4, f32), (3, 2, torch.float16)):
+            for d, T in ((2, 2), (3, 2), (8, 1), (5, 2), (3, 3), (8, 4),
+                         (13, 4), (3, 5), (2, 6), (5, 6))] == \
+        ["register"] * 3 + ["block"] * 3 + ["global", "block", "block",
+                                            "global"]
+    for d, T, dt in ((1, 7, f32), (0, 2, f32), (13, 6, f32), (11, 6, f64),
+                     (3, 2, torch.float16)):
         assert not bdcm_cuda.bdcm_kernel_supported(d, T, dt)
         for kernel in ("cuda", "auto"):
             with pytest.raises(ValueError, match="refuses"):
