@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
-(sm_90a, the five compilers started together) and holds each against its
-plain PyTorch version: the packed step (node order, 16-byte vectors), the
-fused annealer (one pass and one grid barrier per class step) and the row
-gather bit for bit, the BDCM sweep (one launch per sweep, also on an
-80-class tree, past the 64 classes it once took) and the per-class BDCM
-update within their stated tolerances. Then it drives the port's main paths
+Builds the six CUDA kernels from ``graphdyn_torch/csrc/`` with nvcc
+(sm_90a, the six compilers started together) and holds each against its
+plain PyTorch version: the packed step (node order, 16-byte vectors, any
+degree since the power-law slice), the fused annealer (one pass and one
+grid barrier per class step), the row gather and the bucketed step KB (one
+launch per synchronous step over every degree bucket, warps per hub row)
+bit for bit, the BDCM sweep (one launch per sweep, also on an 80-class
+tree, past the 64 classes it once took) and the per-class BDCM update
+within their stated tolerances. Then it drives the port's main paths
 through the entry points a user calls, each with the launch counts set to 0
 just before it and read just after (every BDCM sweep on the card is one
 launch of the sweep kernel; the per-class kernel is off the main paths and
@@ -45,7 +47,8 @@ must count 0 there):
   (and two runs equal bit for bit), ``entropy_grid`` grouped == serial bit
   for bit, config 4 at full width through ``entropy_ensemble_union`` (64 ER
   instances, n=1000, c=1.5, 32 λ, max_sweeps 400, float32), the congruent
-  ensemble on 64 RRG(1000, 3), and the ``entropy`` CLI at its defaults;
+  ensemble on 64 RRG(1000, 3), and the ``entropy`` CLI at its defaults
+  but for its λ ladder, cut to λ ≤ 6;
 - the SA searches, plain PyTorch on the card (no TPU kernel lies on their
   path): injected-stream chains on the card equal to the same chains on the
   CPU (RRG n=300 d=4 and a ragged ER graph, full and light-cone), counter-
@@ -55,7 +58,25 @@ must count 0 there):
   lightcone`` (serial), which must agree bit for bit, with steps/s, host
   reads and the device's busy share over one chunk; the ``chromatic`` CLI
   and the ``temper`` CLI at their defaults. The step budgets of ``sa`` and
-  ``temper`` are cut to 10⁴ (a chain at those defaults takes ~10⁸ steps).
+  ``temper`` are cut to 5·10³ and 10⁴ (a chain at those defaults takes
+  ~10⁸ steps);
+- the power-law path (``bench.py``'s ``powerlaw_rate_row`` and
+  ``stream_rate_row`` shapes): KB against its plain version on
+  ``powerlaw_graph(600, 2.3, 2, 7)`` and on the bench graph
+  (``powerlaw_graph(10⁵, 2.2, 2, 0)``, hub 19,617) for all four (rule,
+  tie); the packed step's 8- and 32-plane instantiations against plain;
+  ``bucketed_rollout`` at the bench shape (R = 1024, 3 × 20 steps,
+  one KB launch per step) with its time, bound and spin-updates/s beside
+  the equal-edge d=8 RRG through the packed step (bare and through
+  ``packed_rollout``), and the packed step on the padded power-law table
+  equal to KB; the ``stream`` CLI at n = 65,536 with ``bench.py``'s device
+  budget at prefetch depth 0 and 2, equal to the resident rollout, a
+  churned run at n = 4096 card == CPU, and ``streamed_rollout`` on one
+  plan at both depths in turns (ms per step, ``hiding_frac``);
+  ``simulated_annealing`` and ``fused_anneal`` with ``layout='auto'`` on
+  power-law graphs equal to their padded runs on the relabeled graphs, and
+  ``sa --layout bucketed``; then the packed step at the headline shape in
+  the as-built and the BFS labelling, in turns (ROADMAP B4).
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
 n=10⁶, R=1024), with its peak device memory; the packed step and its bare
@@ -140,10 +161,13 @@ from graphdyn_torch.models.consensus import (
 from graphdyn_torch.ops import (
     bdcm_cuda,
     bdcm_sweep,
+    bucketed,
+    bucketed_cuda,
     cuda_build,
     fused_cuda,
     gather_cuda,
     packed_cuda,
+    streamed,
 )
 from graphdyn_torch.ops.bdcm import (
     CHUNK_SWEEPS,
@@ -289,9 +313,20 @@ GATHER_PORT_SHAPES = (
 # since a chain at the sa CLI's defaults takes ~10^8 steps to consensus
 # (physics_r04.json)
 SA_PARITY_N, SA_PARITY_L = 300, 2000
-SA_MAIN_STEPS, TEMPER_MAIN_STEPS = 10_000, 10_000
+SA_MAIN_STEPS, TEMPER_MAIN_STEPS = 5_000, 10_000
 # repeats of each implementation in the interleaved gather timing
 GATHER_REPS = 9
+# the entropy CLI's λ ladder, cut from its default 12.0 (121 points) to
+# keep the script's time since the power-law phases joined it
+ENTROPY_CLI_LMBD_MAX = 6.0
+# the power-law path: bench.py:powerlaw_rate_row's shape
+# (powerlaw_graph(10^5, gamma=2.2, dmin=2, seed=0), R=1024, 20 steps x 3
+# iterations) and stream_rate_row's (n=65,536, the same law, R=1024, 10
+# steps); the SA layout run's step budget (cut from 2n^3); B4's repeats
+POWERLAW_N, POWERLAW_R, POWERLAW_STEPS, POWERLAW_ITERS = 100_000, 1024, 20, 3
+STREAM_N, STREAM_R, STREAM_STEPS = 65_536, 1024, 10
+LAYOUT_SA_STEPS = 2000
+B4_REPS = 9
 
 
 def log(msg: str) -> None:
@@ -334,10 +369,22 @@ def _max_abs_err(a, b) -> float:
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def majority_ops(W: int, deg) -> int:
+    """The 32-bit logic one packed step needs over rows of degrees ``deg``,
+    ``W`` words a row: per word, one full adder per gathered neighbour word
+    (two 3-input LOP3 instructions, the sum and the carry of a carry-save
+    adder tree, whatever the degree), ~5 ops a plane to compare the count
+    with deg/2 on bit_length(deg) planes, and ~4 to apply the rule and the
+    tie."""
+    deg = np.asarray(deg, np.int64)
+    planes = np.maximum(graphs._bit_length(deg), 1)
+    return int(W * (2 * deg + 5 * planes + 4).sum())
+
+
 def step_bound(g, W: int, fast: bool) -> dict:
     """The least time one packed step can take on the card: the larger of
-    the bytes it must move over HBM bandwidth and its 32-bit logic ops over
-    the ALU rate. The bytes are each input read once and each output written
+    the bytes it must move over HBM bandwidth and its 32-bit logic
+    (:func:`majority_ops`) over the INT32 rate. The bytes are each input read once and each output written
     once: the ``[n+1, W]`` state read and written, the ``Σdeg`` neighbour
     indices the kernel reads (it loops to each node's degree, not dmax), and
     the degrees on the general path. ``no_reuse_bytes`` is what a design
@@ -350,12 +397,9 @@ def step_bound(g, W: int, fast: bool) -> dict:
     state_bytes = 2 * 4 * W * (n + 1)                   # read once, written once
     table_bytes = 4 * sum_deg + (0 if fast else 4 * n)
     no_reuse_bytes = 4 * W * (sum_deg + n_own + n + 1) + table_bytes
-    planes = packed_cuda.n_planes(g.dmax)
-    # per word: 2 logic ops per plane per addend, ~5 per plane to compare,
-    # ~4 to combine
-    ops = n * W * (2 * planes * sum_deg / n + 5 * planes + 4)
+    ops = majority_ops(W, g.deg)
     bytes_ms = (state_bytes + table_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
     return {"bytes": state_bytes + table_bytes, "ops": ops,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -389,14 +433,14 @@ def ptxas_by_type(lib_path: str, ftype: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Build the five kernel libraries, one nvcc each, started together;
+    """Build the six kernel libraries, one nvcc each, started together;
     load them; print each one's ptxas summary (the BDCM kernels' float and
     double instantiations apart) and the fused kernel's co-resident grid at
     the two shapes it runs."""
     t0 = time.perf_counter()
     wrappers = {"packed_step": packed_cuda, "fused_chunk": fused_cuda,
                 "dp_contract": bdcm_cuda, "bdcm_sweep": bdcm_sweep,
-                "row_gather": gather_cuda}
+                "row_gather": gather_cuda, "bucketed_step": bucketed_cuda}
     with ThreadPoolExecutor(len(wrappers)) as pool:
         paths = dict(zip(wrappers, pool.map(lambda w: w.build(),
                                             wrappers.values())))
@@ -425,7 +469,7 @@ def phase_build() -> dict:
             f"Rp={Rp}): {grid['blocks_per_sm']} blocks of 256 per SM x "
             f"{grid['sms']} SMs = {grid['max_blocks']} blocks; {lanes} "
             f"lanes per class word, {row_threads} threads per class row")
-    log(f"[1 build] the five libraries built and loaded in {dt:.3f} s")
+    log(f"[1 build] the six libraries built and loaded in {dt:.3f} s")
     return out
 
 
@@ -2669,13 +2713,16 @@ def phase_congruent_ensemble() -> dict:
 
 def phase_entropy_cli() -> dict:
     """``python -m graphdyn_torch entropy --device cuda`` at its defaults
-    (n=1000, deg 1.0 1.5 2.0, num_rep 3, the grouped entropy_grid), in
-    process, with its wall time and the reference's JSON keys."""
+    (n=1000, deg 1.0 1.5 2.0, num_rep 3, the grouped entropy_grid) but for
+    its λ ladder, cut to λ ≤ :data:`ENTROPY_CLI_LMBD_MAX` (61 of the 121
+    points) to keep the script's time, in process, with its wall time and
+    the reference's JSON keys."""
     _reset_bdcm_counts()
     t0 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), _grid_results() as grids:
-        rc = cli.main(["entropy", "--device", "cuda"])
+        rc = cli.main(["entropy", "--device", "cuda", "--lmbd-max",
+                       str(ENTROPY_CLI_LMBD_MAX)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if len(grids) != 1:
@@ -2687,9 +2734,11 @@ def phase_entropy_cli() -> dict:
         raise AssertionError(f"entropy CLI: rc {rc}, keys {sorted(doc)}")
     if not np.all(np.isfinite(doc["ent1_first_lambda"])):
         raise AssertionError(f"entropy CLI: {doc}")
+    n_lmbd = lambda_ladder(EntropyConfig(lmbd_max=ENTROPY_CLI_LMBD_MAX)).size
     log(f"[23 entropy cli] python -m graphdyn_torch entropy --device cuda "
-        f"(defaults: n=1000, deg 1.0 1.5 2.0, num_rep 3, lambda 0..12 step "
-        f"0.1, {lambda_ladder(EntropyConfig()).size} points): wall {wall:.3f} "
+        f"--lmbd-max {ENTROPY_CLI_LMBD_MAX} (defaults otherwise: n=1000, deg "
+        f"1.0 1.5 2.0, num_rep 3, lambda step 0.1, {n_lmbd} points): wall "
+        f"{wall:.3f} "
         f"s; counts {doc['counts']}; ent1 at lambda 0 "
         f"{doc['ent1_first_lambda']}; bdcm_sweep launches (one per sweep) {launches}")
     return {"wall_s": wall, "launches": launches, "counts": doc["counts"]}
@@ -3137,6 +3186,576 @@ def phase_gather_interleaved() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the power-law path: KB (the bucketed step), the lifted K1/K2', the
+# streamed rollout and the layouts of the solvers
+# ---------------------------------------------------------------------------
+
+
+def _kb_bound(n: int, W: int, deg) -> dict:
+    """KB's least time for one step over rows of degrees ``deg`` in an
+    ``n``-row state: the larger of the bytes (each input read once and each
+    output written once: the rows' own words in and out, their ``Σdeg``
+    neighbour indices and their degrees; the neighbour rows are served from
+    L2, where the state at the bench shape, 12.8 MB, sits) over HBM's rate,
+    and the logic the step needs (:func:`majority_ops`, for this run's
+    degrees) over the INT32 rate."""
+    deg = np.asarray(deg, np.int64)
+    rows, sum_deg = deg.size, int(deg.sum())
+    bytes_ = 2 * 4 * W * rows + 4 * sum_deg + 4 * rows
+    ops = majority_ops(W, deg)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bytes": bytes_, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_kb_parity(g_bench, b_bench) -> dict:
+    """KB against its plain version, bit for bit, through
+    ``bucketed_rollout`` and ``bucketed_rollout_plain``: all four (rule,
+    tie) pairs on ``powerlaw_graph(600, 2.3, 2, 7)`` at W in {1, 3, 4, 32}
+    and on the bench graph at W = 32 (its hub bucket is 32768 wide: eight
+    warps per item); three steps each. Also one streamed chunk of the bench
+    graph (KB with a self table, the ``_stream_chunk_device`` shape) against
+    the plain chunk step."""
+    t0 = time.perf_counter()
+    g600 = graphs.powerlaw_graph(600, gamma=2.3, dmin=2, seed=7)
+    cases = [("pl600", g600, graphs.degree_buckets(g600), W)
+             for W in (1, 3, 4, 32)]
+    cases.append(("bench", g_bench, b_bench, POWERLAW_R // 32))
+    n_cases = 0
+    seed = 500
+    for label, g, b, W in cases:
+        order = torch.as_tensor(b.order, device="cuda")
+        for rule, tie in RULE_TIES:
+            seed += 1
+            sp = _random_words(g.n, W, seed).index_select(0, order)
+            k = bucketed.bucketed_rollout(b, sp, 3, rule, tie)
+            p = bucketed.bucketed_rollout_plain(b, sp, 3, rule, tie)
+            torch.cuda.synchronize()
+            if not torch.equal(k, p):
+                raise AssertionError(f"KB != plain: {label} W={W} {rule}/{tie} "
+                                     f"max_abs_err {_max_abs_err(k, p)}")
+            n_cases += 1
+    # one streamed chunk of the bench graph with its hub
+    plan = streamed.build_stream_plan(g_bench, W=1, n_chunks=400)
+    ch = plan.chunks[-1]
+    W = POWERLAW_R // 32
+    slab = torch.cat([_random_words(ch.M, W, 77),
+                      torch.zeros(1, W, dtype=torch.int32, device="cuda")])
+    nbr, deg, self_loc = (torch.as_tensor(a, device="cuda")
+                          for a in (ch.nbr_loc, ch.deg, ch.self_loc))
+    for rule, tie in RULE_TIES:
+        out = torch.empty((ch.C, W), dtype=torch.int32, device="cuda")
+        bucketed_cuda.bucketed_step([(nbr, deg, self_loc, 0)], slab, out,
+                                    rule=rule, tie=tie)
+        want = bucketed.PlainBucketStep(nbr, deg, rule, tie)(
+            slab, slab.index_select(0, self_loc.long()))
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"KB chunk != plain: {rule}/{tie}")
+        n_cases += 1
+    torch.cuda.empty_cache()
+    log(f"[36 KB parity] {n_cases} cases (powerlaw_graph(600) at W = 1, 3, "
+        f"4, 32; the bench graph at W = 32, hub {int(g_bench.dmax)}, "
+        f"buckets {list(b_bench.widths)}; a streamed chunk of width "
+        f"{ch.width} with its self table), four (rule, tie) pairs each: "
+        f"KB == plain bit for bit in {time.perf_counter() - t0:.3f} s")
+    return {"cases": n_cases, "max_abs_err": 0.0}
+
+
+def phase_packed_planes() -> dict:
+    """The lifted K1/K2' instantiations the bench graph does not reach, each
+    held bit for bit, all four (rule, tie) pairs, three steps: 8 planes on
+    ``powerlaw_graph(600, 2.3, 2, 7)`` (dmax 163) against the plain padded
+    rollout and ``bucketed_rollout_global`` (KB); 32 planes on a 16-row
+    table of 65,600 slots (degrees from 65,536 up: a multigraph, whose rows
+    the kernel reads as it reads any) against KB's plain wide-bucket step
+    over the same table."""
+    out = {}
+    g = graphs.powerlaw_graph(600, gamma=2.3, dmin=2, seed=7)
+    nbr, deg = _tables(g)
+    W = 4
+    for k, (rule, tie) in enumerate(RULE_TIES):
+        sp = _random_words(g.n, W, 600 + k)
+        got = packed_rollout(nbr, deg, sp, 3, rule, tie)
+        for name, want in (
+                ("plain", packed_rollout_plain(nbr, deg, sp, 3, rule, tie)),
+                ("KB", bucketed.bucketed_rollout_global(g, sp, 3, rule,
+                                                        tie))):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K1/K2' at dmax {g.dmax} != {name}: {rule}/{tie} "
+                    f"max_abs_err {_max_abs_err(got, want)}")
+    out["8"] = {"dmax": int(g.dmax),
+                "kernel_planes": packed_cuda.kernel_planes(
+                    packed_cuda.n_planes(g.dmax)), "cases": 4}
+    rows, width = 16, 65_600
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(65536)
+    nbr = torch.randint(0, rows + 1, (rows, width), dtype=torch.int32,
+                        device="cuda", generator=gen)
+    deg = torch.randint(65_536, width + 1, (rows,), dtype=torch.int32,
+                        device="cuda", generator=gen)
+    slot = torch.arange(width, device="cuda")[None, :]
+    nbr = torch.where(slot < deg[:, None], nbr, rows).contiguous()
+    for k, (rule, tie) in enumerate(RULE_TIES):
+        ext = torch.cat([_random_words(rows, W, 700 + k),
+                         torch.zeros(1, W, dtype=torch.int32, device="cuda")])
+        dst = torch.empty_like(ext)
+        packed_cuda.packed_step(nbr, deg, ext, dst,
+                                minority=rule == "minority",
+                                change=tie == "change")
+        want = bucketed.PlainBucketStep(nbr, deg, rule, tie)(ext, ext[:rows])
+        torch.cuda.synchronize()
+        if not torch.equal(dst[:rows], want) or dst[rows].any():
+            raise AssertionError(
+                f"K1/K2' at dmax {width} != plain: {rule}/{tie} "
+                f"max_abs_err {_max_abs_err(dst[:rows], want)}")
+    out["32"] = {"dmax": width, "min_degree": int(deg.min()),
+                 "kernel_planes": packed_cuda.kernel_planes(
+                     packed_cuda.n_planes(width)), "cases": 4}
+    if (out["8"]["kernel_planes"], out["32"]["kernel_planes"]) != (8, 32):
+        raise AssertionError("the plane checks ran other instantiations: "
+                             f"{out['8']['kernel_planes']}, "
+                             f"{out['32']['kernel_planes']}")
+    torch.cuda.empty_cache()
+    log(f"[36b K1/K2' planes] dmax {out['8']['dmax']} (the "
+        f"{out['8']['kernel_planes']}-plane instantiation) == plain and KB; "
+        f"dmax {width} with degrees from {out['32']['min_degree']} (the "
+        f"{out['32']['kernel_planes']}-plane instantiation) == the plain "
+        f"wide-bucket step; four (rule, tie) pairs each, bit for bit")
+    return out
+
+
+def _steps_ms(step, ext, reps: int) -> float:
+    """Milliseconds per step of a stepper by CUDA events, queued back to
+    back behind a device sleep."""
+    state = [ext]
+
+    def advance():
+        state[0] = step(state[0])
+
+    for _ in range(2):
+        advance()
+    return _cuda_ms(advance, reps, lead_ms=50)
+
+
+def phase_powerlaw_main(g, b) -> dict:
+    """The bench shape (``bench.py:powerlaw_rate_row``: ``powerlaw_graph(10⁵,
+    2.2, 2, seed 0)``, R = 1024) through ``bucketed_rollout``, counted: one
+    warm call as the bench makes, then 3 iterations of 20 steps, KB's
+    launches must equal the 60 steps; the result held against the plain
+    version. Then, outside the count: KB's time per step by CUDA events
+    (and its narrow and wide segments apart, each one launch of those
+    segments), the plain version's, the bound; the equal-edge d=8 RRG in
+    the same call, its bare K1/K2' step and its entry point
+    (``packed_rollout``, 3 × 20 steps as the bench times it), and the
+    ratios of the rates, bare and through the entry points; the lifted
+    K1/K2' on the padded power-law table (dmax = the hub's degree) held
+    against ``bucketed_rollout_global`` (KB) bit for bit, and its time per
+    step."""
+    n, W = g.n, POWERLAW_R // 32
+    sp = _random_words(n, W, 31).index_select(
+        0, torch.as_tensor(b.order, device="cuda"))
+    bucketed.bucketed_rollout(b, sp, POWERLAW_STEPS)          # warm
+    bucketed_cuda.LAUNCHES = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    st = sp
+    for _ in range(POWERLAW_ITERS):
+        st = bucketed.bucketed_rollout(b, st, POWERLAW_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bucketed_cuda.LAUNCHES
+    steps = POWERLAW_ITERS * POWERLAW_STEPS
+    if launches != steps:
+        raise AssertionError(f"bucketed_rollout launched KB {launches} times "
+                             f"for {steps} steps")
+    main_ms = start.elapsed_time(end) / steps
+    ref = sp
+    for _ in range(POWERLAW_ITERS):
+        ref = bucketed.bucketed_rollout_plain(b, ref, POWERLAW_STEPS)
+    if not torch.equal(st, ref):
+        raise AssertionError("bench-shape bucketed rollout != plain")
+    del ref, st
+    # timing outside the count
+    tabs = bucketed.device_buckets(b, torch.device("cuda"))
+    ext = torch.cat([sp, torch.zeros(1, W, dtype=torch.int32, device="cuda")])
+    ms = _steps_ms(bucketed_cuda.KernelBucketedStep(
+        tabs, n=n, rule="majority", tie="stay"), ext, 200)
+    plain_ms = _steps_ms(bucketed.PlainBucketedStep(tabs, "majority", "stay"),
+                         ext, 3)
+    bound = _kb_bound(n, W, g.deg)
+    parts = {}
+    for part in ("narrow", "wide"):
+        segs = [(nb, dg, None, r0) for nb, dg, r0 in tabs
+                if (nb.shape[1] > bucketed.UNROLL_MAX) == (part == "wide")]
+        rows = sum(s[0].shape[0] for s in segs)
+        part_deg = torch.cat([s[1] for s in segs]).cpu().numpy()
+        dst = torch.empty_like(ext)
+        launch = bucketed_cuda.Launch(segs, W=W, src_rows=n + 1,
+                                      dst_rows=n + 1, device=ext.device,
+                                      rule="majority", tie="stay")
+        t = _cuda_ms(lambda: launch(ext, dst), 200, lead_ms=50)
+        plain = bucketed.PlainBucketedStep(
+            [tb_ for tb_ in tabs
+             if (tb_[0].shape[1] > bucketed.UNROLL_MAX) == (part == "wide")],
+            "majority", "stay")
+        plain(ext)
+        t_plain = _cuda_ms(lambda: plain(ext), 3, lead_ms=50)
+        parts[part] = {"ms": t, "plain_ms": t_plain, "rows": rows,
+                       "sum_deg": int(part_deg.sum()),
+                       "segments": len(segs),
+                       "widths": [int(s[0].shape[1]) for s in segs],
+                       **_kb_bound(n, W, part_deg)}
+    rate = n * POWERLAW_R / (ms * 1e-3)
+    # the equal-edge padded RRG control (bench.py:675-679)
+    d = max(3, int(round(float(g.deg.sum()) / n)))
+    if (n * d) % 2:
+        d += 1
+    g_r = random_regular_graph(n, d, seed=0)
+    nbr_r, deg_r = _tables(g_r)
+    ext_r = torch.cat([_random_words(n, W, 32),
+                       torch.zeros(1, W, dtype=torch.int32, device="cuda")])
+    rrg_ms = _steps_ms(_stepper(nbr_r, deg_r, "majority", "stay"), ext_r, 200)
+    rrg_rate = n * POWERLAW_R / (rrg_ms * 1e-3)
+    rrg_bound = step_bound(g_r, W, fast=False)
+    st_r = packed_rollout(nbr_r, deg_r, ext_r[:n], POWERLAW_STEPS)   # warm
+    start.record()
+    for _ in range(POWERLAW_ITERS):
+        st_r = packed_rollout(nbr_r, deg_r, st_r, POWERLAW_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    rrg_main_ms = start.elapsed_time(end) / steps
+    del nbr_r, deg_r, ext_r, st_r
+    # the lifted K1/K2' on the padded power-law table
+    t0 = time.perf_counter()
+    nbr_p, deg_p = _tables(g)
+    t_upload = time.perf_counter() - t0
+    sp_g = _random_words(n, W, 33)
+    packed_cuda.LAUNCHES = 0
+    k = packed_rollout(nbr_p, deg_p, sp_g, 3)
+    want = bucketed.bucketed_rollout_global(g, sp_g, 3, buckets=b)
+    torch.cuda.synchronize()
+    if not torch.equal(k, want):
+        raise AssertionError("lifted K1/K2' != KB on the bench graph "
+                             f"(dmax {g.dmax})")
+    if packed_cuda.LAUNCHES != 3:
+        raise AssertionError("the padded bench rollout did not launch K1/K2'")
+    ext_p = torch.cat([sp_g, torch.zeros(1, W, dtype=torch.int32,
+                                         device="cuda")])
+    padded_ms = _steps_ms(_stepper(nbr_p, deg_p, "majority", "stay"), ext_p, 5)
+    padded_bound = step_bound(g, W, fast=False)
+    del nbr_p, deg_p, ext_p, k, want
+    torch.cuda.empty_cache()
+    out = {"ms": ms, "plain_ms": plain_ms, "main_ms": main_ms,
+           "host_ms_per_step": wall * 1e3 / steps, "launches": launches,
+           "spin_updates_per_s": rate, **bound, "parts": parts,
+           "main_spin_updates_per_s": n * POWERLAW_R / (main_ms * 1e-3),
+           "rrg": {"d": d, "ms": rrg_ms, "spin_updates_per_s": rrg_rate,
+                   "main_ms": rrg_main_ms, "bound_ms": rrg_bound["bound_ms"],
+                   "bound_by": rrg_bound["bound_by"]},
+           "rrg_over_bucketed_x": rrg_rate / rate,
+           "rrg_over_bucketed_main_x": main_ms / rrg_main_ms,
+           "padded": {"ms": padded_ms, "dmax": int(g.dmax),
+                      "planes": packed_cuda.n_planes(g.dmax),
+                      "kernel_planes": packed_cuda.kernel_planes(
+                          packed_cuda.n_planes(g.dmax)),
+                      "bound_ms": padded_bound["bound_ms"],
+                      "bound_by": padded_bound["bound_by"],
+                      "table_upload_s": t_upload},
+           "table_entries": b.table_entries,
+           "padded_entries": n * int(g.dmax)}
+    log(f"[37 powerlaw] powerlaw_graph(10^5, 2.2, 2, 0): hub {g.dmax}, "
+        f"degree CV {graphs.degree_cv(g.deg):.4f}, {b.B} buckets, "
+        f"{b.table_entries} table entries (padded {n * int(g.dmax)}); R="
+        f"{POWERLAW_R}: bucketed_rollout {steps} steps, {launches} KB "
+        f"launches, {main_ms} ms/step on the main path (host wall "
+        f"{out['host_ms_per_step']} ms/step; the RRG's packed_rollout "
+        f"{rrg_main_ms} ms/step: RRG/bucketed through the entry points "
+        f"{out['rrg_over_bucketed_main_x']:.4f}x); KB {ms} ms/step = {rate:.6e} "
+        f"spin-updates/s, bound {bound['bound_ms']} ms ({bound['bound_by']}: "
+        f"{bound['bytes']} B); narrow segments {parts['narrow']['ms']} ms "
+        f"(bound {parts['narrow']['bound_ms']}), wide {parts['wide']['ms']} "
+        f"ms (bound {parts['wide']['bound_ms']}); plain {plain_ms} ms/step; "
+        f"equal-edge RRG d={d} K1/K2' {rrg_ms} ms/step = {rrg_rate:.6e} "
+        f"spin-updates/s (bound {rrg_bound['bound_ms']} ms): RRG/bucketed "
+        f"{out['rrg_over_bucketed_x']:.4f}x; lifted K1/K2' padded at dmax "
+        f"{g.dmax} ({out['padded']['planes']} planes, instantiation "
+        f"{out['padded']['kernel_planes']}) == KB bit for bit, {padded_ms} "
+        f"ms/step (bound {padded_bound['bound_ms']} ms)")
+    return out
+
+
+def _stream_budget(g, W: int) -> int:
+    """``bench.py:stream_rate_row``'s device budget: a quarter of the
+    modelled resident bucketed bytes, clamped below by twice the worst
+    hub's one-node chunk."""
+    resident = bucketed.bucketed_state_bytes(
+        g.n, W, graphs.degree_buckets(g).table_entries)
+    return max(resident // 4,
+               2 * streamed.streamed_min_bytes(int(g.deg.max()), W))
+
+
+def _run_cli(argv) -> tuple[dict, float]:
+    """Run the port's CLI in this process; its JSON line and wall time."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} CLI exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), wall
+
+
+def phase_stream_main() -> dict:
+    """The ``stream`` CLI at ``bench.py:stream_rate_row``'s shape (n =
+    65,536, the same law, R = 1024, 10 steps) with its device budget, at
+    prefetch depth 0 and then 2, each counted: KB's launches must be chunks
+    × steps. Both depths' configurations must equal
+    ``bucketed_rollout_global`` (KB, resident) of the CLI's own initial
+    state bit for bit, over at least 4 chunks. Then a churn run (``--churn-
+    rate 8 --churn-seed 0``) at the CLI's defaults (n = 4096) on the card
+    equals the same run on the CPU. Then, as ``bench.py:stream_rate_row``
+    measures the pipeline: ``streamed_rollout`` on one prebuilt plan at
+    depths 0 and 2 in turns (0, 2, 2, 0), ``STREAM_STEPS`` steps a leg
+    after one warm step each: ms per step, ``hiding_frac`` = 1 − ms(2) /
+    ms(0), and the host's gather time (``build_s``) and wait for it
+    (``wait_s``) per step."""
+    out = {}
+    W = STREAM_R // 32
+    g = graphs.powerlaw_graph(STREAM_N, gamma=2.2, dmin=2, seed=0)
+    budget = _stream_budget(g, W)
+    rng = np.random.default_rng(0)
+    s0 = (2 * rng.integers(0, 2, size=(STREAM_R, STREAM_N)) - 1).astype(
+        np.int8)
+    from graphdyn_torch.ops.packed import pack_spins, unpack_spins
+
+    want = unpack_spins(bucketed.bucketed_rollout_global(
+        g, pack_spins(torch.as_tensor(s0, device="cuda")), STREAM_STEPS),
+        STREAM_R).cpu().numpy()
+    base = ["stream", "--n", str(STREAM_N), "--gamma", "2.2", "--replicas",
+            str(STREAM_R), "--steps", str(STREAM_STEPS), "--device-budget",
+            str(budget), "--device", "cuda"]
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        for depth in (0, 2):
+            path = os.path.join(tmp, f"d{depth}.npz")
+            bucketed_cuda.LAUNCHES = 0
+            doc, wall = _run_cli(base + ["--prefetch-depth", str(depth),
+                                         "--out", path])
+            launches = bucketed_cuda.LAUNCHES
+            if doc["chunks"] < 4:
+                raise AssertionError(f"stream plan has {doc['chunks']} chunks")
+            if launches != doc["chunks"] * STREAM_STEPS:
+                raise AssertionError(f"stream depth {depth}: {launches} KB "
+                                     f"launches for {doc['chunks']} chunks x "
+                                     f"{STREAM_STEPS} steps")
+            with np.load(path) as f:
+                conf = f["conf"]
+            if not np.array_equal(conf, want):
+                raise AssertionError(f"stream depth {depth} != resident "
+                                     "bucketed_rollout_global")
+            out[depth] = {**doc, "wall_s": wall, "launches": launches,
+                          "budget": budget}
+            log(f"[38 stream] stream CLI n={STREAM_N} R={STREAM_R} "
+                f"{STREAM_STEPS} steps, budget {budget} B, prefetch depth "
+                f"{depth}: {doc['chunks']} chunks, {launches} KB launches, "
+                f"wall {wall:.3f} s, overlap_frac {doc['overlap_frac']}, "
+                f"h2d {doc['h2d_bytes']} B, d2h {doc['d2h_bytes']} B; == "
+                f"resident bucketed_rollout_global bit for bit")
+        churn = ["stream", "--churn-rate", "8", "--churn-seed", "0"]
+        confs = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"churn_{dev}.npz")
+            bucketed_cuda.LAUNCHES = 0
+            doc, wall = _run_cli(churn + ["--device", dev, "--out", path])
+            with np.load(path) as f:
+                confs[dev] = (f["conf"], f["m_end"])
+            out[f"churn_{dev}"] = {**doc, "wall_s": wall,
+                                   "launches": bucketed_cuda.LAUNCHES}
+        if not all(np.array_equal(a, b) for a, b in zip(confs["cuda"],
+                                                        confs["cpu"])):
+            raise AssertionError("churned stream run: card != CPU")
+        if out["churn_cuda"]["launches"] <= 0 or out["churn_cpu"]["launches"]:
+            raise AssertionError("churned stream run: KB launch counts")
+    log(f"[38 stream] churn run (n=4096, --churn-rate 8): "
+        f"{out['churn_cuda']['mutations']} mutations, card == CPU bit for "
+        f"bit ({out['churn_cuda']['launches']} KB launches on the card)")
+    # the pipeline alone, on one prebuilt plan
+    plan = streamed.build_stream_plan(g, W=W, device_budget_bytes=budget)
+    sp = pack_spins(torch.as_tensor(s0, device="cuda")).cpu()
+    legs = {0: [], 2: []}
+    for depth in (0, 2):
+        streamed.streamed_rollout(g, sp, 1, plan=plan, prefetch_depth=depth)
+    for depth in (0, 2, 2, 0):
+        stats = {}
+        t0 = time.perf_counter()
+        got = streamed.streamed_rollout(g, sp, STREAM_STEPS, plan=plan,
+                                        prefetch_depth=depth, stats_out=stats)
+        wall = time.perf_counter() - t0
+        if not np.array_equal(unpack_spins(got, STREAM_R).numpy(), want):
+            raise AssertionError(f"streamed_rollout depth {depth} != "
+                                 "resident bucketed_rollout_global")
+        legs[depth].append({"ms_per_step": wall * 1e3 / STREAM_STEPS,
+                            "build_ms_per_step": stats["build_s"] * 1e3
+                            / STREAM_STEPS,
+                            "wait_ms_per_step": stats["wait_s"] * 1e3
+                            / STREAM_STEPS,
+                            "overlap_frac": stats["overlap_frac"]})
+    pipe = {str(d): {k: float(np.mean([leg[k] for leg in v])) for k in v[0]}
+            for d, v in legs.items()}
+    pipe["legs"] = {str(d): v for d, v in legs.items()}
+    pipe["hiding_frac"] = max(0.0, 1.0 - pipe["2"]["ms_per_step"]
+                              / pipe["0"]["ms_per_step"])
+    pipe["chunks"] = plan.K
+    # the host cost of the chunks' KB launch objects, summed over the plan
+    # (ms per step): each made anew, against each rebound to new tables of
+    # the same shapes, as the pipeline does from a chunk's second step
+    made, rebound = 0.0, 0.0
+    for ch in plan.chunks:
+        seg = tuple(torch.as_tensor(a, device="cuda")
+                    for a in (ch.nbr_loc, ch.deg, ch.self_loc)) + (0,)
+        slab = torch.zeros((ch.M + 1, W), dtype=torch.int32, device="cuda")
+        dst = torch.empty((ch.C, W), dtype=torch.int32, device="cuda")
+        t0 = time.perf_counter()
+        launch = bucketed_cuda.Launch(
+            [seg], W=W, src_rows=ch.M + 1, dst_rows=ch.C, device=slab.device,
+            rule="majority", tie="stay", check_tables=False)
+        launch.check(slab, dst)
+        made += time.perf_counter() - t0
+        seg2 = tuple(t.clone() for t in seg[:3]) + (0,)
+        t0 = time.perf_counter()
+        launch.rebind([seg2])
+        launch.check(slab, dst)
+        rebound += time.perf_counter() - t0
+    pipe["launch_made_ms_per_step"] = made * 1e3
+    pipe["launch_rebound_ms_per_step"] = rebound * 1e3
+    out["pipeline"] = pipe
+    log(f"[38 stream] streamed_rollout on one plan ({plan.K} chunks), "
+        f"{STREAM_STEPS} steps a leg, depths in turns 0, 2, 2, 0: depth 0 "
+        f"{pipe['0']['ms_per_step']:.3f} ms/step (gather "
+        f"{pipe['0']['build_ms_per_step']:.3f}), depth 2 "
+        f"{pipe['2']['ms_per_step']:.3f} ms/step (gather "
+        f"{pipe['2']['build_ms_per_step']:.3f}, waited "
+        f"{pipe['2']['wait_ms_per_step']:.3f}, overlap_frac "
+        f"{pipe['2']['overlap_frac']:.4f}); hiding_frac "
+        f"{pipe['hiding_frac']:.4f}; the chunks' KB launch objects made "
+        f"anew {pipe['launch_made_ms_per_step']:.4f} ms per step, rebound "
+        f"{pipe['launch_rebound_ms_per_step']:.4f}")
+    return out
+
+
+def phase_layouts() -> dict:
+    """The solvers' layouts on the card: ``simulated_annealing(layout=
+    'auto')`` on ``powerlaw_graph(2000, 2.3, 2, 1)`` (auto routes it
+    bucketed) equals the padded run on the relabeled graph, mapped back;
+    ``fused_anneal(layout='auto')`` on a power-law graph built with dmax =
+    48 (degree CV above the threshold, within K4's dmax-63 gate) equals its
+    padded run on the relabeled graph, mapped back; the ``sa`` CLI with
+    ``--layout bucketed`` runs once (its chains checked by rollout)."""
+    out = {}
+    g = graphs.powerlaw_graph(2000, gamma=2.3, dmin=2, seed=1)
+    if bucketed.auto_layout(g.deg) != "bucketed":
+        raise AssertionError("the SA layout graph does not route bucketed")
+    order = graphs.degree_buckets(g).order
+    g_b, inv = graphs.permute_nodes(g, order)
+    kw = dict(n_replicas=4, seed=3, max_steps=LAYOUT_SA_STEPS, device="cuda")
+    cfg = SAConfig()
+    t0 = time.perf_counter()
+    res = simulated_annealing(g, cfg, layout="auto", **kw)
+    out["sa_wall_s"] = time.perf_counter() - t0
+    pad = simulated_annealing(g_b, cfg, layout="padded", **kw)
+    _same_sa(res, pad._replace(s=pad.s[..., inv]), "SA layout='auto'")
+    g_f = graphs.powerlaw_graph(2000, gamma=2.3, dmin=2, dmax=48, seed=1)
+    if bucketed.auto_layout(g_f.deg) != "bucketed" or g_f.dmax > 63:
+        raise AssertionError("the fused layout graph does not fit its role")
+    g_fb, inv_f = graphs.permute_nodes(g_f, graphs.degree_buckets(g_f).order)
+    fcfg = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
+    fkw = dict(n_replicas=64, seed=0, max_sweeps=200, chunk_sweeps=50,
+               device="cuda")
+    fused_cuda.LAUNCHES = 0
+    f_a = fused_anneal(g_f, fcfg, layout="auto", **fkw)
+    out["fused_launches"] = fused_cuda.LAUNCHES
+    f_p = fused_anneal(g_fb, fcfg, layout="padded", **fkw)
+    if not (np.array_equal(f_a.s, f_p.s[..., inv_f])
+            and np.array_equal(f_a.steps_to_target, f_p.steps_to_target)
+            and f_a.accepted == f_p.accepted and f_a.kernel_used == "cuda"):
+        raise AssertionError("fused layout='auto' != padded on the relabeled "
+                             "graph")
+    if out["fused_launches"] <= 0:
+        raise AssertionError("fused layout='auto' did not launch K4'")
+    argv = ["sa", "--device", "cuda", "--layout", "bucketed", "--max-steps",
+            str(LAYOUT_SA_STEPS), "--n-stat", "2"]
+    args = cli.build_parser().parse_args(argv)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res_cli = cli._sa_main(args, torch.device("cuda"))
+    out["sa_cli_wall_s"] = time.perf_counter() - t0
+    doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if doc["solver"] != "sa" or res_cli.conf.shape != (2, args.n):
+        raise AssertionError("sa --layout bucketed: bad result")
+    out["sa_cli_consensus"] = _check_ensemble_consensus(
+        res_cli, args, "sa --layout bucketed")
+    log(f"[39 layouts] simulated_annealing(layout='auto') on "
+        f"powerlaw_graph(2000, 2.3, 2, 1) (hub {g.dmax}) == padded on the "
+        f"relabeled graph ({out['sa_wall_s']:.3f} s); fused_anneal(layout="
+        f"'auto') on a dmax-{g_f.dmax} power-law graph == padded relabeled "
+        f"({out['fused_launches']} K4' launches); sa --layout bucketed ran "
+        f"in {out['sa_cli_wall_s']:.3f} s")
+    return out
+
+
+def phase_b4_labelling(g_h, nbr_h, deg_h) -> dict:
+    """ROADMAP B4: K1/K2' at the headline shape (d=3 RRG, n=10⁶, W=512) in
+    the as-built labelling and after ``permute_nodes(g, bfs_order(g))``, in
+    turns, median of ``B4_REPS`` each (each repeat the mean of 20 queued
+    steps). One step of the relabeled graph equals the permuted step."""
+    W = HEADLINE_R // 32
+    t0 = time.perf_counter()
+    order = graphs.bfs_order(g_h)
+    g_bfs, inv = graphs.permute_nodes(g_h, order)
+    setup = time.perf_counter() - t0
+    nbr_b, deg_b = _tables(g_bfs)
+    sp = _random_words(g_h.n, W, 41)
+    order_t = torch.as_tensor(order, device="cuda")
+    inv_t = torch.as_tensor(inv, device="cuda")
+    a = packed_rollout(nbr_h, deg_h, sp, 1)
+    bb = packed_rollout(nbr_b, deg_b, sp.index_select(0, order_t), 1)
+    if not torch.equal(bb.index_select(0, inv_t), a):
+        raise AssertionError("the BFS-labelled step != the permuted step")
+    del a, bb
+    zero = torch.zeros(1, W, dtype=torch.int32, device="cuda")
+    legs = {"as_built": (_stepper(nbr_h, deg_h, "majority", "stay"),
+                         torch.cat([sp, zero])),
+            "bfs": (_stepper(nbr_b, deg_b, "majority", "stay"),
+                    torch.cat([sp.index_select(0, order_t), zero]))}
+    times = {k: [] for k in legs}
+    for r in range(B4_REPS):
+        for k in (tuple(legs) if r % 2 == 0 else tuple(legs)[::-1]):
+            step, ext = legs[k]
+            times[k].append(_steps_ms(step, ext, 20))
+    out = {"setup_s": setup}
+    for k, ts_ in times.items():
+        out[k] = {"median_ms": float(np.median(ts_)), "min_ms": min(ts_),
+                  "max_ms": max(ts_), "ms": ts_}
+    del legs, nbr_b, deg_b
+    torch.cuda.empty_cache()
+    log(f"[40 B4] headline K1/K2' step, {B4_REPS} repeats each in turns: "
+        f"as built median {out['as_built']['median_ms']:.5f} ms (range "
+        f"{out['as_built']['min_ms']:.5f}-{out['as_built']['max_ms']:.5f}), "
+        f"BFS labelling median {out['bfs']['median_ms']:.5f} ms (range "
+        f"{out['bfs']['min_ms']:.5f}-{out['bfs']['max_ms']:.5f}); bfs_order "
+        f"+ permute_nodes {setup:.3f} s on the host")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3268,6 +3887,20 @@ def main() -> int:
     chrom_main = phase_chromatic_main()
     temper_main = phase_temper_main()
     gather_turns = phase_gather_interleaved()
+    # the power-law path: KB against plain, the bench shape through
+    # bucketed_rollout (counted) with the RRG control and the lifted
+    # K1/K2', the stream CLI (counted), the solvers' layouts; then B4
+    t0 = time.perf_counter()
+    g_pl = graphs.powerlaw_graph(POWERLAW_N, gamma=2.2, dmin=2, seed=0)
+    b_pl = graphs.degree_buckets(g_pl)
+    t_pl = time.perf_counter() - t0
+    kb_parity = phase_kb_parity(g_pl, b_pl)
+    planes = phase_packed_planes()
+    pl_main = phase_powerlaw_main(g_pl, b_pl)
+    del g_pl, b_pl
+    stream_main = phase_stream_main()
+    layouts = phase_layouts()
+    b4 = phase_b4_labelling(g_h, nbr_h, deg_h)
     probe512 = {r["impl"]: r for r in probe["rows"] if r["W"] == 512}
     turns512 = gather_turns["probe W=512"]
     sweep_shapes = {**sweep_ent, **sweep_many,
@@ -3321,6 +3954,9 @@ def main() -> int:
                                          "gather_ms", "index_select_ms")},
         "build_s": built["build_s"],
         "launches_on_chromatic_path": chrom_main["packed_step_launches"],
+        "powerlaw_padded": pl_main["padded"],
+        "planes_parity": planes,
+        "b4_labelling": b4,
         "ptxas": built["packed_step"],
     }, {
         "name": "fused_chunk",
@@ -3481,7 +4117,44 @@ def main() -> int:
         "port_widths": probe["port"],
         "parity_cases": gather_err["cases"],
         "ptxas": built["row_gather"],
+    }, {
+        "name": "bucketed_step",
+        "route": "cuda",
+        "source": "graphdyn_torch/csrc/bucketed_step.cu",
+        "replaces": "graphdyn/ops/bucketed.py:182 (_bucketed_rollout_device, "
+                    "XLA), graphdyn/ops/streamed.py:295 "
+                    "(_stream_chunk_device, XLA); no pl.pallas_call",
+        "parity": "bit-exact",
+        "launches": pl_main["launches"],
+        "max_abs_err": kb_parity["max_abs_err"],
+        "ms": pl_main["ms"],
+        "plain_ms": pl_main["plain_ms"],
+        "bound_ms": pl_main["bound_ms"],
+        "bound_by": pl_main["bound_by"],
+        "library_ms": None,
+        "library_note": "no PyTorch call computes a packed bucketed step",
+        "shape": f"powerlaw_graph({POWERLAW_N}, 2.2, 2, 0), "
+                 f"W={POWERLAW_R // 32}, one launch per step over every "
+                 "bucket",
+        "spin_updates_per_s": pl_main["spin_updates_per_s"],
+        "bound_terms": {k: pl_main[k] for k in ("bytes", "ops")},
+        "parts": pl_main["parts"],
+        "parity_cases": kb_parity["cases"],
+        "ptxas": built["bucketed_step"],
     }]
+    log(json.dumps({"phases": {
+        "powerlaw_main": {
+            "main_path_ms_per_step": pl_main["main_ms"],
+            "main_spin_updates_per_s": pl_main["main_spin_updates_per_s"],
+            "host_ms_per_step": pl_main["host_ms_per_step"],
+            "rrg_control": pl_main["rrg"],
+            "rrg_over_bucketed_x": pl_main["rrg_over_bucketed_x"],
+            "rrg_over_bucketed_main_x": pl_main["rrg_over_bucketed_main_x"],
+            "table_entries": pl_main["table_entries"],
+            "padded_entries": pl_main["padded_entries"],
+            "graph_setup_s": t_pl},
+        "stream": {str(k): v for k, v in stream_main.items()},
+        "layouts": layouts}}))
     log(f"[31 searches] SA parity walls (card / CPU, s): "
         + ", ".join(f"{k} {v['card_s']:.3f} / {v['cpu_s']:.3f}"
                     for k, v in sa_parity.items())

@@ -27,10 +27,17 @@
   block sweeps (``chromatic_anneal``). The reference's flags and defaults,
   ``--device`` for ``--backend``; each prints the reference's JSON keys and
   with ``--out`` writes its npz keys. Refused with the reason (not ported
-  yet): ``--sharded``/``--shards``/``--lane-shards`` (A15), ``--checkpoint``
-  (A16), ``--layout bucketed`` (A13) and ``--layout streamed`` (A14).
-  ``sa --chunk-steps`` is the number of masked MCMC steps between two host
-  reads (default 256; the chain does not depend on it).
+  yet): ``--sharded``/``--shards``/``--lane-shards`` (A15) and
+  ``--checkpoint`` (A16). ``sa --layout bucketed|streamed`` runs the serial
+  repetition loop on that layout (``--stream-chunks`` chunks when
+  streamed). ``sa --chunk-steps`` is the number of masked MCMC steps
+  between two host reads (default 256; the chain does not depend on it).
+- ``stream``: the out-of-core streamed rollout (``streamed_rollout``) on a
+  seeded power-law graph, with the reference's flags and defaults, chunks
+  on ``--device`` (default ``cuda``). It prints the reference's JSON keys
+  and with ``--out`` writes its npz keys (``conf``, ``m_end``). Refused
+  (not ported yet): ``--shards`` ≥ 2 and ``--hub-threshold`` (A15),
+  ``--checkpoint`` (A16).
 """
 
 from __future__ import annotations
@@ -310,12 +317,17 @@ def _add_search_parsers(sub) -> None:
     sa.add_argument(
         "--layout", choices=["auto", "padded", "bucketed", "streamed"],
         default="auto",
-        help="node layout of the per-repetition driver: auto and padded run "
-             "the padded tables; bucketed (ROADMAP A13) and streamed (A14) "
-             "are not ported yet and are refused",
+        help="node layout of each repetition's chain: padded tables, the "
+             "degree-bucketed relabeling, or the out-of-core streamed chain "
+             "(both run the serial repetition loop); auto picks bucketed "
+             "when the degree CV crosses the threshold",
     )
-    sa.add_argument("--stream-chunks", type=int, default=4, metavar="K",
-                    help="with --layout streamed (not ported yet)")
+    sa.add_argument(
+        "--stream-chunks", type=int, default=4, metavar="K",
+        help="with --layout streamed: host-resident chunk count of the "
+             "stream plan (two chunks device-resident at a time)",
+    )
+    _add_stream_parser(sub)
 
     tmp = sub.add_parser(
         "temper",
@@ -383,6 +395,55 @@ def _add_search_parsers(sub) -> None:
     _add_device_flag(chrom)
     chrom.add_argument("--out", default=None,
                        help="npz path (per-replica arrays)")
+
+
+def _add_stream_parser(sub) -> None:
+    """The ``stream`` command: the reference's flags and defaults."""
+    strm = sub.add_parser(
+        "stream",
+        help="out-of-core streamed rollout: dynamics on a graph larger than "
+             "the device budget, with host-to-device chunk copies overlapped "
+             "with the chunk steps and optional live edge churn",
+    )
+    strm.add_argument("--n", type=int, default=4096)
+    strm.add_argument("--gamma", type=float, default=2.5,
+                      help="power-law degree exponent of the generated graph")
+    strm.add_argument("--dmin", type=int, default=2,
+                      help="power-law minimum degree")
+    strm.add_argument("--graph-seed", type=int, default=0)
+    strm.add_argument("--rule", choices=["majority", "minority"],
+                      default="majority")
+    strm.add_argument("--tie", choices=["stay", "change"], default="stay")
+    strm.add_argument("--steps", type=int, default=32,
+                      help="synchronous update steps")
+    strm.add_argument("--replicas", type=int, default=32,
+                      help="bit-packed replica count (32 per word)")
+    strm.add_argument("--seed", type=int, default=0,
+                      help="initial-spin seed")
+    strm.add_argument("--chunks", type=int, default=4, metavar="K",
+                      help="host-resident chunk count (ignored when "
+                           "--device-budget is given)")
+    strm.add_argument("--device-budget", type=int, default=None,
+                      metavar="BYTES",
+                      help="pack chunks greedily so two fit in BYTES instead "
+                           "of a fixed --chunks count")
+    strm.add_argument("--prefetch-depth", type=int, default=2, metavar="D",
+                      help="host-prefetch lookahead; 0 makes the gathers and "
+                           "copies synchronous")
+    strm.add_argument("--shards", type=int, default=1, metavar="P",
+                      help="P >= 2 is not ported yet (ROADMAP A15): refused")
+    strm.add_argument("--hub-threshold", type=int, default=None, metavar="D",
+                      help="not ported yet (ROADMAP A15): refused")
+    strm.add_argument("--churn-rate", type=float, default=0.0, metavar="R",
+                      help="live edge churn: Poisson(R/2) adds and drops "
+                           "per step (seeded_churn)")
+    strm.add_argument("--churn-seed", type=int, default=0)
+    strm.add_argument("--checkpoint", default=None,
+                      help="not ported yet (ROADMAP A16): refused")
+    strm.add_argument("--checkpoint-interval", type=float, default=30.0,
+                      help="with --checkpoint (not ported yet)")
+    _add_device_flag(strm)
+    strm.add_argument("--out", default=None, help="npz path (conf, m_end)")
 
 
 def _add_dynamics_flags(ap: argparse.ArgumentParser, p_default: int = 1):
@@ -593,16 +654,13 @@ def _sa_main(args, dev):
                 "A15: parallel/ onto torch.distributed")
     if args.checkpoint:
         _refuse("--checkpoint", "A16: checkpoints and resilience")
-    if args.layout == "bucketed":
-        _refuse("--layout bucketed", "A13: ops/bucketed.py")
-    if args.layout == "streamed":
-        _refuse("--layout streamed", "A14: ops/streamed.py")
     out = sa_ensemble(
         args.n, args.d, _sa_config(args), n_stat=args.n_stat, seed=args.seed,
         max_steps=args.max_steps, save_path=args.out,
         rollout_mode=args.rollout_mode, group_size=args.group_size,
         prefetch=args.prefetch, layout=args.layout,
-        chunk_steps=args.chunk_steps or CHUNK_STEPS, device=dev,
+        chunk_steps=args.chunk_steps or CHUNK_STEPS,
+        stream_chunks=args.stream_chunks, device=dev,
     )
     print(json.dumps({
         "solver": "sa",
@@ -689,8 +747,61 @@ def _chromatic_main(args, dev):
     return res
 
 
+def _stream_main(args, dev) -> dict:
+    """The ``stream`` command; returns its JSON document."""
+    import numpy as np
+
+    from graphdyn_torch.graphs import powerlaw_graph
+    from graphdyn_torch.ops.packed import pack_spins, unpack_spins
+    from graphdyn_torch.ops.streamed import seeded_churn, streamed_rollout
+    from graphdyn_torch.utils.io import save_results_npz
+
+    if args.shards < 1:
+        raise SystemExit("--shards must be >= 1")
+    if args.shards >= 2 or args.hub_threshold is not None:
+        _refuse("--shards >= 2 / --hub-threshold (the sharded stream)",
+                "A15: parallel/ onto torch.distributed")
+    if args.checkpoint:
+        _refuse("--checkpoint", "A16: checkpoints and resilience")
+    g = powerlaw_graph(args.n, gamma=args.gamma, dmin=args.dmin,
+                       seed=args.graph_seed)
+    rng = np.random.default_rng(args.seed)
+    s0 = (2 * rng.integers(0, 2, size=(args.replicas, args.n)) - 1
+          ).astype(np.int8)
+    churn = (seeded_churn(args.n, args.steps, rate=args.churn_rate,
+                          seed=args.churn_seed)
+             if args.churn_rate > 0 else None)
+    stats: dict = {}
+    sp_end = streamed_rollout(
+        g, pack_spins(s0), args.steps,
+        rule=args.rule, tie=args.tie,
+        n_chunks=None if args.device_budget is not None else args.chunks,
+        device_budget_bytes=args.device_budget,
+        prefetch_depth=args.prefetch_depth, churn=churn, seed=args.seed,
+        stats_out=stats, device=dev,
+    )
+    s_end = unpack_spins(sp_end, args.replicas).numpy()
+    m_end = s_end.astype(np.float64).sum(axis=1) / args.n
+    if args.out:
+        save_results_npz(args.out, conf=s_end, m_end=m_end)
+    doc = {
+        "solver": "stream", "n": args.n, "steps": args.steps,
+        "shards": args.shards,
+        "chunks": stats.get("chunks"),
+        "overlap_frac": stats.get("overlap_frac"),
+        "h2d_bytes": stats.get("h2d_bytes"),
+        "d2h_bytes": stats.get("d2h_bytes"),
+        "mutations": stats.get("mutations"),
+        "repartitions": stats.get("repartitions"),
+        "m_end_mean": float(m_end.mean()),
+        "out": args.out,
+    }
+    print(json.dumps(doc))
+    return doc
+
+
 _SEARCH_COMMANDS = {"sa": _sa_main, "temper": _temper_main,
-                    "chromatic": _chromatic_main}
+                    "chromatic": _chromatic_main, "stream": _stream_main}
 
 
 def main(argv=None) -> int:

@@ -34,9 +34,14 @@
 //   measured slower than one.
 // - Loads ahead of the fold. The d neighbours are taken in batches of
 //   kBatch: the batch's indices are loaded, then all its rows' vectors (the
-//   slots past the degree predicated off), then folded into NP =
+//   slots past the degree predicated off), then folded into NP >=
 //   bit_length(dmax) bit planes with the carry-save ripple, so a thread has
-//   kBatch vector loads in flight rather than one.
+//   kBatch vector loads in flight rather than one. NP is bit_length(dmax)
+//   up to 6 (dmax 63); past it the next of 8, 16 and 32 planes, so every
+//   int32 degree runs (three instantiations keep the build short). A hub row is one thread's serial loop over its
+//   degree: the padded layout on a power-law graph is as slow as its
+//   layout makes it (the degree-bucketed kernel, bucketed_step.cu, splits
+//   hub rows over warps).
 // - The comparator against deg/2 and the rule/tie epilogue are those of
 //   graphdyn/ops/packed.py (_compare_planes, _rule_tie_combine).
 // The index map (row and words of each thread) is mirrored in Python by
@@ -226,7 +231,7 @@ extern "C" int graphdyn_packed_step(
     long long n, int dmax, long long W, int n_planes, int fast,
     int d_uniform, int minority, int change, int U, void* stream)
 {
-    if (n < 0 || W < 1 || dmax < 1 || n_planes < 1 || n_planes > 6
+    if (n < 0 || W < 1 || dmax < 1 || n_planes < 1 || n_planes > 32
         || (U != 1 && U != 4)
         || (U == 4 && (W % 4 != 0 || (uintptr_t)src % 16 != 0
                        || (uintptr_t)dst % 16 != 0)))
@@ -251,7 +256,16 @@ extern "C" int graphdyn_packed_step(
         case 3: launch_planes<3>(a, fast, minority, change, U); break;
         case 4: launch_planes<4>(a, fast, minority, change, U); break;
         case 5: launch_planes<5>(a, fast, minority, change, U); break;
-        default: launch_planes<6>(a, fast, minority, change, U); break;
+        case 6: launch_planes<6>(a, fast, minority, change, U); break;
+        default:
+            // past dmax 63 the count takes the next instantiation up: the
+            // extra planes stay zero and the threshold's bits there are
+            // zero, so no comparison changes
+            if (n_planes <= 8) launch_planes<8>(a, fast, minority, change, U);
+            else if (n_planes <= 16)
+                launch_planes<16>(a, fast, minority, change, U);
+            else launch_planes<32>(a, fast, minority, change, U);
+            break;
     }
     return (int)cudaGetLastError();
 }

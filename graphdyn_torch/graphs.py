@@ -23,9 +23,14 @@ replica union also has a
 device builder (``replicate_disjoint_device``,
 ``replicate_edge_tables_device``) that offset-tiles the base tables with
 torch ops on the target device, so a large union never crosses the host
-link. Sampling methods other than the numpy ones (``networkx``, ``native``),
-and the buckets, partitions and relabelings, come with the slices of the
-port that use them (ROADMAP.md, queue A).
+link. So are the ingestion of an external edge list (``from_edgelist``), the
+power-law sampler (``powerlaw_graph``), the breadth-first relabeling
+(``bfs_order``, ``permute_nodes``) and the degree-bucketed layout
+(``DegreeBuckets``, ``degree_buckets``) of the power-law path. The
+``networkx`` sampling methods import networkx inside the call (the machine
+with the card has none); the ``native`` methods build the port's own copy of
+the C++ sampler (:mod:`graphdyn_torch._native`) with g++ at first use. The
+partitions of the node-sharded layouts come with ROADMAP.md A15.
 """
 
 from __future__ import annotations
@@ -104,13 +109,6 @@ class EdgeTables(NamedTuple):
         if E == 0:
             return e
         return (e + E) % (2 * E)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to graphdyn_torch yet; it comes with a later "
-        "slice of the port (ROADMAP.md, queue A)"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -244,16 +242,25 @@ def random_regular_graph(
 ) -> Graph:
     """Sample a d-regular simple graph on n nodes.
 
-    ``method='pairing'``: configuration-model stub pairing with vectorized
-    conflict repair — asymptotically uniform like the reference's
+    ``method='pairing'`` (default): configuration-model stub pairing with
+    vectorized conflict repair — asymptotically uniform like the reference's
     `nx.random_regular_graph` (`SA_RRG.py:59-60`) and fast at N=10⁶.
+    ``method='networkx'`` defers to networkx (imported here, only when asked)
+    for sampling-parity runs; ``method='native'`` runs the C++ sampler.
     """
     if n * d % 2 != 0:
         raise ValueError("n*d must be even")
     if d >= n:
         raise ValueError("need d < n")
-    if method != "pairing":
-        raise _not_ported(f"random_regular_graph(method={method!r})")
+    if method == "networkx":
+        import networkx as nx
+
+        G = nx.random_regular_graph(d, n, seed=seed)
+        return graph_from_edges(n, np.array(G.edges, dtype=np.int64))
+    if method == "native":
+        from graphdyn_torch._native import native_random_regular
+
+        return graph_from_edges(n, native_random_regular(n, d, seed))
 
     rng = _as_rng(seed)
     if d > (n - 1) // 2:
@@ -339,10 +346,20 @@ def erdos_renyi_graph(
     method: str = "numpy",
 ) -> Graph:
     """Sample G(n, p) with an exact Binomial(M, p) edge count and a uniform
-    edge subset (the reference draws `nx.fast_gnp_random_graph`,
-    `ER_BDCM_entropy.ipynb:280`)."""
-    if method != "numpy":
-        raise _not_ported(f"erdos_renyi_graph(method={method!r})")
+    edge subset. ``method='networkx'`` mirrors the reference's
+    `nx.fast_gnp_random_graph` (`ER_BDCM_entropy.ipynb:280`; networkx is
+    imported here, only when asked); ``method='native'`` runs the C++
+    sampler."""
+    if method == "networkx":
+        import networkx as nx
+
+        G = nx.fast_gnp_random_graph(n, p, seed=seed)
+        edges = np.array(G.edges, dtype=np.int64).reshape(-1, 2)
+        return graph_from_edges(n, edges)
+    if method == "native":
+        from graphdyn_torch._native import native_erdos_renyi
+
+        return graph_from_edges(n, native_erdos_renyi(n, p, seed))
 
     rng = _as_rng(seed)
     M = n * (n - 1) // 2
@@ -363,6 +380,295 @@ def erdos_renyi_graph(
         codes = rng.permutation(codes)[:m]
     i, j = _decode_triu(np.sort(codes), n)
     return graph_from_edges(n, np.stack([i, j], axis=1))
+
+
+def from_edgelist(
+    edges,
+    *,
+    n: int | None = None,
+    dmax: int | None = None,
+    strict: bool = False,
+) -> Graph:
+    """Ingest an external undirected edge list into the padded-table
+    :class:`Graph`. Accepts an ``[E, 2]`` array or any iterable of ``(u,
+    v)`` pairs. Self-loops are dropped and duplicate undirected edges
+    (either orientation) keep their first occurrence in input order;
+    ``strict=True`` raises ``ValueError`` naming the first offending rows
+    instead. Endpoints outside ``[0, n)`` always raise. ``n`` defaults to
+    ``max id + 1`` (it must be given for an empty list);
+    ``from_edgelist(g.edges, n=g.n)`` reproduces ``g`` for a simple graph.
+    """
+    if isinstance(edges, np.ndarray):
+        e = edges.astype(np.int64).reshape(-1, 2)
+    else:
+        e = np.array(list(edges), dtype=np.int64).reshape(-1, 2)
+    if n is None:
+        if e.size == 0:
+            raise ValueError("empty edge list: pass n explicitly")
+        if e.min() < 0:
+            raise ValueError(
+                "negative node id(s) in edge list: first offending rows "
+                f"{e[(e < 0).any(axis=1)][:5].tolist()}"
+            )
+        n = int(e.max()) + 1
+    if e.size:
+        bad = (e < 0).any(axis=1) | (e >= n).any(axis=1)
+        if bad.any():
+            rows = np.flatnonzero(bad)
+            raise ValueError(
+                f"{rows.size} edge endpoint(s) outside [0, {n}): first at "
+                f"input row(s) {rows[:5].tolist()} = "
+                f"{e[rows[:5]].tolist()}; fix the ids or pass a larger n"
+            )
+    loops = e[:, 0] == e[:, 1] if e.size else np.zeros(0, bool)
+    if strict and loops.any():
+        rows = np.flatnonzero(loops)
+        raise ValueError(
+            f"strict edge list has {rows.size} self-loop(s): first at "
+            f"input row(s) {rows[:5].tolist()} = "
+            f"{e[rows[:5]].tolist()}; drop them upstream or call with "
+            "strict=False to sanitize"
+        )
+    e = e[~loops]
+    if e.size:
+        lo = np.minimum(e[:, 0], e[:, 1])
+        hi = np.maximum(e[:, 0], e[:, 1])
+        key = lo * max(n, 1) + hi
+        uniq, first, counts = np.unique(
+            key, return_index=True, return_counts=True)
+        if strict and (counts > 1).any():
+            dup_keys = uniq[counts > 1]
+            order = np.argsort(first[counts > 1])
+            ex = [[int(k) // max(n, 1), int(k) % max(n, 1)]
+                  for k in dup_keys[order][:5]]
+            raise ValueError(
+                f"strict edge list has {dup_keys.size} duplicate "
+                f"undirected edge(s) (counting either orientation): first "
+                f"duplicated pair(s) {ex}; dedup upstream or call with "
+                "strict=False to keep each pair's first occurrence"
+            )
+        e = e[np.sort(first)]                      # first occurrence kept
+    return graph_from_edges(n, e, dmax=dmax)
+
+
+def powerlaw_graph(
+    n: int,
+    *,
+    gamma: float = 2.5,
+    dmin: int = 2,
+    dmax: int | None = None,
+    seed=None,
+    method: str = "configuration",
+) -> Graph:
+    """Sample a power-law (scale-free) graph on ``n`` nodes, the degree
+    regime of opinion consensus on social networks, where one hub can have
+    ``~n^(1/(γ−1))`` neighbors (the degree-bucketed layout of
+    :func:`degree_buckets` is its fast path).
+
+    ``method='configuration'`` (default): degrees drawn from ``P(k) ∝
+    k^−γ`` on ``[dmin, dmax]`` (``dmax`` defaults to ``n−1``), stubs paired
+    uniformly, self-loops and duplicate edges erased. ``method='ba'``:
+    Barabási–Albert preferential attachment with ``dmin`` edges per new
+    node, a Python loop for small graphs. Host numpy, deterministic per
+    ``seed``: the same seed gives the JAX package's arrays.
+    """
+    if n < 2:
+        raise ValueError(f"need n >= 2, got {n}")
+    if dmin < 1:
+        raise ValueError(f"dmin must be >= 1, got {dmin}")
+    if gamma <= 1.0:
+        raise ValueError(f"gamma must be > 1, got {gamma}")
+    if dmax is None:
+        dmax = n - 1
+    if not dmin <= dmax <= n - 1:
+        raise ValueError(f"need dmin <= dmax <= n-1, got [{dmin}, {dmax}]")
+    rng = _as_rng(seed)
+    if method == "ba":
+        m = dmin
+        if m >= n:
+            raise ValueError(f"BA needs dmin < n, got dmin={dmin}, n={n}")
+        # sampling uniformly from the endpoint multiset is degree-
+        # proportional sampling
+        repeated: list[int] = list(range(m))
+        edges = []
+        for v in range(m, n):
+            chosen: set[int] = set()
+            guard = 0
+            while len(chosen) < m:
+                guard += 1
+                if guard > 64 * m:
+                    # degenerate early multiset: draw the rest uniformly
+                    pool = [u for u in range(v) if u not in chosen]
+                    chosen.update(
+                        int(u) for u in rng.choice(
+                            pool, size=m - len(chosen), replace=False)
+                    )
+                    break
+                chosen.add(int(repeated[int(rng.integers(len(repeated)))]))
+            for u in chosen:
+                edges.append((u, v))
+                repeated.extend((u, v))
+        return from_edgelist(np.array(edges, dtype=np.int64), n=n)
+    if method != "configuration":
+        raise ValueError(
+            f"method must be 'configuration' or 'ba', got {method!r}"
+        )
+    ks = np.arange(dmin, dmax + 1, dtype=np.int64)
+    w = ks ** (-gamma)
+    deg = rng.choice(ks, size=n, p=w / w.sum())
+    if deg.sum() % 2:                               # stub parity
+        i = int(rng.integers(n))
+        if (deg < dmax).any():
+            while deg[i] >= dmax:                   # keep support [dmin, dmax]
+                i = int(rng.integers(n))
+            deg[i] += 1
+        else:
+            deg[i] -= 1                # dmin == dmax == every draw: shed one
+    stubs = np.repeat(np.arange(n, dtype=np.int64), deg)
+    rng.shuffle(stubs)
+    u, v = stubs[0::2], stubs[1::2]
+    keep = u != v                                   # erased: no self-loops
+    u, v = u[keep], v[keep]
+    lo, hi = np.minimum(u, v), np.maximum(u, v)
+    _, first = np.unique(lo * n + hi, return_index=True)
+    first = np.sort(first)                          # erased: dedup, stable
+    return graph_from_edges(n, np.stack([lo[first], hi[first]], axis=1))
+
+
+def bfs_order(graph: Graph) -> np.ndarray:
+    """Breadth-first node ordering (frontier-vectorized; spans all
+    components): ``order[k]`` is the old id of the node given new id ``k``.
+    Under it a node's neighbours sit within a few frontier widths of each
+    other, so the rows a step gathers lie near each other in device memory
+    (B4 in ROADMAP.md measures what that buys the packed step). Dynamics
+    are label-equivariant, so results only permute."""
+    n = graph.n
+    nbr = graph.nbr
+    visited = np.zeros(n + 1, bool)
+    visited[n] = True                      # ghost slot
+    order = np.empty(n, np.int64)
+    pos = 0
+    scan = 0                               # next unvisited seed
+    while pos < n:
+        while scan < n and visited[scan]:
+            scan += 1
+        frontier = np.array([scan], np.int64)
+        visited[scan] = True
+        while frontier.size:
+            order[pos : pos + frontier.size] = frontier
+            pos += frontier.size
+            nxt = np.unique(nbr[frontier].reshape(-1))
+            nxt = nxt[~visited[nxt]]
+            visited[nxt] = True
+            frontier = nxt
+    return order
+
+
+def permute_nodes(graph: Graph, order: np.ndarray) -> tuple[Graph, np.ndarray]:
+    """Relabel nodes so old node ``order[k]`` becomes new node ``k``.
+    Returns ``(relabeled_graph, inv)`` with ``inv[old] = new``; a spin
+    vector follows as ``s_new = s_old[..., order]``."""
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.size)
+    new_edges = inv[graph.edges.astype(np.int64)]
+    return graph_from_edges(graph.n, new_edges, dmax=graph.dmax), inv
+
+
+def _bit_length(v: np.ndarray) -> np.ndarray:
+    """Vectorized ``int.bit_length`` (host int math, no float log2)."""
+    v = np.asarray(v, dtype=np.int64)
+    out = np.zeros(v.shape, np.int64)
+    for k in range(63):
+        bit = np.int64(1) << k
+        out += v >= bit
+        if not (v >= bit).any():
+            break
+    return out
+
+
+class DegreeBuckets(NamedTuple):
+    """Degree-bucketed node layout (host numpy), the power-law fast path.
+
+    Nodes are permuted bucket-major into ``O(log dmax)`` power-of-two
+    degree buckets: node ``i`` lands in bucket ``ceil(log2(deg_i))``
+    (degrees 0 and 1 in bucket 0), so every node of a width-``2^b`` bucket
+    has a degree in ``(2^(b-1), 2^b]`` and the bucket's neighbor block
+    ``nbr[b]: int32[n_b, 2^b]`` pads each row at most 2x. Total entries are
+    ``<= 4E + n_0`` where the padded table has ``n·dmax``. Neighbor entries
+    are permuted node ids indexing the bucketed state order, ghost-padded
+    with ``n``. Only non-empty buckets are kept.
+
+    Attributes:
+      n:       global node count.
+      order:   int64[n] old id of the node in permuted slot k.
+      inv:     int64[n] permuted slot of old node i.
+      offsets: int64[B+1] bucket boundaries in the permuted order.
+      widths:  tuple[int, ...] per-bucket padded width (powers of two,
+               strictly increasing).
+      nbr:     tuple of int32[n_b, width_b] per-bucket neighbor blocks.
+      deg:     tuple of int32[n_b] per-bucket true degrees.
+    """
+
+    n: int
+    order: np.ndarray
+    inv: np.ndarray
+    offsets: np.ndarray
+    widths: tuple
+    nbr: tuple
+    deg: tuple
+
+    @property
+    def B(self) -> int:
+        return len(self.widths)
+
+    @property
+    def table_entries(self) -> int:
+        """Σ_b n_b · width_b, the bucketed analogue of ``n·dmax``."""
+        return int(sum(t.shape[0] * t.shape[1] for t in self.nbr))
+
+
+def degree_buckets(graph: Graph, *, seed: int | None = None) -> DegreeBuckets:
+    """Build the :class:`DegreeBuckets` layout of ``graph`` (host numpy,
+    deterministic): ``seed=None`` keeps the original order within each
+    bucket, an int seed shuffles within buckets deterministically."""
+    n = graph.n
+    deg = graph.deg.astype(np.int64)
+    bucket = _bit_length(np.maximum(deg - 1, 0))    # deg<=1 -> 0, else ceil(log2)
+    if seed is None:
+        order = np.argsort(bucket, kind="stable").astype(np.int64)
+    else:
+        jitter = np.random.default_rng(seed).random(n)
+        order = np.lexsort((jitter, bucket)).astype(np.int64)
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n)
+    # the ghost index n maps to itself
+    inv_ext = np.concatenate([inv, [n]])
+
+    present = np.unique(bucket)
+    counts = np.array([(bucket == b).sum() for b in present], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    widths, nbrs, degs = [], [], []
+    for k, b in enumerate(present):
+        ids = order[offsets[k]:offsets[k + 1]]
+        w = 1 << int(b)
+        take = min(w, graph.dmax)
+        blk = inv_ext[graph.nbr[ids, :take].astype(np.int64)]
+        if take < w:
+            blk = np.concatenate(
+                [blk, np.full((ids.size, w - take), n, np.int64)], axis=1
+            )
+        widths.append(w)
+        nbrs.append(blk.astype(np.int32))
+        degs.append(graph.deg[ids].astype(np.int32))
+    return DegreeBuckets(
+        n=n,
+        order=order,
+        inv=inv,
+        offsets=offsets,
+        widths=tuple(widths),
+        nbr=tuple(nbrs),
+        deg=tuple(degs),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -308,3 +308,32 @@ def temper_state_from_jax(state, seeds, device="cpu"):
         pair_att=_tensor(zeros, np.int32, device),
         pair_acc=_tensor(zeros, np.int32, device),
     )
+
+
+def degree_buckets_from_jax(buckets):
+    """The JAX package's ``DegreeBuckets`` (numpy fields) -> the port's,
+    with copies of every array in the same dtypes."""
+    from graphdyn_torch.graphs import DegreeBuckets
+
+    return DegreeBuckets(
+        n=int(buckets.n),
+        order=np.array(buckets.order, dtype=np.int64),
+        inv=np.array(buckets.inv, dtype=np.int64),
+        offsets=np.array(buckets.offsets, dtype=np.int64),
+        widths=tuple(int(w) for w in buckets.widths),
+        nbr=tuple(np.array(t, dtype=np.int32) for t in buckets.nbr),
+        deg=tuple(np.array(d, dtype=np.int32) for d in buckets.deg),
+    )
+
+
+def stream_plan_from_jax(plan):
+    """The JAX package's ``StreamPlan`` -> the port's (numpy copies of every
+    chunk's tables, in the same dtypes)."""
+    from graphdyn_torch.ops.streamed import StreamChunk, StreamPlan
+
+    return StreamPlan(
+        n=int(plan.n),
+        chunks=tuple(StreamChunk(*(np.array(f) for f in ch))
+                     for ch in plan.chunks),
+        chunk_of=np.array(plan.chunk_of),
+    )

@@ -42,8 +42,13 @@ differ from it in the last bit, so a chain held against the JAX package may
 part only where ``u`` is within an ulp or two of ``exp(−ΔH)`` (the near-tie
 rule of :mod:`graphdyn_torch.search.reference`).
 
-Not ported yet: ``layout='bucketed'`` (ROADMAP A13), ``layout='streamed'``
-(A14) and ``checkpoint_path`` (A16); they raise, naming the item.
+Layouts, as the JAX package routes them: ``layout='auto'`` relabels a
+graph whose degree CV crosses the bucketed threshold bucket-major
+(``degree_buckets`` order, ``permute_nodes``), runs the padded chain on it
+and maps the spins back, as ``layout='bucketed'`` does; ``layout='streamed'``
+is the host-stepped chain of :func:`_sa_streamed`, every end sum from the
+out-of-core streamed rollout. Not ported yet: ``checkpoint_path`` (A16); it
+raises, naming the item.
 """
 
 from __future__ import annotations
@@ -415,6 +420,7 @@ def simulated_annealing(
     lc_tables=None,
     kernel: str = "auto",
     layout: str = "auto",
+    stream_chunks: int = 4,
     device=None,
 ) -> SAResult:
     """Run R batched SA chains on ``graph`` on ``device`` (default CUDA).
@@ -433,8 +439,14 @@ def simulated_annealing(
     fused one-kernel annealer is a class-parallel chain, another Markov
     chain, run by :func:`graphdyn_torch.search.fused.fused_anneal`.
     ``layout``: ``'auto'`` runs padded unless the degree CV routes the graph
-    to the bucketed layout; ``'bucketed'`` (A13), ``'streamed'`` (A14) and
-    ``checkpoint_path`` (A16) are not ported and raise."""
+    to the bucketed layout; ``'bucketed'`` relabels the graph bucket-major,
+    runs the padded chain on it and maps ``s`` back (injected streams and
+    prebuilt ``lc_tables`` are node-indexed and refused there);
+    ``'streamed'`` runs :func:`_sa_streamed` with ``stream_chunks`` chunks
+    (injected streams allowed: it keeps the caller's labeling).
+    ``checkpoint_path`` (A16) is not ported and raises; an auto-routed
+    checkpointed run would pin the padded layout, as the JAX package's
+    does, once it is."""
     if kernel not in ("auto", "plain"):
         if kernel in ("cuda", "pallas"):
             raise ValueError(
@@ -450,23 +462,43 @@ def simulated_annealing(
         raise ValueError(
             f"layout must be 'auto', 'padded', 'bucketed' or 'streamed', "
             f"got {layout!r}")
+    if checkpoint_path is not None:
+        raise _not_ported("checkpoint_path", "A16: checkpoints and resilience")
     if layout == "auto":
         from graphdyn_torch.ops.bucketed import auto_layout
 
         layout = auto_layout(graph.deg)
-        if layout == "bucketed":
-            raise _not_ported(
-                "simulated_annealing(layout='auto') on this graph (its "
-                "degree CV routes it to the degree-bucketed layout; pass "
-                "layout='padded' to run it padded)", "A13: ops/bucketed.py")
     if layout == "bucketed":
-        raise _not_ported("simulated_annealing(layout='bucketed')",
-                          "A13: ops/bucketed.py")
+        if proposals is not None or uniforms is not None:
+            raise ValueError(
+                "injected proposals/uniforms are node-indexed: pass "
+                "layout='padded' to keep the caller's labeling")
+        if lc_tables is not None:
+            raise ValueError(
+                "prebuilt lightcone tables are node-indexed: pass "
+                "layout='padded' to keep the caller's labeling")
+        from graphdyn_torch.graphs import degree_buckets, permute_nodes
+
+        order = degree_buckets(graph).order
+        g_b, inv = permute_nodes(graph, order)
+        res = simulated_annealing(
+            g_b, config, n_replicas=n_replicas, seed=seed,
+            s0=None if s0 is None else np.asarray(s0)[..., order],
+            a0=a0, b0=b0, max_steps=max_steps, dtype=dtype,
+            chunk_steps=chunk_steps, rollout_mode=rollout_mode,
+            kernel=kernel, layout="padded", device=device)
+        return res._replace(s=res.s[..., inv])
     if layout == "streamed":
-        raise _not_ported("simulated_annealing(layout='streamed')",
-                          "A14: ops/streamed.py")
-    if checkpoint_path is not None:
-        raise _not_ported("checkpoint_path", "A16: checkpoints and resilience")
+        if rollout_mode != "full":
+            raise ValueError(
+                "rollout_mode='lightcone' caches a device-resident "
+                "trajectory, which is what the out-of-core streamed layout "
+                "exists to avoid — use rollout_mode='full'")
+        return _sa_streamed(
+            graph, config or SAConfig(), n_replicas=n_replicas, seed=seed,
+            s0=s0, a0=a0, b0=b0, proposals=proposals, uniforms=uniforms,
+            max_steps=max_steps, dtype=dtype, stream_chunks=stream_chunks,
+            device=device)
     if rollout_mode not in ("full", "lightcone"):
         raise ValueError(
             f"rollout_mode must be 'full' or 'lightcone', got {rollout_mode!r}")
@@ -518,6 +550,73 @@ def simulated_annealing(
         num_steps=state.t.cpu().numpy(),
         m_final=state.m_final.cpu().numpy(),
     )
+
+
+def _sa_streamed(graph, config: SAConfig, *, n_replicas, seed, s0, a0, b0,
+                 proposals, uniforms, max_steps, dtype, stream_chunks,
+                 device) -> SAResult:
+    """``layout='streamed'``: the same serial Metropolis chain, each
+    candidate's end sum from the out-of-core streamed rollout
+    (:func:`graphdyn_torch.ops.streamed.streamed_rollout`, its chunks on
+    ``device``) instead of a resident one. The chain is host-stepped, one
+    streamed rollout per step, its small state on the host; the proposal
+    draw and the Metropolis/anneal arithmetic are the padded chain's own
+    (:func:`draw_sa_proposal`, :func:`metropolis_anneal_update`), and the
+    integer end sums do not depend on the engine, so the chain equals
+    ``layout='padded'`` under the same streams. The node labeling is the
+    caller's."""
+    from graphdyn_torch.ops.packed import WORD, pack_spins, unpack_spins
+    from graphdyn_torch.ops.streamed import build_stream_plan, streamed_rollout
+
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    host = torch.device("cpu")
+    n = graph.n
+    dyn = config.dynamics
+    rollout = dyn.p + dyn.c - 1
+    (R, seed, s0, a0, b0, proposals, uniforms, max_steps, stream_len,
+     injected) = prepare_sa_inputs(
+        graph, config, n_replicas=n_replicas, seed=seed, s0=s0, a0=a0,
+        b0=b0, proposals=proposals, uniforms=uniforms, max_steps=max_steps,
+        dtype=dt)
+    np_dt = np.float32 if dt == torch.float32 else np.float64
+    plan = build_stream_plan(graph, W=-(-R // WORD), n_chunks=stream_chunks)
+
+    def end_sums(s_batch):
+        """Integer Σ_i s_end_i per replica through the streamed engine."""
+        out = streamed_rollout(graph, pack_spins(s_batch), rollout,
+                               rule=dyn.rule, tie=dyn.tie, plan=plan,
+                               device=dev)
+        return unpack_spins(out, R).sum(dim=1, dtype=torch.int32)
+
+    s = torch.from_numpy(s0)
+    a_v = torch.from_numpy(a0.astype(np_dt))
+    b_v = torch.from_numpy(b0.astype(np_dt))
+    key = chain_keys(seed, R, host)
+    consts = sa_consts(config, n, dt, host)
+    sum_end = end_sums(s)
+    m_final = sum_end.to(dt) * consts["inv_n"]
+    t = torch.zeros(R, dtype=torch.int64 if dt == torch.float64
+                    else torch.int32)
+    active = m_final < 1.0
+    prop = torch.from_numpy(np.array(proposals))
+    unif = torch.from_numpy(uniforms.astype(np_dt))
+    ridx = torch.arange(R)
+    while bool(active.any()):
+        i, u = draw_sa_proposal(key, t, prop, unif, injected=injected,
+                                stream_len=stream_len, n=n, dt=dt)
+        i, u = i[:, 0], u[:, 0]
+        s_i = s[ridx, i].to(torch.int32)
+        s_flip = s.clone()
+        s_flip[ridx, i] = (-s_i).to(torch.int8)
+        do, sum_end, a_v, b_v, t, m_final, active = metropolis_anneal_update(
+            active, a_v, b_v, t, m_final, sum_end, end_sums(s_flip), s_i, u,
+            max_steps=max_steps, n=n, **consts)
+        s = torch.where(do[:, None], s_flip, s)
+    s_final = s.numpy()
+    mag = s_final.astype(np.float64).sum(axis=1) / n
+    return SAResult(s=s_final, mag_reached=mag.astype(np_dt),
+                    num_steps=t.numpy(), m_final=m_final.numpy())
 
 
 def energy(graph, s, a: float, b: float, p: int, c: int,
@@ -574,6 +673,7 @@ def sa_ensemble(
     prefetch: int = 2,
     layout: str = "auto",
     chunk_steps: int = CHUNK_STEPS,
+    stream_chunks: int = 4,
     device=None,
 ) -> SAEnsembleResult:
     """The reference's experiment driver (`SA_RRG.py:58-92`): ``n_stat``
@@ -586,7 +686,9 @@ def sa_ensemble(
     (:func:`graphdyn_torch.pipeline.sa_group.sa_ensemble_grouped`), element
     for element equal to the serial loop; ``group_size=0`` forces the
     serial loop, which ``rollout_mode='lightcone'`` and the non-padded
-    layouts always take. ``checkpoint_path`` is not ported (A16)."""
+    layouts (``'bucketed'``, ``'streamed'`` with ``stream_chunks``) always
+    take: each repetition's :func:`simulated_annealing` gets ``layout``.
+    ``checkpoint_path`` is not ported (A16)."""
     if layout not in ("auto", "padded", "bucketed", "streamed"):
         raise ValueError(
             f"layout must be 'auto', 'padded', 'bucketed' or 'streamed', "
@@ -622,7 +724,7 @@ def sa_ensemble(
         res = simulated_annealing(
             g, config, n_replicas=1, seed=seed + k, max_steps=max_steps,
             rollout_mode=rollout_mode, layout=layout,
-            chunk_steps=chunk_steps, device=dev)
+            chunk_steps=chunk_steps, stream_chunks=stream_chunks, device=dev)
         mag[k] = res.mag_reached[0]
         steps[k] = res.num_steps[0]
         conf[k] = res.s[0]

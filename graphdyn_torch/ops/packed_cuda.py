@@ -28,7 +28,7 @@ from graphdyn_torch.ops import cuda_build
 
 SOURCE = "packed_step.cu"
 NVCC_FLAGS = cuda_build.BASE_FLAGS
-MAX_PLANES = 6          # the kernel's template range: dmax <= 63
+MAX_PLANES = 32         # the kernel's widest instantiation: any int32 dmax
 THREADS = 256           # per block
 
 # kernel launches made through packed_step since the last reset; a run shows
@@ -153,9 +153,18 @@ def check_launch(nbr: torch.Tensor, deg: torch.Tensor, src: torch.Tensor,
     if planes > MAX_PLANES:
         raise ValueError(
             f"packed_step: dmax={dmax} needs {planes} bit planes; the kernel "
-            f"takes at most {MAX_PLANES} (dmax <= 63)"
+            f"takes at most {MAX_PLANES}"
         )
     return n, dmax, W, planes
+
+
+def kernel_planes(planes: int) -> int:
+    """The instantiation a launch of ``planes`` bit planes runs: the exact
+    count up to 6 (dmax 63), else the next of 8, 16 and 32 (the extra
+    planes stay zero)."""
+    if planes <= 6:
+        return planes
+    return next(k for k in (8, 16, 32) if planes <= k)
 
 
 def _launch(nbr, deg, src, dst, dims, minority: bool, change: bool,

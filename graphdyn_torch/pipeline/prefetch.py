@@ -7,6 +7,11 @@ repetition index (graphs and RNG streams derive from ``seed + k``), so
 *when* a build happens cannot change *what* it produces: ``depth=0``
 (synchronous) and any other depth give the same items. The queue holds at
 most ``depth`` items.
+
+Overlap accounting, as the JAX package keeps it: ``build_s`` is the time
+spent in ``build`` and ``wait_s`` the time the consumer blocked in
+:meth:`get` (at depth 0 every build is a wait), so ``1 - wait_s/build_s``
+is the share of build time hidden behind the consumer's work.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from typing import Callable, Iterable
 
 log = logging.getLogger("graphdyn_torch.pipeline")
@@ -39,6 +45,8 @@ class HostPrefetcher:
         self._keys = list(keys)
         self.depth = depth
         self._pos = 0
+        self.build_s = 0.0
+        self.wait_s = 0.0
         self._stop = threading.Event()
         self._q: queue.Queue | None = None
         self._thread: threading.Thread | None = None
@@ -53,10 +61,12 @@ class HostPrefetcher:
         for k in self._keys:
             if self._stop.is_set():
                 return
+            t0 = time.monotonic()
             try:
                 item = (k, self._build(k), None)
             except BaseException as e:  # noqa: BLE001 — re-raised in get()
                 item = (k, None, e)
+            self.build_s += time.monotonic() - t0
             # bounded put that stays responsive to close()
             while not self._stop.is_set():
                 try:
@@ -77,8 +87,14 @@ class HostPrefetcher:
                              f"{expected}, got {k}")
         self._pos += 1
         if self._q is None:
-            return self._build(k)
+            t0 = time.monotonic()
+            out = self._build(k)
+            self.build_s += time.monotonic() - t0
+            self.wait_s = self.build_s      # synchronous: no overlap
+            return out
+        t0 = time.monotonic()
         got_k, value, exc = self._q.get()
+        self.wait_s += time.monotonic() - t0
         if got_k != k:
             raise RuntimeError(f"prefetch stream desync: {got_k} != {k}")
         if exc is not None:

@@ -194,8 +194,14 @@ def fused_anneal(
 
     ``layout``: ``'auto'`` consults
     :func:`graphdyn_torch.ops.bucketed.auto_layout`; a graph it routes to
-    the bucketed layout, or ``layout='bucketed'``, raises
-    ``NotImplementedError`` (ROADMAP.md A13).
+    the bucketed layout, or ``layout='bucketed'``, is relabeled bucket-major
+    (``degree_buckets`` order) before the coloring and LUT build, and the
+    returned configurations are mapped back to the caller's ids, as the JAX
+    package does. The seeded chain is labeling-dependent, so the relabeled
+    run is another, equally distributed chain; prebuilt ``tables`` pin the
+    caller's labeling and need ``layout='padded'`` (``'auto'`` then stays
+    padded). The kernel's degree gate (dmax ≤ 63) applies to the relabeled
+    graph as to any other (ROADMAP.md C4).
     """
     config = config or SAConfig()
     dev = resolve_device(device)
@@ -213,13 +219,21 @@ def fused_anneal(
 
         layout = "padded" if tables is not None else auto_layout(graph.deg)
     if layout == "bucketed":
-        raise NotImplementedError(
-            "fused_anneal(layout='bucketed') is not ported yet: this graph's "
-            "degree CV routes it to the degree-bucketed layout, which comes "
-            "with ROADMAP.md A13 (running it padded would be a different "
-            "chain from the reference's); pass layout='padded' to run it "
-            "padded anyway"
+        if tables is not None:
+            raise ValueError(
+                "prebuilt FusedTables pin the caller's node labeling: "
+                "pass layout='padded' (or tables=None) to relabel"
+            )
+        from graphdyn_torch.graphs import degree_buckets, permute_nodes
+
+        g_b, inv = permute_nodes(graph, degree_buckets(graph).order)
+        res = fused_anneal(
+            g_b, config, n_replicas=n_replicas, seed=seed,
+            m_target=m_target, max_sweeps=max_sweeps,
+            chunk_sweeps=chunk_sweeps, stop_on_first=stop_on_first,
+            kernel=kernel, betas=betas, layout="padded", device=dev,
         )
+        return res._replace(s=res.s[..., inv])
     if chunk_sweeps < 1:
         raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
     if max_sweeps < 1:

@@ -258,9 +258,12 @@ def test_fused_anneal_refusals():
         tsf.fused_anneal(g, tcfg, n_replicas=2, kernel="xla", device="cpu")
     with pytest.raises(ValueError, match="layout"):
         tsf.fused_anneal(g, tcfg, n_replicas=2, layout="csr", device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
+    # the bucketed layout runs since the power-law slice; what it refuses is
+    # a prebuilt table set, which pins the caller's labeling
+    tables = tsf.build_fused_tables(g, tcfg)
+    with pytest.raises(ValueError, match="tables"):
         tsf.fused_anneal(g, tcfg, n_replicas=2, layout="bucketed",
-                         device="cpu")
+                         tables=tables, device="cpu")
 
 
 def test_cli_fused_equal_jax_cli(tmp_path, capsys):

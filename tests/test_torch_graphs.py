@@ -83,11 +83,13 @@ def test_rng_passthrough_and_refusals():
         tg.random_regular_graph(5, 3, seed=0)
     with pytest.raises(ValueError, match="d < n"):
         tg.random_regular_graph(4, 4, seed=0)
+    # the networkx and native samplers run (since the power-law slice) and
+    # give the JAX package's arrays for the same seed
     for method in ("networkx", "native"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tg.random_regular_graph(10, 3, seed=0, method=method)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tg.erdos_renyi_graph(10, 0.3, seed=0, method=method)
+        _assert_same(jg.random_regular_graph(10, 3, seed=0, method=method),
+                     tg.random_regular_graph(10, 3, seed=0, method=method))
+        _assert_same(jg.erdos_renyi_graph(10, 0.3, seed=0, method=method),
+                     tg.erdos_renyi_graph(10, 0.3, seed=0, method=method))
 
 
 POWER_CASES = {
@@ -144,11 +146,17 @@ def test_degree_cv_auto_layout_and_bucketed_refusal():
             jb.auto_layout(g_j.deg, threshold=0.3)
     assert tb.auto_layout(hub_t.deg) == "bucketed"
     assert tg.degree_cv(np.zeros(0)) == 0.0 == tg.degree_cv(np.zeros(3))
+    # the bucketed layout runs (since the power-law slice): the hub graph
+    # is relabeled bucket-major and the spins mapped back, so auto and
+    # bucketed give the padded run on the relabeled graph
     cfg = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
+    g_b, inv = tg.permute_nodes(hub_t, tg.degree_buckets(hub_t).order)
+    want = fused_anneal(g_b, cfg, n_replicas=2, max_sweeps=2, layout="padded",
+                        device="cpu").s[..., inv]
     for layout in ("auto", "bucketed"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            fused_anneal(hub_t, cfg, n_replicas=2, layout=layout,
-                         device="cpu")
+        got = fused_anneal(hub_t, cfg, n_replicas=2, max_sweeps=2,
+                           layout=layout, device="cpu")
+        np.testing.assert_array_equal(got.s, want)
 
 
 TABLE_CASES = {

@@ -22,6 +22,9 @@ from graphdyn_torch.models import hpr as th
 from graphdyn_torch.models import sa as tsa
 from graphdyn_torch.ops import bdcm as tb
 from graphdyn_torch.ops import bdcm_cuda
+from graphdyn_torch.ops import bucketed as tbk
+from graphdyn_torch.ops import bucketed_cuda
+from graphdyn_torch.ops import streamed as tss
 from graphdyn_torch.ops import dynamics as td
 from graphdyn_torch.ops import fused as tfu
 from graphdyn_torch.ops import fused_cuda
@@ -88,7 +91,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.models.sa", "graphdyn_torch.ops.lightcone",
                  "graphdyn_torch.pipeline.sa_group",
                  "graphdyn_torch.search.chromatic",
-                 "graphdyn_torch.search.tempering"):
+                 "graphdyn_torch.search.tempering",
+                 "graphdyn_torch.ops.bucketed_cuda",
+                 "graphdyn_torch.ops.streamed",
+                 "graphdyn_torch._native", "graphdyn_torch._native.build"):
         assert name in out["modules"]
 
 
@@ -167,6 +173,14 @@ ENTRY_POINTS = {
         _small_graph(), 2),
     "resolve_lightcone_tables": lambda: tl.resolve_lightcone_tables(
         _small_graph(), 2),
+    "streamed_rollout": lambda: tss.streamed_rollout(
+        _small_graph(), np.zeros((20, 1), np.uint32), 1, n_chunks=2),
+    "simulated_annealing_bucketed": lambda: tsa.simulated_annealing(
+        _small_graph(), SAConfig(), n_replicas=2, max_steps=2,
+        layout="bucketed"),
+    "simulated_annealing_streamed": lambda: tsa.simulated_annealing(
+        _small_graph(), SAConfig(), n_replicas=2, max_steps=2,
+        layout="streamed"),
 }
 
 
@@ -191,8 +205,11 @@ def test_entry_point_without_device_refuses_on_cuda_less_host(name, monkeypatch)
     ["sa", "--n", "50", "--d", "3", "--n-stat", "2", "--max-steps", "2"],
     ["chromatic", "--n", "50", "--max-sweeps", "2"],
     ["temper", "--n", "50", "--lanes", "2", "--max-steps", "2"],
+    ["stream", "--n", "50", "--steps", "1"],
+    ["sa", "--n", "50", "--d", "3", "--n-stat", "2", "--max-steps", "2",
+     "--layout", "streamed"],
 ], ids=["consensus", "fused", "hpr", "hpr_batch", "entropy", "entropy_union",
-        "sa", "chromatic", "temper"])
+        "sa", "chromatic", "temper", "stream", "sa_streamed"])
 def test_cli_without_device_refuses_on_cuda_less_host(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
@@ -218,9 +235,9 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
 
 
 @pytest.mark.parametrize("wrapper", [packed_cuda, fused_cuda, bdcm_cuda,
-                                     gather_cuda],
+                                     gather_cuda, bucketed_cuda],
                          ids=["packed_step", "fused_chunk", "dp_contract",
-                              "row_gather"])
+                              "row_gather", "bucketed_step"])
 def test_kernel_build_raises_without_nvcc(wrapper, monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -241,6 +258,22 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():
     before = packed_cuda.LAUNCHES
     tp.packed_rollout(nbr, deg, ext[:-1], 3)
     assert packed_cuda.LAUNCHES == before
+
+
+def test_bucketed_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():
+    g = tg.powerlaw_graph(200, gamma=2.3, dmin=2, seed=1)
+    b = tg.degree_buckets(g)
+    segs = [(nb, dg, None, r0) for nb, dg, r0 in
+            tbk.device_buckets(b, torch.device("cpu"))]
+    ext = torch.zeros(g.n + 1, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not CUDA"):
+        bucketed_cuda.bucketed_step(segs, ext, ext.clone(), rule="majority",
+                                    tie="stay", ghost_row=g.n)
+    before = bucketed_cuda.LAUNCHES
+    tbk.bucketed_rollout(b, ext[:-1], 3)
+    tbk.bucketed_rollout_global(g, ext[:-1], 3)
+    tss.streamed_rollout(g, ext[:-1], 2, n_chunks=2, device="cpu")
+    assert bucketed_cuda.LAUNCHES == before
 
 
 def _fused_cpu_inputs():
