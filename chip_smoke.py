@@ -48,7 +48,7 @@ must count 0 there):
   for bit, config 4 at full width through ``entropy_ensemble_union`` (64 ER
   instances, n=1000, c=1.5, 32 λ, max_sweeps 400, float32), the congruent
   ensemble on 64 RRG(1000, 3), and the ``entropy`` CLI at its defaults
-  but for its λ ladder, cut to λ ≤ 6;
+  but for its λ ladder, cut to λ ≤ 3;
 - the SA searches, plain PyTorch on the card (no TPU kernel lies on their
   path): injected-stream chains on the card equal to the same chains on the
   CPU (RRG n=300 d=4 and a ragged ER graph, full and light-cone), counter-
@@ -58,7 +58,7 @@ must count 0 there):
   lightcone`` (serial), which must agree bit for bit, with steps/s, host
   reads and the device's busy share over one chunk; the ``chromatic`` CLI
   and the ``temper`` CLI at their defaults. The step budgets of ``sa`` and
-  ``temper`` are cut to 5·10³ and 10⁴ (a chain at those defaults takes
+  ``temper`` are cut to 2.5·10³ and 5·10³ (a chain at those defaults takes
   ~10⁸ steps);
 - the power-law path (``bench.py``'s ``powerlaw_rate_row`` and
   ``stream_rate_row`` shapes): KB against its plain version on
@@ -76,7 +76,21 @@ must count 0 there):
   ``simulated_annealing`` and ``fused_anneal`` with ``layout='auto'`` on
   power-law graphs equal to their padded runs on the relabeled graphs, and
   ``sa --layout bucketed``; then the packed step at the headline shape in
-  the as-built and the BFS labelling, in turns (ROADMAP B4).
+  the as-built and the BFS labelling, in turns (ROADMAP B4);
+- K4′ past dmax 63 (C4): the kernel against its plain version on
+  power-law graphs relabeled bucket-major with hubs of 163 and 1011 (the
+  8- and 16-plane instantiations), timed per class step, and
+  ``fused_anneal(layout='bucketed')`` through it, counted;
+- durability, each command preempted and resumed and held to its
+  uninterrupted run above bit for bit, with the store's ms per snapshot:
+  the ``sa`` CLI (killed by ``GRAPHDYN_FAULT_PLAN``, then a real SIGTERM
+  that must exit 75, then resumed), ``hpr`` in float32 and float64 (K3′
+  launches over both legs = the sweeps), the ``entropy`` CLI (and a
+  ``sweep.nan`` injection that must take the degrade path), the ``stream``
+  CLI with churn (KB launches = chunks × steps over both legs), ``temper``,
+  ``fused --deadline`` (exit 75), ``run-supervised -- sa`` through a crash
+  (and a crash loop, exit 86), and an injected ``pallas.lower`` failure,
+  which must end the run.
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
 n=10⁶, R=1024), with its peak device memory; the packed step and its bare
@@ -210,6 +224,10 @@ from graphdyn_torch.pipeline.hpr_group import (
     host_init,
     hpr_uniforms,
 )
+from graphdyn_torch.resilience import faults, supervisor
+from graphdyn_torch.resilience import store as tstore
+from graphdyn_torch.resilience.retry import RetryPolicy
+from graphdyn_torch.resilience.shutdown import EX_TEMPFAIL, clear_shutdown
 from graphdyn_torch.scripts import gather_probe
 from graphdyn_torch.search.chromatic import chromatic_anneal
 from graphdyn_torch.search.fused import _assemble_fused, fused_anneal
@@ -313,12 +331,12 @@ GATHER_PORT_SHAPES = (
 # since a chain at the sa CLI's defaults takes ~10^8 steps to consensus
 # (physics_r04.json)
 SA_PARITY_N, SA_PARITY_L = 300, 2000
-SA_MAIN_STEPS, TEMPER_MAIN_STEPS = 5_000, 10_000
+SA_MAIN_STEPS, TEMPER_MAIN_STEPS = 2_500, 5_000
 # repeats of each implementation in the interleaved gather timing
 GATHER_REPS = 9
 # the entropy CLI's λ ladder, cut from its default 12.0 (121 points) to
-# keep the script's time since the power-law phases joined it
-ENTROPY_CLI_LMBD_MAX = 6.0
+# keep the script's time since the power-law and durability phases joined
+ENTROPY_CLI_LMBD_MAX = 3.0
 # the power-law path: bench.py:powerlaw_rate_row's shape
 # (powerlaw_graph(10^5, gamma=2.2, dmin=2, seed=0), R=1024, 20 steps x 3
 # iterations) and stream_rate_row's (n=65,536, the same law, R=1024, 10
@@ -327,10 +345,27 @@ POWERLAW_N, POWERLAW_R, POWERLAW_STEPS, POWERLAW_ITERS = 100_000, 1024, 20, 3
 STREAM_N, STREAM_R, STREAM_STEPS = 65_536, 1024, 10
 LAYOUT_SA_STEPS = 2000
 B4_REPS = 9
+# K4' past dmax 63 (C4): a power-law graph with a hub in the thousands
+# (powerlaw_graph(4000, 2.0, 2, 1): dmax 1011, the 16-plane kernel)
+HUBS_N, HUBS_SEED = 4000, 1
+# the class steps held to the plain version at each hub graph (from class 0,
+# the hub's): the plain hub step costs seconds at dmax 1011
+HUBS_PARITY_STEPS = {"dmax163": 4, "dmax1011": 1}
+# the sa leg's real SIGTERM, this long after the CLI's handler is installed
+SIGTERM_DELAY_S = 0.5
+# the entropy CLI's run is killed at this lambda boundary (of ~280)
+ENTROPY_KILL_AT = 40
+# ... and poisoned (sweep.nan) at this fixed point of a λ ≤ 0.5 run
+ENTROPY_NAN_AT = 14
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A report line, after the seconds since the script started (so a
+    run's log shows where its time goes)."""
+    print(f"{time.perf_counter() - _T0:8.1f}s {msg}", flush=True)
 
 
 def _cuda_ms(fn, reps: int, lead_ms: float = 0.0) -> float:
@@ -1765,6 +1800,10 @@ def phase_hpr_main() -> dict:
     out["f64"] = {"sweeps": res.num_steps, "m_final": res.m_final,
                   "wall_s": wall, "ms_per_sweep": wall * 1e3 / max(res.num_steps, 1),
                   "launches": launches}
+    # the uninterrupted runs that phase 43 holds its resumed runs to (the
+    # CLI's float64 run is this hpr_solve: repetition 0, seed 0)
+    out["oracles"] = {"float32": {"conf": conf, "num_steps": sweeps},
+                      "float64": {"conf": res.s, "num_steps": res.num_steps}}
     log(f"[13 hpr main] hpr_solve float64: {res.num_steps} sweeps, m_final "
         f"{res.m_final}, wall {wall:.3f} s; bdcm_sweep launches (one per sweep) {launches}")
     out["launches"] = sum(out[k]["launches"] for k in ("cli", "group4", "f64"))
@@ -2714,17 +2753,23 @@ def phase_congruent_ensemble() -> dict:
 def phase_entropy_cli() -> dict:
     """``python -m graphdyn_torch entropy --device cuda`` at its defaults
     (n=1000, deg 1.0 1.5 2.0, num_rep 3, the grouped entropy_grid) but for
-    its λ ladder, cut to λ ≤ :data:`ENTROPY_CLI_LMBD_MAX` (61 of the 121
+    its λ ladder, cut to λ ≤ :data:`ENTROPY_CLI_LMBD_MAX` (31 of the 121
     points) to keep the script's time, in process, with its wall time and
     the reference's JSON keys."""
     _reset_bdcm_counts()
     t0 = time.perf_counter()
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf), _grid_results() as grids:
-        rc = cli.main(["entropy", "--device", "cuda", "--lmbd-max",
-                       str(ENTROPY_CLI_LMBD_MAX)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        npz = os.path.join(tmp, "ent.npz")
+        with contextlib.redirect_stdout(buf), _grid_results() as grids:
+            rc = cli.main(["entropy", "--device", "cuda", "--lmbd-max",
+                           str(ENTROPY_CLI_LMBD_MAX), "--out", npz])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with np.load(npz) as f:
+            # what phase 44 holds its resumed run to
+            held = {k: f[k] for k in ("ent", "m_init", "ent1", "counts",
+                                      "n_lambda")}
     if len(grids) != 1:
         raise AssertionError(f"entropy CLI: {len(grids)} entropy_grid calls")
     launches = _bdcm_counts("entropy CLI", _grid_sweeps(*grids[0]))
@@ -2741,7 +2786,8 @@ def phase_entropy_cli() -> dict:
         f"{wall:.3f} "
         f"s; counts {doc['counts']}; ent1 at lambda 0 "
         f"{doc['ent1_first_lambda']}; bdcm_sweep launches (one per sweep) {launches}")
-    return {"wall_s": wall, "launches": launches, "counts": doc["counts"]}
+    return {"wall_s": wall, "launches": launches, "counts": doc["counts"],
+            "grids": held}
 
 
 # ---------------------------------------------------------------------------
@@ -3656,7 +3702,7 @@ def phase_layouts() -> dict:
     'auto')`` on ``powerlaw_graph(2000, 2.3, 2, 1)`` (auto routes it
     bucketed) equals the padded run on the relabeled graph, mapped back;
     ``fused_anneal(layout='auto')`` on a power-law graph built with dmax =
-    48 (degree CV above the threshold, within K4's dmax-63 gate) equals its
+    48 (degree CV above the threshold) equals its
     padded run on the relabeled graph, mapped back; the ``sa`` CLI with
     ``--layout bucketed`` runs once (its chains checked by rollout)."""
     out = {}
@@ -3754,6 +3800,556 @@ def phase_b4_labelling(g_h, nbr_h, deg_h) -> dict:
         f"{out['bfs']['min_ms']:.5f}-{out['bfs']['max_ms']:.5f}); bfs_order "
         f"+ permute_nodes {setup:.3f} s on the host")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4' past dmax 63 (C4), and durability: each CLI's run preempted and
+# resumed, held to its uninterrupted twin
+# ---------------------------------------------------------------------------
+
+
+def _square_graph(g):
+    """``G²`` built sparse (every pair in a closed neighbourhood), for a
+    graph whose hub makes ``graphs.power_graph``'s dense expansion too
+    large; the distance-2 colouring's input."""
+    nbr, deg = g.nbr.astype(np.int64), g.deg.astype(np.int64)
+    e = g.edges.astype(np.int64)
+    codes = [e.min(axis=1) * g.n + e.max(axis=1)]
+    for v in np.flatnonzero(deg > 1):
+        nb = nbr[v, :deg[v]]
+        a, b = np.triu_indices(nb.size, 1)
+        lo, hi = np.minimum(nb[a], nb[b]), np.maximum(nb[a], nb[b])
+        codes.append(lo * g.n + hi)
+    codes = np.unique(np.concatenate(codes))
+    return graphs.graph_from_edges(g.n, np.stack([codes // g.n,
+                                                  codes % g.n], axis=1))
+
+
+def phase_fused_hubs() -> dict:
+    """K4′ past degree 63 (C4), on power-law graphs relabeled as
+    ``layout='bucketed'`` relabels them: ``powerlaw_graph(600, 2.3, 2, 7)``
+    (dmax 163, the 8-plane instantiation) and ``powerlaw_graph(4000, 2.0,
+    2, 1)`` (dmax 1011, the 16-plane one). The kernel against its plain
+    version, bit for bit in every FusedState field, over the first
+    :data:`HUBS_PARITY_STEPS` class steps of a sweep (the hub's class is
+    class 0: the greedy colouring takes the highest degree first; the plain
+    version's hub step is its costly one: ~0.15 s at dmax 163, seconds at
+    1011); the kernel's ms per class step over one whole sweep (CUDA
+    events) beside the plain version's over those steps and the bound;
+    then ``fused_anneal(layout='bucketed')`` on the dmax-163 graph through
+    the entry point, counted, equal to itself in other chunks."""
+    out = {}
+    cases = {"dmax163": (graphs.powerlaw_graph(600, gamma=2.3, dmin=2,
+                                               seed=7), (1, 2)),
+             "dmax1011": (graphs.powerlaw_graph(HUBS_N, gamma=2.0, dmin=2,
+                                                seed=HUBS_SEED), (1,))}
+    cfg = _sa_config()
+    for name, (g0, widths) in cases.items():
+        # relabeled bucket-major, as fused_anneal(layout='bucketed') does
+        g = graphs.permute_nodes(g0, graphs.degree_buckets(g0).order)[0]
+        t0 = time.perf_counter()
+        g2 = _square_graph(g)
+        tables = build_fused_tables(
+            g, cfg, seed=0, coloring=(g2, graphs.greedy_coloring(g2, seed=0)))
+        t_tables = time.perf_counter() - t0
+        hub_class = int(tables.chrom.colors[int(np.argmax(g.deg))])
+        steps = HUBS_PARITY_STEPS[name]
+        if hub_class >= steps:
+            raise AssertionError(f"{name}: the hub's class {hub_class} lies "
+                                 f"past the {steps} checked class steps")
+        rows = {}
+        for W in widths:
+            st, td, static, _, _, _, _ = _assemble_fused(
+                g, cfg, n_replicas=32 * W - 3, seed=W, m_target=1.0,
+                betas=None, tables=tables, device=torch.device("cuda"))
+            kw = dict(stop_on_first=False, **static)
+            k = fused_chunk(_clone(st), W, td, kernel="cuda",
+                            chunk_steps=steps, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = fused_chunk(_clone(st), W, td, kernel="plain",
+                            chunk_steps=steps, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3 / steps
+            e = _state_err(k, p)
+            if e or bool(k.sp_ext[g.n].ne(0).any()) or int(k.accepted) <= 0:
+                raise AssertionError(
+                    f"fused kernel != plain past dmax 63: {name} W={W}: "
+                    f"max_abs_err {e}, accepted {int(k.accepted)}")
+            # the kernel over one whole sweep, after the checked launch
+            ms = _cuda_ms(lambda: fused_chunk(
+                _clone(st), W, td, kernel="cuda", chunk_steps=tables.chi,
+                **kw), reps=1) / tables.chi
+            bound = class_step_bound(tables.chrom, W)
+            rows[W] = {"ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound["bound_ms"],
+                       "bound_by": bound["bound_by"], "max_abs_err": e,
+                       "parity_steps": steps, "accepted": int(k.accepted)}
+        inst = fused_cuda.kernel_instance(g.dmax)
+        out[name] = {"n": g.n, "dmax": g.dmax, "chi": tables.chi,
+                     "instance": list(inst), "by_W": rows,
+                     "tables_s": t_tables}
+        log(f"[41 C4] K4′ on {name} (n={g.n}, dmax {g.dmax}, chi "
+            f"{tables.chi}, instantiation (NP, NB, DM) = {inst}, tables "
+            f"{t_tables:.3f} s): kernel == plain bit for bit over the first "
+            f"{steps} class steps (the hub's class {hub_class} among them) "
+            + "; ".join(
+                f"W={W}: {r['ms']:.5f} ms per class step over a sweep "
+                f"(events), plain {r['plain_ms']:.3f} ms over the checked "
+                f"steps, bound {r['bound_ms']:.7f} ({r['bound_by']})"
+                for W, r in rows.items()))
+    g = cases["dmax163"][0]
+    kw = dict(n_replicas=32, seed=1, m_target=0.9, max_sweeps=4,
+              layout="bucketed", device="cuda")
+    fused_cuda.LAUNCHES = 0
+    got = fused_anneal(g, cfg, chunk_sweeps=2, **kw)
+    torch.cuda.synchronize()
+    launches = fused_cuda.LAUNCHES
+    split = fused_anneal(g, cfg, chunk_sweeps=1, **kw)
+    if launches <= 0 or got.kernel_used != "cuda" or not (
+            np.array_equal(got.s, split.s) and got.accepted == split.accepted
+            and got.accepted > 0):
+        raise AssertionError(f"fused_anneal(layout='bucketed') at dmax 163: "
+                             f"{launches} launches, kernel {got.kernel_used}, "
+                             f"equal across chunk splits "
+                             f"{np.array_equal(got.s, split.s)}")
+    out["launches"] = launches
+    log(f"[41 C4] fused_anneal(layout='bucketed') on powerlaw_graph(600, "
+        f"2.3, 2, 7), 4 sweeps: {launches} fused_chunk launches, chi "
+        f"{got.chi}, accepted {got.accepted}, the same in chunks of 1 sweep")
+    return out
+
+
+@contextlib.contextmanager
+def _fault_env(specs):
+    """``GRAPHDYN_FAULT_PLAN`` set to ``specs`` for the scope and read
+    afresh, as a new process reads it; cleared after."""
+    os.environ[faults.ENV_VAR] = json.dumps(specs)
+    faults._env_plan_cache.clear()
+    try:
+        yield
+    finally:
+        os.environ.pop(faults.ENV_VAR, None)
+        faults._env_plan_cache.clear()
+        clear_shutdown()
+
+
+class _CkptCost:
+    """Wall seconds, counts and bytes of the durable store's snapshot saves
+    and loads in a scope (the store's methods wrapped, not changed)."""
+
+    def __init__(self):
+        self.save_s = self.load_s = 0.0
+        self.saves = self.loads = self.bytes = 0
+
+    def __enter__(self):
+        self._persist = tstore.DurableCheckpoint._persist
+        self._load = tstore.DurableCheckpoint.load
+        cost = self
+
+        def persist(ck, payload, meta):
+            t0 = time.perf_counter()
+            cost._persist(ck, payload, meta)
+            cost.save_s += time.perf_counter() - t0
+            cost.saves += 1
+            cost.bytes = max(cost.bytes,
+                             os.path.getsize(ck.path + ".npz"))
+
+        def load(ck):
+            t0 = time.perf_counter()
+            got = cost._load(ck)
+            if got is not None:
+                cost.load_s += time.perf_counter() - t0
+                cost.loads += 1
+            return got
+
+        tstore.DurableCheckpoint._persist = persist
+        tstore.DurableCheckpoint.load = load
+        return self
+
+    def __exit__(self, *exc):
+        tstore.DurableCheckpoint._persist = self._persist
+        tstore.DurableCheckpoint.load = self._load
+
+    def report(self) -> dict:
+        return {"saves": self.saves, "loads": self.loads,
+                "bytes": self.bytes,
+                "save_ms": self.save_s * 1e3 / max(self.saves, 1),
+                "load_ms": self.load_s * 1e3 / max(self.loads, 1)}
+
+
+def _cli_rc(argv) -> int:
+    """``cli.main(argv)`` in this process, its output discarded; its exit
+    code. An injected hard preemption propagates (the process would die
+    there)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return cli.main(argv)
+
+
+def _cli_preempted(argv, site: str, at: int) -> None:
+    """A leg killed by ``GRAPHDYN_FAULT_PLAN`` at the ``at``-th hit of
+    ``site`` (the exception a real process would die of)."""
+    with _fault_env([{"site": site, "action": "preempt", "at": at}]):
+        try:
+            _cli_rc(argv)
+        except faults.InjectedPreemption:
+            return
+    raise AssertionError(f"{argv[0]}: no preemption at {site} #{at}")
+
+
+def _cli_signalled(argv, site: str, at: int) -> None:
+    """A leg that gets a graceful-shutdown request at the ``at``-th hit of
+    ``site`` (``GRAPHDYN_FAULT_PLAN``'s ``signal`` action, what a SIGTERM
+    handler does): it must save there and exit 75."""
+    with _fault_env([{"site": site, "action": "signal", "at": at}]):
+        rc = _cli_rc(argv)
+    if rc != EX_TEMPFAIL:
+        raise AssertionError(f"{argv[0]}: exit {rc} on a shutdown request, "
+                             f"not {EX_TEMPFAIL}")
+
+
+def _cli_sigterm(argv, delay_s: float) -> float:
+    """A leg that receives a real SIGTERM ``delay_s`` after the CLI's
+    handler is installed: it must exit 75. Returns the signal's time (unix
+    clock). A no-op handler stands in while the CLI's is not installed, so
+    a late signal cannot end this script."""
+    import signal
+    import threading
+
+    ours = lambda signum, frame: None        # noqa: E731
+    prev = signal.signal(signal.SIGTERM, ours)
+    sent = []
+
+    def killer():
+        deadline = time.monotonic() + 120.0
+        while signal.getsignal(signal.SIGTERM) is ours:
+            if time.monotonic() > deadline:
+                return
+            time.sleep(0.005)
+        time.sleep(delay_s)
+        if signal.getsignal(signal.SIGTERM) is not ours:
+            sent.append(time.time())
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    t = threading.Thread(target=killer)
+    t.start()
+    try:
+        rc = _cli_rc(argv)
+    finally:
+        t.join()
+        signal.signal(signal.SIGTERM, prev)
+    if not sent or rc != EX_TEMPFAIL:
+        raise AssertionError(f"{argv[0]}: SIGTERM sent {bool(sent)}, exit "
+                             f"{rc}, not {EX_TEMPFAIL}")
+    return sent[0]
+
+
+def _same_npz(path: str, want: dict, what: str) -> None:
+    with np.load(path) as f:
+        for k, v in want.items():
+            if not np.array_equal(f[k], np.asarray(v)):
+                raise AssertionError(f"{what}: resumed {k} != uninterrupted")
+
+
+def phase_sa_durable(oracle, tmp: str) -> dict:
+    """The ``sa`` CLI at its defaults (5 × RRG(10⁴, 4), p=3), ``--max-steps``
+    cut as phase 27 cuts it, on the serial repetition loop (``--group-size
+    0``: the chain in flight snapshots itself) with ``--checkpoint`` and
+    ``--checkpoint-interval 0``: killed by ``GRAPHDYN_FAULT_PLAN`` at a
+    ``chunk.boundary`` of the second repetition; resumed and sent a real
+    SIGTERM, which must exit 75 with a snapshot written after the signal; resumed to the end.
+    The result must equal phase 27's uninterrupted run (grouped == serial)."""
+    ck, npz = os.path.join(tmp, "sa", "run"), os.path.join(tmp, "sa.npz")
+    argv = ["sa", "--device", "cuda", "--max-steps", str(SA_MAIN_STEPS),
+            "--group-size", "0", "--checkpoint", ck, "--checkpoint-interval",
+            "0", "--out", npz]
+    kill_at = SA_MAIN_STEPS // sa_models.CHUNK_STEPS + 3
+    t0 = time.perf_counter()
+    with _CkptCost() as cost:
+        _cli_preempted(argv, "chunk.boundary", kill_at)
+        sent = _cli_sigterm(argv, SIGTERM_DELAY_S)
+        # the shutdown snapshot (the chain's at its chunk boundary, or the
+        # driver's at a repetition boundary) is written after the signal
+        snaps = [os.path.join(os.path.dirname(ck), f)
+                 for f in os.listdir(os.path.dirname(ck))
+                 if f.endswith(".npz") and ".v" not in f and ".tmp" not in f]
+        if max((os.path.getmtime(f) for f in snaps), default=0.0) < sent:
+            raise AssertionError(f"sa: no snapshot written after the SIGTERM "
+                                 f"({snaps})")
+        if _cli_rc(argv) != 0:
+            raise AssertionError("sa: the resumed run failed")
+    wall = time.perf_counter() - t0
+    _same_npz(npz, {"mag_reached": oracle.mag_reached,
+                    "num_steps": oracle.num_steps, "conf": oracle.conf,
+                    "graphs": oracle.graphs}, "sa CLI")
+    rep = {"wall_s": wall, **cost.report()}
+    log(f"[42 sa durable] sa CLI defaults, --max-steps {SA_MAIN_STEPS}, "
+        f"serial: killed at chunk.boundary #{kill_at}, resumed and "
+        f"SIGTERMed (exit 75, a snapshot written after the signal), "
+        f"resumed: equal to "
+        f"phase 27's uninterrupted run bit for bit; three legs {wall:.3f} s; "
+        f"{rep['saves']} snapshots of {rep['bytes']} B, {rep['save_ms']:.3f} "
+        f"ms a save, {rep['load_ms']:.3f} ms a load")
+    return rep
+
+
+def phase_hpr_durable(oracles: dict, tmp: str) -> dict:
+    """The ``hpr`` CLI at its defaults (RRG d=4, n=10⁴, K3′) in float32 and
+    float64, on the serial loop (``--group-size 0``: the chain in flight
+    snapshots itself every 200-sweep chunk): a graceful-shutdown request
+    at the 3rd ``chunk.boundary`` (exit 75, snapshot at that boundary),
+    then resumed. The result must equal phase 13's uninterrupted run of the
+    same chain bit for bit, and K3′'s launches over both legs must equal
+    the sweeps of the run's clock."""
+    out = {}
+    TT = HPRConfig().max_sweeps
+    for dtype, want in oracles.items():
+        ck = os.path.join(tmp, f"hpr_{dtype}", "run")
+        npz = os.path.join(tmp, f"hpr_{dtype}.npz")
+        argv = ["hpr", "--device", "cuda", "--dtype", dtype, "--group-size",
+                "0", "--checkpoint", ck, "--checkpoint-interval", "0",
+                "--out", npz]
+        _reset_bdcm_counts()
+        t0 = time.perf_counter()
+        with _CkptCost() as cost:
+            _cli_signalled(argv, "chunk.boundary", 3)
+            if _cli_rc(argv) != 0:
+                raise AssertionError(f"hpr {dtype}: the resumed run failed")
+        wall = time.perf_counter() - t0
+        launches = _bdcm_counts(f"hpr CLI {dtype}, both legs",
+                                _hpr_clock([want["num_steps"]], TT))
+        _same_npz(npz, {"conf": want["conf"][None],
+                        "num_steps": [want["num_steps"]]}, f"hpr {dtype}")
+        out[dtype] = {"wall_s": wall, "launches": launches, **cost.report()}
+        log(f"[43 hpr durable] hpr CLI defaults {dtype}, serial: exit 75 at "
+            f"chunk.boundary #3, resumed: equal to phase 13's run bit for "
+            f"bit ({want['num_steps']} sweeps); K3′ launches over both legs "
+            f"{launches} = the run's sweeps; {wall:.3f} s; "
+            f"{out[dtype]['saves']} snapshots of {out[dtype]['bytes']} B, "
+            f"{out[dtype]['save_ms']:.3f} ms a save, "
+            f"{out[dtype]['load_ms']:.3f} ms a load")
+    return out
+
+
+def phase_entropy_durable(want: dict, tmp: str) -> dict:
+    """The ``entropy`` CLI as phase 23 runs it (λ ≤ 3), with
+    ``--checkpoint`` and ``--checkpoint-interval 0``: killed at the
+    :data:`ENTROPY_KILL_AT`-th ``lambda.boundary``, resumed: the grids must
+    equal phase 23's uninterrupted run bit for bit. Then ``sweep.nan`` at the
+    :data:`ENTROPY_NAN_AT`-th completed fixed point of a λ ≤ 0.5 run takes
+    the JAX package's degrade path: the poisoned cell records
+    non-convergence at that λ (its NaN row kept as the reference keeps it)
+    and stops; the other cells run on; the run exits 0."""
+    ck, npz = os.path.join(tmp, "ent", "run"), os.path.join(tmp, "ent.npz")
+    argv = ["entropy", "--device", "cuda", "--lmbd-max",
+            str(ENTROPY_CLI_LMBD_MAX), "--checkpoint", ck,
+            "--checkpoint-interval", "0", "--out", npz]
+    t0 = time.perf_counter()
+    with _CkptCost() as cost:
+        _cli_preempted(argv, "lambda.boundary", ENTROPY_KILL_AT)
+        if _cli_rc(argv) != 0:
+            raise AssertionError("entropy: the resumed run failed")
+    wall = time.perf_counter() - t0
+    _same_npz(npz, want, "entropy CLI")
+    nan_npz = os.path.join(tmp, "ent_nan.npz")
+    with _fault_env([{"site": "sweep.nan", "action": "nan",
+                      "at": ENTROPY_NAN_AT}]):
+        rc = _cli_rc(["entropy", "--device", "cuda", "--lmbd-max", "0.5",
+                      "--out", nan_npz])
+    with np.load(nan_npz) as f:
+        ent, counts, n_lmbd = f["ent"], f["counts"], f["n_lambda"]
+    # the poisoned cell: its last visited row is the NaN one, recorded as
+    # non-converged at that λ (0 at λ = 0, the reference's sentinel), and
+    # it stopped there; no other cell has a NaN row
+    poisoned = np.argwhere(np.isnan(ent).any(axis=2))
+    if rc != 0 or len(poisoned) != 1:
+        raise AssertionError(f"entropy sweep.nan: exit {rc}, NaN rows in "
+                             f"cells {poisoned.tolist()}")
+    di, rep = poisoned[0]
+    k = int(n_lmbd[di, rep]) - 1
+    lam = float(lambda_ladder(EntropyConfig(lmbd_max=0.5))[k])
+    if not (np.isnan(ent[di, rep, k]).all()
+            and not np.isnan(ent[di, rep, :k]).any()
+            and float(counts[di, rep]) == lam):
+        raise AssertionError(f"entropy sweep.nan: cell {[di, rep]} went on "
+                             f"past its poisoned lambda (n_lambda "
+                             f"{n_lmbd[di, rep]}, counts {counts[di, rep]})")
+    out = {"wall_s": wall, **cost.report(), "nan_cell": [int(di), int(rep)],
+           "nan_lambda": lam}
+    log(f"[44 entropy durable] entropy CLI (lambda <= "
+        f"{ENTROPY_CLI_LMBD_MAX}): killed at lambda.boundary "
+        f"#{ENTROPY_KILL_AT}, resumed: "
+        f"equal to phase 23's run bit for bit, {wall:.3f} s; "
+        f"{out['saves']} snapshots of {out['bytes']} B, "
+        f"{out['save_ms']:.3f} ms a save, {out['load_ms']:.3f} ms a load; "
+        f"sweep.nan at fixed point #{ENTROPY_NAN_AT}: cell "
+        f"{out['nan_cell']} stopped at lambda {lam} as non-converged, exit 0")
+    return out
+
+
+def phase_stream_durable(tmp: str) -> dict:
+    """The ``stream`` CLI at phase 38's shape (n = 65,536, R = 1024, its
+    device budget) with churn (``--churn-rate 64``), 4 steps: uninterrupted,
+    then with ``--checkpoint``: a graceful-shutdown request at the 3rd
+    ``chunk.boundary`` (exit 75), resumed (the journaled churn replayed).
+    Equal bit for bit; KB's launches over both legs = chunks × steps."""
+    W = STREAM_R // 32
+    g = graphs.powerlaw_graph(STREAM_N, gamma=2.2, dmin=2, seed=0)
+    steps = 4
+    base = ["stream", "--n", str(STREAM_N), "--gamma", "2.2", "--replicas",
+            str(STREAM_R), "--steps", str(steps), "--device-budget",
+            str(_stream_budget(g, W)), "--churn-rate", "64", "--churn-seed",
+            "3", "--device", "cuda"]
+    ref = os.path.join(tmp, "stream_ref.npz")
+    doc, _ = _run_cli(base + ["--out", ref])
+    ck, npz = os.path.join(tmp, "stream", "run"), os.path.join(tmp,
+                                                                "stream.npz")
+    argv = base + ["--checkpoint", ck, "--checkpoint-interval", "0",
+                   "--out", npz]
+    bucketed_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with _CkptCost() as cost:
+        _cli_signalled(argv, "chunk.boundary", 3)
+        if _cli_rc(argv) != 0:
+            raise AssertionError("stream: the resumed run failed")
+    wall = time.perf_counter() - t0
+    launches = bucketed_cuda.LAUNCHES
+    with np.load(ref) as f:
+        _same_npz(npz, {"conf": f["conf"], "m_end": f["m_end"]}, "stream CLI")
+    if launches != doc["chunks"] * steps or doc["mutations"] <= 0:
+        raise AssertionError(f"stream: {launches} KB launches over both legs "
+                             f"for {doc['chunks']} chunks x {steps} steps "
+                             f"({doc['mutations']} mutations)")
+    _, problems = tstore.validate_journal(tstore.journal_path_for(ck))
+    if problems:
+        raise AssertionError(f"stream journal: {problems}")
+    out = {"wall_s": wall, "launches": launches, "chunks": doc["chunks"],
+           "mutations": doc["mutations"], **cost.report()}
+    log(f"[45 stream durable] stream CLI n={STREAM_N} R={STREAM_R}, "
+        f"{steps} steps, churn ({doc['mutations']} mutations): exit 75 at "
+        f"chunk.boundary #3, resumed with the journaled churn: equal bit for "
+        f"bit; KB launches over both legs {launches} = {doc['chunks']} "
+        f"chunks x {steps} steps; {wall:.3f} s; {out['saves']} snapshots of "
+        f"{out['bytes']} B, {out['save_ms']:.3f} ms a save, "
+        f"{out['load_ms']:.3f} ms a load")
+    return out
+
+
+def phase_temper_fused_durable(config1: dict, tmp: str) -> dict:
+    """The ``temper`` CLI at its defaults, cut as phase 29 cuts it, with
+    ``--checkpoint``: a graceful-shutdown request at the 4th swap boundary
+    (exit 75), resumed: equal to an uninterrupted run bit for bit. Then
+    ``fused`` at config 1 with ``--deadline 0.01``: exit 75 at its first
+    chunk; the same command without the deadline equals phase 8's run (b)
+    bit for bit (the chain re-derives from the seed)."""
+    base = ["temper", "--device", "cuda", "--max-steps",
+            str(TEMPER_MAIN_STEPS)]
+    ref = os.path.join(tmp, "temper_ref.npz")
+    _run_cli(base + ["--out", ref])
+    ck, npz = os.path.join(tmp, "temper", "run"), os.path.join(tmp,
+                                                                "temper.npz")
+    argv = base + ["--checkpoint", ck, "--checkpoint-interval", "0",
+                   "--out", npz]
+    t0 = time.perf_counter()
+    with _CkptCost() as cost:
+        _cli_signalled(argv, "chunk.boundary", 4)
+        if _cli_rc(argv) != 0:
+            raise AssertionError("temper: the resumed run failed")
+    wall = time.perf_counter() - t0
+    with np.load(ref) as f:
+        _same_npz(npz, {k: f[k] for k in f.files}, "temper CLI")
+    out = {"wall_s": wall, **cost.report()}
+    fused = ["fused", "--device", "cuda"] + [
+        a for k, v in CONFIG1_RUNS["b"].items()
+        for a in (f"--{k.replace('_', '-')}", str(v))]
+    rc = _cli_rc(["--deadline", "0.01"] + fused)
+    if rc != EX_TEMPFAIL:
+        raise AssertionError(f"fused --deadline: exit {rc}, not 75")
+    again = os.path.join(tmp, "fused.npz")
+    _run_cli(fused + ["--out", again])
+    want = config1["results"]["b"]
+    with np.load(again) as f:
+        if not (np.array_equal(f["conf"], want.s)
+                and np.array_equal(f["steps_to_target"],
+                                   want.steps_to_target)):
+            raise AssertionError("fused: the rerun after --deadline != "
+                                 "phase 8's run")
+    log(f"[46 temper/fused durable] temper CLI defaults (--max-steps "
+        f"{TEMPER_MAIN_STEPS}): exit 75 at swap boundary #4, resumed: equal "
+        f"bit for bit, {wall:.3f} s; {out['saves']} snapshots of "
+        f"{out['bytes']} B, {out['save_ms']:.3f} ms a save, "
+        f"{out['load_ms']:.3f} ms a load; fused config 1 --deadline 0.01: "
+        f"exit 75, rerun == phase 8's run (b)")
+    return out
+
+
+def phase_supervised(tmp: str) -> dict:
+    """``python -m graphdyn_torch run-supervised -- sa ...`` (RRG(10⁴, 4),
+    p=3, 3 repetitions of 1000 steps, serial, ``--checkpoint``) with
+    ``GRAPHDYN_FAULT_PLAN`` killing each episode after its 2nd repetition:
+    the supervisor restarts from the snapshot (its episodes real child
+    processes) and the result equals the uninterrupted run; then a crash at
+    every episode's first chunk boundary is a loop: quarantined, exit 86
+    (the supervisor's in-process episodes). Then the ``pallas.lower`` site
+    injected into the ``hpr`` CLI: the run raises, no result is written."""
+    sa = ["sa", "--device", "cuda", "--n-stat", "3", "--max-steps", "1000",
+          "--group-size", "0"]
+    ref = os.path.join(tmp, "sup_ref")
+    _run_cli(sa + ["--out", ref])
+    out_p = os.path.join(tmp, "sup")
+    env_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = HERE + (os.pathsep + env_path if env_path
+                                       else "")
+    t0 = time.perf_counter()
+    try:
+        with _fault_env([{"site": "rep.boundary", "action": "preempt",
+                          "at": 2}]):
+            rc = _cli_rc(["run-supervised", "--backoff-base", "0.01",
+                          "--workdir", os.path.join(tmp, "w"), "--", *sa,
+                          "--checkpoint", os.path.join(tmp, "sup", "run"),
+                          "--checkpoint-interval", "0", "--out", out_p])
+    finally:
+        if env_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = env_path
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"run-supervised: exit {rc}")
+    with np.load(ref + ".npz") as f:
+        _same_npz(out_p + ".npz", {k: f[k] for k in f.files}, "run-supervised")
+    pol = supervisor.RestartPolicy(backoff=RetryPolicy(
+        tries=4, base_delay_s=0.01, max_delay_s=0.02, jitter=True))
+    with _fault_env([{"site": "chunk.boundary", "action": "preempt",
+                      "at": 1, "count": 99}]):
+        rep = supervisor.supervise(
+            sa + ["--checkpoint", os.path.join(tmp, "loop", "run")],
+            workdir=os.path.join(tmp, "w2"), policy=pol,
+            runner=supervisor.run_inprocess)
+    if rep["exit"] != supervisor.EX_QUARANTINE or len(rep["episodes"]) != 3:
+        raise AssertionError(f"crash loop: {rep['exit']}, "
+                             f"{len(rep['episodes'])} episodes")
+    _, problems = tstore.validate_journal(rep["journal"])
+    if problems:
+        raise AssertionError(f"supervisor journal: {problems}")
+    hpr_out = os.path.join(tmp, "lower.npz")
+    with _fault_env([{"site": "pallas.lower", "action": "raise",
+                      "count": 99}]):
+        try:
+            _cli_rc(["hpr", "--device", "cuda", "--out", hpr_out])
+        except faults.InjectedLoweringError:
+            pass
+        else:
+            raise AssertionError("pallas.lower: the hpr run completed")
+    if os.path.exists(hpr_out):
+        raise AssertionError("pallas.lower: a result was written")
+    log(f"[47 supervised] run-supervised -- sa (3 reps, killed after the "
+        f"2nd rep of each episode): restarted and completed, equal to the "
+        f"uninterrupted run, {wall:.3f} s; a crash loop at the first chunk "
+        f"boundary: quarantined after {len(rep['episodes'])} episodes, exit "
+        f"{rep['exit']}; pallas.lower injected into hpr: the run raised, no "
+        f"result (the port never carries on in the plain version)")
+    return {"wall_s": wall, "quarantine_exit": rep["exit"]}
 
 
 def card_line() -> str:
@@ -3901,6 +4497,16 @@ def main() -> int:
     stream_main = phase_stream_main()
     layouts = phase_layouts()
     b4 = phase_b4_labelling(g_h, nbr_h, deg_h)
+    # K4' past dmax 63 (C4); then durability: each CLI preempted and
+    # resumed, held to its uninterrupted twin of the phases above
+    hubs = phase_fused_hubs()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        durable = {"sa": phase_sa_durable(sa_main["full"]["res"], tmp),
+                   "hpr": phase_hpr_durable(hpr_main["oracles"], tmp),
+                   "entropy": phase_entropy_durable(ent_cli["grids"], tmp),
+                   "stream": phase_stream_durable(tmp),
+                   "temper": phase_temper_fused_durable(main_f, tmp),
+                   "supervised": phase_supervised(tmp)}
     probe512 = {r["impl"]: r for r in probe["rows"] if r["W"] == 512}
     turns512 = gather_turns["probe W=512"]
     sweep_shapes = {**sweep_ent, **sweep_many,
@@ -3923,6 +4529,8 @@ def main() -> int:
                          for dt, v in t6.items()},
                       **{f"entropy_sweep_global_{dt}": v["launches"]
                          for dt, v in glob.items()},
+                      **{f"hpr_cli_resumed_{dt}": v["launches"]
+                         for dt, v in durable["hpr"].items()},
                       **entropy_launches}
 
     kernels = [{
@@ -3994,6 +4602,12 @@ def main() -> int:
         },
         "packed_step_launches_on_fused_path":
             main_f["launches"]["packed_step"],
+        "past_63": {
+            "launches": hubs["launches"],
+            **{k: {"n": v["n"], "dmax": v["dmax"], "chi": v["chi"],
+                   "instance": v["instance"], "tables_s": v["tables_s"],
+                   **{f"W{W}": r for W, r in v["by_W"].items()}}
+               for k, v in hubs.items() if k != "launches"}},
         "ptxas": built["fused_chunk"],
     }, {
         "name": "dp_contract",
@@ -4126,6 +4740,7 @@ def main() -> int:
                     "(_stream_chunk_device, XLA); no pl.pallas_call",
         "parity": "bit-exact",
         "launches": pl_main["launches"],
+        "launches_stream_resumed": durable["stream"]["launches"],
         "max_abs_err": kb_parity["max_abs_err"],
         "ms": pl_main["ms"],
         "plain_ms": pl_main["plain_ms"],
@@ -4154,7 +4769,7 @@ def main() -> int:
             "padded_entries": pl_main["padded_entries"],
             "graph_setup_s": t_pl},
         "stream": {str(k): v for k, v in stream_main.items()},
-        "layouts": layouts}}))
+        "layouts": layouts, "durable": durable}}))
     log(f"[31 searches] SA parity walls (card / CPU, s): "
         + ", ".join(f"{k} {v['card_s']:.3f} / {v['cpu_s']:.3f}"
                     for k, v in sa_parity.items())

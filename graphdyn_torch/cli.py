@@ -12,14 +12,14 @@
   (an ensemble of ``--n-rep`` fresh RRGs, or ``--batch-replicas`` chains on
   one graph), ``--kernel {auto,cuda,plain}`` for ``{auto,xla,pallas}`` and
   ``--device`` (default ``cuda``). It prints the reference's JSON keys, and
-  with ``--out`` writes the reference's npz keys. ``--checkpoint`` and
-  ``--device-init`` are refused (not ported yet).
+  with ``--out`` writes the reference's npz keys. ``--device-init`` is
+  refused (not ported yet).
 - ``entropy``: the BDCM entropy λ-ladders with the JAX package's flags and
   defaults (the grouped ``entropy_grid``, or ``--union G`` ER members per
   degree through ``entropy_ensemble_union``), ``--kernel {auto,cuda,plain}``
   and ``--device`` (default ``cuda``). It prints the reference's JSON keys,
-  and with ``--out`` writes the reference's npz keys. ``--checkpoint`` and
-  ``--plot`` are refused (not ported yet).
+  and with ``--out`` writes the reference's npz keys. ``--plot`` is refused
+  (not ported yet).
 - ``sa``: the SA initialization search (`SA_RRG.py`), ``n_stat`` fresh RRGs
   through ``sa_ensemble`` (grouped by default, serial with
   ``--rollout-mode lightcone`` or ``--group-size 0``); ``temper``: the
@@ -27,8 +27,8 @@
   block sweeps (``chromatic_anneal``). The reference's flags and defaults,
   ``--device`` for ``--backend``; each prints the reference's JSON keys and
   with ``--out`` writes its npz keys. Refused with the reason (not ported
-  yet): ``--sharded``/``--shards``/``--lane-shards`` (A15) and
-  ``--checkpoint`` (A16). ``sa --layout bucketed|streamed`` runs the serial
+  yet): ``--sharded``/``--shards``/``--lane-shards`` (A15).
+  ``sa --layout bucketed|streamed`` runs the serial
   repetition loop on that layout (``--stream-chunks`` chunks when
   streamed). ``sa --chunk-steps`` is the number of masked MCMC steps
   between two host reads (default 256; the chain does not depend on it).
@@ -36,8 +36,20 @@
   seeded power-law graph, with the reference's flags and defaults, chunks
   on ``--device`` (default ``cuda``). It prints the reference's JSON keys
   and with ``--out`` writes its npz keys (``conf``, ``m_end``). Refused
-  (not ported yet): ``--shards`` ≥ 2 and ``--hub-threshold`` (A15),
-  ``--checkpoint`` (A16).
+  (not ported yet): ``--shards`` ≥ 2 and ``--hub-threshold`` (A15).
+- ``run-supervised``: the restart loop of
+  :mod:`graphdyn_torch.resilience.supervisor` around another command.
+
+Durability, as in the JAX package (the same flags, environment variables,
+exit codes and files): ``--checkpoint PREFIX`` (``--checkpoint-interval``,
+``--max-save-retries``) on ``sa``, ``temper``, ``stream``, ``hpr`` and
+``entropy``; before the command, ``--ckpt-mirror``, ``--ckpt-keep``,
+``--stall-timeout`` and ``--deadline`` (``GRAPHDYN_CKPT_MIRROR``,
+``GRAPHDYN_CKPT_KEEP``, ``GRAPHDYN_STALL_TIMEOUT``, ``GRAPHDYN_DEADLINE``;
+the flag wins). Exit codes: 0 done; 75 a graceful preemption (SIGTERM,
+SIGINT, a deadline or the stall watchdog) saved at the next boundary, safe
+to requeue; 130 a hard abort (a second signal, or a wedged run); 86 a
+supervised run quarantined after a crash loop; anything else a failure.
 """
 
 from __future__ import annotations
@@ -52,8 +64,44 @@ def build_parser() -> argparse.ArgumentParser:
         description="graphdyn on PyTorch/CUDA (the port of the graphdyn "
                     "JAX package)",
         allow_abbrev=False,
+        epilog="Exit codes: 0 success; 75 graceful preemption (SIGTERM/"
+               "SIGINT, a --deadline expiry or the --stall-timeout watchdog; "
+               "with --checkpoint the state was saved at the next boundary), "
+               "safe to requeue; 130 hard abort (a second signal, or a wedged "
+               "run); 86 a supervised run quarantined after a crash loop "
+               "(run-supervised; do not requeue); anything else a failure.",
     )
+    p.add_argument(
+        "--ckpt-mirror", default=None, metavar="DIR",
+        help="replicate every checkpoint save into a second directory "
+             "(write-behind); a resume fails over to it when no primary copy "
+             "verifies. Also GRAPHDYN_CKPT_MIRROR (the flag wins)")
+    p.add_argument(
+        "--ckpt-keep", type=int, default=None, metavar="K",
+        help="retain the last K checkpoint versions (<ckpt>.v<N>.npz) beside "
+             "the published snapshot (default 2; also GRAPHDYN_CKPT_KEEP, "
+             "the flag wins)")
+    p.add_argument(
+        "--stall-timeout", type=float, default=None, metavar="SECS",
+        help="liveness watchdog: no chunk/rep/lambda heartbeat for SECS "
+             "requests a graceful shutdown (snapshot, exit 75); a run still "
+             "wedged after the grace window is aborted (exit 130). Also "
+             "GRAPHDYN_STALL_TIMEOUT (the flag wins)")
+    p.add_argument(
+        "--deadline", type=float, default=None, metavar="SECS",
+        help="run time budget: after SECS take the SIGTERM path (snapshot at "
+             "the next boundary, exit 75). Also GRAPHDYN_DEADLINE (the flag "
+             "wins)")
     sub = p.add_subparsers(dest="cmd", required=True)
+    sup = sub.add_parser(
+        "run-supervised",
+        help="run a command under the restart loop (python -m "
+             "graphdyn_torch.resilience.supervisor): watchdog, per-episode "
+             "deadline, bounded restarts, crash-loop quarantine (exit 86)")
+    sup.add_argument(
+        "command", nargs=argparse.REMAINDER,
+        help="supervisor flags, then the command after '--': "
+             "run-supervised --stall-timeout 300 -- sa --checkpoint ck/run")
     cons = sub.add_parser(
         "consensus",
         help="forward opinion-consensus m(0) sweep "
@@ -149,8 +197,8 @@ def build_parser() -> argparse.ArgumentParser:
     hpr.add_argument("--n-rep", type=int, default=1)
     hpr.add_argument("--seed", type=int, default=0)
     hpr.add_argument("--out", default=None, help="npz path (`HPR:377` keys)")
-    hpr.add_argument("--checkpoint", default=None,
-                     help="not ported yet (ROADMAP A16): refused")
+    _add_checkpoint_flags(hpr, "(driver + chain); SIGTERM then saves at the "
+                          "next chunk boundary and exits 75")
     hpr.add_argument(
         "--group-size", type=int, default=None, metavar="G",
         help="run G repetitions at a time as one batched program (element-"
@@ -210,8 +258,9 @@ def build_parser() -> argparse.ArgumentParser:
     ent.add_argument("--seed", type=int, default=0)
     ent.add_argument("--verbose", action="store_true")
     ent.add_argument("--out", default=None, help="npz path (`ipynb:515` keys)")
-    ent.add_argument("--checkpoint", default=None,
-                     help="not ported yet (ROADMAP A16): refused")
+    _add_checkpoint_flags(ent, "(exact λ-granular resume; with --union, "
+                          "one file <prefix>_deg<i> per degree); SIGTERM then "
+                          "saves at the next λ and exits 75")
     ent.add_argument(
         "--group-size", type=int, default=None, metavar="G",
         help="advance G grid cells' λ-ladders at a time as ONE batched "
@@ -261,13 +310,18 @@ def _add_device_flag(ap: argparse.ArgumentParser) -> None:
     )
 
 
-def _add_not_ported_checkpoint_flags(ap: argparse.ArgumentParser) -> None:
-    ap.add_argument("--checkpoint", default=None,
-                    help="not ported yet (ROADMAP A16): refused")
+def _add_checkpoint_flags(ap: argparse.ArgumentParser, what: str) -> None:
+    """``--checkpoint``, ``--checkpoint-interval`` and
+    ``--max-save-retries``, the JAX package's."""
+    ap.add_argument("--checkpoint", default=None, metavar="PREFIX",
+                    help=f"path prefix for preemption-safe exact resume {what}")
     ap.add_argument("--checkpoint-interval", type=float, default=30.0,
-                    help="with --checkpoint (not ported yet)")
-    ap.add_argument("--max-save-retries", type=int, default=None,
-                    metavar="N", help="with --checkpoint (not ported yet)")
+                    metavar="SECS", help="seconds between periodic snapshots")
+    ap.add_argument(
+        "--max-save-retries", type=int, default=None, metavar="N",
+        help="retry a failed checkpoint save up to N times (exponential "
+             "backoff) before skipping that snapshot with a warning; the run "
+             "goes on either way (default: 2)")
 
 
 def _add_search_parsers(sub) -> None:
@@ -283,7 +337,8 @@ def _add_search_parsers(sub) -> None:
     _add_device_flag(sa)
     sa.add_argument("--out", default=None,
                     help="npz path (`SA_RRG.py:92` keys)")
-    _add_not_ported_checkpoint_flags(sa)
+    _add_checkpoint_flags(sa, "(driver + chain); SIGTERM then saves at the "
+                          "next chunk boundary and exits 75")
     sa.add_argument(
         "--group-size", type=int, default=None, metavar="G",
         help="run G repetitions at a time as ONE batched program (element-"
@@ -367,7 +422,8 @@ def _add_search_parsers(sub) -> None:
     tmp.add_argument("--seed", type=int, default=0)
     tmp.add_argument("--lane-shards", type=int, default=None, metavar="P",
                      help="not ported yet (ROADMAP A15): refused")
-    _add_not_ported_checkpoint_flags(tmp)
+    _add_checkpoint_flags(tmp, "(swap boundaries); SIGTERM then saves at "
+                          "the next boundary and exits 75")
     _add_device_flag(tmp)
     tmp.add_argument("--out", default=None, help="npz path (per-lane arrays)")
 
@@ -438,10 +494,10 @@ def _add_stream_parser(sub) -> None:
                       help="live edge churn: Poisson(R/2) adds and drops "
                            "per step (seeded_churn)")
     strm.add_argument("--churn-seed", type=int, default=0)
-    strm.add_argument("--checkpoint", default=None,
-                      help="not ported yet (ROADMAP A16): refused")
-    strm.add_argument("--checkpoint-interval", type=float, default=30.0,
-                      help="with --checkpoint (not ported yet)")
+    _add_checkpoint_flags(strm, "; applied churn is journaled (stream.churn) "
+                          "so a resumed run replays it from the journal "
+                          "alone; SIGTERM then saves at the next step and "
+                          "exits 75")
     _add_device_flag(strm)
     strm.add_argument("--out", default=None, help="npz path (conf, m_end)")
 
@@ -532,12 +588,17 @@ def _hpr_main(args, dev) -> int:
         raise SystemExit("--batch-replicas must be >= 1")
     if args.device_init and not args.batch_replicas:
         raise SystemExit("--device-init requires --batch-replicas")
+    if args.device_init and args.checkpoint:
+        raise SystemExit(
+            "--device-init is incompatible with --checkpoint (snapshots pull "
+            "the union state back over the host link every interval)")
     if args.batch_replicas:
         g = random_regular_graph(args.n, args.d, seed=args.seed)
         res = hpr_solve_batch(
             g, cfg, n_replicas=args.batch_replicas, seed=args.seed,
-            checkpoint_path=args.checkpoint, device_init=args.device_init,
-            kernel=args.kernel, device=dev,
+            checkpoint_path=args.checkpoint,
+            checkpoint_interval_s=args.checkpoint_interval,
+            device_init=args.device_init, kernel=args.kernel, device=dev,
         )
         if args.out:
             save_results_npz(
@@ -557,6 +618,7 @@ def _hpr_main(args, dev) -> int:
     out = hpr_ensemble(
         args.n, args.d, cfg, n_rep=args.n_rep, seed=args.seed,
         save_path=args.out, checkpoint_path=args.checkpoint,
+        checkpoint_interval_s=args.checkpoint_interval,
         group_size=args.group_size, prefetch=args.prefetch,
         kernel=args.kernel, device=dev,
     )
@@ -584,9 +646,6 @@ def _entropy_main(args, dev) -> int:
     if args.plot:
         raise SystemExit("--plot is not ported to graphdyn_torch yet "
                          "(ROADMAP.md A17: plotting)")
-    if args.checkpoint:
-        raise SystemExit("--checkpoint is not ported to graphdyn_torch yet "
-                         "(ROADMAP.md A16: checkpoints and resilience)")
     cfg = EntropyConfig(
         dynamics=DynamicsConfig(p=args.p, c=args.c, rule=args.rule,
                                 tie=args.tie, attr_value=args.attr_value),
@@ -603,6 +662,9 @@ def _entropy_main(args, dev) -> int:
                       for k in range(args.union)]
             per_deg.append(entropy_ensemble_union(
                 graphs, cfg, seed=args.seed + 1000 * di,
+                checkpoint_path=(f"{args.checkpoint}_deg{di}"
+                                 if args.checkpoint else None),
+                checkpoint_interval_s=args.checkpoint_interval,
                 verbose=args.verbose, kernel=args.kernel, device=dev,
             ))
         if args.out:
@@ -626,8 +688,11 @@ def _entropy_main(args, dev) -> int:
         return 0
     out = entropy_grid(
         args.n, np.asarray(args.deg), cfg, seed=args.seed,
-        verbose=args.verbose, save_path=args.out, prefetch=args.prefetch,
-        group_size=args.group_size, kernel=args.kernel, device=dev,
+        verbose=args.verbose, save_path=args.out,
+        checkpoint_path=args.checkpoint,
+        checkpoint_interval_s=args.checkpoint_interval,
+        prefetch=args.prefetch, group_size=args.group_size,
+        kernel=args.kernel, device=dev,
     )
     print(json.dumps({
         "solver": "entropy",
@@ -652,11 +717,11 @@ def _sa_main(args, dev):
     if args.sharded or args.shards is not None:
         _refuse("--sharded/--shards (the multi-device SA solver)",
                 "A15: parallel/ onto torch.distributed")
-    if args.checkpoint:
-        _refuse("--checkpoint", "A16: checkpoints and resilience")
     out = sa_ensemble(
         args.n, args.d, _sa_config(args), n_stat=args.n_stat, seed=args.seed,
         max_steps=args.max_steps, save_path=args.out,
+        checkpoint_path=args.checkpoint,
+        checkpoint_interval_s=args.checkpoint_interval,
         rollout_mode=args.rollout_mode, group_size=args.group_size,
         prefetch=args.prefetch, layout=args.layout,
         chunk_steps=args.chunk_steps or CHUNK_STEPS,
@@ -680,8 +745,6 @@ def _temper_main(args, dev):
 
     if args.lane_shards is not None:
         _refuse("--lane-shards", "A15: parallel/ onto torch.distributed")
-    if args.checkpoint:
-        _refuse("--checkpoint", "A16: checkpoints and resilience")
     g = random_regular_graph(args.n, args.d, seed=args.seed)
     res = temper_search(
         g, _sa_config(args),
@@ -689,7 +752,8 @@ def _temper_main(args, dev):
         seed=args.seed, max_steps=args.max_steps,
         swap_interval=args.swap_interval, swap_moves=not args.no_swaps,
         m_target=args.m_target, stop_on_first=args.stop_on_first,
-        device=dev,
+        checkpoint_path=args.checkpoint,
+        checkpoint_interval_s=args.checkpoint_interval, device=dev,
     )
     if args.out:
         save_results_npz(
@@ -761,8 +825,6 @@ def _stream_main(args, dev) -> dict:
     if args.shards >= 2 or args.hub_threshold is not None:
         _refuse("--shards >= 2 / --hub-threshold (the sharded stream)",
                 "A15: parallel/ onto torch.distributed")
-    if args.checkpoint:
-        _refuse("--checkpoint", "A16: checkpoints and resilience")
     g = powerlaw_graph(args.n, gamma=args.gamma, dmin=args.dmin,
                        seed=args.graph_seed)
     rng = np.random.default_rng(args.seed)
@@ -777,7 +839,9 @@ def _stream_main(args, dev) -> dict:
         rule=args.rule, tie=args.tie,
         n_chunks=None if args.device_budget is not None else args.chunks,
         device_budget_bytes=args.device_budget,
-        prefetch_depth=args.prefetch_depth, churn=churn, seed=args.seed,
+        prefetch_depth=args.prefetch_depth, churn=churn,
+        checkpoint_path=args.checkpoint,
+        checkpoint_interval_s=args.checkpoint_interval, seed=args.seed,
         stats_out=stats, device=dev,
     )
     s_end = unpack_spins(sp_end, args.replicas).numpy()
@@ -805,7 +869,78 @@ _SEARCH_COMMANDS = {"sa": _sa_main, "temper": _temper_main,
 
 
 def main(argv=None) -> int:
+    """Parse the flags and run the command under the graceful-shutdown
+    protocol: a SIGTERM/SIGINT (or the watchdog, or the deadline) saves at
+    the next chunk/rep/λ boundary when ``--checkpoint`` is set and exits
+    75; a second signal exits 130. ``run-supervised`` hands over to the
+    supervisor before anything else."""
+    import os
+    import sys
+
+    from graphdyn_torch.resilience import (
+        EX_ABORT,
+        EX_TEMPFAIL,
+        ShutdownRequested,
+        graceful_shutdown,
+        set_save_retry,
+    )
+    from graphdyn_torch.resilience.store import _env_keep, configure_store
+    from graphdyn_torch.resilience.supervisor import (
+        env_float,
+        supervision,
+    )
+    from graphdyn_torch.resilience.supervisor import main as supervisor_main
+
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "run-supervised":
+        # the supervisor parents runs and is never inside one; its own
+        # leading flags do not fit argparse's REMAINDER, so the raw argv goes
+        cmd = argv[1:]
+        return supervisor_main(cmd[1:] if cmd[:1] == ["--"] else cmd)
     args = build_parser().parse_args(argv)
+    if args.cmd == "run-supervised":
+        # top-level flags before the subcommand: the watchdog's go to the
+        # supervisor, the store's back onto the child's command line
+        cmd = list(args.command)
+        cmd = cmd[1:] if cmd[:1] == ["--"] else cmd
+        sup: list = []
+        for flag, val in (("--stall-timeout", args.stall_timeout),
+                          ("--deadline", args.deadline)):
+            if val is not None:
+                sup += [flag, str(val)]
+        child: list = []
+        for flag, val in (("--ckpt-mirror", args.ckpt_mirror),
+                          ("--ckpt-keep", args.ckpt_keep)):
+            if val is not None:
+                child += [flag, str(val)]
+        return supervisor_main(sup + ["--"] + child + cmd)
+    if getattr(args, "max_save_retries", None) is not None:
+        set_save_retry(args.max_save_retries)
+    # set both store knobs on every run, so one in-process call cannot leak
+    # its mirror into the next (flag wins over the environment)
+    configure_store(
+        mirror=args.ckpt_mirror or os.environ.get("GRAPHDYN_CKPT_MIRROR")
+        or None,
+        keep=args.ckpt_keep if args.ckpt_keep is not None else _env_keep())
+    stall = (args.stall_timeout if args.stall_timeout is not None
+             else env_float("GRAPHDYN_STALL_TIMEOUT"))
+    deadline = (args.deadline if args.deadline is not None
+                else env_float("GRAPHDYN_DEADLINE"))
+    try:
+        with graceful_shutdown(), supervision(stall, deadline):
+            return _run(args)
+    except ShutdownRequested as e:
+        print(f"graphdyn_torch: {e} — exiting {EX_TEMPFAIL} (requeue me)",
+              file=sys.stderr)
+        return EX_TEMPFAIL
+    except KeyboardInterrupt:
+        print(f"graphdyn_torch: second signal — hard abort, no snapshot "
+              f"written; exiting {EX_ABORT}", file=sys.stderr)
+        return EX_ABORT
+
+
+def _run(args) -> int:
     from graphdyn_torch.models.consensus import (
         consensus_curve,
         consensus_doc,

@@ -177,7 +177,17 @@ __device__ __forceinline__ int degree_bound(const Params& p)
 
 // end and end_all of ball row b, word w: graphdyn/ops/lut.py:lut_one_step
 // applied to s and to s ^ mask_c at one row, from one gather of its
-// neighbours' words and one read of its LUT masks
+// neighbours' words and one read of its LUT masks.
+//
+// With dmax compiled in (DM > 0) both loops run to it, unrolled. With dmax
+// at run time both stop at the row's own degree, which is exact, bit for
+// bit: a row's ghost slots (index n) come after its neighbours
+// (ops/fused.fused_device_tables checks it), the ghost word and the ghost
+// column of every class mask are 0, so a ghost slot adds nothing to either
+// count; and no neighbour count exceeds the degree, so the equality tests
+// for larger counts are all false and add nothing to e or ea. At a leaf of
+// a graph with hubs this cuts the LUT walk from dmax + 1 counts to
+// deg + 1.
 template <int NP, int DM>
 __device__ __forceinline__ void end_pair(const Params& p,
                                          const uint32_t* mask_c, long long b,
@@ -189,9 +199,14 @@ __device__ __forceinline__ void end_pair(const Params& p,
     uint32_t pl0[NP], pl1[NP];
 #pragma unroll
     for (int k = 0; k < NP; ++k) pl0[k] = pl1[k] = 0u;
+    int deg = dmax;
 #pragma unroll
     for (int j = 0; j < dmax; ++j) {
         const long long v = __ldg(nb + j);
+        if (DM == 0 && v == p.n) {
+            deg = j;
+            break;
+        }
         const uint32_t x = ld_cg(p.sp + v * p.W + w);
         csa_add<NP>(pl0, x);
         csa_add<NP>(pl1, x ^ __ldg(mask_c + v));
@@ -200,7 +215,7 @@ __device__ __forceinline__ void end_pair(const Params& p,
     const uint32_t own_all = own ^ __ldg(mask_c + b);
     e = ea = 0u;
 #pragma unroll
-    for (int cnt = 0; cnt <= dmax; ++cnt) {
+    for (int cnt = 0; cnt <= deg; ++cnt) {
         uint32_t eq0 = kFull, eq1 = kFull;
 #pragma unroll
         for (int k = 0; k < NP; ++k) {
@@ -325,7 +340,11 @@ fused_anneal_kernel(Params p)
                     for (int j = 0; j < slots; ++j) {
                         const long long b =
                             __ldg(p.nbr_self + row * slots + j);
-                        if (b == n) continue;
+                        // ghost slots are the row's suffix (end_pair)
+                        if (b == n) {
+                            if (DM == 0) break;
+                            continue;
+                        }
                         uint32_t e, ea;
                         end_pair<NP, DM>(p, mask_c, b, w, e, ea);
                         csa_add<NB>(up, ea & ~e);
@@ -336,11 +355,15 @@ fused_anneal_kernel(Params p)
                 // the word's lanes split the ball rows, shared by shuffles
                 for (int base = 0; base < slots; base += L) {
                     uint32_t e = 0u, ea = 0u;
+                    long long b = n;
                     if (live && base + q < slots) {
-                        const long long b =
-                            __ldg(p.nbr_self + row * slots + base + q);
+                        b = __ldg(p.nbr_self + row * slots + base + q);
                         if (b != n) end_pair<NP, DM>(p, mask_c, b, w, e, ea);
                     }
+                    // with dmax at run time the warp stops at the first
+                    // block of slots that is ghost for all its rows (ghosts
+                    // are each row's suffix: the rest adds nothing)
+                    if (DM == 0 && !__any_sync(kFull, b != n)) break;
                     const int m = slots - base < L ? slots - base : L;
                     for (int t = 0; t < m; ++t) {
                         const uint32_t et = __shfl_sync(kFull, e, t, L);
@@ -471,7 +494,8 @@ constexpr int bit_length(int v)
 }
 
 // degrees up to kMaxDM get a kernel with dmax compiled in; above it the
-// kernels by bit planes, with dmax at run time (up to 63)
+// kernels by bit planes, with dmax at run time: the tight plane pairs up to
+// dmax 63, then 8, 16 and 32 planes, so every int32 degree has a kernel
 constexpr int kMaxDM = 8;
 
 template <int DM>
@@ -500,6 +524,10 @@ KernelFn pick(int dmax)
     GRAPHDYN_FUSED_CASE(5, 5) GRAPHDYN_FUSED_CASE(5, 6)
     GRAPHDYN_FUSED_CASE(6, 6) GRAPHDYN_FUSED_CASE(6, 7)
 #undef GRAPHDYN_FUSED_CASE
+    // a ball count (<= dmax + 1) needs nb planes, a neighbour count np <= nb
+    if (nb <= 8) return fused_anneal_kernel<8, 8, 0>;
+    if (nb <= 16) return fused_anneal_kernel<16, 16, 0>;
+    if (nb <= 32) return fused_anneal_kernel<32, 32, 0>;
     return nullptr;
 }
 
@@ -560,7 +588,7 @@ extern "C" int graphdyn_fused_chunk(
     int chunk_steps, int stop_on_first, unsigned int seed, float inv_n,
     void* trace, int trace_steps, int* grid_blocks, void* stream)
 {
-    if (n < 1 || n >= 2147483647LL || W < 1 || dmax < 1 || dmax > 63 || chi < 1
+    if (n < 1 || n >= 2147483647LL || W < 1 || dmax < 1 || chi < 1
         || W * 32 > (1 << 30) || max_class < 0 || max_class > n
         || !lane_plan_ok(W, lanes, row_threads))
         return (int)cudaErrorInvalidValue;

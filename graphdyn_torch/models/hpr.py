@@ -26,9 +26,19 @@ Each sweep is one launch of the CUDA sweep kernel on the card
 The reinforcement draws come from the port's counter-based stream
 (:mod:`graphdyn_torch.pipeline.hpr_group`), or from ``uniforms=`` in tests.
 
-Not ported yet: ``checkpoint_path`` (ROADMAP A16), ``mesh=`` (A15), and
-``device_init=True`` (the reference draws that init from ``jax.random``;
-A11's remainder). Each raises ``NotImplementedError``.
+``checkpoint_path`` gives exact resume, as in the JAX package: the chain
+solvers snapshot their whole float state between chunks
+(:class:`graphdyn_torch.utils.io.ChainCheckpointer`), so a resumed chain
+equals the uninterrupted one bit for bit on the same device (the sweep
+kernel's per-edge order does not depend on the grid); ``hpr_ensemble``
+snapshots its completed repetitions (and, serially, the chain in flight at
+``<path>_chain<k>``). The snapshot's identity carries the port's tag: the
+JAX package's chains draw from ``jax.random``, so their snapshots are
+refused.
+
+Not ported yet: ``mesh=`` (A15) and ``device_init=True`` (the reference
+draws that init from ``jax.random``; A11's remainder). Each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,9 +70,14 @@ def _not_ported(arg: str, item: str) -> NotImplementedError:
         f"{arg} is not ported to graphdyn_torch yet (ROADMAP.md {item})")
 
 
-def _refuse(checkpoint_path=None, mesh=None, device_init=False) -> None:
-    if checkpoint_path is not None:
-        raise _not_ported("checkpoint_path", "A16: checkpoints and resilience")
+#: the chain snapshot's arrays (``hpr_solve``)
+_HPR_CHAIN_FIELDS = ("chi", "biases", "s", "seed", "t", "m_final")
+#: the batched chains' snapshot arrays (``hpr_solve_batch``)
+_HPR_BATCH_FIELDS = ("chi", "biases", "s", "seeds", "t", "m_final", "active",
+                     "steps")
+
+
+def _refuse(mesh=None, device_init=False) -> None:
     if mesh is not None:
         raise _not_ported("mesh=", "A15: parallel/ onto torch.distributed")
     if device_init:
@@ -139,6 +154,7 @@ def hpr_solve(
     seed: int = 0,
     chi0=None,
     checkpoint_path: str | None = None,
+    checkpoint_interval_s: float = 30.0,
     chunk_sweeps: int = 200,
     kernel: str = "auto",
     uniforms=None,
@@ -152,11 +168,13 @@ def hpr_solve(
     chain). ``kernel``: ``'auto'`` (the CUDA kernel on the card, the plain
     version on the CPU), ``'cuda'`` or ``'plain'``. ``uniforms``: None (the
     port's stream, keyed by ``seed``) or ``callable(t) -> [1, n]``, the
-    reinforcement draw of sweep t."""
+    reinforcement draw of sweep t. ``checkpoint_path``: exact resume
+    (module docstring)."""
     from graphdyn_torch.pipeline.hpr_group import HPRGroupExec
 
     t_start = time.perf_counter()
-    _refuse(checkpoint_path)
+    if chunk_sweeps < 1:
+        raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
     dev = resolve_device(device)
     config = config or HPRConfig()
     dyn = config.dynamics
@@ -168,11 +186,39 @@ def hpr_solve(
     )
     ex = HPRGroupExec([(graph, data)], config, kernel=kernel, device=dev,
                       uniforms=uniforms)
-    chi0, biases0, s0 = host_init(np.random.default_rng(seed),
-                                  data.num_directed, data.K, n, data.np_dtype,
-                                  chi0=chi0)
-    st = ex.init_state([chi0], [biases0], [s0], [seed])
-    st = ex.run(st, chunk_sweeps=chunk_sweeps)
+    ckpt = st = None
+    if checkpoint_path is not None:
+        from graphdyn_torch.utils.io import ChainCheckpointer, run_fingerprint
+
+        ckpt = ChainCheckpointer(
+            checkpoint_path, kind="hpr_chain", seed=seed,
+            fp=run_fingerprint(graph.edges, config, "graphdyn_torch",
+                               uniforms is not None),
+            interval_s=checkpoint_interval_s)
+        arrays = ckpt.load_state(
+            check=lambda a: a["s"].shape == (n,) and a["chi"].shape
+            == (data.num_directed, data.K, data.K))
+        if arrays is not None:
+            st = ex.init_state([arrays["chi"]], [arrays["biases"]],
+                               [arrays["s"]], [int(arrays["seed"])],
+                               t=int(arrays["t"]),
+                               m_final=[np.float32(arrays["m_final"])])
+    if st is None:
+        chi0, biases0, s0 = host_init(np.random.default_rng(seed),
+                                      data.num_directed, data.K, n,
+                                      data.np_dtype, chi0=chi0)
+        st = ex.init_state([chi0], [biases0], [s0], [seed])
+    if ckpt is None:
+        st = ex.run(st, chunk_sweeps=chunk_sweeps)
+    else:
+        st = ckpt.drive(
+            st, advance=lambda x: ex.advance(
+                x, min(x.t + int(chunk_sweeps), ex.spec.TT + 2)),
+            active=lambda x: bool(x.active[0]),
+            payload=lambda x: dict(zip(_HPR_CHAIN_FIELDS, (
+                x.chi[0].cpu().numpy(), x.biases[0].cpu().numpy(),
+                x.s[0].cpu().numpy(), np.int64(seed), np.int64(x.t),
+                x.m_final[0].cpu().numpy()))))
     s = st.s[0].cpu().numpy()
     return HPRResult(
         s=s,
@@ -322,6 +368,7 @@ def hpr_solve_batch(
     seed: int = 0,
     mesh=None,
     checkpoint_path: str | None = None,
+    checkpoint_interval_s: float = 30.0,
     chunk_sweeps: int = 200,
     device_init: bool = False,
     kernel: str = "auto",
@@ -338,9 +385,10 @@ def hpr_solve_batch(
     one ``default_rng(seed)``); chain r's reinforcement stream is keyed by
     ``seed + r``. Finished chains freeze under per-replica masks; the host
     reads ``any(active)`` once per ``chunk_sweeps`` sweeps. ``uniforms``:
-    None or ``callable(t) -> [R·n]``."""
+    None or ``callable(t) -> [R·n]``. ``checkpoint_path``: exact resume
+    (module docstring)."""
     t_start = time.perf_counter()
-    _refuse(checkpoint_path, mesh, device_init)
+    _refuse(mesh, device_init)
     dev = resolve_device(device)
     config = config or HPRConfig()
     R = n_replicas if n_replicas is not None else config.n_replicas
@@ -355,6 +403,52 @@ def hpr_solve_batch(
     run_chunk, setup = make_hpr_batch_chunk(graph, config, R, kernel=kernel,
                                             uniforms=uniforms, device=dev)
     np_dt = setup.data.np_dtype
+    ckpt = None
+    st = None
+    if checkpoint_path is not None:
+        from graphdyn_torch.utils.io import ChainCheckpointer, run_fingerprint
+
+        ckpt = ChainCheckpointer(
+            checkpoint_path, kind="hpr_batch_chain", seed=seed,
+            fp=run_fingerprint(graph.edges, config, R, "graphdyn_torch",
+                               uniforms is not None),
+            interval_s=checkpoint_interval_s)
+        arrays = ckpt.load_state(
+            check=lambda a: a["s"].shape == (R * n,) and a["t"].shape == (R,))
+        if arrays is not None:
+            st = _BatchState(**{
+                f: (int(arrays["t"][0]) if f == "t" else
+                    torch.from_numpy(np.asarray(arrays[f])).to(dev))
+                for f in _HPR_BATCH_FIELDS})
+    if st is None:
+        st = _batch_init(graph, config, R, seed, seeds, np_dt, K, twoE, dev)
+    if ckpt is None:
+        while bool(st.active.any()):
+            st = run_chunk(st, min(st.t + int(chunk_sweeps), setup.TT + 2))
+    else:
+        st = ckpt.drive(
+            st, advance=lambda x: run_chunk(
+                x, min(x.t + int(chunk_sweeps), setup.TT + 2)),
+            active=lambda x: bool(x.active.any()),
+            payload=lambda x: {f: (np.full(R, x.t, np.int32) if f == "t"
+                                   else getattr(x, f).cpu().numpy())
+                               for f in _HPR_BATCH_FIELDS})
+    s = st.s.cpu().numpy().reshape(R, n)
+    return HPRBatchResult(
+        s=s,
+        mag_reached=s.astype(np.float64).mean(axis=1).astype(np.float32),
+        num_steps=st.steps.cpu().numpy(),
+        m_final=st.m_final.cpu().numpy(),
+        elapsed_s=time.perf_counter() - t_start,
+    )
+
+
+def _batch_init(graph: Graph, config: HPRConfig, R: int, seed: int, seeds,
+                np_dt, K: int, twoE: int, dev) -> _BatchState:
+    """The batched chains' initial state: the reference's numpy draw and
+    the initial rollout stop test."""
+    n = graph.n
+    dyn = config.dynamics
     rng = np.random.default_rng(seed)
     chi0, biases0, s0 = host_init(rng, R * twoE, K, R * n, np_dt,
                                   chi0=_draw_union_chi(rng, R, twoE, K, np_dt))
@@ -378,16 +472,17 @@ def hpr_solve_batch(
         steps=torch.zeros(R, dtype=torch.int32, device=dev),
     )
     del chi0
-    while bool(st.active.any()):
-        st = run_chunk(st, min(st.t + int(chunk_sweeps), setup.TT + 2))
-    s = st.s.cpu().numpy().reshape(R, n)
-    return HPRBatchResult(
-        s=s,
-        mag_reached=s.astype(np.float64).mean(axis=1).astype(np.float32),
-        num_steps=st.steps.cpu().numpy(),
-        m_final=st.m_final.cpu().numpy(),
-        elapsed_s=time.perf_counter() - t_start,
-    )
+    return st
+
+
+def ensemble_run_id(n: int, d: int, config: HPRConfig, *, n_rep: int,
+                    seed: int, graph_method: str) -> dict:
+    """The identity stamped into every ``hpr_ensemble`` driver snapshot,
+    serial and grouped alike: the JAX package's keys and ``backend`` naming
+    the port (whose reinforcement stream is not the JAX package's)."""
+    return {"seed": seed, "n_rep": n_rep, "n": n, "d": d,
+            "graph_method": graph_method, "config": repr(config),
+            "backend": "graphdyn_torch"}
 
 
 class HPREnsembleResult(NamedTuple):
@@ -411,6 +506,7 @@ def hpr_ensemble(
     graph_method: str = "pairing",
     save_path: str | None = None,
     checkpoint_path: str | None = None,
+    checkpoint_interval_s: float = 30.0,
     group_size: int | None = None,
     prefetch: int = 2,
     kernel: str = "auto",
@@ -424,8 +520,13 @@ def hpr_ensemble(
     a time as one program (:func:`graphdyn_torch.pipeline.hpr_group.
     hpr_ensemble_grouped`, with host prefetch); 0 runs the serial loop of
     :func:`hpr_solve`. Both give the same results element by element.
-    ``uniforms``: None or ``callable(t) -> [n_rep, n]``."""
-    _refuse(checkpoint_path)
+    ``uniforms``: None or ``callable(t) -> [n_rep, n]``.
+
+    ``checkpoint_path`` makes the driver preemption-safe, as
+    ``sa_ensemble``'s: the completed repetitions are snapshotted with the
+    next repetition's index; serially the chain in flight checkpoints
+    itself at ``<path>_chain<k>``, grouped an interrupted group runs again
+    from its start. Snapshots pass between the paths and group sizes."""
     dev = resolve_device(device)
     if group_size is None:
         group_size = min(max(n_rep, 1), 8)
@@ -434,10 +535,14 @@ def hpr_ensemble(
 
         return hpr_ensemble_grouped(
             n, d, config, n_rep=n_rep, seed=seed, graph_method=graph_method,
-            save_path=save_path, group_size=group_size, prefetch=prefetch,
+            save_path=save_path, checkpoint_path=checkpoint_path,
+            checkpoint_interval_s=checkpoint_interval_s,
+            group_size=group_size, prefetch=prefetch,
             kernel=kernel, device=dev, uniforms=uniforms,
         )
     from graphdyn_torch.graphs import random_regular_graph
+    from graphdyn_torch.pipeline.groups import GroupDriver
+    from graphdyn_torch.resilience.shutdown import ShutdownRequested
     from graphdyn_torch.utils.io import save_results_npz
 
     config = config or HPRConfig()
@@ -446,17 +551,38 @@ def hpr_ensemble(
     steps = np.empty(n_rep, np.int64)
     graphs = np.empty((n_rep, n, d), np.int32)
     times = np.empty(n_rep, np.float64)
-    for k in range(n_rep):
+
+    def payload():
+        return {"mag_reached": mag, "conf": conf, "num_steps": steps,
+                "time": times}
+
+    drv = GroupDriver(checkpoint_path, checkpoint_interval_s,
+                      ensemble_run_id(n, d, config, n_rep=n_rep, seed=seed,
+                                      graph_method=graph_method), payload)
+    start_k = drv.resume_into(payload())
+    for k in range(start_k, n_rep):
         g = random_regular_graph(n, d, seed=seed + k, method=graph_method)
         u_k = None if uniforms is None else (
             lambda t, k=k: np.asarray(uniforms(t))[k:k + 1])
-        res = hpr_solve(g, config, seed=seed + k, kernel=kernel, uniforms=u_k,
-                        device=dev)
+        try:
+            res = hpr_solve(
+                g, config, seed=seed + k, kernel=kernel, uniforms=u_k,
+                checkpoint_path=(f"{checkpoint_path}_chain{k}"
+                                 if checkpoint_path else None),
+                checkpoint_interval_s=checkpoint_interval_s, device=dev)
+        except ShutdownRequested:
+            drv.save_prefix(k)
+            raise
         mag[k] = float(res.mag_reached)
         conf[k] = res.s
         steps[k] = res.num_steps
         graphs[k] = g.nbr
         times[k] = res.elapsed_s
+        drv.rep_boundary(k)
+    for k in range(start_k):    # resumed prefix: graphs re-derive from seed+k
+        graphs[k] = random_regular_graph(n, d, seed=seed + k,
+                                         method=graph_method).nbr
+    drv.finish()
     out = HPREnsembleResult(mag, conf, steps, graphs, times)
     if save_path:
         save_results_npz(

@@ -47,8 +47,17 @@ graph whose degree CV crosses the bucketed threshold bucket-major
 (``degree_buckets`` order, ``permute_nodes``), runs the padded chain on it
 and maps the spins back, as ``layout='bucketed'`` does; ``layout='streamed'``
 is the host-stepped chain of :func:`_sa_streamed`, every end sum from the
-out-of-core streamed rollout. Not ported yet: ``checkpoint_path`` (A16); it
-raises, naming the item.
+out-of-core streamed rollout.
+
+Checkpoints (``checkpoint_path``): the chunked chain snapshots its state
+through :class:`graphdyn_torch.utils.io.ChainCheckpointer` between chunks
+(interval-gated, and at once on a graceful shutdown, which then exits 75),
+and a rerun on the same checkpoint continues the chain bit for bit. The
+snapshot's identity holds the graph, the config, the budget, the dtype, the
+stream mode (and injected streams) and the port's own tag, so a snapshot of
+another run, or of the JAX package, whose RNG state means something else
+here, is refused with ``ValueError``. ``sa_ensemble`` snapshots its
+completed repetitions as the JAX package's driver does.
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ from graphdyn_torch.ops.lightcone import (
     resolve_lightcone_tables,
     rollout_ext,
 )
+from graphdyn_torch.resilience.shutdown import ShutdownRequested
 from graphdyn_torch.utils.platform import resolve_device
 
 #: key word 1 of the SA proposal stream (key word 0 is the chain's seed)
@@ -385,6 +395,33 @@ def chunk_caller(advance):
     return call
 
 
+def drive_chunks(ckpt, advance, state, payload):
+    """:func:`run_chunks` under a checkpointer: ``ckpt.drive`` (a due
+    snapshot between chunks, the shutdown snapshot, the ``chunk.boundary``
+    site) with one host read of ``active.any()`` per chunk."""
+    seen: dict = {}
+
+    def active(st) -> bool:
+        global HOST_READS
+        if seen.get("st") is not st:
+            HOST_READS += 1
+            seen["st"], seen["go"] = st, bool(st.active.any())
+        return seen["go"]
+
+    return ckpt.drive(state, advance=chunk_caller(advance), active=active,
+                      payload=payload)
+
+
+def state_payload(st, s_now) -> dict:
+    """A chain state's snapshot arrays: the current spins ``s_now`` and
+    every field but the chunk counter and the trajectory (a function of
+    the spins, rebuilt on resume)."""
+    out = {k: v.cpu().numpy() for k, v in st._asdict().items()
+           if k not in ("chunk_t", "traj", "s")}
+    out["s"] = s_now.cpu().numpy()
+    return out
+
+
 def run_chunks(advance, state, *, on_chunk=None):
     """Call ``advance`` until no chain is active, with one host read of
     ``active.any()`` per chunk (counted in :data:`HOST_READS`); ``on_chunk``
@@ -415,6 +452,7 @@ def simulated_annealing(
     max_steps: int | None = None,
     dtype="float32",
     checkpoint_path: str | None = None,
+    checkpoint_interval_s: float = 30.0,
     chunk_steps: int = CHUNK_STEPS,
     rollout_mode: str = "full",
     lc_tables=None,
@@ -444,9 +482,13 @@ def simulated_annealing(
     prebuilt ``lc_tables`` are node-indexed and refused there);
     ``'streamed'`` runs :func:`_sa_streamed` with ``stream_chunks`` chunks
     (injected streams allowed: it keeps the caller's labeling).
-    ``checkpoint_path`` (A16) is not ported and raises; an auto-routed
-    checkpointed run would pin the padded layout, as the JAX package's
-    does, once it is."""
+    ``checkpoint_path`` snapshots the chain between chunks, at most every
+    ``checkpoint_interval_s`` seconds and at once on a graceful shutdown,
+    and resumes it bit for bit (module docstring). An auto-routed
+    checkpointed run pins the padded layout, as the JAX package's does (a
+    relabelled graph would orphan the snapshots of the caller's labeling);
+    an explicit ``layout='bucketed'`` checkpoints its relabelled chain;
+    ``layout='streamed'`` has no chunked chain and refuses a checkpoint."""
     if kernel not in ("auto", "plain"):
         if kernel in ("cuda", "pallas"):
             raise ValueError(
@@ -462,12 +504,12 @@ def simulated_annealing(
         raise ValueError(
             f"layout must be 'auto', 'padded', 'bucketed' or 'streamed', "
             f"got {layout!r}")
-    if checkpoint_path is not None:
-        raise _not_ported("checkpoint_path", "A16: checkpoints and resilience")
     if layout == "auto":
         from graphdyn_torch.ops.bucketed import auto_layout
 
         layout = auto_layout(graph.deg)
+        if layout == "bucketed" and checkpoint_path is not None:
+            layout = "padded"
     if layout == "bucketed":
         if proposals is not None or uniforms is not None:
             raise ValueError(
@@ -485,6 +527,8 @@ def simulated_annealing(
             g_b, config, n_replicas=n_replicas, seed=seed,
             s0=None if s0 is None else np.asarray(s0)[..., order],
             a0=a0, b0=b0, max_steps=max_steps, dtype=dtype,
+            checkpoint_path=checkpoint_path,
+            checkpoint_interval_s=checkpoint_interval_s,
             chunk_steps=chunk_steps, rollout_mode=rollout_mode,
             kernel=kernel, layout="padded", device=device)
         return res._replace(s=res.s[..., inv])
@@ -494,6 +538,11 @@ def simulated_annealing(
                 "rollout_mode='lightcone' caches a device-resident "
                 "trajectory, which is what the out-of-core streamed layout "
                 "exists to avoid — use rollout_mode='full'")
+        if checkpoint_path is not None:
+            raise ValueError(
+                "layout='streamed' has no chunked-chain resume (the chain is "
+                "host-stepped) — use layout='padded' for checkpointed SA "
+                "chains")
         return _sa_streamed(
             graph, config or SAConfig(), n_replicas=n_replicas, seed=seed,
             s0=s0, a0=a0, b0=b0, proposals=proposals, uniforms=uniforms,
@@ -523,12 +572,45 @@ def simulated_annealing(
     lightcone = rollout_mode == "lightcone"
     lc_tables = (resolve_lightcone_tables(graph, rollout, lc_tables,
                                           device=dev) if lightcone else None)
-    state = _sa_init(
-        idx, torch.from_numpy(s0).to(dev), chain_keys(seed, R, dev),
-        torch.from_numpy(a0.astype(np_dt)).to(dev),
-        torch.from_numpy(b0.astype(np_dt)).to(dev),
-        rollout_steps=rollout, R_coef=R_coef, C_coef=C_coef,
-        lightcone=lightcone, nbr=nbr)
+    ckpt = None
+    state = None
+    if checkpoint_path is not None:
+        from graphdyn_torch.utils.io import ChainCheckpointer, run_fingerprint
+
+        ckpt = ChainCheckpointer(
+            checkpoint_path, kind="sa_chain", seed=seed,
+            # the run's identity: graph, config, budget, dtype, stream mode
+            # (and the injected streams themselves), and the port's tag:
+            # the JAX package's snapshot carries a jax.random key
+            fp=run_fingerprint(
+                graph.edges, config, int(max_steps), bool(injected), np_dt,
+                "graphdyn_torch counter stream",
+                *((np.asarray(proposals), np.asarray(uniforms))
+                  if injected else ())),
+            interval_s=checkpoint_interval_s, extra_meta={"R": int(R)})
+        arrays = ckpt.load_state(check=lambda a: a["s"].shape == (R, n))
+        if arrays is not None:
+            def dev_t(k, dtype=None):
+                x = np.asarray(arrays[k])
+                return torch.from_numpy(
+                    x if dtype is None else x.astype(dtype)).to(dev)
+
+            s_res = dev_t("s")
+            state = _SAState(
+                s=s_res, sum_end=dev_t("sum_end"), a=dev_t("a", np_dt),
+                b=dev_t("b", np_dt), t=dev_t("t"),
+                m_final=dev_t("m_final", np_dt), active=dev_t("active"),
+                key=dev_t("key"),
+                chunk_t=torch.zeros((), dtype=torch.int32, device=dev),
+                traj=(batched_trajectory(nbr, s_res, rollout, R_coef, C_coef)
+                      if lightcone else s_res.new_zeros((R, 0, 0))))
+    if state is None:
+        state = _sa_init(
+            idx, torch.from_numpy(s0).to(dev), chain_keys(seed, R, dev),
+            torch.from_numpy(a0.astype(np_dt)).to(dev),
+            torch.from_numpy(b0.astype(np_dt)).to(dev),
+            rollout_steps=rollout, R_coef=R_coef, C_coef=C_coef,
+            lightcone=lightcone, nbr=nbr)
     consts = sa_consts(config, n, dt, dev)
     prop_d = torch.from_numpy(np.array(proposals)).to(dev)
     unif_d = torch.from_numpy(uniforms.astype(np_dt)).to(dev)
@@ -541,8 +623,15 @@ def simulated_annealing(
             stream_len=stream_len, chunk_steps=int(chunk_steps),
             lc_tables=lc_tables)
 
-    state = run_chunks(advance, state)
-    s_final = (state.traj[:, 0, :n] if lightcone else state.s).cpu().numpy()
+    def current_s(st):
+        return st.traj[:, 0, :n] if lightcone else st.s
+
+    if ckpt is None:
+        state = run_chunks(advance, state)
+    else:
+        state = drive_chunks(ckpt, advance, state,
+                             lambda st: state_payload(st, current_s(st)))
+    s_final = current_s(state).cpu().numpy()
     mag = s_final.astype(np.float64).sum(axis=1) / n
     return SAResult(
         s=s_final,
@@ -657,6 +746,17 @@ def save_ensemble_npz(path: str, out: SAEnsembleResult) -> str:
                             graphs=out.graphs)
 
 
+def ensemble_run_id(n: int, d: int, config: SAConfig, *, n_stat: int,
+                    seed: int, max_steps, graph_method: str) -> dict:
+    """The identity stamped into every ``sa_ensemble`` driver snapshot,
+    serial and grouped alike (the JAX package's keys; ``backend`` names
+    the port, whose chains are not the JAX package's, so each refuses the
+    other's snapshots)."""
+    return {"seed": seed, "n_stat": n_stat, "n": n, "d": d,
+            "max_steps": max_steps, "graph_method": graph_method,
+            "config": repr(config), "backend": "graphdyn_torch"}
+
+
 def sa_ensemble(
     n: int,
     d: int,
@@ -668,6 +768,7 @@ def sa_ensemble(
     max_steps: int | None = None,
     save_path: str | None = None,
     checkpoint_path: str | None = None,
+    checkpoint_interval_s: float = 30.0,
     rollout_mode: str = "full",
     group_size: int | None = None,
     prefetch: int = 2,
@@ -688,13 +789,19 @@ def sa_ensemble(
     serial loop, which ``rollout_mode='lightcone'`` and the non-padded
     layouts (``'bucketed'``, ``'streamed'`` with ``stream_chunks``) always
     take: each repetition's :func:`simulated_annealing` gets ``layout``.
-    ``checkpoint_path`` is not ported (A16)."""
+
+    ``checkpoint_path`` makes the driver preemption-safe, as the JAX
+    package's: the completed repetitions are snapshotted with the next
+    repetition's index; on the serial path the chain in flight also
+    checkpoints itself at ``<path>_chain<k>`` (exact resume; not with
+    ``layout='streamed'``, whose chain is host-stepped), on the grouped path
+    an interrupted group runs again from its start. Snapshots pass between
+    the two paths and between group sizes. The ``rep.boundary`` site fires
+    once per repetition, in order."""
     if layout not in ("auto", "padded", "bucketed", "streamed"):
         raise ValueError(
             f"layout must be 'auto', 'padded', 'bucketed' or 'streamed', "
             f"got {layout!r}")
-    if checkpoint_path is not None:
-        raise _not_ported("checkpoint_path", "A16: checkpoints and resilience")
     dev = resolve_device(device)
     serial_only = rollout_mode != "full" or layout not in ("auto", "padded")
     if group_size is None:
@@ -709,9 +816,12 @@ def sa_ensemble(
         return sa_ensemble_grouped(
             n, d, config, n_stat=n_stat, seed=seed,
             graph_method=graph_method, max_steps=max_steps,
-            save_path=save_path, group_size=group_size, prefetch=prefetch,
+            save_path=save_path, checkpoint_path=checkpoint_path,
+            checkpoint_interval_s=checkpoint_interval_s,
+            group_size=group_size, prefetch=prefetch,
             chunk_steps=chunk_steps, device=dev)
     from graphdyn_torch.graphs import random_regular_graph
+    from graphdyn_torch.pipeline.groups import GroupDriver
 
     config = config or SAConfig()
     mag = np.empty(n_stat, np.float64)
@@ -719,17 +829,46 @@ def sa_ensemble(
     conf = np.empty((n_stat, n), np.int8)
     graphs = np.empty((n_stat, n, d), np.int32)
     m_final = np.empty(n_stat, np.float64)
-    for k in range(n_stat):
+
+    def payload():
+        return {"mag_reached": mag, "num_steps": steps, "conf": conf,
+                "m_final": m_final}
+
+    drv = GroupDriver(checkpoint_path, checkpoint_interval_s,
+                      ensemble_run_id(n, d, config, n_stat=n_stat, seed=seed,
+                                      max_steps=max_steps,
+                                      graph_method=graph_method), payload)
+    start_k = drv.resume_into(payload())
+    for k in range(start_k, n_stat):
         g = random_regular_graph(n, d, seed=seed + k, method=graph_method)
-        res = simulated_annealing(
-            g, config, n_replicas=1, seed=seed + k, max_steps=max_steps,
-            rollout_mode=rollout_mode, layout=layout,
-            chunk_steps=chunk_steps, stream_chunks=stream_chunks, device=dev)
+        # a chain file per repetition: the driver snapshot may lag the
+        # repetition in flight, and a shared file holding a later
+        # repetition's chain would be refused by an earlier one's identity
+        chain_ckpt = (f"{checkpoint_path}_chain{k}"
+                      if checkpoint_path and layout != "streamed" else None)
+        try:
+            res = simulated_annealing(
+                g, config, n_replicas=1, seed=seed + k, max_steps=max_steps,
+                checkpoint_path=chain_ckpt,
+                checkpoint_interval_s=checkpoint_interval_s,
+                rollout_mode=rollout_mode, layout=layout,
+                chunk_steps=chunk_steps, stream_chunks=stream_chunks,
+                device=dev)
+        except ShutdownRequested:
+            # the chain saved itself at its chunk boundary; persist the
+            # completed prefix too (the periodic snapshot may lag)
+            drv.save_prefix(k)
+            raise
         mag[k] = res.mag_reached[0]
         steps[k] = res.num_steps[0]
         conf[k] = res.s[0]
         graphs[k] = g.nbr
         m_final[k] = res.m_final[0]
+        drv.rep_boundary(k)
+    for k in range(start_k):    # resumed prefix: graphs re-derive from seed+k
+        graphs[k] = random_regular_graph(n, d, seed=seed + k,
+                                         method=graph_method).nbr
+    drv.finish()
     out = SAEnsembleResult(mag, steps, conf, graphs, m_final)
     if save_path:
         save_ensemble_npz(save_path, out)

@@ -78,6 +78,7 @@ from graphdyn_torch.graphs import (
 from graphdyn_torch.ops import bdcm_sweep
 from graphdyn_torch.ops.bdcm_sweep import NodeBias
 from graphdyn_torch.ops.packed import _row_chunk
+from graphdyn_torch.resilience import faults as _faults
 from graphdyn_torch.utils.platform import resolve_device
 
 KERNELS = ("auto", "cuda", "plain")
@@ -438,9 +439,25 @@ class _SweepSpec(NamedTuple):
 
 
 def resolve_modes(class_ds, *, T: int, dtype, kernel: str, device) -> tuple:
-    """Per-class modes of a sweep (:func:`class_mode` for each class)."""
+    """Per-class modes of a sweep (:func:`class_mode` for each class).
+
+    Each class passes the ``pallas.lower`` fault site here, where its
+    program is chosen (key ``d=<d>``): a firing plan stands for a kernel
+    that does not build or launch. Unlike the JAX package, which degrades
+    such a class to its XLA twin, the port raises: a run never carries on in
+    the plain version."""
+    for d in class_ds:
+        _faults.maybe_fail("pallas.lower", key=f"d={int(d)}")
     return tuple(class_mode(int(d), T, dtype, kernel, device)
                  for d in class_ds)
+
+
+def poison_nan(x: torch.Tensor) -> torch.Tensor:
+    """Seed one NaN into a float carry (the ``sweep.nan`` fault payload,
+    at the first element, as the JAX package seeds it)."""
+    x = x.clone()
+    x.view(-1)[0] = float("nan")
+    return x
 
 
 def _long(t, device) -> torch.Tensor:
@@ -605,8 +622,10 @@ def make_sweep(
         else:
             bias = bias_edge[None]
         out = _sweep_core(chi[None], tilted_factors(As, x0, lmbd), bias, valid,
-                          tables, spec)[0]
-        return out[:n_real]
+                          tables, spec)[0][:n_real]
+        if _faults.transform_spec("sweep.nan", "nan") is not None:
+            out = poison_nan(out)
+        return out
 
     sweep.spec = spec
     sweep.args = (tables, As, valid)
@@ -914,7 +933,9 @@ def run_fixed_point(sweep, chi, *, eps: float, t_max: int,
     """One joint fixed point from ``chi``: sweep until ``max|Δchi| ≤ eps``
     or ``t_max`` sweeps (`ipynb:420-432`), in chunks of ``chunk_sweeps``
     sweeps with one host read of ``(delta, t)`` per chunk. Returns ``(chi*,
-    sweeps, delta)`` with host scalars."""
+    sweeps, delta)`` with host scalars. The ``sweep.nan`` fault site is
+    checked once per completed fixed point: a firing ``nan`` poisons the
+    first element of the returned messages and the delta."""
     dev = chi.device
     delta = torch.full((1,), torch.inf, dtype=chi.dtype, device=dev)
     t = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -925,6 +946,8 @@ def run_fixed_point(sweep, chi, *, eps: float, t_max: int,
                                            sweeps=chunk_sweeps)
         d, tt = float(delta[0]), int(t[0])
         if not d > eps or tt >= t_max:
+            if _faults.transform_spec("sweep.nan", "nan") is not None:
+                return poison_nan(chi), tt, float("nan")
             return chi, tt, d
 
 

@@ -238,21 +238,33 @@ def fused_device_tables(masks_ext, facs, nbr_ext, nbr_self, lut_masks,
       class's rows in one pass, in place and in no set order, which is
       exact only when no row one decision reads is a row another writes.
       :func:`graphdyn_torch.ops.chromatic.build_chromatic_tables`'s
-      distance-2 colourings have disjoint balls."""
+      distance-2 colourings have disjoint balls;
+    - a ghost slot before a neighbour in a row of ``nbr_ext``, or a class
+      mask set in the ghost column: the kernel's loops stop at a row's
+      first ghost slot, which is exact only when the ghosts are each row's
+      suffix and add nothing (as :class:`~graphdyn_torch.graphs.Graph`
+      rows are)."""
     n = masks_ext.shape[1] - 1
     rows = [torch.nonzero(masks_ext[c, :n] != 0).flatten().to(torch.int32)
             for c in range(masks_ext.shape[0])]
     held = [_ball_owners(nbr_self, r, n)[1][:n].max() if r.numel()
             else nbr_self.new_zeros((), dtype=torch.int64) for r in rows]
+    ghost = nbr_ext == n
+    gaps = (ghost[:, :-1] & ~ghost[:, 1:]).any() | (masks_ext[:, n] != 0).any()
     vals = torch.stack([nbr_ext.min(), nbr_ext.max(), nbr_self.min(),
-                        nbr_self.max()] + [h.to(nbr_ext.dtype) for h in held]
-                       ).tolist()
-    bounds, held = vals[:4], vals[4:]
+                        nbr_self.max(), gaps.to(nbr_ext.dtype)]
+                       + [h.to(nbr_ext.dtype) for h in held]).tolist()
+    bounds, gaps, held = vals[:4], vals[4], vals[5:]
     if min(bounds) < 0 or max(bounds) > n:
         raise ValueError(
             f"fused gather tables out of range: indices in [{min(bounds)}, "
             f"{max(bounds)}], must be within [0, {n}]"
         )
+    if gaps:
+        raise ValueError(
+            "fused gather tables: a row of nbr_ext has a ghost slot before a "
+            "neighbour, or a class mask is set in the ghost column (the "
+            "kernel stops at a row's first ghost slot)")
     for c, h in enumerate(held):
         if h > 1:
             raise ValueError(

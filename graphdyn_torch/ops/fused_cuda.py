@@ -36,7 +36,6 @@ from graphdyn_torch.ops.packed import WORD
 
 SOURCE = "fused_anneal.cu"
 NVCC_FLAGS = cuda_build.BASE_FLAGS + ("--fmad=false",)
-MAX_DMAX = 63           # the kernel's template range of bit planes
 
 # kernel launches made through fused_chunk_cuda since the last reset; a run
 # shows that its path went through the kernel by zeroing this and reading it
@@ -77,6 +76,23 @@ def _library():
                              ctypes.POINTER(ctypes.c_int)]
             _lib = lib
         return _lib
+
+
+def kernel_instance(dmax: int) -> tuple[int, int, int]:
+    """``(NP, NB, DM)`` of the kernel instantiation a launch at ``dmax``
+    runs (``pick`` in the source): dmax compiled in up to 8; above, the
+    tight plane pairs up to 63, then 8, 16 or 32 planes for a ball count
+    (≤ dmax + 1) and a neighbour count, dmax at run time. Every int32
+    degree maps to one."""
+    if not 1 <= dmax < 2**31 - 1:
+        raise ValueError(f"fused_chunk: dmax={dmax} outside [1, 2^31 - 2]")
+    np_, nb = int(dmax).bit_length(), int(dmax + 1).bit_length()
+    if dmax <= 8:
+        return np_, nb, dmax
+    if (np_, nb) in ((4, 4), (4, 5), (5, 5), (5, 6), (6, 6), (6, 7)):
+        return np_, nb, 0
+    planes = next(p for p in (8, 16, 32) if nb <= p)
+    return planes, planes, 0
 
 
 def grid_info(dmax: int, Rp: int) -> dict:
@@ -156,8 +172,7 @@ def check_launch(state: FusedState, tables: FusedDeviceTables, *, n: int,
         raise ValueError("fused_chunk: sp_ext must be 2-D [n+1, W]")
     W = state.sp_ext.shape[1]
     Rp = 32 * W
-    if not 1 <= dmax <= MAX_DMAX:
-        raise ValueError(f"fused_chunk: dmax={dmax} outside [1, {MAX_DMAX}]")
+    kernel_instance(dmax)
     if n < 1 or chi < 1 or W < 1:
         raise ValueError(f"fused_chunk: n={n}, chi={chi}, W={W} must be >= 1")
     want = {

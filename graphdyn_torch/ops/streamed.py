@@ -20,8 +20,12 @@ runs. Integer popcounts are exact, so the rollout equals
 for bit.
 
 Churn (:class:`ChurnBatch`) edits the adjacency at the step boundary and
-rebuilds only the touched chunks. Not ported yet: ``checkpoint_path`` and
-the journal replay (ROADMAP.md A16), the obs spans and gauges (A17) and the
+rebuilds only the touched chunks. With ``checkpoint_path`` every applied
+batch is journaled (``stream.churn`` in ``run_journal.jsonl``, the JAX
+package's record) and the state ``(sp, t, seq)`` is snapshotted between
+steps; a resumed run replays the journaled churn for the steps it already
+took from the journal alone, then goes on, so it equals the uninterrupted
+run bit for bit. Not ported yet: the obs spans and gauges (A17) and the
 sharded plan (``partition=``, A15); they raise.
 """
 
@@ -422,6 +426,37 @@ def _check_chunk_tables(plan: StreamPlan) -> None:
             raise ValueError("stream plan chunk tables out of range")
 
 
+def _replay_churn_from_journal(jpath: str, t0: int, adj,
+                               plan: StreamPlan) -> tuple[StreamPlan, int]:
+    """Apply every journaled ``stream.churn`` batch with ``step < t0`` (the
+    journal, not the schedule, is the record of what this run applied).
+    Returns the rebuilt plan and the number of batches replayed."""
+    from graphdyn_torch.resilience.hooks import read_ledger
+
+    try:
+        events, _ = read_ledger(jpath)
+    except (OSError, ValueError):
+        events = []
+    batches = {}
+    for ev in events:
+        if ev.get("ev") == "journal" and ev.get("op") == "stream.churn":
+            key = (int(ev.get("step", -1)), int(ev.get("seq", -1)))
+            batches.setdefault(key, (ev.get("adds") or [],
+                                     ev.get("drops") or []))
+    touched_all: set = set()
+    applied = 0
+    for (step, _), (adds, drops) in sorted(batches.items()):
+        if step >= t0:
+            continue
+        _, _, touched = adj.apply(np.asarray(adds, np.int64).reshape(-1, 2),
+                                  np.asarray(drops, np.int64).reshape(-1, 2))
+        touched_all |= touched
+        applied += 1
+    if touched_all:
+        plan = _rebuild_touched(plan, adj.neighbor_lists(), touched_all)
+    return plan, applied
+
+
 def streamed_rollout(graph: Graph, sp, steps: int, *,
                      rule: str = "majority", tie: str = "stay",
                      n_chunks: int | None = None,
@@ -444,14 +479,11 @@ def streamed_rollout(graph: Graph, sp, steps: int, *,
     with a rebuild of the touched chunks. ``prefetch_depth=0`` makes the
     gathers and copies synchronous. ``stats_out`` receives ``build_s``,
     ``wait_s``, ``overlap_frac``, ``h2d_bytes``, ``d2h_bytes``,
-    ``mutations``, ``steps`` and ``chunks``. ``checkpoint_path`` (and the
-    journal replay) is not ported yet (ROADMAP.md A16) and raises.
+    ``mutations``, ``steps`` and ``chunks``. ``checkpoint_path``: the
+    journal and exact resume of the module docstring (the identity leaves
+    the churn schedule out: the journal is what counts for the steps
+    taken).
     """
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "streamed_rollout(checkpoint_path=) and its churn journal are "
-            "not ported to graphdyn_torch yet (ROADMAP.md A16: checkpoints "
-            "and resilience)")
     dev = resolve_device(device)
     if not isinstance(sp, torch.Tensor):
         a = np.ascontiguousarray(sp)
@@ -467,8 +499,9 @@ def streamed_rollout(graph: Graph, sp, steps: int, *,
         sp = sp.clone()
     W = sp.shape[1]
     schedule = sorted(churn, key=lambda b: (b.step,)) if churn else []
-    # the live adjacency only when churn edits it (one set per node)
-    adj = _Adjacency(graph) if schedule else None
+    # the live adjacency only when churn edits it (one set per node), or
+    # when a resume may replay journaled churn
+    adj = _Adjacency(graph) if schedule or checkpoint_path else None
     if plan is None:
         plan = build_stream_plan(
             graph, W=W, n_chunks=n_chunks,
@@ -479,23 +512,62 @@ def streamed_rollout(graph: Graph, sp, steps: int, *,
     stepper = _ChunkStepper(dev, rule, tie)
     totals = {"build_s": 0.0, "wait_s": 0.0, "h2d_bytes": 0,
               "d2h_bytes": 0, "mutations": 0}
-    seq = 0
-    for t in range(steps):
-        # churn boundary: drops then adds
+    journal = None
+    ckpt = None
+    state = (sp, 0, 0)                      # (words, steps taken, seq)
+    if checkpoint_path is not None:
+        from graphdyn_torch.resilience.store import (
+            journal_event,
+            journal_path_for,
+        )
+        from graphdyn_torch.utils.io import ChainCheckpointer, run_fingerprint
+
+        jpath = journal_path_for(checkpoint_path)
+
+        def journal(**fields):
+            journal_event(jpath, "stream.churn", **fields)
+
+        ckpt = ChainCheckpointer(
+            checkpoint_path, kind="streamed_rollout", seed=seed,
+            fp=run_fingerprint(graph.edges, np.int64(graph.n),
+                               np.int64(steps), str(rule), str(tie),
+                               np.int64(W)),
+            interval_s=checkpoint_interval_s, extra_meta={"W": int(W)})
+        loaded = ckpt.load_state(
+            check=lambda a: tuple(a["sp"].shape) == tuple(sp.shape))
+        if loaded is not None:
+            t0 = int(loaded["t"])
+            plan, _ = _replay_churn_from_journal(jpath, t0, adj, plan)
+            _check_chunk_tables(plan)
+            words = torch.from_numpy(
+                np.ascontiguousarray(loaded["sp"]).view(np.int32))
+            state = (words.pin_memory() if dev.type == "cuda"
+                     else words.clone(), t0, int(loaded["seq"]))
+    plan_ref = [plan]
+
+    def advance(st):
+        sp, t, seq = st
+        # churn boundary: drops then adds, journaled as applied
         while seq < len(schedule) and schedule[seq].step <= t:
             batch = schedule[seq]
             adds, drops, touched = adj.apply(batch.adds, batch.drops)
             if touched:
-                plan = _rebuild_touched(plan, adj.neighbor_lists(), touched)
-                _check_chunk_tables(plan)
+                plan_ref[0] = _rebuild_touched(plan_ref[0],
+                                               adj.neighbor_lists(), touched)
+                _check_chunk_tables(plan_ref[0])
+            if journal is not None:
+                journal(step=int(batch.step), seq=int(seq),
+                        adds=[list(map(int, e)) for e in adds],
+                        drops=[list(map(int, e)) for e in drops],
+                        n_adds=len(adds), n_drops=len(drops))
             totals["mutations"] += len(adds) + len(drops)
             seq += 1
         # chunk sweep: the prefetcher stages chunk c+1 while c steps
+        plan = plan_ref[0]
         new = torch.empty(sp.shape, dtype=sp.dtype,
                           pin_memory=dev.type == "cuda")
-        cur_plan, cur_sp = plan, sp
         pf = HostPrefetcher(
-            lambda c: stepper.build(cur_sp, c, cur_plan.chunks[c]),
+            lambda c: stepper.build(sp, c, plan.chunks[c]),
             range(plan.K), depth=prefetch_depth)
         try:
             for c in range(plan.K):
@@ -509,7 +581,17 @@ def streamed_rollout(graph: Graph, sp, steps: int, *,
             pf.close()
             totals["build_s"] += pf.build_s
             totals["wait_s"] += pf.wait_s
-        sp = new
+        return new, t + 1, seq
+
+    if ckpt is None:
+        while state[1] < steps:
+            state = advance(state)
+    else:
+        state = ckpt.drive(
+            state, advance=advance, active=lambda st: st[1] < steps,
+            payload=lambda st: {"sp": st[0].numpy().view(np.uint32),
+                                "t": np.int64(st[1]), "seq": np.int64(st[2])})
+    sp, plan = state[0], plan_ref[0]
     build_s, wait_s = totals["build_s"], totals["wait_s"]
     overlap = max(0.0, 1.0 - wait_s / build_s) if build_s > 0 else 0.0
     if stats_out is not None:

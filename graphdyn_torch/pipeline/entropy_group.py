@@ -29,9 +29,12 @@ message are computed per cell at a fixed size
 and m_init run per cell through the serial observables on the cell's own
 ``chi[:2E]`` slice.
 
-Not ported yet: checkpoints, the shutdown poll, heartbeats and the fault
-sites of the ladder boundary (ROADMAP A16), the cell-axis mesh (A15) and
-the obs spans (A17).
+At each chunk boundary where a cell crossed a λ, the ladder beats, offers
+the grid's checkpoint callback every unfinished cell's last-boundary chi
+and cursor, honours a graceful shutdown (exit 75) and passes the
+``lambda.boundary`` fault site once per crossed cell; the ``sweep.nan`` site
+is checked once per completed fixed point per cell. Not ported yet: the
+cell-axis mesh (A15) and the obs spans (A17).
 """
 
 from __future__ import annotations
@@ -176,6 +179,12 @@ class EntropyCellExec:
                                   delta, t, active, eps=self.eps,
                                   t_max=self.t_max, sweeps=CHUNK_SWEEPS)
 
+    def poison_cell(self, chi, g: int) -> torch.Tensor:
+        """The ``sweep.nan`` fault payload for cell ``g``: one NaN at its
+        first element (in place; returned)."""
+        chi[g, 0, 0, 0] = float("nan")
+        return chi
+
     def unstack_chi(self, chi, g: int) -> torch.Tensor:
         """Cell ``g``'s own ``[2E_g, K, K]`` slice of the stacked chi."""
         return chi[g, : int(self.stk.twoE[g])]
@@ -229,9 +238,12 @@ def run_cell_ladder(
     *,
     eps: float,
     ent_floor: float,
+    k0=None,
     plateau_eps: float = 0.0,
     plateau_patience: int = 3,
+    prev_rows=None,
     record=None,
+    boundary=None,
     verbose: bool = False,
 ) -> CellLadderResult:
     """Advance every cell of the group through its own ladder,
@@ -240,15 +252,33 @@ def run_cell_ladder(
     ladder's, per cell: the entropy floor, a failed or non-finite fixed
     point, the end of the ladder and the opt-in plateau.
 
-    ``record(g, k, lmbd, phi, m0, e1, sweeps,
-    failed)`` fires per cell per visited λ."""
+    ``k0[g]`` is cell g's first unvisited ladder index (a resumed cell
+    starts mid-ladder); ``prev_rows[g] = (m_init_rows, ent1_rows)`` its
+    restored prefix, from which its plateau streak is rebuilt. ``record(g,
+    k, lmbd, phi, m0, e1, sweeps, failed)`` fires per cell per visited λ;
+    ``boundary(stopping, info)`` at each chunk boundary where a cell
+    crossed a λ (and at every chunk while a shutdown is pending), before the
+    shutdown raise and the ``lambda.boundary`` faults, with ``{"g",
+    "visited", "lmbd", "failed", "chi"}`` for every unfinished cell, ``chi``
+    its last-boundary state on the host (copied only when ``boundary`` is
+    given)."""
+    from graphdyn_torch.models.entropy import _plateau_prefix
+    from graphdyn_torch.resilience import faults as _faults
+    from graphdyn_torch.resilience.shutdown import (
+        raise_if_requested,
+        shutdown_requested,
+    )
+    from graphdyn_torch.resilience.supervisor import beat as _beat
+
     G, Gr = ex.G, ex.G_real
     lambdas = np.asarray(lambdas, float)
     L = lambdas.size
     plateau_patience = max(1, int(plateau_patience))
     k = np.zeros(G, np.int64)
+    if k0 is not None:
+        k[:Gr] = np.asarray(k0, np.int64)
     active = np.zeros(G, bool)
-    active[:Gr] = L > 0
+    active[:Gr] = k[:Gr] < L
 
     rows_l = [[] for _ in range(Gr)]
     rows_e = [[] for _ in range(Gr)]
@@ -259,9 +289,27 @@ def run_cell_ladder(
     streak = np.zeros(Gr, np.int64)
     prev_m: list = [None] * Gr
     prev_e: list = [None] * Gr
+    for g in range(Gr):
+        pr = prev_rows[g] if prev_rows is not None and g < len(prev_rows) \
+            else None
+        streak[g], prev_m[g], prev_e[g] = _plateau_prefix(
+            pr, plateau_eps, plateau_patience)
+        if plateau_eps > 0 and streak[g] >= plateau_patience:
+            active[g] = False       # already exited inside the prefix
 
     dev = ex.device
     chi = ex.stack_chi(chi_list)
+    capture = boundary is not None
+    # each cell's last-λ-boundary chi (the snapshot's state): before its
+    # first crossing, its start state
+    bchi = [np.asarray(torch.as_tensor(c).cpu()) if capture else None
+            for c in chi_list]
+
+    def info_active():
+        return [{"g": g, "visited": int(k[g]),
+                 "lmbd": float(lambdas[max(k[g] - 1, 0)]), "failed": False,
+                 "chi": bchi[g]}
+                for g in range(Gr) if active[g]]
     lam = np.zeros(G)
     lam[:Gr] = lambdas[np.minimum(k[:Gr], L - 1)]
     delta = torch.full((G,), torch.inf, dtype=ex.dtype, device=dev)
@@ -286,8 +334,14 @@ def run_cell_ladder(
         # out of sweep budget
         crossed = [g for g in range(Gr) if active[g] and (
             not (float(delta_h[g]) > eps) or int(t_h[g]) >= ex.t_max)]
+        for g in crossed:
+            # one sweep.nan check per completed fixed point per cell
+            if _faults.transform_spec("sweep.nan", "nan") is not None:
+                chi = ex.poison_cell(chi, g)
+                delta_h[g] = np.nan
         observed = {g: ex.observe(chi, g, float(lambdas[k[g]]))
                     for g in crossed}
+        fired = []
         for g in crossed:
             lmv = float(lambdas[k[g]])
             phi, m0 = (x.cpu().numpy() for x in observed[g])
@@ -313,6 +367,9 @@ def run_cell_ladder(
                 record(g, int(k[g]), lmv, phi, m0, e1, t_g, failed)
             if verbose:
                 print(f"cell={g} lambda={lmv:.2f} t={t_g} m_init={m0:.5f}")
+            if capture:
+                bchi[g] = ex.unstack_chi(chi, g).cpu().numpy()
+            fired.append(lmv)
 
             # per-cell exits, then the next ladder position
             k[g] += 1
@@ -332,6 +389,15 @@ def run_cell_ladder(
                     continue
             lam[g] = lambdas[k[g]]
             need_leaf[g] = True
+
+        _beat("lambda")
+        stopping = shutdown_requested()
+        if boundary is not None and (fired or stopping):
+            boundary(stopping, info_active())
+        if stopping:
+            raise_if_requested(where="lambda")
+        for lmv in fired:
+            _faults.maybe_fail("lambda.boundary", key=f"lmbd={lmv:g}")
 
     return CellLadderResult(
         lambdas=[np.array(r) for r in rows_l],

@@ -31,8 +31,9 @@ reference's own draws instead (``uniforms=``).
 ``run`` advances ``chunk_sweeps`` sweeps per chunk as a host loop of torch
 ops with no device→host read inside the chunk; finished chains are frozen
 by masks, so sweeps past the last stop change nothing. The host reads
-``any(active)`` once per chunk. ``lower_loop`` has no counterpart
-(ROADMAP A18); checkpoints come with A16.
+``any(active)`` once per chunk, beats and honours a graceful shutdown
+there (:class:`~graphdyn_torch.pipeline.groups.GroupDriver`). ``lower_loop``
+has no counterpart (ROADMAP A18).
 """
 
 from __future__ import annotations
@@ -376,22 +377,25 @@ class HPRGroupExec:
             t0 = t1
         return st
 
-    def run(self, st: _HPRGroupState, *,
-            chunk_sweeps: int = 200) -> _HPRGroupState:
+    def run(self, st: _HPRGroupState, *, chunk_sweeps: int = 200,
+            on_chunk=None) -> _HPRGroupState:
         """Advance until every member stops, ``chunk_sweeps`` sweeps per
-        chunk, reading ``any(active)`` once per chunk."""
+        chunk, reading ``any(active)`` once per chunk; ``on_chunk()`` is
+        called between chunks."""
         if chunk_sweeps < 1:
             raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
         while bool(st.active.any()):
             st = self.advance(st, min(st.t + int(chunk_sweeps),
                                       self.spec.TT + 2))
+            if on_chunk is not None:
+                on_chunk()
         return st
 
 
 def run_hpr_group(items, rep_seeds, config: HPRConfig, *,
                   group_size: int | None = None, chunk_sweeps: int = 200,
-                  kernel: str = "auto", device=None,
-                  uniforms=None) -> HPRGroupResult:
+                  kernel: str = "auto", device=None, uniforms=None,
+                  on_chunk=None) -> HPRGroupResult:
     """Run one group of HPr chains (one per freshly sampled graph).
     ``items`` are :func:`_build_rep` outputs; ``group_size`` pads with
     inactive rows; ``uniforms`` as in :class:`HPRGroupExec`."""
@@ -399,7 +403,7 @@ def run_hpr_group(items, rep_seeds, config: HPRConfig, *,
                       device=device, uniforms=uniforms)
     st = ex.init_state([it[2] for it in items], [it[3] for it in items],
                        [it[4] for it in items], rep_seeds)
-    st = ex.run(st, chunk_sweeps=chunk_sweeps)
+    st = ex.run(st, chunk_sweeps=chunk_sweeps, on_chunk=on_chunk)
     return HPRGroupResult(
         s=st.s[:ex.G_real].cpu().numpy(),
         num_steps=st.steps[:ex.G_real].cpu().numpy(),
@@ -417,6 +421,7 @@ def hpr_ensemble_grouped(
     graph_method: str = "pairing",
     save_path: str | None = None,
     checkpoint_path: str | None = None,
+    checkpoint_interval_s: float = 30.0,
     group_size: int = 8,
     prefetch: int = 2,
     chunk_sweeps: int = 200,
@@ -429,14 +434,16 @@ def hpr_ensemble_grouped(
     next repetitions' graphs and tables built on a background thread.
     Element-wise identical to the serial ``hpr_ensemble(group_size=0)``.
     ``uniforms``: None or ``callable(t) -> [n_rep, n]`` (each group takes
-    its rows). Per-repetition wall time is the group's divided evenly."""
+    its rows). Per-repetition wall time is the group's divided evenly.
+    ``checkpoint_path``: group-boundary snapshots
+    (:class:`~graphdyn_torch.pipeline.groups.GroupDriver`), the serial
+    driver's format."""
     from graphdyn_torch.graphs import random_regular_graph
-    from graphdyn_torch.models.hpr import HPREnsembleResult, _refuse
-    from graphdyn_torch.pipeline.groups import group_ranges
+    from graphdyn_torch.models.hpr import HPREnsembleResult, ensemble_run_id
+    from graphdyn_torch.pipeline.groups import GroupDriver, group_ranges
     from graphdyn_torch.pipeline.prefetch import HostPrefetcher
     from graphdyn_torch.utils.io import save_results_npz
 
-    _refuse(checkpoint_path)
     config = config or HPRConfig()
     dev = resolve_device(device)
     mag = np.empty(n_rep, np.float64)
@@ -445,12 +452,20 @@ def hpr_ensemble_grouped(
     graphs = np.empty((n_rep, n, d), np.int32)
     times = np.empty(n_rep, np.float64)
 
+    def payload():
+        return {"mag_reached": mag, "conf": conf, "num_steps": steps,
+                "time": times}
+
+    drv = GroupDriver(checkpoint_path, checkpoint_interval_s,
+                      ensemble_run_id(n, d, config, n_rep=n_rep, seed=seed,
+                                      graph_method=graph_method), payload)
+    start_k = drv.resume_into(payload())
 
     def build(k):
         return _build_rep(n, d, config, seed + k, graph_method)
 
-    with HostPrefetcher(build, range(n_rep), depth=prefetch) as pf:
-        for ks in group_ranges(0, n_rep, group_size):
+    with HostPrefetcher(build, range(start_k, n_rep), depth=prefetch) as pf:
+        for ks in group_ranges(start_k, n_rep, group_size):
             t0 = time.perf_counter()
             items = [pf.get(i) for i in ks]
             u_grp = None if uniforms is None else (
@@ -459,6 +474,7 @@ def hpr_ensemble_grouped(
                 items, [seed + i for i in ks], config,
                 group_size=group_size, chunk_sweeps=chunk_sweeps,
                 kernel=kernel, device=dev, uniforms=u_grp,
+                on_chunk=lambda k0=ks[0]: drv.chunk_poll(k0),
             )
             elapsed = time.perf_counter() - t0
             for j, i in enumerate(ks):
@@ -468,6 +484,11 @@ def hpr_ensemble_grouped(
                 steps[i] = res.num_steps[j]
                 graphs[i] = items[j][0].nbr
                 times[i] = elapsed / len(ks)
+                drv.rep_boundary(i)
+    for k in range(start_k):    # resumed prefix: graphs re-derive from seed+k
+        graphs[k] = random_regular_graph(n, d, seed=seed + k,
+                                         method=graph_method).nbr
+    drv.finish()
     out = HPREnsembleResult(mag, conf, steps, graphs, times)
     if save_path:
         save_results_npz(

@@ -17,9 +17,10 @@ is keyed by ``seed + k`` in both, and finished rows are frozen by the same
 ``active`` mask. A short tail group is padded with inactive copies of its
 first row, so every group has the same shape.
 
-The JAX package's ``GroupDriver`` checkpoints wait for ROADMAP A16
-(``checkpoint_path`` raises there, as in
-:func:`~graphdyn_torch.models.sa.sa_ensemble`).
+Checkpoints go through :class:`graphdyn_torch.pipeline.groups.GroupDriver`
+at group boundaries, with the serial driver's identity metadata: an
+interrupted group runs again from its start on resume, and snapshots pass
+between the serial and grouped paths and between group sizes.
 """
 
 from __future__ import annotations
@@ -160,6 +161,7 @@ def sa_ensemble_grouped(
     max_steps: int | None = None,
     save_path: str | None = None,
     checkpoint_path: str | None = None,
+    checkpoint_interval_s: float = 30.0,
     group_size: int = 8,
     prefetch: int = 2,
     chunk_steps: int = _sa.CHUNK_STEPS,
@@ -169,14 +171,12 @@ def sa_ensemble_grouped(
     RRG(n, d) instances, ``group_size`` at a time as one batched program,
     with the next graphs built on a background thread (``prefetch`` items
     ahead; 0 builds in line). Element for element equal to the serial
-    :func:`graphdyn_torch.models.sa.sa_ensemble`."""
+    :func:`graphdyn_torch.models.sa.sa_ensemble`, whose snapshots it
+    resumes and writes (``checkpoint_path``, at group boundaries)."""
     from graphdyn_torch.graphs import random_regular_graph
-    from graphdyn_torch.pipeline.groups import group_ranges
+    from graphdyn_torch.pipeline.groups import GroupDriver, group_ranges
     from graphdyn_torch.pipeline.prefetch import HostPrefetcher
 
-    if checkpoint_path is not None:
-        raise _sa._not_ported("checkpoint_path",
-                              "A16: checkpoints and resilience")
     dev = resolve_device(device)
     config = config or SAConfig()
     mag = np.empty(n_stat, np.float64)
@@ -185,19 +185,32 @@ def sa_ensemble_grouped(
     graphs = np.empty((n_stat, n, d), np.int32)
     m_final = np.empty(n_stat, np.float64)
 
+    def payload():
+        return {"mag_reached": mag, "num_steps": steps, "conf": conf,
+                "m_final": m_final}
+
+    drv = GroupDriver(checkpoint_path, checkpoint_interval_s,
+                      _sa.ensemble_run_id(n, d, config, n_stat=n_stat,
+                                          seed=seed, max_steps=max_steps,
+                                          graph_method=graph_method),
+                      payload)
+    start_k = drv.resume_into(payload())
+
     def build(k):
         g = random_regular_graph(n, d, seed=seed + k, method=graph_method)
         prep = _sa.prepare_sa_inputs(g, config, n_replicas=1, seed=seed + k,
                                      max_steps=max_steps)
         return g, prep
 
-    with HostPrefetcher(build, range(n_stat), depth=prefetch) as pf:
-        for ks in group_ranges(0, n_stat, group_size):
+    with HostPrefetcher(build, range(start_k, n_stat), depth=prefetch) as pf:
+        for ks in group_ranges(start_k, n_stat, group_size):
             items = [pf.get(i) for i in ks]
             res = run_sa_group(
                 [it[0] for it in items], [it[1] for it in items],
                 [seed + i for i in ks], config, group_size=group_size,
-                chunk_steps=chunk_steps, device=dev)
+                chunk_steps=chunk_steps,
+                on_chunk=lambda _st, k0=ks[0]: drv.chunk_poll(k0),
+                device=dev)
             for j, i in enumerate(ks):
                 conf[i] = res.s[j]
                 # exact f64 sum, then the serial result's f32 cast
@@ -205,6 +218,11 @@ def sa_ensemble_grouped(
                 steps[i] = res.num_steps[j]
                 m_final[i] = res.m_final[j]
                 graphs[i] = items[j][0].nbr
+                drv.rep_boundary(i)
+    for k in range(start_k):    # resumed prefix: graphs re-derive from seed+k
+        graphs[k] = random_regular_graph(n, d, seed=seed + k,
+                                         method=graph_method).nbr
+    drv.finish()
     out = _sa.SAEnsembleResult(mag, steps, conf, graphs, m_final)
     if save_path:
         _sa.save_ensemble_npz(save_path, out)

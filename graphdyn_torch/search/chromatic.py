@@ -32,6 +32,7 @@ from graphdyn_torch.ops.chromatic import (
     replica_end_sums,
 )
 from graphdyn_torch.ops.packed import WORD, pack_spins, unpack_spins
+from graphdyn_torch.resilience.shutdown import raise_if_requested
 from graphdyn_torch.utils.platform import resolve_device
 
 
@@ -138,6 +139,9 @@ def chromatic_anneal(
         state = chromatic_chunk(
             state._replace(chunk_s=zero), seed, masks, class_sizes,
             nbr_ext, nbr_self, deg_ext, chunk_sweeps=cs, **static)
+        # heartbeat; a graceful shutdown exits 75 here (nothing to save:
+        # the sweeps re-derive from the seed)
+        raise_if_requested(where="chunk")
 
     s_final = unpack_spins(state.sp, R).cpu().numpy()
     t_tgt = state.t_target[:R].cpu().numpy().astype(np.int64)

@@ -144,7 +144,11 @@ def _run_plan(state: FusedState, seed: int, tables_dev: FusedDeviceTables,
     chunks: a chunk whose replicas have all frozen is one no-op launch (the
     device loop's condition is false at once). Each boundary waits on a
     CUDA event recorded after the chunk, so the host tracks executed work,
-    not queued launches. ``sync=True`` adds the per-chunk early-exit test."""
+    not queued launches, and then beats and honours a graceful shutdown
+    (SIGTERM, ``--deadline``: exit 75; nothing to save, the chain re-derives
+    from the seed). ``sync=True`` adds the per-chunk early-exit test."""
+    from graphdyn_torch.resilience.shutdown import raise_if_requested
+
     cuda = state.sp_ext.device.type == "cuda"
     for cs in plan:
         if sync:
@@ -158,9 +162,7 @@ def _run_plan(state: FusedState, seed: int, tables_dev: FusedDeviceTables,
             done = torch.cuda.Event()
             done.record()
             done.synchronize()          # a completion wait, not a read
-        # the reference polls its shutdown flag here
-        # (graphdyn/resilience/shutdown.raise_if_requested); it comes with
-        # the port's resilience layer, ROADMAP.md A16
+        raise_if_requested(where="chunk")
     return state
 
 
@@ -200,8 +202,8 @@ def fused_anneal(
     package does. The seeded chain is labeling-dependent, so the relabeled
     run is another, equally distributed chain; prebuilt ``tables`` pin the
     caller's labeling and need ``layout='padded'`` (``'auto'`` then stays
-    padded). The kernel's degree gate (dmax ≤ 63) applies to the relabeled
-    graph as to any other (ROADMAP.md C4).
+    padded). The kernel runs any degree (hubs of a power-law graph
+    included).
     """
     config = config or SAConfig()
     dev = resolve_device(device)

@@ -22,8 +22,11 @@ counter-stream mode only statistics compare with it.
 The port's state also counts attempts and accepts per lane pair
 (``pair_attempts``/``pair_accepts``), which the reference sums.
 
-Not ported yet: ``mesh=`` lane sharding (ROADMAP A15) and
-``checkpoint_path`` (A16); they raise.
+``checkpoint_path`` snapshots the ladder at swap boundaries through
+:class:`graphdyn_torch.utils.io.ChainCheckpointer` and resumes it bit for
+bit; without it a graceful shutdown (SIGTERM, ``--deadline``) exits 75 at
+the next chunk with nothing to save (the ladder re-derives from the seed).
+Not ported yet: ``mesh=`` lane sharding (ROADMAP A15); it raises.
 """
 
 from __future__ import annotations
@@ -249,6 +252,7 @@ def temper_search(
     sync_stop: bool | None = None,
     dtype="float32",
     checkpoint_path: str | None = None,
+    checkpoint_interval_s: float = 30.0,
     mesh=None,
     proposals=None,
     uniforms=None,
@@ -266,10 +270,16 @@ def temper_search(
     chunk; a fixed-budget run without it dispatches the whole plan of
     ``ceil((max_steps+1)/swap_interval)`` chunks with no read between them,
     the chunks after every lane stops doing nothing. ``proposals``/
-    ``uniforms`` ``[K, L]`` inject the lanes' step streams."""
-    if checkpoint_path is not None:
-        raise _sa._not_ported("checkpoint_path",
-                              "A16: checkpoints and resilience")
+    ``uniforms`` ``[K, L]`` inject the lanes' step streams.
+    ``checkpoint_path`` snapshots the ladder between chunks (module
+    docstring); it needs the per-chunk read, so ``sync_stop=False`` is
+    refused with it."""
+    from graphdyn_torch.resilience.shutdown import raise_if_requested
+
+    if checkpoint_path is not None and sync_stop is False:
+        raise ValueError(
+            "sync_stop=False is incompatible with checkpoint_path: snapshot "
+            "scheduling polls lane liveness at every chunk boundary")
     if mesh is not None:
         raise _sa._not_ported("mesh= (lane sharding)",
                               "A15: parallel/ onto torch.distributed")
@@ -312,6 +322,37 @@ def temper_search(
             go = go and not bool((st.t_target >= 0).any())
         return go
 
+    if checkpoint_path is not None:
+        from graphdyn_torch.utils.io import ChainCheckpointer, run_fingerprint
+
+        ckpt = ChainCheckpointer(
+            checkpoint_path, kind="temper_ladder", seed=seed,
+            # the ladder, the swap law and the target are part of the
+            # chain; the port's tag refuses the JAX package's snapshots
+            fp=run_fingerprint(
+                graph.edges, config, betas, int(static["max_steps"]),
+                int(swap_interval), bool(swap_moves), target_sum,
+                bool(stop_on_first), np_dt, "graphdyn_torch counter stream",
+                *((np.asarray(streams["proposals"].cpu()),
+                   np.asarray(streams["uniforms"].cpu()))
+                  if streams["injected"] else ())),
+            interval_s=checkpoint_interval_s, extra_meta={"K": int(K)})
+        arrays = ckpt.load_state(check=lambda a: a["s"].shape == (K, n))
+        if arrays is not None:
+            state = _TemperState(**{
+                f: (torch.zeros((), dtype=torch.int32, device=dev)
+                    if f == "chunk_t" else
+                    torch.from_numpy(np.asarray(arrays[f])).to(dev))
+                for f in _TemperState._fields})
+
+        def payload(st):
+            return {k: v.cpu().numpy() for k, v in st._asdict().items()
+                    if k != "chunk_t"}
+
+        state = ckpt.drive(state, advance=advance, active=running,
+                           payload=payload)
+        return _temper_result(state, betas, n, np_dt)
+
     n_chunks = -(-(int(static["max_steps"]) + 1) // int(swap_interval))
     if sync_stop is None:
         sync = bool(stop_on_first) or n_chunks > MAX_FIXED_PLAN_CHUNKS
@@ -327,13 +368,20 @@ def temper_search(
                 f"{static['max_steps']} / swap_interval={swap_interval} is "
                 f"{n_chunks} chunks (> {MAX_FIXED_PLAN_CHUNKS}) — lower "
                 f"max_steps or raise swap_interval")
+    # each chunk ends at a heartbeat and honours a graceful shutdown (exit
+    # 75; nothing to save: the ladder re-derives from the seed)
     if sync:
         while running(state):
             state = advance(state)
+            raise_if_requested(where="chunk")
     else:
         for _ in range(n_chunks):
             state = advance(state)
+            raise_if_requested(where="chunk")
+    return _temper_result(state, betas, n, np_dt)
 
+
+def _temper_result(state: _TemperState, betas, n: int, np_dt) -> TemperResult:
     t_target = state.t_target.cpu().numpy()
     reached = t_target >= 0
     if reached.any():

@@ -394,11 +394,18 @@ def test_entropy_cli_keys_match_jax(extra, tmp_path):
         assert set(fj.files) == set(ft.files)
 
 
-def test_entropy_cli_refuses_unported_flags(tmp_path):
-    for flag in (["--plot", str(tmp_path / "x.png")],
-                 ["--checkpoint", str(tmp_path / "ck")]):
-        with pytest.raises(SystemExit, match="not ported"):
-            tcli.main(["entropy", "--n", "20", "--device", "cpu", *flag])
+def test_entropy_cli_refuses_unported_flags(tmp_path, capsys):
+    with pytest.raises(SystemExit, match="not ported"):
+        tcli.main(["entropy", "--n", "20", "--device", "cpu", "--plot",
+                   str(tmp_path / "x.png")])
+    # --checkpoint runs since the durability slice (its resume is held by
+    # tests/test_torch_resume.py); a finished run removes its snapshot
+    ck = str(tmp_path / "ck")
+    assert tcli.main(["entropy", "--n", "20", "--device", "cpu", "--deg",
+                      "1.5", "--num-rep", "1", "--lmbd-max", "0.2",
+                      "--checkpoint", ck]) == 0
+    capsys.readouterr()
+    assert not os.path.exists(ck + ".npz")
 
 
 if __name__ == "__main__":

@@ -393,7 +393,8 @@ def test_cli_prints_the_reference_keys(tmp_path):
         with np.load(out + ".npz") as got, \
                 np.load(str(tmp_path / f"j_{name}.npz")) as ref:
             assert sorted(got.files) == sorted(ref.files), name
-    for extra, exc in ((["--checkpoint", "x"], NotImplementedError),
+    for extra, exc in ((["--batch-replicas", "2", "--device-init",
+                        "--checkpoint", "x"], SystemExit),
                        (["--batch-replicas", "2", "--device-init"],
                         NotImplementedError),
                        (["--device-init"], SystemExit)):
@@ -401,16 +402,20 @@ def test_cli_prints_the_reference_keys(tmp_path):
             main(base + extra + ["--device", "cpu"])
 
 
-def test_refused_arguments_name_the_roadmap():
+def test_refused_arguments_name_the_roadmap(tmp_path):
     g = random_regular_graph(20, 3, seed=0)
-    with pytest.raises(NotImplementedError, match="A16"):
-        th.hpr_solve(g, checkpoint_path="x", device=CPU)
+    # checkpoints run since the durability slice (tests/test_torch_resume.py
+    # holds their resume); a finished run leaves no snapshot
+    th.hpr_solve(g, HPRConfig(max_sweeps=40), checkpoint_path=str(
+        tmp_path / "ck"), device=CPU)
+    assert not (tmp_path / "ck.npz").exists()
     with pytest.raises(NotImplementedError, match="A15"):
         th.hpr_solve_batch(g, n_replicas=2, mesh=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="A11"):
         th.hpr_solve_batch(g, n_replicas=2, device_init=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="A16"):
-        th.hpr_ensemble(20, 3, n_rep=2, checkpoint_path="x", device=CPU)
+    with pytest.raises(ValueError, match="chunk_sweeps"):
+        th.hpr_solve(g, checkpoint_path=str(tmp_path / "x"), chunk_sweeps=0,
+                     device=CPU)
 
 
 # ---------------------------------------------------------------------------

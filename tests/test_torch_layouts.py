@@ -85,10 +85,11 @@ def test_sa_layout_refusals():
     with pytest.raises(ValueError, match="rollout_mode='full'"):
         tsa.simulated_annealing(g, _cfg(), layout="streamed",
                                 rollout_mode="lightcone", device="cpu")
-    for layout in ("auto", "bucketed", "streamed"):
-        with pytest.raises(NotImplementedError, match="A16"):
-            tsa.simulated_annealing(g, _cfg(), layout=layout,
-                                    checkpoint_path="x", device="cpu")
+    # the streamed layout's chain is host-stepped: no chunked-chain resume,
+    # as in the JAX package (the padded and bucketed chains checkpoint)
+    with pytest.raises(ValueError, match="chunked-chain resume"):
+        tsa.simulated_annealing(g, _cfg(), layout="streamed",
+                                checkpoint_path="x", device="cpu")
     with pytest.raises(ValueError, match="group_size"):
         tsa.sa_ensemble(32, 3, _cfg(), n_stat=2, layout="streamed",
                         group_size=2, device="cpu")

@@ -94,7 +94,15 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.search.tempering",
                  "graphdyn_torch.ops.bucketed_cuda",
                  "graphdyn_torch.ops.streamed",
-                 "graphdyn_torch._native", "graphdyn_torch._native.build"):
+                 "graphdyn_torch._native", "graphdyn_torch._native.build",
+                 "graphdyn_torch.resilience",
+                 "graphdyn_torch.resilience.faults",
+                 "graphdyn_torch.resilience.retry",
+                 "graphdyn_torch.resilience.shutdown",
+                 "graphdyn_torch.resilience.supervisor",
+                 "graphdyn_torch.resilience.store",
+                 "graphdyn_torch.resilience.hooks",
+                 "graphdyn_torch.utils.io"):
         assert name in out["modules"]
 
 

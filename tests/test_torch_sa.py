@@ -228,13 +228,12 @@ def test_refusals_name_the_roadmap_item():
     for kernel in ("cuda", "pallas"):
         with pytest.raises(ValueError, match="fused_anneal"):
             tsa.simulated_annealing(g, cfg, kernel=kernel, device="cpu")
-    # the bucketed and streamed layouts run since the power-law slice; what
-    # stays refused names its item (checkpoints, A16), and the layouts'
-    # own refusals are the JAX package's
-    for kw, item in ((dict(checkpoint_path="x"), "A16"),
-                     (dict(checkpoint_path="x", layout="streamed"), "A16")):
-        with pytest.raises(NotImplementedError, match=item):
-            tsa.simulated_annealing(g, cfg, device="cpu", **kw)
+    # the bucketed and streamed layouts run since the power-law slice and
+    # checkpoints since the durability slice; the layouts' own refusals
+    # are the JAX package's (no chunked-chain resume when streamed)
+    with pytest.raises(ValueError, match="chunked-chain resume"):
+        tsa.simulated_annealing(g, cfg, device="cpu", checkpoint_path="x",
+                                layout="streamed")
     with pytest.raises(ValueError, match="proposals"):
         tsa.simulated_annealing(g, cfg, layout="bucketed", device="cpu",
                                 proposals=np.zeros((1, 2), np.int32),
@@ -242,8 +241,9 @@ def test_refusals_name_the_roadmap_item():
     with pytest.raises(ValueError, match="rollout_mode='full'"):
         tsa.simulated_annealing(g, cfg, layout="streamed",
                                 rollout_mode="lightcone", device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        tsa.sa_ensemble(20, 3, cfg, checkpoint_path="x", device="cpu")
+    with pytest.raises(ValueError, match="chunk_steps"):
+        tsa.simulated_annealing(g, cfg, checkpoint_path="x", chunk_steps=0,
+                                device="cpu")
     with pytest.raises(ValueError, match="rollout_mode"):
         tsa.simulated_annealing(g, cfg, rollout_mode="x", device="cpu")
 
@@ -280,13 +280,15 @@ def test_cli_json_and_npz_keys_are_the_references(case, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["sa", "--sharded"], "A15"), (["sa", "--shards", "2"], "A15"),
-    (["sa", "--checkpoint", "x"], "A16"),
+    # checkpoints run since the durability slice; a sharded run's own
+    # checkpoints wait with the sharding (A15)
+    (["sa", "--sharded", "--checkpoint", "x"], "A15"),
     # the layouts run since the power-law slice; with a flag that is not
     # ported they still refuse, naming that flag's item
-    (["sa", "--layout", "bucketed", "--checkpoint", "x"], "A16"),
+    (["sa", "--layout", "bucketed", "--sharded"], "A15"),
     (["sa", "--layout", "streamed", "--shards", "2"], "A15"),
     (["temper", "--lane-shards", "2"], "A15"),
-    (["temper", "--checkpoint", "x"], "A16"),
+    (["temper", "--lane-shards", "2", "--checkpoint", "x"], "A15"),
 ], ids=["sharded", "shards", "sa_checkpoint", "bucketed", "streamed",
         "lane_shards", "temper_checkpoint"])
 def test_cli_refuses_what_is_not_ported(argv, item):

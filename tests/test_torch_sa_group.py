@@ -91,6 +91,6 @@ def test_grouping_refusals():
     with pytest.raises(ValueError, match="group_size"):
         tsa.sa_ensemble(N, D, CFG, n_stat=2, group_size=2,
                         rollout_mode="lightcone", device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        sa_group.sa_ensemble_grouped(N, D, CFG, n_stat=2,
+    with pytest.raises(ValueError, match="group_size"):
+        sa_group.sa_ensemble_grouped(N, D, CFG, n_stat=2, group_size=0,
                                      checkpoint_path="x", device="cpu")

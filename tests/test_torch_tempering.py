@@ -178,6 +178,6 @@ def test_validations_and_refusals():
                          max_steps=10**6, swap_interval=10, device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         tt.temper_search(TG, CFG, n_lanes=2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="checkpoint_path"):
         tt.temper_search(TG, CFG, n_lanes=2, checkpoint_path="x",
-                         device="cpu")
+                         sync_stop=False, device="cpu")
