@@ -167,6 +167,19 @@ from graphdyn_torch.models.hpr_reference import (
     walk_to_divergence,
 )
 from graphdyn_torch.models.sa import simulated_annealing
+from graphdyn_torch import obs
+from graphdyn_torch.obs import flight as obs_flight
+from graphdyn_torch.obs import report as obs_report
+from graphdyn_torch.obs import trace as obs_trace
+from graphdyn_torch.obs.recorder import read_ledger as obs_read_ledger
+from graphdyn_torch.obs.roofline import (
+    class_step_bound,
+    contract_bound,
+    HBM_BYTES_PER_S,
+    kb_bound,
+    step_bound,
+    sweep_bound,
+)
 from graphdyn_torch.models.consensus import (
     consensus_curve,
     consensus_point,
@@ -189,7 +202,6 @@ from graphdyn_torch.ops.bdcm import (
     EnsembleBDCM,
     NodeBias,
     SweepTables,
-    _flat_offsets,
     _sweep_core,
     dp_contract,
     dp_contract_grouped,
@@ -217,7 +229,7 @@ from graphdyn_torch.ops.packed import (
     packed_rollout_plain,
 )
 from graphdyn_torch.plotting import masked_mean
-from graphdyn_torch.pipeline import sa_group
+from graphdyn_torch.pipeline import hpr_group, sa_group
 from graphdyn_torch.pipeline.entropy_group import EntropyCellExec
 from graphdyn_torch.pipeline.hpr_group import (
     HPRGroupExec,
@@ -240,17 +252,6 @@ from graphdyn_torch.search.tempering import temper_search
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-# 32-bit non-tensor-core rate (the float32 figure; the step's work is 32-bit
-# integer logic, which the table lists no separate rate for)
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
-# 32-bit integer ops: 132 SMs x 64 INT32 lanes x 1.98 GHz (the Hopper white
-# paper's per-SM units, at the boost clock that gives the data sheet's 67
-# TFLOP/s f32 = 132 x 128 lanes x 2 flops x 1.98 GHz)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# float64 outside the tensor cores (H100 SXM data sheet)
-F64_FLOPS_PER_S = 34e12
 
 HEADLINE_N, HEADLINE_D, HEADLINE_R = 10**6, 3, 16384
 CONFIG3_N, CONFIG3_C, CONFIG3_R = 100_000, 6.0, 512
@@ -262,10 +263,6 @@ CONFIG1 = dict(n=10_000, d=3, replicas=32, seed=0)
 CONFIG1_RUNS = {"a": dict(m_target=0.9, max_sweeps=5000, chunk_sweeps=256),
                 "b": dict(m_target=1.0, max_sweeps=200, chunk_sweeps=256)}
 SCALE_N, SCALE_D, SCALE_R = 10**6, 5, 1024
-# one Threefry-2x32 block: 20 rounds of add, rotate, xor, 5 key injections of
-# 2 adds (the key word plus the injection index folds into one constant per
-# thread), 2 initial adds; one accurate expf counted as 10 f32 ops
-THREEFRY_OPS, EXPF_OPS = 20 * 3 + 5 * 2 + 2, 10
 # the BDCM class update (K3): the (d, T) pairs held against the plain
 # version (the register path up to M = 32, the block path above it, up to
 # the reference regime's corner (8, 4) and a high-degree class (40, 2); T =
@@ -357,6 +354,14 @@ SIGTERM_DELAY_S = 0.5
 ENTROPY_KILL_AT = 40
 # ... and poisoned (sweep.nan) at this fixed point of a λ ≤ 0.5 run
 ENTROPY_NAN_AT = 14
+# telemetry (phases 48-52): the entropy CLI's ladder there, the turns of the
+# recording-cost legs, and the cuts of the HPr runs (the reference stops at
+# ~1640 sweeps; a profiled run of all of them writes a 250 MB trace) and of
+# the sa chunk loop (5 chunks of 256 steps)
+OBS_ENTROPY_LMBD_MAX = 0.5
+OBS_REPEATS = 5
+OBS_HPR_SWEEPS, OBS_HPR_CHUNK = 400, 80
+OBS_SA_STEPS = 1280
 
 
 _T0 = time.perf_counter()
@@ -402,44 +407,6 @@ def _max_abs_err(a, b) -> float:
     if torch.equal(a, b):
         return 0.0
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-
-
-def majority_ops(W: int, deg) -> int:
-    """The 32-bit logic one packed step needs over rows of degrees ``deg``,
-    ``W`` words a row: per word, one full adder per gathered neighbour word
-    (two 3-input LOP3 instructions, the sum and the carry of a carry-save
-    adder tree, whatever the degree), ~5 ops a plane to compare the count
-    with deg/2 on bit_length(deg) planes, and ~4 to apply the rule and the
-    tie."""
-    deg = np.asarray(deg, np.int64)
-    planes = np.maximum(graphs._bit_length(deg), 1)
-    return int(W * (2 * deg + 5 * planes + 4).sum())
-
-
-def step_bound(g, W: int, fast: bool) -> dict:
-    """The least time one packed step can take on the card: the larger of
-    the bytes it must move over HBM bandwidth and its 32-bit logic
-    (:func:`majority_ops`) over the INT32 rate. The bytes are each input read once and each output written
-    once: the ``[n+1, W]`` state read and written, the ``Σdeg`` neighbour
-    indices the kernel reads (it loops to each node's degree, not dmax), and
-    the degrees on the general path. ``no_reuse_bytes`` is what a design
-    with no reuse of gathered rows moves instead (every neighbour row and,
-    on the general path, the own row fetched from HBM): a model of the
-    kernel's traffic, not a bound."""
-    n = g.n
-    sum_deg = int(g.deg.sum())
-    n_own = 0 if fast else n
-    state_bytes = 2 * 4 * W * (n + 1)                   # read once, written once
-    table_bytes = 4 * sum_deg + (0 if fast else 4 * n)
-    no_reuse_bytes = 4 * W * (sum_deg + n_own + n + 1) + table_bytes
-    ops = majority_ops(W, g.deg)
-    bytes_ms = (state_bytes + table_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
-    return {"bytes": state_bytes + table_bytes, "ops": ops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "no_reuse_bytes": no_reuse_bytes,
-            "no_reuse_ms": no_reuse_bytes / HBM_BYTES_PER_S * 1e3}
 
 
 def ptxas_by_type(lib_path: str, ftype: str) -> dict:
@@ -817,68 +784,6 @@ def phase_breakdown(st0: FusedState, td, static, seed: int, steps: int) -> dict:
             "step_us": float((t[:, 3] - t[:, 0]).mean() / 1e3)}
 
 
-def class_step_bound(chrom, W: int) -> dict:
-    """The least time one fused class step can take on the card, averaged
-    over the χ classes of a sweep. Only the ball B = C ∪ N(C) of the class
-    rows C enters a decision, so the count is over B and over the rows D =
-    B ∪ N(B) that its two LUT evaluations read, from this graph's colouring
-    (``chrom``, the ChromaticTables). For each class the larger of
-
-    - bytes over HBM bandwidth: the state rows of D read once (4·|D|·W), the
-      class rows written once (4·|C|·W), the table entries read once
-      (neighbours of B 4·Σ_B deg, balls of C 4·Σ_C (deg+1), LUT masks of B
-      8·Σ_B (deg+1), the class mask over D 4·|D|) and the six per-replica
-      vectors (24·Rp);
-    - 32-bit integer ops over the INT32 rate: |C|·Rp/2 Threefry blocks of
-      THREEFRY_OPS, the two LUT evaluations' carry-save and select logic per
-      word of B (2·(2·deg·NP + (deg+1)·(NP+4))), the ball popcounts per class
-      word ((deg+1)·(2+4·NB)), and the per-replica bit extraction (4·NB+6
-      per class site and replica);
-    - f32 ops over the f32 rate: ΔE, the uniform and expf per class site and
-      replica (EXPF_OPS + 6).
-
-    NP = bit_length(dmax), NB = bit_length(dmax+1), Rp = 32·W."""
-    n, dmax = chrom.n, chrom.dmax
-    nbr = chrom.nbr_ext[:n].astype(np.int64)       # ghost index n pads
-    deg = chrom.deg_ext[:n].astype(np.int64)
-    Rp = 32 * W
-    NP = max(dmax.bit_length(), 1)
-    NB = (dmax + 1).bit_length()
-
-    def grow(rows):                     # rows ∪ N(rows), as a node mask
-        out = rows.copy()
-        idx = nbr[rows].ravel()
-        out[idx[idx < n]] = True
-        return out
-
-    per = []
-    for c in range(chrom.chi):
-        in_c = chrom.colors == c
-        in_b = grow(in_c)
-        in_d = grow(in_b)
-        k, n_d = int(in_c.sum()), int(in_d.sum())
-        deg_b, deg_c = deg[in_b], deg[in_c]
-        nbytes = 4 * n_d * W + 4 * k * W + 4 * int(deg_b.sum()) \
-            + 4 * int((deg_c + 1).sum()) + 8 * int((deg_b + 1).sum()) \
-            + 4 * n_d + 24 * Rp
-        int_ops = k * Rp / 2 * THREEFRY_OPS \
-            + W * 2 * int((2 * deg_b * NP + (deg_b + 1) * (NP + 4)).sum()) \
-            + W * int((deg_c + 1).sum()) * (2 + 4 * NB) \
-            + k * Rp * (4 * NB + 6)
-        f32_ops = k * Rp * (EXPF_OPS + 6)
-        per.append((nbytes / HBM_BYTES_PER_S * 1e3,
-                    int_ops / INT32_OPS_PER_S * 1e3,
-                    f32_ops / ALU_OPS_PER_S * 1e3, nbytes, int_ops, f32_ops))
-    mean = [sum(p[i] for p in per) / len(per) for i in range(6)]
-    bytes_ms, int_ms, f32_ms = mean[:3]
-    bound = max(bytes_ms, int_ms, f32_ms)
-    return {"bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= max(int_ms, f32_ms)
-            else "operations",
-            "bytes": mean[3], "int_ops": mean[4], "f32_ops": mean[5],
-            "bytes_ms": bytes_ms, "int_ms": int_ms, "f32_ms": f32_ms}
-
-
 def phase_fused_parity() -> float:
     """The fused kernel against its plain version on the card, bit for bit
     in every FusedState field: RRG d=3 (two rules; odd degree, no ties),
@@ -1206,33 +1111,6 @@ def phase_fused_scale() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def contract_bound(G: int, Ed: int, d: int, T: int, dtype,
-                   per_group: bool = False) -> dict:
-    """The least time one BDCM class-update launch can take on the card:
-    the larger of
-
-    - bytes over HBM bandwidth: chi_in (G·Ed·d·K²), chi_old and out
-      (G·Ed·K² each) and the factor (K²·M, G times per group), each once;
-    - FMAs (2 flops each) over the card's non-tensor rate for the dtype:
-      the flat-shift DP, d·K·Σ_k (M − off_k) per edge, and the contraction,
-      K²·M per edge (the DP's loops do not depend on the data).
-
-    K = 2^T, M = (d+1)^T; f32 at 67 TFLOP/s, f64 at 34 TFLOP/s."""
-    K, M = 2**T, (d + 1) ** T
-    size = 8 if dtype == torch.float64 else 4
-    offs = _flat_offsets(d, T)
-    fma_edge = d * K * int((M - offs).sum()) + K * K * M
-    nbytes = size * (G * Ed * (d + 2) * K * K + (G if per_group else 1) * K * K * M)
-    flops = 2 * fma_edge * G * Ed
-    rate = F64_FLOPS_PER_S if dtype == torch.float64 else ALU_OPS_PER_S
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / rate * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms}
-
-
 def _contract_inputs(G, Ed, d, T, dtype, per_group, seed):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -1460,43 +1338,6 @@ def _hpr_clock(num_steps, TT: int, chunk: int = 200) -> int:
     """The sweeps an HPr group runs: whole chunks until its last chain
     stops (HPRGroupExec.run), at most TT + 2."""
     return min(-(-int(np.max(num_steps)) // chunk) * chunk, TT + 2)
-
-
-def sweep_bound(plan, a_tilted, bias) -> dict:
-    """The least time one BDCM sweep can take on the card: the larger of
-
-    - bytes over HBM bandwidth: chi read once and written once, the int32
-      tables (every member's output row and in-edges), the int16 class ids,
-      the rows in no class, the bias (and the node form's source table) and
-      the factors, each once;
-    - FMAs (2 flops each) of the members that compute (padding members
-      compute nothing) over the dtype's non-tensor rate: per member the
-      flat-shift DP and the contraction (:func:`contract_bound`'s count).
-    """
-    esize = 8 if plan.dtype == torch.float64 else 4
-    K, T, G = 2**plan.T, plan.T, plan.G
-    nbytes = 2 * G * plan.rows * K * K * esize \
-        + plan.cid.numel() * plan.cid.element_size() \
-        + 4 * plan.pass_rows.numel()
-    if isinstance(bias, NodeBias):
-        nbytes += bias.values.numel() * esize + 4 * plan.src.numel()
-    elif bias is not None:
-        nbytes += bias.numel() * esize
-    cid = plan.cid.long()
-    live = [int((cid[idx.long()] == c).sum())
-            for c, idx in enumerate(plan.idx)]
-    flops = 0
-    for c, (d, a) in enumerate(zip(plan.class_ds, a_tilted)):
-        M = (d + 1) ** T
-        offs = _flat_offsets(d, T)
-        flops += 2 * live[c] * (d * K * int((M - offs).sum()) + K * K * M)
-        nbytes += 4 * plan.idx[c].numel() * (1 + d) + a.numel() * esize
-    rate = F64_FLOPS_PER_S if plan.dtype == torch.float64 else ALU_OPS_PER_S
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / rate * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "flops": flops, "live_members": live}
 
 
 def _class_tables(plan):
@@ -3238,24 +3079,6 @@ def phase_gather_interleaved() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _kb_bound(n: int, W: int, deg) -> dict:
-    """KB's least time for one step over rows of degrees ``deg`` in an
-    ``n``-row state: the larger of the bytes (each input read once and each
-    output written once: the rows' own words in and out, their ``Σdeg``
-    neighbour indices and their degrees; the neighbour rows are served from
-    L2, where the state at the bench shape, 12.8 MB, sits) over HBM's rate,
-    and the logic the step needs (:func:`majority_ops`, for this run's
-    degrees) over the INT32 rate."""
-    deg = np.asarray(deg, np.int64)
-    rows, sum_deg = deg.size, int(deg.sum())
-    bytes_ = 2 * 4 * W * rows + 4 * sum_deg + 4 * rows
-    ops = majority_ops(W, deg)
-    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
-    return {"bytes": bytes_, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-
-
 def phase_kb_parity(g_bench, b_bench) -> dict:
     """KB against its plain version, bit for bit, through
     ``bucketed_rollout`` and ``bucketed_rollout_plain``: all four (rule,
@@ -3435,7 +3258,7 @@ def phase_powerlaw_main(g, b) -> dict:
         tabs, n=n, rule="majority", tie="stay"), ext, 200)
     plain_ms = _steps_ms(bucketed.PlainBucketedStep(tabs, "majority", "stay"),
                          ext, 3)
-    bound = _kb_bound(n, W, g.deg)
+    bound = kb_bound(n, W, g.deg)
     parts = {}
     for part in ("narrow", "wide"):
         segs = [(nb, dg, None, r0) for nb, dg, r0 in tabs
@@ -3457,7 +3280,7 @@ def phase_powerlaw_main(g, b) -> dict:
                        "sum_deg": int(part_deg.sum()),
                        "segments": len(segs),
                        "widths": [int(s[0].shape[1]) for s in segs],
-                       **_kb_bound(n, W, part_deg)}
+                       **kb_bound(n, W, part_deg)}
     rate = n * POWERLAW_R / (ms * 1e-3)
     # the equal-edge padded RRG control (bench.py:675-679)
     d = max(3, int(round(float(g.deg.sum()) / n)))
@@ -4290,8 +4113,10 @@ def phase_supervised(tmp: str) -> dict:
     the supervisor restarts from the snapshot (its episodes real child
     processes) and the result equals the uninterrupted run; then a crash at
     every episode's first chunk boundary is a loop: quarantined, exit 86
-    (the supervisor's in-process episodes). Then the ``pallas.lower`` site
-    injected into the ``hpr`` CLI: the run raises, no result is written."""
+    (the supervisor's in-process episodes). Each killed episode leaves its
+    flight post-mortem, which names its crash site and which the supervisor
+    keeps as evidence. Then the ``pallas.lower`` site injected into the
+    ``hpr`` CLI: the run raises, no result is written, a post-mortem is."""
     sa = ["sa", "--device", "cuda", "--n-stat", "3", "--max-steps", "1000",
           "--group-size", "0"]
     ref = os.path.join(tmp, "sup_ref")
@@ -4318,6 +4143,12 @@ def phase_supervised(tmp: str) -> dict:
         raise AssertionError(f"run-supervised: exit {rc}")
     with np.load(ref + ".npz") as f:
         _same_npz(out_p + ".npz", {k: f[k] for k in f.files}, "run-supervised")
+    # each killed episode left its flight post-mortem, which the supervisor
+    # keeps as evidence
+    kept = sorted(f for f in os.listdir(os.path.join(tmp, "w", "supervise"))
+                  if f.startswith("postmortem.ep"))
+    if not kept:
+        raise AssertionError("run-supervised: no post-mortem in the evidence")
     pol = supervisor.RestartPolicy(backoff=RetryPolicy(
         tries=4, base_delay_s=0.01, max_delay_s=0.02, jitter=True))
     with _fault_env([{"site": "chunk.boundary", "action": "preempt",
@@ -4332,24 +4163,428 @@ def phase_supervised(tmp: str) -> dict:
     _, problems = tstore.validate_journal(rep["journal"])
     if problems:
         raise AssertionError(f"supervisor journal: {problems}")
+    if not all("postmortem" in ep and not ep["site"].startswith("exit:")
+               for ep in rep["episodes"]):
+        raise AssertionError(f"crash loop: episodes without a post-mortem "
+                             f"site: {rep['episodes']}")
     hpr_out = os.path.join(tmp, "lower.npz")
-    with _fault_env([{"site": "pallas.lower", "action": "raise",
-                      "count": 99}]):
-        try:
-            _cli_rc(["hpr", "--device", "cuda", "--out", hpr_out])
-        except faults.InjectedLoweringError:
-            pass
-        else:
-            raise AssertionError("pallas.lower: the hpr run completed")
+    wd = os.path.join(tmp, "lower")
+    os.makedirs(wd)
+    old = os.getcwd()
+    os.chdir(wd)                    # where the run's post-mortem lands
+    try:
+        with _fault_env([{"site": "pallas.lower", "action": "raise",
+                          "count": 99}]):
+            try:
+                _cli_rc(["hpr", "--device", "cuda", "--out", hpr_out])
+            except faults.InjectedLoweringError:
+                pass
+            else:
+                raise AssertionError("pallas.lower: the hpr run completed")
+    finally:
+        os.chdir(old)
     if os.path.exists(hpr_out):
         raise AssertionError("pallas.lower: a result was written")
+    if not os.path.exists(os.path.join(wd, obs_flight.POSTMORTEM_NAME)):
+        raise AssertionError("pallas.lower: no flight post-mortem")
     log(f"[47 supervised] run-supervised -- sa (3 reps, killed after the "
         f"2nd rep of each episode): restarted and completed, equal to the "
         f"uninterrupted run, {wall:.3f} s; a crash loop at the first chunk "
         f"boundary: quarantined after {len(rep['episodes'])} episodes, exit "
-        f"{rep['exit']}; pallas.lower injected into hpr: the run raised, no "
-        f"result (the port never carries on in the plain version)")
-    return {"wall_s": wall, "quarantine_exit": rep["exit"]}
+        f"{rep['exit']}, each episode's post-mortem site "
+        f"{rep['episodes'][0]['site']}; the restarted run's evidence holds "
+        f"{len(kept)} post-mortem(s) ({', '.join(kept)}); pallas.lower "
+        f"injected into hpr: the run raised, no result (the port never "
+        f"carries on in the plain version), a post-mortem")
+    return {"wall_s": wall, "quarantine_exit": rep["exit"],
+            "postmortems": kept}
+
+
+# ---------------------------------------------------------------------------
+# telemetry (A17): the ledger, the profiler trace, the cost of recording,
+# the memory gauges and memcheck, the roofline check, the flight post-mortem
+# ---------------------------------------------------------------------------
+
+
+def _npz_same(a: str, b: str, label: str, skip=()) -> None:
+    """``a`` and ``b`` hold the same arrays bit for bit (``skip``: wall-clock
+    keys)."""
+    with np.load(a) as fa, np.load(b) as fb:
+        if sorted(fa.files) != sorted(fb.files):
+            raise AssertionError(f"{label}: npz keys {fa.files} vs {fb.files}")
+        for k in fa.files:
+            if k not in skip and not np.array_equal(fa[k], fb[k]):
+                raise AssertionError(f"{label}: {k} differs with telemetry on")
+
+
+def _chunk_windows(events: list, ledger: list, chunk: str,
+                   label: str) -> dict:
+    """Hold the chrome trace of a ``--profile`` run to its ledger: every
+    K3′ launch (the host's launch call, joined to its kernel by the trace's
+    correlation id; the kernel's own start where the launch call is not in
+    the trace) lies inside one of the ``record_function`` ranges named with
+    a ``... > chunk`` path, the ranges are the ledger's chunk spans one for
+    one, and each span's ``wall_s`` is at least the device time of the K3′
+    kernels launched inside it: the span closes after the card. The host
+    and device clocks of the trace are aligned only to some µs, so a
+    kernel's end is compared with its range's end only as a reported
+    excursion."""
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kernels = []
+    joined = 0
+    for e in events:
+        if e.get("cat") == "kernel" and "bdcm_sweep_kernel" in e.get("name",
+                                                                      ""):
+            ts = launch_ts.get(e.get("args", {}).get("correlation"))
+            joined += ts is not None
+            kernels.append((e["ts"] if ts is None else ts, e["ts"],
+                            e["ts"] + e["dur"]))
+    kernels.sort()
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name", "").split(" > ")[-1] == chunk)
+    spans = sorted((e for e in ledger if e.get("ev") == "span"
+                    and e.get("name") == chunk), key=lambda e: e["t0"])
+    if not kernels or not ranges:
+        raise AssertionError(f"{label}: {len(kernels)} K3′ kernel events, "
+                             f"{len(ranges)} {chunk} ranges in the trace")
+    if len(ranges) != len(spans):
+        raise AssertionError(f"{label}: {len(ranges)} {chunk} ranges in the "
+                             f"trace, {len(spans)} spans in the ledger")
+    paths = {r[2] for r in ranges}
+    ledger_paths = set(obs_report.summarize(ledger)["spans"])
+    if not paths <= ledger_paths:
+        raise AssertionError(f"{label}: trace ranges {paths - ledger_paths} "
+                             f"are no ledger span paths")
+    dev_us = [0.0] * len(ranges)
+    outside = 0
+    late_us = 0.0
+    j = 0
+    for launch, k0, k1 in kernels:
+        while j < len(ranges) and ranges[j][1] < launch:
+            j += 1
+        if j < len(ranges) and ranges[j][0] <= launch:
+            dev_us[j] += k1 - k0
+            late_us = max(late_us, k1 - ranges[j][1])
+        else:
+            outside += 1
+    if outside:
+        raise AssertionError(f"{label}: {outside} of {len(kernels)} K3′ "
+                             f"launches outside every {chunk} range "
+                             f"({joined} joined to their launch calls)")
+    short = [(i, sp["wall_s"], d / 1e6) for i, (sp, d)
+             in enumerate(zip(spans, dev_us)) if sp["wall_s"] * 1e6 < d]
+    if short:
+        raise AssertionError(f"{label}: chunk spans shorter than their K3′ "
+                             f"device time (index, wall_s, device_s): "
+                             f"{short[:5]}")
+    wall = sum(sp["wall_s"] for sp in spans)
+    return {"kernels": len(kernels), "joined": joined, "chunks": len(ranges),
+            "paths": sorted(paths), "chunk_wall_s": wall,
+            "k3_device_s": sum(dev_us) / 1e6,
+            "k3_share_of_chunk_wall": sum(dev_us) / 1e6 / wall,
+            "max_kernel_end_past_range_us": late_us,
+            "min_span_over_device": min(
+                sp["wall_s"] * 1e6 / d for sp, d in zip(spans, dev_us) if d)}
+
+
+def _telemetry_leg(argv: list, tmp: str, label: str, chunk: str,
+                   skip=()) -> dict:
+    """``argv`` (a CLI with ``--out``) plain, then with ``--obs-ledger`` and
+    ``--profile``: the same result bit for bit, a ledger that parses with a
+    manifest naming the card, and the trace held to it
+    (:func:`_chunk_windows`)."""
+    plain_out = os.path.join(tmp, f"{label}_plain")
+    obs_out = os.path.join(tmp, f"{label}_obs")
+    ledger = os.path.join(tmp, f"{label}.jsonl")
+    pdir = os.path.join(tmp, f"{label}_prof")
+    doc0, wall0 = _run_cli(argv + ["--out", plain_out])
+    # the allocator's peak restarts here, so the run's obs.mem.peak gauges
+    # read this run's peak over what the script already holds (base)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    doc1, wall1 = _run_cli(["--obs-ledger", ledger, "--profile", pdir, *argv,
+                            "--out", obs_out])
+    for k in doc0:
+        if k not in skip and k != "out" and doc0[k] != doc1[k]:
+            raise AssertionError(f"{label}: printed {k} differs with "
+                                 f"telemetry on")
+    _npz_same(plain_out + ".npz", obs_out + ".npz", label, skip)
+    events, torn = obs_read_ledger(ledger)
+    man = next(e["run"] for e in events if e.get("ev") == "manifest")
+    if torn or man.get("device_name") != torch.cuda.get_device_name(0) \
+            or not man.get("power_limit"):
+        raise AssertionError(f"{label}: ledger torn {torn}, manifest {man}")
+    (path,) = obs_trace.trace_files(pdir)
+    with open(path) as f:
+        trace_events = json.load(f)["traceEvents"]
+    held = _chunk_windows(trace_events, events, chunk, label)
+    summary = obs_report.summarize(events)
+    held.update(wall_s=wall0, profiled_wall_s=wall1,
+                trace_bytes=os.path.getsize(path), events=len(events),
+                counters=sorted(summary["counters"]),
+                gauges=sorted(summary["gauges"]),
+                mem_peak=summary["gauges"].get("obs.mem.peak", {}).get("max"),
+                mem_base=base)
+    log(f"[48 obs ledger] {label}: output equal with --obs-ledger and "
+        f"--profile; ledger {len(events)} events, manifest "
+        f"{man['device_name']}, {man['power_limit']}; {held['kernels']} K3′ "
+        f"launches ({held['joined']} joined to their launch calls) inside "
+        f"the {held['chunks']} {chunk} ranges "
+        f"({', '.join(held['paths'])}), each span's wall >= its K3′ device "
+        f"time (min ratio {held['min_span_over_device']:.3f}; K3′ "
+        f"{held['k3_device_s']:.4f} s of {held['chunk_wall_s']:.4f} s of "
+        f"chunk wall; a kernel's end at most "
+        f"{held['max_kernel_end_past_range_us']:.1f} us past its range's on "
+        f"the trace's clocks); walls {wall0:.3f} s plain, {wall1:.3f} s "
+        f"profiled; "
+        f"trace {held['trace_bytes']} B; peak gauge {held['mem_peak']}")
+    return held
+
+
+def phase_obs_ledger(tmp: str) -> dict:
+    """Phase 48: the ``hpr`` CLI (the reference shape, f32, its sweeps cut
+    to :data:`OBS_HPR_SWEEPS`) and the ``entropy`` CLI (λ ≤
+    :data:`OBS_ENTROPY_LMBD_MAX`) with ``--obs-ledger`` and ``--profile``
+    (:func:`_telemetry_leg`)."""
+    return {
+        "hpr": _telemetry_leg(["hpr", "--device", "cuda", "--max-sweeps",
+                               str(OBS_HPR_SWEEPS)], tmp, "hpr",
+                              "pipeline.hpr.chunk", skip=("time",)),
+        "entropy": _telemetry_leg(
+            ["entropy", "--device", "cuda", "--lmbd-max",
+             str(OBS_ENTROPY_LMBD_MAX)], tmp, "entropy",
+            "pipeline.entropy.chunk")}
+
+
+def phase_obs_cost(tmp: str) -> dict:
+    """Phase 49: what recording costs, on and off in turns
+    (:data:`OBS_REPEATS` legs of each, medians of the warm chunks), with the
+    ledger installed by ``obs.recording`` as ``--obs-ledger`` installs it:
+    the HPr reference's ms per sweep through its chunk loop
+    (``HPRGroupExec.run``: RRG(10⁴, 4), f32, chunks of
+    :data:`OBS_HPR_CHUNK` sweeps, :data:`OBS_HPR_SWEEPS` sweeps), and the
+    ``sa`` default chunk's µs per step through the grouped chunk loop
+    (``run_sa_group`` on the CLI's default ensemble, 5 × RRG(10⁴, 4), p=3,
+    c=1, chunks of 256 steps replayed from a CUDA graph,
+    :data:`OBS_SA_STEPS` steps). A chunk's time is the host clock between
+    two ``on_chunk`` calls, each after the chunk's host read; the first
+    (cold) chunk of a leg and its last (partial) one are left out. The SA on-legs' ledgers give the
+    ``sa.chunk`` memory gauges."""
+    cfg = SAConfig(dynamics=DynamicsConfig(p=3, c=1))
+    graphs_ = [random_regular_graph(10_000, 4, seed=k) for k in range(5)]
+    preps = [sa_models.prepare_sa_inputs(g, cfg, n_replicas=1, seed=k,
+                                         max_steps=OBS_SA_STEPS)
+             for k, g in enumerate(graphs_)]
+    hcfg = HPRConfig(max_sweeps=OBS_HPR_SWEEPS)
+    item = hpr_group._build_rep(HPR_N, HPR_D, hcfg, 0, "pairing")
+    hex_ = HPRGroupExec([item], hcfg, device="cuda")
+
+    def warm_chunks(run):
+        stamps = []
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        res = run(lambda *_: stamps.append(time.perf_counter()))
+        return np.diff(stamps)[1:-1], res
+
+    def hpr_leg():
+        st = hex_.init_state([item[2]], [item[3]], [item[4]], [0])
+        dt, st = warm_chunks(lambda cb: hex_.run(
+            st, chunk_sweeps=OBS_HPR_CHUNK, on_chunk=cb))
+        return dt * 1e3 / OBS_HPR_CHUNK, st.s.cpu().numpy()
+
+    def sa_leg():
+        dt, res = warm_chunks(lambda cb: sa_group.run_sa_group(
+            graphs_, preps, list(range(5)), cfg, group_size=5,
+            on_chunk=cb, device="cuda"))
+        return dt * 1e6 / sa_models.CHUNK_STEPS, res.s
+
+    legs = {"hpr_ms_per_sweep": ([], [], hpr_leg, "ms/sweep"),
+            "sa_us_per_step": ([], [], sa_leg, "us/step")}
+    mem_sa = []
+    first: dict = {}
+    for i in range(OBS_REPEATS):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            for name, (on_v, off_v, leg, _) in legs.items():
+                path = os.path.join(tmp, f"cost_{name}_{i}.jsonl")
+                if on and name == "sa_us_per_step":
+                    # the SA loop's own peak: restart the allocator's peak
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    sa_base = torch.cuda.memory_allocated()
+                with (obs.recording(path) if on
+                      else contextlib.nullcontext()):
+                    per, out = leg()
+                (on_v if on else off_v).append(float(np.median(per)))
+                if on and name == "sa_us_per_step":
+                    mem_sa += [e["value"] - sa_base
+                               for e in obs_read_ledger(path)[0]
+                               if e.get("name") == "obs.mem.peak"]
+                if not np.array_equal(first.setdefault(name, out), out):
+                    raise AssertionError(f"{name}: a leg's chains differ "
+                                         f"with recording "
+                                         f"{'on' if on else 'off'}")
+    res = {}
+    for name in ("hpr_ms_per_sweep", "sa_us_per_step"):
+        on_v, off_v, _, unit = legs[name]
+        on, off = float(np.median(on_v)), float(np.median(off_v))
+        res[name] = {"on": on_v, "off": off_v, "median_on": on,
+                     "median_off": off, "cost": on / off - 1.0}
+        log(f"[49 obs cost] {name}: recording on median {on:.5f} {unit}, "
+            f"off {off:.5f} {unit} ({OBS_REPEATS} legs each, in turns, "
+            f"each the median of its warm chunks): cost "
+            f"{100 * (on / off - 1.0):+.2f}% (on {[round(v, 5) for v in on_v]}"
+            f", off {[round(v, 5) for v in off_v]})")
+    # the SA loop's obs.mem.peak over the bytes held when its leg began
+    res["sa_mem_peak"] = max(mem_sa) if mem_sa else None
+    # what one recorded chunk boundary pays, piece by piece (µs per call,
+    # 200 calls each): the allocator's stats, one event written and flushed
+    # to a ledger in this directory, one host read of a chunk state's steps
+    # and live chains
+    st = torch.zeros(5, dtype=torch.int32, device="cuda")
+    live = torch.ones(5, dtype=torch.bool, device="cuda")
+    rec = obs.Recorder(os.path.join(tmp, "pieces.jsonl"))
+    pieces = {"memory_stats": lambda: obs.memband.device_memory_stats(),
+              "event": lambda: rec.gauge("obs.mem.peak", 1, loop="sa.chunk"),
+              "host_read": lambda: torch.stack(
+                  [st.max().to(torch.int64), live.sum()]).tolist()}
+    res["pieces_us"] = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        res["pieces_us"][name] = (time.perf_counter() - t0) / 200 * 1e6
+    rec.close()
+    log(f"[49 obs cost] one recorded chunk boundary's pieces, us per call: "
+        f"{ {k: round(v, 2) for k, v in res['pieces_us'].items()} }")
+    return res
+
+
+def _obs_cli(sub: str) -> tuple[int, list]:
+    """``python -m graphdyn_torch.obs <sub> --format=json`` on the card:
+    its exit code (the findings) and its rows."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    proc = subprocess.run([sys.executable, "-m", "graphdyn_torch.obs", sub,
+                           "--format=json"], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode > 100 or not proc.stdout.strip():
+        raise AssertionError(f"obs {sub}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.returncode, json.loads(proc.stdout)
+
+
+def phase_obs_memory(ledgers: dict, cost: dict) -> dict:
+    """Phase 50: the ``obs.mem.peak`` gauges of the chunk loops (HPr and
+    entropy from phase 48's ledgers, SA from phase 49's), each read as its
+    loop's own peak over the bytes the script held when the allocator's
+    peak was restarted at the loop's start (the stream loop emits none, as
+    in the JAX package: its device bytes are memcheck's ``streamed_chunk``
+    row), and ``python -m graphdyn_torch.obs memcheck`` on the card, each
+    program's own peak against its byte model."""
+    rc, rows = _obs_cli("memcheck")
+    for r in rows:
+        if r["measured"] is None:
+            log(f"[50 obs memory] memcheck {r['program']}: model "
+                f"{r['model']:.0f} B, measured null ({r['reason']})")
+        else:
+            log(f"[50 obs memory] memcheck {r['program']}: peak "
+                f"{r['measured']} B, model {r['model']:.0f} B, frac "
+                f"{r['frac']:.4f} (band [{r['lo']}, {r['hi']}]) "
+                f"{'ok' if r['ok'] else 'OUT OF BAND'}")
+    if rc:
+        raise AssertionError(f"memcheck: {rc} row(s) out of band")
+    if None in (ledgers["hpr"]["mem_peak"], ledgers["entropy"]["mem_peak"],
+                cost["sa_mem_peak"]):
+        raise AssertionError("obs.mem.peak gauges missing")
+    # each loop's own peak: its gauges' max over the bytes the script held
+    # when the allocator's peak was restarted at the loop's start
+    gauges = {"hpr.chunk": ledgers["hpr"]["mem_peak"]
+              - ledgers["hpr"]["mem_base"],
+              "entropy.chunk": ledgers["entropy"]["mem_peak"]
+              - ledgers["entropy"]["mem_base"],
+              "sa.chunk": cost["sa_mem_peak"]}
+    if min(gauges.values()) <= 0:
+        raise AssertionError(f"obs.mem.peak under the held bytes: {gauges}")
+    log(f"[50 obs memory] obs.mem.peak gauges, each loop's own peak over "
+        f"the bytes held at its start (B): {gauges}; held "
+        f"{ledgers['hpr']['mem_base']} / {ledgers['entropy']['mem_base']} B "
+        f"at the hpr / entropy runs")
+    return {"memcheck": rows, "memcheck_rc": rc, "mem_peak": gauges}
+
+
+def phase_obs_roofline() -> dict:
+    """Phase 51: ``python -m graphdyn_torch.obs check`` on the card, with
+    the H100 profile: the packed rollout (K1/K2′), a BDCM sweep (K3′) and
+    the grouped entropy chunk at the smoke shapes against the byte models
+    over 3.35 TB/s."""
+    rc, rows = _obs_cli("check")
+    if len(rows) != 3:
+        raise AssertionError(f"obscheck: {len(rows)} rows (no H100 profile?)")
+    for r in rows:
+        log(f"[51 obs roofline] {r['program']}: {r['measured']:.6e} "
+            f"{r['unit']}, model {r['model']:.6e}, frac {r['frac']:.6f} "
+            f"(band [{r['lo']}, {r['hi']}]) "
+            f"{'ok' if r['ok'] else 'OUT OF BAND'}")
+    if rc:
+        raise AssertionError(f"obscheck: {rc} program(s) out of band")
+    return {"rows": rows, "rc": rc}
+
+
+def phase_obs_flight(tmp: str) -> dict:
+    """Phase 52: an ``hpr`` run killed by an injected fault (``raise`` at its
+    first ``rep.boundary``) leaves ``obs_postmortem.jsonl`` in its working
+    directory, with the ``obs.crash`` event naming the fault; the same run
+    with ``--obs-ledger`` leaves the event in the ledger and no file."""
+    out = {}
+    argv = ["hpr", "--device", "cuda", "--max-sweeps", "200"]
+    for mode in ("postmortem", "ledger"):
+        wd = os.path.join(tmp, f"flight_{mode}")
+        os.makedirs(wd)
+        ledger = os.path.join(wd, "run.jsonl")
+        old = os.getcwd()
+        os.chdir(wd)
+        try:
+            with _fault_env([{"site": "rep.boundary", "action": "raise",
+                              "at": 1}]):
+                try:
+                    _cli_rc((["--obs-ledger", ledger] if mode == "ledger"
+                             else []) + argv)
+                except faults.InjectedFault:
+                    pass
+                else:
+                    raise AssertionError("flight: the hpr run completed")
+        finally:
+            os.chdir(old)
+        pm = os.path.join(wd, obs_flight.POSTMORTEM_NAME)
+        events = obs_read_ledger(pm if mode == "postmortem" else ledger)[0]
+        crash = [e for e in events if e.get("name") == "obs.crash"]
+        if len(crash) != 1 or os.path.exists(pm) != (mode == "postmortem"):
+            raise AssertionError(f"flight {mode}: {len(crash)} obs.crash "
+                                 f"events, post-mortem file "
+                                 f"{os.path.exists(pm)}")
+        out[mode] = crash[0]["attrs"]
+        log(f"[52 obs flight] hpr killed at rep.boundary ({mode}): obs.crash "
+            f"{crash[0]['attrs']['exc_type']} at {crash[0]['attrs']['site']}"
+            f", heartbeat {crash[0]['attrs'].get('heartbeat_where')}; "
+            f"{len(events)} events")
+    return out
+
+
+def phase_obs(tmp: str) -> dict:
+    """The telemetry group (phases 48-52)."""
+    ledgers = phase_obs_ledger(tmp)
+    cost = phase_obs_cost(tmp)
+    return {"ledger": ledgers, "cost": cost,
+            "memory": phase_obs_memory(ledgers, cost),
+            "roofline": phase_obs_roofline(),
+            "flight": phase_obs_flight(tmp)}
 
 
 def card_line() -> str:
@@ -4360,29 +4595,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
-    t_start = time.perf_counter()
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: no CUDA device available; this script runs "
-                 "only on a GPU")
-    torch.cuda.set_device(0)
-    log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
-        f"(CUDA {torch.version.cuda})")
-    built = phase_build()
-    # headline shape: d=3 RRG, n=10^6, R=16384 (W=512); config 3: ER
-    # n=10^5, c=6, isolates removed, R=512 (W=16)
-    t0 = time.perf_counter()
-    g_h = random_regular_graph(HEADLINE_N, HEADLINE_D, seed=0)
-    t_graph = time.perf_counter() - t0
-    g_e, n_iso_e, nbr_e, deg_e = er_consensus_ensemble(
-        CONFIG3_N, c=CONFIG3_C, seed=0, device="cuda")
-    max_abs_err = phase_parity(g_h, g_e)
+#: the phase groups, in the order a full run takes them
+GROUPS = ("packed", "fused", "bdcm", "gather", "entropy", "sa", "powerlaw",
+          "durable", "obs")
+#: the groups whose results the durable group holds its resumed runs to
+DURABLE_NEEDS = ("fused", "bdcm", "entropy", "sa")
 
+
+def _group_packed(ctx: dict) -> dict:
+    """The packed step (K1/K2′): the headline and config-3 timings, then
+    the main path, counted (headline rollout, config-3 sweep, headline
+    point)."""
+    g_h, (nbr_h, deg_h) = ctx["g_h"], ctx["tables_h"]
+    g_e, n_iso_e, nbr_e, deg_e = ctx["config3"]
     t0 = time.perf_counter()
-    nbr_h, deg_h = _tables(g_h)
     sp_h = draw_packed_biased(1, g_h.n, HEADLINE_R // 32, 0.0, device="cuda")
     torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0 + t_graph
+    t_setup = time.perf_counter() - t0 + ctx["t_headline_s"]
     head = phase_timing(g_h, nbr_h, deg_h, sp_h, reps=20, plain_reps=3)
     rate = HEADLINE_N * HEADLINE_R / (head["ms"] * 1e-3)
     log(f"[3 headline] RRG d=3 n=10^6 R=16384 (set-up {t_setup:.3f} s): "
@@ -4407,7 +4636,6 @@ def main() -> int:
         f"{cfg3['plan']}; the step's own gather: row_gather {cfg3['gather_ms']} ms, index_select "
         f"{cfg3['index_select_ms']} ms")
 
-    # the main path, counted: headline rollout, config-3 sweep, headline point
     packed_cuda.LAUNCHES = 0
     main_h = phase_headline_main_path(g_h, nbr_h, deg_h, sp_h)
     launches_headline = packed_cuda.LAUNCHES
@@ -4428,88 +4656,187 @@ def main() -> int:
         f"{launches_headline} (headline rollout) + {launches_sweep} (config-3 "
         f"sweep) + {launches_point} (headline consensus_point)")
     phase_int8_crosscheck()
+    return {"head": head, "rate": rate, "cfg3": cfg3, "launches": launches,
+            "sweep": sweep, "point": point}
 
-    # the fused annealer: parity, then its main path, counted
-    fused_err = phase_fused_parity()
+
+def _group_fused(ctx: dict) -> dict:
+    """The fused annealer (K4′): config 1's main path, counted, its check
+    and timing, the CLI, the scale shape and the hubs past dmax 63."""
     main_f = phase_config1_main_path()
-    verdicts = phase_config1_check(main_f)
-    cfg1 = phase_config1_timing(main_f["graph"])
-    phase_fused_cli(main_f)
-    scale = phase_fused_scale()
+    return {"main_f": main_f, "verdicts": phase_config1_check(main_f),
+            "cfg1": phase_config1_timing(main_f["graph"]),
+            "cli": phase_fused_cli(main_f), "scale": phase_fused_scale(),
+            "hubs": phase_fused_hubs()}
 
-    # the BDCM kernels: the per-class update's parity, the sweep kernel's
-    # parity and timing on the entropy shapes, then the HPr main path,
-    # counted (the HPr shapes' sweep timings run inside phases 12 and 15)
-    with open(os.path.join(HERE, "entropy_ref.json")) as f:
-        eref_doc = json.load(f)
-    contract_errs, contract_timings = phase_contract_parity()
-    sweep_ent = phase_sweep_entropy(eref_doc)
-    sweep_many = phase_sweep_many_classes()
-    ref_errs = phase_hpr_ref()
-    ref_shape = phase_hpr_ref_timing()
-    hpr_main = phase_hpr_main()
-    chains = phase_hpr_chains()
-    cfg2 = phase_config2_setup_timing()
-    cfg2_main = phase_config2_main()
-    # past T = 4 and past a block's shared memory (C2): HPr at T = 5, a
-    # T = 6 sweep, the global-lattice path at T = 4, each counted; T = 7
-    # refused
-    hpr_t5 = phase_hpr_t5()
-    t6 = phase_sweep_t6()
-    glob = phase_entropy_global()
+
+def _group_bdcm(ctx: dict) -> dict:
+    """The BDCM kernels: the sweep kernel on the entropy shapes, then the
+    HPr main path, counted (the HPr shapes' sweep timings run inside
+    phases 12 and 15); past T = 4 and past a block's shared memory (C2):
+    HPr at T = 5, a T = 6 sweep, the global-lattice path at T = 4, each
+    counted; T = 7 refused."""
+    out = {"sweep_ent": phase_sweep_entropy(ctx["eref"]),
+           "sweep_many": phase_sweep_many_classes(),
+           "ref_errs": phase_hpr_ref(), "ref_shape": phase_hpr_ref_timing(),
+           "hpr_main": phase_hpr_main(), "chains": phase_hpr_chains(),
+           "cfg2": phase_config2_setup_timing(),
+           "cfg2_main": phase_config2_main(), "hpr_t5": phase_hpr_t5(),
+           "t6": phase_sweep_t6(), "glob": phase_entropy_global()}
     phase_t7_refused()
+    return out
 
-    # the row gather (P): parity, then its main path (the probe), counted
-    gather_err = phase_gather_parity()
-    probe = phase_gather_probe()
 
-    # the entropy λ-ladders through the sweep kernel, each run counted
-    golden = phase_entropy_golden(eref_doc)
-    union_ref = phase_entropy_union_ref(eref_doc)
-    grouped = phase_entropy_grouped()
-    cfg4 = phase_config4_main()
-    congruent = phase_congruent_ensemble()
-    ent_cli = phase_entropy_cli()
+def _group_gather(ctx: dict) -> dict:
+    """The row gather (P): its main path (the probe), counted, then P
+    against index_select, in turns."""
+    return {"probe": phase_gather_probe(),
+            "turns": phase_gather_interleaved()}
+
+
+def _group_entropy(ctx: dict) -> dict:
+    """The entropy λ-ladders through the sweep kernel, each run counted."""
+    out = {"golden": phase_entropy_golden(ctx["eref"]),
+           "union_ref": phase_entropy_union_ref(ctx["eref"]),
+           "grouped": phase_entropy_grouped(), "cfg4": phase_config4_main(),
+           "congruent": phase_congruent_ensemble(),
+           "ent_cli": phase_entropy_cli()}
+    log(f"[24 entropy] wall seconds: golden {out['golden']['wall_s']:.3f}, "
+        f"config 4 {out['cfg4']['wall_s']:.3f}, congruent "
+        f"{out['congruent']['wall_s']:.3f}, CLI "
+        f"{out['ent_cli']['wall_s']:.3f}")
+    return out
+
+
+def _group_sa(ctx: dict) -> dict:
+    """The SA searches (plain PyTorch on the card): each command's main
+    path."""
+    sa_parity = ctx["gates"]["sa"]
+    out = {"sa_main": phase_sa_main(), "chrom_main": phase_chromatic_main(),
+           "temper_main": phase_temper_main()}
+    sa_main, chrom_main = out["sa_main"], out["chrom_main"]
+    log(f"[31 searches] SA parity walls (card / CPU, s): "
+        + ", ".join(f"{k} {v['card_s']:.3f} / {v['cpu_s']:.3f}"
+                    for k, v in sa_parity.items())
+        + f"; sa main {sa_main['full']['wall_s']:.3f} s full grouped, "
+        f"{sa_main['lightcone']['wall_s']:.3f} s light-cone serial "
+        f"(busy, graph replay {sa_main['full']['graph_busy_share']:.4f} / "
+        f"{sa_main['lightcone']['graph_busy_share']:.4f}); chromatic "
+        f"{chrom_main['wall_s']:.3f} s; temper "
+        f"{out['temper_main']['wall_s']:.3f} s")
+    return out
+
+
+def _group_powerlaw(ctx: dict) -> dict:
+    """The power-law path: the bench shape through bucketed_rollout
+    (counted) with the RRG control and the lifted K1/K2′, the stream CLI
+    (counted), the solvers' layouts; then B4."""
+    out = {"planes": phase_packed_planes(),
+           "main": phase_powerlaw_main(ctx.pop("g_pl"), ctx.pop("b_pl")),
+           "stream": phase_stream_main(), "layouts": phase_layouts()}
+    out["b4"] = phase_b4_labelling(ctx["g_h"], *ctx["tables_h"])
+    return out
+
+
+def _group_durable(ctx: dict) -> dict:
+    """Durability: each CLI preempted and resumed, held to its
+    uninterrupted twin of the groups above."""
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        return {"sa": phase_sa_durable(ctx["sa"]["sa_main"]["full"]["res"],
+                                       tmp),
+                "hpr": phase_hpr_durable(ctx["bdcm"]["hpr_main"]["oracles"],
+                                         tmp),
+                "entropy": phase_entropy_durable(
+                    ctx["entropy"]["ent_cli"]["grids"], tmp),
+                "stream": phase_stream_durable(tmp),
+                "temper": phase_temper_fused_durable(ctx["fused"]["main_f"],
+                                                     tmp),
+                "supervised": phase_supervised(tmp)}
+
+
+def _group_obs(ctx: dict) -> dict:
+    """Telemetry (A17): the ledger and the trace, the cost of recording,
+    memory, the roofline check and the flight post-mortem."""
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        return phase_obs(tmp)
+
+
+def run_groups(names) -> dict:
+    """The parity gates, then the named groups (and the groups the durable
+    group needs), in the order of :data:`GROUPS`. Every kernel is held
+    against its plain version first, whatever the groups; a run with every
+    group is the whole script. Returns the gates' results under
+    ``"gates"`` and each group's under its name."""
+    want = set(names)
+    if "durable" in want:
+        want |= set(DURABLE_NEEDS)
+    t0 = time.perf_counter()
+    # headline shape: d=3 RRG, n=10^6, R=16384 (W=512); config 3: ER
+    # n=10^5, c=6, isolates removed, R=512 (W=16)
+    g_h = random_regular_graph(HEADLINE_N, HEADLINE_D, seed=0)
+    ctx = {"g_h": g_h, "t_headline_s": time.perf_counter() - t0}
+    ctx["tables_h"] = _tables(g_h)
+    ctx["config3"] = er_consensus_ensemble(CONFIG3_N, c=CONFIG3_C, seed=0,
+                                           device="cuda")
+    with open(os.path.join(HERE, "entropy_ref.json")) as f:
+        ctx["eref"] = json.load(f)
+    t1 = time.perf_counter()
+    g_pl = graphs.powerlaw_graph(POWERLAW_N, gamma=2.2, dmin=2, seed=0)
+    ctx["g_pl"], ctx["b_pl"] = g_pl, graphs.degree_buckets(g_pl)
+    ctx["t_powerlaw_s"] = time.perf_counter() - t1
+    gates = ctx["gates"] = {}
+    gates["packed_step"] = phase_parity(g_h, ctx["config3"][0])
+    gates["fused_chunk"] = phase_fused_parity()
+    gates["dp_contract"], gates["dp_contract_timings"] = \
+        phase_contract_parity()
+    gates["row_gather"] = phase_gather_parity()
+    gates["bucketed_step"] = phase_kb_parity(ctx["g_pl"], ctx["b_pl"])
+    gates["sa"] = phase_sa_parity()
+    log(f"[groups] parity gates held ({time.perf_counter() - t0:.3f} s); "
+        f"groups {[g for g in GROUPS if g in want]}")
+    if "powerlaw" not in want:
+        del ctx["g_pl"], ctx["b_pl"]
+    for name in GROUPS:
+        if name in want:
+            ctx[name] = globals()[f"_group_{name}"](ctx)
+    return ctx
+
+
+def kernels_line(res: dict, built: dict) -> list[dict]:
+    """The ``kernels`` rows from a run of every group (:func:`run_groups`)
+    and the build (:func:`phase_build`)."""
+    gates, packed, fused = res["gates"], res["packed"], res["fused"]
+    head, cfg3 = packed["head"], packed["cfg3"]
+    main_f, scale, hubs = fused["main_f"], fused["scale"], fused["hubs"]
+    cfg1, verdicts = fused["cfg1"], fused["verdicts"]
+    bd, ent = res["bdcm"], res["entropy"]
+    cfg2, cfg2_main, ref_shape = bd["cfg2"], bd["cfg2_main"], bd["ref_shape"]
+    hpr_main, hpr_t5, t6, glob = (bd["hpr_main"], bd["hpr_t5"], bd["t6"],
+                                  bd["glob"])
+    contract_errs = gates["dp_contract"]
+    golden, union_ref, grouped = (ent["golden"], ent["union_ref"],
+                                  ent["grouped"])
+    cfg4, congruent, ent_cli = ent["cfg4"], ent["congruent"], ent["ent_cli"]
+    probe, gather_turns = res["gather"]["probe"], res["gather"]["turns"]
+    pl = res["powerlaw"]
+    pl_main, durable = pl["main"], res["durable"]
+    planes, b4 = pl["planes"], pl["b4"]
+    launches, max_abs_err = packed["launches"], gates["packed_step"]
+    rate = packed["rate"]
+    fused_err, gather_err = gates["fused_chunk"], gates["row_gather"]
+    contract_timings, kb_parity = (gates["dp_contract_timings"],
+                                   gates["bucketed_step"])
+    chrom_main = res["sa"]["chrom_main"]
+    chains, ref_errs, sweep_many = bd["chains"], bd["ref_errs"], \
+        bd["sweep_many"]
     entropy_launches = {"entropy_sweep_golden_f64": golden["launches"],
                         "entropy_ensemble_union_reduced": union_ref["launches"],
                         "entropy_grid_grouped_vs_serial": grouped["launches"],
                         "entropy_ensemble_union_config4": cfg4["launches"],
                         "entropy_ensemble_rrg": congruent["launches"],
                         "entropy_cli": ent_cli["launches"]}
-    # the SA searches (plain PyTorch on the card): parity, then each
-    # command's main path; then P against index_select, in turns
-    sa_parity = phase_sa_parity()
-    sa_main = phase_sa_main()
-    chrom_main = phase_chromatic_main()
-    temper_main = phase_temper_main()
-    gather_turns = phase_gather_interleaved()
-    # the power-law path: KB against plain, the bench shape through
-    # bucketed_rollout (counted) with the RRG control and the lifted
-    # K1/K2', the stream CLI (counted), the solvers' layouts; then B4
-    t0 = time.perf_counter()
-    g_pl = graphs.powerlaw_graph(POWERLAW_N, gamma=2.2, dmin=2, seed=0)
-    b_pl = graphs.degree_buckets(g_pl)
-    t_pl = time.perf_counter() - t0
-    kb_parity = phase_kb_parity(g_pl, b_pl)
-    planes = phase_packed_planes()
-    pl_main = phase_powerlaw_main(g_pl, b_pl)
-    del g_pl, b_pl
-    stream_main = phase_stream_main()
-    layouts = phase_layouts()
-    b4 = phase_b4_labelling(g_h, nbr_h, deg_h)
-    # K4' past dmax 63 (C4); then durability: each CLI preempted and
-    # resumed, held to its uninterrupted twin of the phases above
-    hubs = phase_fused_hubs()
-    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
-        durable = {"sa": phase_sa_durable(sa_main["full"]["res"], tmp),
-                   "hpr": phase_hpr_durable(hpr_main["oracles"], tmp),
-                   "entropy": phase_entropy_durable(ent_cli["grids"], tmp),
-                   "stream": phase_stream_durable(tmp),
-                   "temper": phase_temper_fused_durable(main_f, tmp),
-                   "supervised": phase_supervised(tmp)}
-    probe512 = {r["impl"]: r for r in probe["rows"] if r["W"] == 512}
     turns512 = gather_turns["probe W=512"]
-    sweep_shapes = {**sweep_ent, **sweep_many,
+    sweep_shapes = {**bd["sweep_ent"], **bd["sweep_many"],
                     "HPr reference shape f32": ref_shape["float32"]["bdcm_sweep"],
                     "HPr reference shape f64": ref_shape["float64"]["bdcm_sweep"],
                     "HPr config 2": cfg2["bdcm_sweep"],
@@ -4533,7 +4860,7 @@ def main() -> int:
                          for dt, v in durable["hpr"].items()},
                       **entropy_launches}
 
-    kernels = [{
+    return [{
         "name": "packed_step",
         "route": "cuda",
         "source": "graphdyn_torch/csrc/packed_step.cu",
@@ -4757,6 +5084,44 @@ def main() -> int:
         "parity_cases": kb_parity["cases"],
         "ptxas": built["bucketed_step"],
     }]
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="graphdyn_torch on one GPU: every kernel against its "
+                    "plain version and every main path (no argument), or "
+                    "the parity gates and the named phase groups")
+    ap.add_argument("groups", nargs="*", choices=GROUPS, metavar="GROUP",
+                    help=f"run only these groups after the build and the "
+                         f"parity gates: {', '.join(GROUPS)}")
+    args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device available; this script runs "
+                 "only on a GPU")
+    torch.cuda.set_device(0)
+    log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
+        f"(CUDA {torch.version.cuda})")
+    built = phase_build()
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    res = run_groups(args.groups or GROUPS)
+    if args.groups:
+        # a partial run: no kernels line, and a last line that names its
+        # groups (a full run's last line is {"ok": true, ...})
+        log(json.dumps({"groups": {g: res[g] if g == "obs" else "held"
+                                   for g in GROUPS if g in res}},
+                       default=str))
+        log(f"[10] seconds in all: {time.perf_counter() - t_start:.3f}")
+        print(card_line(), flush=True)
+        print(json.dumps({"partial": True,
+                          "groups": [g for g in GROUPS if g in res],
+                          "device": device}), flush=True)
+        return 0
+    kernels = kernels_line(res, built)
+    pl_main = res["powerlaw"]["main"]
     log(json.dumps({"phases": {
         "powerlaw_main": {
             "main_path_ms_per_step": pl_main["main_ms"],
@@ -4767,31 +5132,20 @@ def main() -> int:
             "rrg_over_bucketed_main_x": pl_main["rrg_over_bucketed_main_x"],
             "table_entries": pl_main["table_entries"],
             "padded_entries": pl_main["padded_entries"],
-            "graph_setup_s": t_pl},
-        "stream": {str(k): v for k, v in stream_main.items()},
-        "layouts": layouts, "durable": durable}}))
-    log(f"[31 searches] SA parity walls (card / CPU, s): "
-        + ", ".join(f"{k} {v['card_s']:.3f} / {v['cpu_s']:.3f}"
-                    for k, v in sa_parity.items())
-        + f"; sa main {sa_main['full']['wall_s']:.3f} s full grouped, "
-        f"{sa_main['lightcone']['wall_s']:.3f} s light-cone serial "
-        f"(busy, graph replay {sa_main['full']['graph_busy_share']:.4f} / "
-        f"{sa_main['lightcone']['graph_busy_share']:.4f}); chromatic "
-        f"{chrom_main['wall_s']:.3f} s; temper {temper_main['wall_s']:.3f} s")
-    log(f"[24 entropy] wall seconds: golden {golden['wall_s']:.3f}, "
-        f"config 4 {cfg4['wall_s']:.3f}, congruent {congruent['wall_s']:.3f},"
-        f" CLI {ent_cli['wall_s']:.3f}; row_gather probe "
-        f"{probe['wall_s']:.3f}")
+            "graph_setup_s": res["t_powerlaw_s"]},
+        "stream": {str(k): v for k, v in res["powerlaw"]["stream"].items()},
+        "layouts": res["powerlaw"]["layouts"], "durable": res["durable"],
+        "obs": res["obs"]}}, default=str))
+    log(f"[24 gather] row_gather probe {res['gather']['probe']['wall_s']:.3f}"
+        f" s")
     log(f"[10] seconds in all: {time.perf_counter() - t_start:.3f} "
-        f"(sweep {sweep['sweep_wall_s']:.3f}, headline point "
-        f"{point['point_wall_s']:.3f}, fused scale set-up "
-        f"{sum(scale['setup_s'].values()):.3f}, config-2 set-up "
-        f"{sum(cfg2['setup_s'].values()):.3f})")
+        f"(sweep {res['packed']['sweep']['sweep_wall_s']:.3f}, headline point "
+        f"{res['packed']['point']['point_wall_s']:.3f}, fused scale set-up "
+        f"{sum(res['fused']['scale']['setup_s'].values()):.3f}, config-2 "
+        f"set-up {sum(res['bdcm']['cfg2']['setup_s'].values()):.3f})")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
 

@@ -2,8 +2,9 @@
 
 - ``consensus``: the JAX package's flags and defaults (``graphdyn/cli.py``),
   plus ``--device`` (default ``cuda``). It prints one JSON document, the
-  sweep's :func:`~graphdyn_torch.models.consensus.consensus_doc`, and with
-  ``--out`` also writes it atomically.
+  sweep's :func:`~graphdyn_torch.models.consensus.consensus_doc`, with
+  ``--out`` also writes it atomically, and with ``--plot PNG`` renders the
+  curve (needs matplotlib).
 - ``fused``: the fused one-kernel annealer with the JAX package's flags and
   defaults, ``--kernel {auto,cuda,plain}`` for ``{auto,xla,pallas}`` and
   ``--device`` (default ``cuda``). It prints the reference's JSON keys, and
@@ -18,8 +19,8 @@
   defaults (the grouped ``entropy_grid``, or ``--union G`` ER members per
   degree through ``entropy_ensemble_union``), ``--kernel {auto,cuda,plain}``
   and ``--device`` (default ``cuda``). It prints the reference's JSON keys,
-  and with ``--out`` writes the reference's npz keys. ``--plot`` is refused
-  (not ported yet).
+  and with ``--out`` writes the reference's npz keys. ``--plot PNG`` renders
+  the curves (needs matplotlib; refused before the run without it).
 - ``sa``: the SA initialization search (`SA_RRG.py`), ``n_stat`` fresh RRGs
   through ``sa_ensemble`` (grouped by default, serial with
   ``--rollout-mode lightcone`` or ``--group-size 0``); ``temper``: the
@@ -50,6 +51,14 @@ the flag wins). Exit codes: 0 done; 75 a graceful preemption (SIGTERM,
 SIGINT, a deadline or the stall watchdog) saved at the next boundary, safe
 to requeue; 130 a hard abort (a second signal, or a wedged run); 86 a
 supervised run quarantined after a crash loop; anything else a failure.
+
+Telemetry, as in the JAX package: ``--obs-ledger PATH`` (``GRAPHDYN_OBS``)
+records the run's event ledger and ``--profile DIR`` (``GRAPHDYN_PROFILE``)
+a ``torch.profiler`` trace whose ranges carry the ledger's span names; both
+go before the command. A run that dies (an unhandled exception, a
+preemption, a second signal) leaves its flight post-mortem,
+``obs_postmortem.jsonl`` in the working directory, or an ``obs.crash`` event
+in a live ledger. Neither changes a result.
 """
 
 from __future__ import annotations
@@ -92,6 +101,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="run time budget: after SECS take the SIGTERM path (snapshot at "
              "the next boundary, exit 75). Also GRAPHDYN_DEADLINE (the flag "
              "wins)")
+    p.add_argument(
+        "--obs-ledger", default=None, metavar="PATH",
+        help="write the run's telemetry event ledger (append-only JSONL: "
+             "run manifest, nested spans, counters, gauges; the JAX "
+             "package's schema) to PATH; also GRAPHDYN_OBS (the flag wins). "
+             "Render with `python -m graphdyn_torch.obs report PATH`")
+    p.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the run (CPU and, on a "
+             "card, CUDA) into DIR as a chrome trace; while profiling, every "
+             "obs span opens a record_function range named with its ledger "
+             "name path; also GRAPHDYN_PROFILE (the flag wins)")
     sub = p.add_subparsers(dest="cmd", required=True)
     sup = sub.add_parser(
         "run-supervised",
@@ -139,6 +160,10 @@ def build_parser() -> argparse.ArgumentParser:
              "PyTorch version)",
     )
     cons.add_argument("--out", default=None, help="json path for the curve")
+    cons.add_argument(
+        "--plot", default=None, metavar="PNG",
+        help="render consensus fraction + first-passage vs m(0)",
+    )
 
     fus = sub.add_parser(
         "fused",
@@ -286,7 +311,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="float64 matches the reference's precision",
     )
     ent.add_argument("--plot", default=None, metavar="PNG",
-                     help="not ported yet (ROADMAP A17: plotting): refused")
+                     help="render the s(m_init) curves to PNG (needs "
+                          "matplotlib)")
     ent.add_argument(
         "--union", type=int, default=None, metavar="G",
         help="instead of the deg x rep grid, run each degree as ONE "
@@ -644,8 +670,9 @@ def _entropy_main(args, dev) -> int:
     from graphdyn_torch.utils.io import save_results_npz
 
     if args.plot:
-        raise SystemExit("--plot is not ported to graphdyn_torch yet "
-                         "(ROADMAP.md A17: plotting)")
+        # fail fast, before the (possibly hours-long) sweep, if the plot
+        # cannot be written at the end
+        _require_matplotlib()
     cfg = EntropyConfig(
         dynamics=DynamicsConfig(p=args.p, c=args.c, rule=args.rule,
                                 tie=args.tie, attr_value=args.attr_value),
@@ -674,6 +701,21 @@ def _entropy_main(args, dev) -> int:
                    for di in range(len(args.deg))
                    for k in ("lambdas", "ent", "m_init", "ent1", "sweeps")},
             )
+        if args.plot:
+            from types import SimpleNamespace
+
+            from graphdyn_torch.plotting import masked_mean, plot_entropy_curve
+
+            ax = None
+            for di, deg in enumerate(args.deg):
+                r = per_deg[di]
+                ok = np.isfinite(r.m_init) & np.isfinite(r.ent1)
+                # the member mean over jointly finite members
+                mean = SimpleNamespace(m_init=masked_mean(r.m_init, ok, axis=1),
+                                       ent1=masked_mean(r.ent1, ok, axis=1))
+                ax = plot_entropy_curve(mean, ax=ax, label=f"deg={deg:g}")
+            ax.figure.tight_layout()
+            ax.figure.savefig(args.plot)
         print(json.dumps({
             "solver": "entropy_union",
             "deg": list(args.deg),
@@ -694,6 +736,10 @@ def _entropy_main(args, dev) -> int:
         prefetch=args.prefetch, group_size=args.group_size,
         kernel=args.kernel, device=dev,
     )
+    if args.plot:
+        from graphdyn_torch.plotting import plot_entropy_grid
+
+        plot_entropy_grid(out, save_path=args.plot)
     print(json.dumps({
         "solver": "entropy",
         "deg": out.deg.tolist(),
@@ -703,6 +749,13 @@ def _entropy_main(args, dev) -> int:
         "plot": args.plot,
     }))
     return 0
+
+
+def _require_matplotlib() -> None:
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        raise SystemExit("--plot requires matplotlib, which is not installed")
 
 
 def _refuse(reason: str, item: str):
@@ -927,9 +980,30 @@ def main(argv=None) -> int:
              else env_float("GRAPHDYN_STALL_TIMEOUT"))
     deadline = (args.deadline if args.deadline is not None
                 else env_float("GRAPHDYN_DEADLINE"))
+    from graphdyn_torch import obs
+    from graphdyn_torch.obs import flight, trace
+
     try:
-        with graceful_shutdown(), supervision(stall, deadline):
-            return _run(args)
+        with graceful_shutdown(), obs.recording(args.obs_ledger) as rec, \
+                trace.profiling(args.profile), supervision(stall, deadline):
+            if rec.enabled:
+                rec.manifest(**obs.run_manifest_fields(
+                    cmd=args.cmd, argv=list(argv),
+                    config={k: v for k, v in sorted(vars(args).items())}))
+            # the dump sites sit inside the recording scope: a live ledger
+            # takes the obs.crash event, else obs_postmortem.jsonl is written
+            try:
+                with rec.span("run", cmd=args.cmd):
+                    return _run(args)
+            except ShutdownRequested as e:
+                flight.dump("preempt", exc=e, site=e.where)
+                raise
+            except KeyboardInterrupt as e:
+                flight.dump("abort", exc=e)
+                raise
+            except Exception as e:
+                flight.dump("exception", exc=e)
+                raise
     except ShutdownRequested as e:
         print(f"graphdyn_torch: {e} — exiting {EX_TEMPFAIL} (requeue me)",
               file=sys.stderr)
@@ -962,6 +1036,8 @@ def _run(args) -> int:
     if args.cmd in _SEARCH_COMMANDS:
         _SEARCH_COMMANDS[args.cmd](args, dev)
         return 0
+    if args.plot:
+        _require_matplotlib()
     if args.graph == "rrg":
         g, n_iso, nbr_dev, deg_dev = rrg_consensus_ensemble(
             args.n, d=args.d, seed=args.seed, device=dev
@@ -985,5 +1061,14 @@ def _run(args) -> int:
         from graphdyn_torch.utils.io import write_json_atomic
 
         write_json_atomic(args.out, doc, indent=1)
+    if args.plot:
+        from graphdyn_torch.plotting import plot_consensus_curve
+
+        plot_consensus_curve(
+            rows,
+            title=(f"RRG d={args.d}" if args.graph == "rrg"
+                   else f"ER c={args.c:g}")
+            + f", N={g.n}, R={args.replicas}, {args.rule}",
+            save_path=args.plot)
     print(json.dumps(doc))
     return 0

@@ -26,6 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from graphdyn_torch import obs
 from graphdyn_torch.graphs import (
     erdos_renyi_graph,
     random_regular_graph,
@@ -106,10 +107,22 @@ def consensus_point(g, R: int, m0: float, max_steps: int, chunk: int = 10,
     sp = packed.draw_packed_biased(seed, g.n, W, m0, device=dev)
     if nbr_dev is None or deg_dev is None:
         nbr_dev, deg_dev = _device_tables(g, dev)
-    out = packed.packed_consensus_scan(
-        nbr_dev.to(dev), deg_dev.to(dev), sp, R=W * 32, max_steps=max_steps,
-        chunk=chunk, near_eps=near_eps, rule=rule, tie=tie,
-    )
+    # one m(0) point = one chunked scan, whose last read of the flags ends
+    # after the card: the span's wall is the scan's; the gauge reports
+    # spin-updates/s
+    with obs.timed("ops.packed.scan", m0=float(m0), R=W * 32) as sw:
+        out = packed.packed_consensus_scan(
+            nbr_dev.to(dev), deg_dev.to(dev), sp, R=W * 32,
+            max_steps=max_steps, chunk=chunk, near_eps=near_eps, rule=rule,
+            tie=tie,
+        )
+    if obs.enabled():
+        steps_run = int(out["steps_run"])
+        obs.gauge("ops.rollout.rate",
+                  g.n * W * 32 * steps_run / max(sw.wall_s, 1e-9),
+                  solver="consensus", m0=float(m0), steps=steps_run)
+        obs.memband.emit_memory_gauges(dev, loop="consensus.scan",
+                                       m0=float(m0))
     return _point_stats(out, R, m0, max_steps, chunk)
 
 

@@ -38,9 +38,7 @@ ladder re-enters at its first unvisited λ with the saved chi, so it equals
 the uninterrupted run bit for bit. A non-finite fixed point (the
 ``sweep.nan`` site) records non-convergence and stops the ladder.
 
-Not ported yet, each refused with ``NotImplementedError``: ``mesh=``
-(A15), the obs spans (A17), ``graph_method='networkx'`` (A1) and plotting
-(A17).
+Not ported yet, refused with ``NotImplementedError``: ``mesh=`` (A15).
 """
 
 from __future__ import annotations
@@ -194,6 +192,11 @@ def _run_ladder(lambdas, chi, *, set_leaves, fixed_point, observe, eps: float,
             log.warning("non-finite sweep state at lambda=%g (delta=%r) — "
                         "recording non-convergence and stopping the ladder",
                         lm, delta)
+            # the degrade is survivable, the evidence is kept: the flight
+            # post-mortem (or the live ledger's obs.crash event)
+            from graphdyn_torch.obs import flight
+
+            flight.dump("sweep.nan", site=f"entropy ladder lambda={lm:g}")
         if failed:
             nonconverged = lm
         if verbose:
@@ -810,7 +813,9 @@ def entropy_grid(
     to ``group_size=0``, the serial cell loop. ``prefetch`` builds the next
     cells' ER graphs (and, grouped, their BDCM tables) on a background
     thread; each cell depends only on ``seed + 1000·di + rep``, so the
-    overlap cannot change results.
+    overlap cannot change results. ``graph_method``: the ER sampler of
+    :func:`~graphdyn_torch.graphs.erdos_renyi_graph` (``'numpy'``,
+    ``'networkx'`` or ``'native'``), on both paths.
 
     ``checkpoint_path``: snapshots every ``checkpoint_interval_s`` seconds
     (and at once on a graceful shutdown) with exact resume, as the JAX
@@ -820,9 +825,6 @@ def entropy_grid(
     Snapshots pass between the serial and grouped paths and between group
     sizes (:func:`_load_grid_resume`). The file is removed once the results
     are saved."""
-    if graph_method != "numpy":
-        raise _not_ported(f"graph_method={graph_method!r}",
-                          "A1: the networkx and native samplers")
     config = config or EntropyConfig()
     dev = resolve_device(device)
     dyn = config.dynamics

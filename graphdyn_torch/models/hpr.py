@@ -43,12 +43,12 @@ draws that init from ``jax.random``; A11's remainder). Each raises
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from graphdyn_torch import obs
 from graphdyn_torch.config import HPRConfig
 from graphdyn_torch.graphs import Graph, build_edge_tables
 from graphdyn_torch.ops.bdcm import BDCMData, make_marginals, make_sweep
@@ -172,63 +172,71 @@ def hpr_solve(
     (module docstring)."""
     from graphdyn_torch.pipeline.hpr_group import HPRGroupExec
 
-    t_start = time.perf_counter()
-    if chunk_sweeps < 1:
-        raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
-    dev = resolve_device(device)
-    config = config or HPRConfig()
-    dyn = config.dynamics
-    n = graph.n
-    tables = build_edge_tables(graph)
-    data = BDCMData(
-        graph, tables, p=dyn.p, c=dyn.c, attr_value=dyn.attr_value,
-        rule=dyn.rule, tie=dyn.tie, dtype=config.dtype,
-    )
-    ex = HPRGroupExec([(graph, data)], config, kernel=kernel, device=dev,
-                      uniforms=uniforms)
-    ckpt = st = None
-    if checkpoint_path is not None:
-        from graphdyn_torch.utils.io import ChainCheckpointer, run_fingerprint
+    # the one timing idiom: an always-measuring obs span; its wall
+    # feeds elapsed_s and its event lands in a live ledger
+    _sw = obs.timed("solver.hpr").start()
+    try:
+        if chunk_sweeps < 1:
+            raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
+        dev = resolve_device(device)
+        config = config or HPRConfig()
+        dyn = config.dynamics
+        n = graph.n
+        tables = build_edge_tables(graph)
+        data = BDCMData(
+            graph, tables, p=dyn.p, c=dyn.c, attr_value=dyn.attr_value,
+            rule=dyn.rule, tie=dyn.tie, dtype=config.dtype,
+        )
+        ex = HPRGroupExec([(graph, data)], config, kernel=kernel, device=dev,
+                          uniforms=uniforms)
+        ckpt = st = None
+        if checkpoint_path is not None:
+            from graphdyn_torch.utils.io import (
+                ChainCheckpointer,
+                run_fingerprint,
+            )
 
-        ckpt = ChainCheckpointer(
-            checkpoint_path, kind="hpr_chain", seed=seed,
-            fp=run_fingerprint(graph.edges, config, "graphdyn_torch",
-                               uniforms is not None),
-            interval_s=checkpoint_interval_s)
-        arrays = ckpt.load_state(
-            check=lambda a: a["s"].shape == (n,) and a["chi"].shape
-            == (data.num_directed, data.K, data.K))
-        if arrays is not None:
-            st = ex.init_state([arrays["chi"]], [arrays["biases"]],
-                               [arrays["s"]], [int(arrays["seed"])],
-                               t=int(arrays["t"]),
-                               m_final=[np.float32(arrays["m_final"])])
-    if st is None:
-        chi0, biases0, s0 = host_init(np.random.default_rng(seed),
-                                      data.num_directed, data.K, n,
-                                      data.np_dtype, chi0=chi0)
-        st = ex.init_state([chi0], [biases0], [s0], [seed])
-    if ckpt is None:
-        st = ex.run(st, chunk_sweeps=chunk_sweeps)
-    else:
-        st = ckpt.drive(
-            st, advance=lambda x: ex.advance(
-                x, min(x.t + int(chunk_sweeps), ex.spec.TT + 2)),
-            active=lambda x: bool(x.active[0]),
-            payload=lambda x: dict(zip(_HPR_CHAIN_FIELDS, (
-                x.chi[0].cpu().numpy(), x.biases[0].cpu().numpy(),
-                x.s[0].cpu().numpy(), np.int64(seed), np.int64(x.t),
-                x.m_final[0].cpu().numpy()))))
-    s = st.s[0].cpu().numpy()
-    return HPRResult(
-        s=s,
-        mag_reached=np.float32(s.astype(np.float64).mean()),
-        num_steps=int(st.steps[0]),
-        m_final=float(st.m_final[0]),
-        biases=st.biases[0].cpu().numpy(),
-        chi=st.chi[0].cpu().numpy(),
-        elapsed_s=time.perf_counter() - t_start,
-    )
+            ckpt = ChainCheckpointer(
+                checkpoint_path, kind="hpr_chain", seed=seed,
+                fp=run_fingerprint(graph.edges, config, "graphdyn_torch",
+                                   uniforms is not None),
+                interval_s=checkpoint_interval_s)
+            arrays = ckpt.load_state(
+                check=lambda a: a["s"].shape == (n,) and a["chi"].shape
+                == (data.num_directed, data.K, data.K))
+            if arrays is not None:
+                st = ex.init_state([arrays["chi"]], [arrays["biases"]],
+                                   [arrays["s"]], [int(arrays["seed"])],
+                                   t=int(arrays["t"]),
+                                   m_final=[np.float32(arrays["m_final"])])
+        if st is None:
+            chi0, biases0, s0 = host_init(np.random.default_rng(seed),
+                                          data.num_directed, data.K, n,
+                                          data.np_dtype, chi0=chi0)
+            st = ex.init_state([chi0], [biases0], [s0], [seed])
+        if ckpt is None:
+            st = ex.run(st, chunk_sweeps=chunk_sweeps)
+        else:
+            st = ckpt.drive(
+                st, advance=lambda x: ex.advance(
+                    x, min(x.t + int(chunk_sweeps), ex.spec.TT + 2)),
+                active=lambda x: bool(x.active[0]),
+                payload=lambda x: dict(zip(_HPR_CHAIN_FIELDS, (
+                    x.chi[0].cpu().numpy(), x.biases[0].cpu().numpy(),
+                    x.s[0].cpu().numpy(), np.int64(seed), np.int64(x.t),
+                    x.m_final[0].cpu().numpy()))))
+        s = st.s[0].cpu().numpy()
+        return HPRResult(
+            s=s,
+            mag_reached=np.float32(s.astype(np.float64).mean()),
+            num_steps=int(st.steps[0]),
+            m_final=float(st.m_final[0]),
+            biases=st.biases[0].cpu().numpy(),
+            chi=st.chi[0].cpu().numpy(),
+            elapsed_s=_sw.stop().wall_s,
+        )
+    finally:
+        _sw.stop()      # the exception path closes the span too
 
 
 class HPRBatchResult(NamedTuple):
@@ -387,60 +395,71 @@ def hpr_solve_batch(
     reads ``any(active)`` once per ``chunk_sweeps`` sweeps. ``uniforms``:
     None or ``callable(t) -> [R·n]``. ``checkpoint_path``: exact resume
     (module docstring)."""
-    t_start = time.perf_counter()
-    _refuse(mesh, device_init)
-    dev = resolve_device(device)
-    config = config or HPRConfig()
-    R = n_replicas if n_replicas is not None else config.n_replicas
-    n = graph.n
-    twoE = 2 * graph.num_edges
-    dyn = config.dynamics
-    K = 2 ** (dyn.p + dyn.c)
-    if chunk_sweeps < 1:
-        raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
-    seeds = [_check_seed(seed + r) for r in range(R)]
+    # the one timing idiom: an always-measuring obs span; its wall
+    # feeds elapsed_s and its event lands in a live ledger
+    _sw = obs.timed("solver.hpr_batch").start()
+    try:
+        _refuse(mesh, device_init)
+        dev = resolve_device(device)
+        config = config or HPRConfig()
+        R = n_replicas if n_replicas is not None else config.n_replicas
+        n = graph.n
+        twoE = 2 * graph.num_edges
+        dyn = config.dynamics
+        K = 2 ** (dyn.p + dyn.c)
+        if chunk_sweeps < 1:
+            raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
+        seeds = [_check_seed(seed + r) for r in range(R)]
 
-    run_chunk, setup = make_hpr_batch_chunk(graph, config, R, kernel=kernel,
-                                            uniforms=uniforms, device=dev)
-    np_dt = setup.data.np_dtype
-    ckpt = None
-    st = None
-    if checkpoint_path is not None:
-        from graphdyn_torch.utils.io import ChainCheckpointer, run_fingerprint
+        run_chunk, setup = make_hpr_batch_chunk(graph, config, R,
+                                                kernel=kernel,
+                                                uniforms=uniforms, device=dev)
+        np_dt = setup.data.np_dtype
+        ckpt = None
+        st = None
+        if checkpoint_path is not None:
+            from graphdyn_torch.utils.io import (
+                ChainCheckpointer,
+                run_fingerprint,
+            )
 
-        ckpt = ChainCheckpointer(
-            checkpoint_path, kind="hpr_batch_chain", seed=seed,
-            fp=run_fingerprint(graph.edges, config, R, "graphdyn_torch",
-                               uniforms is not None),
-            interval_s=checkpoint_interval_s)
-        arrays = ckpt.load_state(
-            check=lambda a: a["s"].shape == (R * n,) and a["t"].shape == (R,))
-        if arrays is not None:
-            st = _BatchState(**{
-                f: (int(arrays["t"][0]) if f == "t" else
-                    torch.from_numpy(np.asarray(arrays[f])).to(dev))
-                for f in _HPR_BATCH_FIELDS})
-    if st is None:
-        st = _batch_init(graph, config, R, seed, seeds, np_dt, K, twoE, dev)
-    if ckpt is None:
-        while bool(st.active.any()):
-            st = run_chunk(st, min(st.t + int(chunk_sweeps), setup.TT + 2))
-    else:
-        st = ckpt.drive(
-            st, advance=lambda x: run_chunk(
-                x, min(x.t + int(chunk_sweeps), setup.TT + 2)),
-            active=lambda x: bool(x.active.any()),
-            payload=lambda x: {f: (np.full(R, x.t, np.int32) if f == "t"
-                                   else getattr(x, f).cpu().numpy())
-                               for f in _HPR_BATCH_FIELDS})
-    s = st.s.cpu().numpy().reshape(R, n)
-    return HPRBatchResult(
-        s=s,
-        mag_reached=s.astype(np.float64).mean(axis=1).astype(np.float32),
-        num_steps=st.steps.cpu().numpy(),
-        m_final=st.m_final.cpu().numpy(),
-        elapsed_s=time.perf_counter() - t_start,
-    )
+            ckpt = ChainCheckpointer(
+                checkpoint_path, kind="hpr_batch_chain", seed=seed,
+                fp=run_fingerprint(graph.edges, config, R, "graphdyn_torch",
+                                   uniforms is not None),
+                interval_s=checkpoint_interval_s)
+            arrays = ckpt.load_state(
+                check=lambda a: a["s"].shape == (R * n,)
+                and a["t"].shape == (R,))
+            if arrays is not None:
+                st = _BatchState(**{
+                    f: (int(arrays["t"][0]) if f == "t" else
+                        torch.from_numpy(np.asarray(arrays[f])).to(dev))
+                    for f in _HPR_BATCH_FIELDS})
+        if st is None:
+            st = _batch_init(graph, config, R, seed, seeds, np_dt, K, twoE,
+                             dev)
+        if ckpt is None:
+            while bool(st.active.any()):
+                st = run_chunk(st, min(st.t + int(chunk_sweeps), setup.TT + 2))
+        else:
+            st = ckpt.drive(
+                st, advance=lambda x: run_chunk(
+                    x, min(x.t + int(chunk_sweeps), setup.TT + 2)),
+                active=lambda x: bool(x.active.any()),
+                payload=lambda x: {f: (np.full(R, x.t, np.int32) if f == "t"
+                                       else getattr(x, f).cpu().numpy())
+                                   for f in _HPR_BATCH_FIELDS})
+        s = st.s.cpu().numpy().reshape(R, n)
+        return HPRBatchResult(
+            s=s,
+            mag_reached=s.astype(np.float64).mean(axis=1).astype(np.float32),
+            num_steps=st.steps.cpu().numpy(),
+            m_final=st.m_final.cpu().numpy(),
+            elapsed_s=_sw.stop().wall_s,
+        )
+    finally:
+        _sw.stop()      # the exception path closes the span too
 
 
 def _batch_init(graph: Graph, config: HPRConfig, R: int, seed: int, seeds,

@@ -67,6 +67,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from graphdyn_torch import obs
 from graphdyn_torch.config import SAConfig
 from graphdyn_torch.ops.dynamics import rule_coefficients
 from graphdyn_torch.ops.fused import _bits_to_uniform, _check_seed, threefry2x32
@@ -422,19 +423,45 @@ def state_payload(st, s_now) -> dict:
     return out
 
 
-def run_chunks(advance, state, *, on_chunk=None):
+def run_chunks(advance, state, *, on_chunk=None, span: str | None = None):
     """Call ``advance`` until no chain is active, with one host read of
     ``active.any()`` per chunk (counted in :data:`HOST_READS`); ``on_chunk``
     is called after each chunk. On the card the chunks after the first
-    replay a CUDA graph of one chunk (:func:`chunk_caller`)."""
+    replay a CUDA graph of one chunk (:func:`chunk_caller`).
+
+    ``span``: the loop's telemetry name (``"sa"``): each chunk runs in a
+    ``pipeline.<span>.chunk`` span that closes after the chunk's host read
+    (around ``replay()`` and around the call that captures, never inside the
+    captured function), with ``obs.mem.*`` gauges (``loop="<span>.chunk"``)
+    after it while recording."""
     global HOST_READS
     advance = chunk_caller(advance)
+    rec = obs.current()
+    recording = rec.enabled and span is not None
+    chunk_i = 0
     while True:
-        state = advance(state)
+        with (rec.span(f"pipeline.{span}.chunk", chunk=chunk_i,
+                       cold=chunk_i == 0) if span is not None
+              else obs.NULL_SPAN) as sp:
+            state = advance(state)
+            HOST_READS += 1
+            if recording:
+                # the chunk's one host read, widened to the span's numbers
+                steps, live = torch.stack(
+                    [state.chunk_t.max().to(torch.int64),
+                     state.active.sum()]).tolist()
+                go = live > 0
+                sp.set(steps_advanced=steps, active=live)
+            else:
+                go = bool(state.active.any())
+        if recording:
+            obs.memband.emit_memory_gauges(state.active.device,
+                                           loop=f"{span}.chunk",
+                                           chunk=chunk_i)
+        chunk_i += 1
         if on_chunk is not None:
             on_chunk(state)
-        HOST_READS += 1
-        if not bool(state.active.any()):
+        if not go:
             return state
 
 

@@ -8,7 +8,8 @@ is installed through a temporary name and ``os.replace``; the hash covers
 the shared headers (``csrc/*.cuh``) too. The compiler's
 ``-Xptxas -v`` report (registers and spills per kernel) is kept beside it as
 ``<library>.log``. A missing ``nvcc`` or a failed build raises: there is no
-fallback.
+fallback. Each compile emits one ``kernel.build`` counter event
+(:mod:`graphdyn_torch.obs`).
 """
 
 from __future__ import annotations
@@ -80,6 +81,11 @@ def build(source: str, flags: tuple[str, ...]) -> str:
         f.write(proc.stdout + proc.stderr)
     os.replace(f"{tmp}.log", f"{lib_path}.log")
     os.replace(tmp, lib_path)
+    # the port's counterpart of the JAX package's jax.compile counter: one
+    # event per library compiled rather than found built
+    from graphdyn_torch import obs
+
+    obs.counter("kernel.build", lib=os.path.basename(lib_path))
     return lib_path
 
 

@@ -25,8 +25,11 @@ batch is journaled (``stream.churn`` in ``run_journal.jsonl``, the JAX
 package's record) and the state ``(sp, t, seq)`` is snapshotted between
 steps; a resumed run replays the journaled churn for the steps it already
 took from the journal alone, then goes on, so it equals the uninterrupted
-run bit for bit. Not ported yet: the obs spans and gauges (A17) and the
-sharded plan (``partition=``, A15); they raise.
+run bit for bit. Telemetry, the JAX package's: a ``stream.step`` span per
+step (closed after the chunks' words are back on the host), the
+``stream.h2d_bytes``/``stream.d2h_bytes`` gauges, the ``stream.resume``
+counter and the ``stream.overlap_util`` gauge. Not ported yet: the sharded
+plan (``partition=``, A15); it raises.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Iterable, NamedTuple
 import numpy as np
 import torch
 
+from graphdyn_torch import obs
 from graphdyn_torch.graphs import Graph, degree_buckets
 from graphdyn_torch.ops import bucketed_cuda
 from graphdyn_torch.ops.bucketed import PlainBucketStep
@@ -537,12 +541,15 @@ def streamed_rollout(graph: Graph, sp, steps: int, *,
             check=lambda a: tuple(a["sp"].shape) == tuple(sp.shape))
         if loaded is not None:
             t0 = int(loaded["t"])
-            plan, _ = _replay_churn_from_journal(jpath, t0, adj, plan)
+            plan, replayed = _replay_churn_from_journal(jpath, t0, adj, plan)
             _check_chunk_tables(plan)
             words = torch.from_numpy(
                 np.ascontiguousarray(loaded["sp"]).view(np.int32))
             state = (words.pin_memory() if dev.type == "cuda"
                      else words.clone(), t0, int(loaded["seq"]))
+            if obs.enabled():
+                obs.counter("stream.resume", t=t0, seq=int(loaded["seq"]),
+                            replayed=replayed)
     plan_ref = [plan]
 
     def advance(st):
@@ -569,18 +576,27 @@ def streamed_rollout(graph: Graph, sp, steps: int, *,
         pf = HostPrefetcher(
             lambda c: stepper.build(sp, c, plan.chunks[c]),
             range(plan.K), depth=prefetch_depth)
+        h2d = d2h = 0
         try:
-            for c in range(plan.K):
-                item = pf.get(c)
-                out = stepper.step(item)
-                new.index_copy_(0, torch.from_numpy(plan.chunks[c].nodes),
-                                out)
-                totals["h2d_bytes"] += item[2]
-                totals["d2h_bytes"] += out.numel() * out.element_size()
+            # each chunk's words come back to the host inside the span, so
+            # its wall includes the card
+            with obs.span("stream.step", step=t, chunks=plan.K):
+                for c in range(plan.K):
+                    item = pf.get(c)
+                    out = stepper.step(item)
+                    new.index_copy_(
+                        0, torch.from_numpy(plan.chunks[c].nodes), out)
+                    h2d += item[2]
+                    d2h += out.numel() * out.element_size()
         finally:
-            pf.close()
             totals["build_s"] += pf.build_s
             totals["wait_s"] += pf.wait_s
+            pf.close()
+        totals["h2d_bytes"] += h2d
+        totals["d2h_bytes"] += d2h
+        if obs.enabled():
+            obs.gauge("stream.h2d_bytes", h2d, step=t, chunks=plan.K)
+            obs.gauge("stream.d2h_bytes", d2h, step=t, chunks=plan.K)
         return new, t + 1, seq
 
     if ckpt is None:
@@ -594,6 +610,12 @@ def streamed_rollout(graph: Graph, sp, steps: int, *,
     sp, plan = state[0], plan_ref[0]
     build_s, wait_s = totals["build_s"], totals["wait_s"]
     overlap = max(0.0, 1.0 - wait_s / build_s) if build_s > 0 else 0.0
+    if obs.enabled() and build_s > 0:
+        obs.gauge("stream.overlap_util", overlap, build_s=round(build_s, 6),
+                  wait_s=round(wait_s, 6), depth=prefetch_depth,
+                  steps=int(state[1]), chunks=plan.K,
+                  h2d_bytes=totals["h2d_bytes"],
+                  d2h_bytes=totals["d2h_bytes"])
     if stats_out is not None:
         stats_out.update(totals, overlap_frac=overlap, steps=int(steps),
                          chunks=plan.K)

@@ -33,8 +33,11 @@ At each chunk boundary where a cell crossed a λ, the ladder beats, offers
 the grid's checkpoint callback every unfinished cell's last-boundary chi
 and cursor, honours a graceful shutdown (exit 75) and passes the
 ``lambda.boundary`` fault site once per crossed cell; the ``sweep.nan`` site
-is checked once per completed fixed point per cell. Not ported yet: the
-cell-axis mesh (A15) and the obs spans (A17).
+is checked once per completed fixed point per cell. Each chunk runs in a
+``pipeline.entropy.chunk`` span (closed after the chunk's host read), with
+the ``obs.mem.*`` gauges after it, a ``pipeline.lambda.boundary`` counter per
+crossed cell, and a ``pipeline.sweep.nan`` counter and a flight post-mortem
+at a poisoned cell. Not ported yet: the cell-axis mesh (A15).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from graphdyn_torch import obs
 from graphdyn_torch.ops.bdcm import (
     CHUNK_SWEEPS,
     _flat_ids,
@@ -317,6 +321,9 @@ def run_cell_ladder(
     need_leaf = active.copy()          # lanes entering a fresh λ
     a_t = None
 
+    rec = obs.current()
+    chunk_i = 0
+    t_prev = np.zeros(G, np.int64)
     while active[:Gr].any():
         if need_leaf.any():
             chi = ex.set_leaves(chi, lam, need_leaf)
@@ -324,10 +331,24 @@ def run_cell_ladder(
             fresh = torch.as_tensor(need_leaf, device=dev)
             delta = torch.where(fresh, torch.inf, delta)
             t = torch.where(fresh, 0, t)
+            t_prev[need_leaf] = 0
             need_leaf[:] = False
-        chi, delta, t = ex.fixed_point_chunk(
-            chi, a_t, torch.as_tensor(active, device=dev), delta, t)
-        delta_h, t_h = delta.cpu().numpy(), t.cpu().numpy()
+        # the chunk span closes after the chunk's host read of (delta, t),
+        # so its wall includes the card; cold marks the first chunk
+        with rec.span("pipeline.entropy.chunk", chunk=chunk_i,
+                      cold=chunk_i == 0) as sp:
+            chi, delta, t = ex.fixed_point_chunk(
+                chi, a_t, torch.as_tensor(active, device=dev), delta, t)
+            delta_h, t_h = delta.cpu().numpy(), t.cpu().numpy()
+            if rec.enabled:
+                sp.set(sweeps_advanced=int(np.sum(t_h[active]
+                                                  - t_prev[active])),
+                       active=int(np.sum(active[:Gr])))
+        if rec.enabled:
+            obs.memband.emit_memory_gauges(dev, loop="entropy.chunk",
+                                           chunk=chunk_i)
+        chunk_i += 1
+        t_prev[:] = t_h
 
         # a lane is at its λ boundary when its own fixed point finished:
         # converged (delta <= eps; a NaN delta reads `> eps` as False) or
@@ -356,8 +377,15 @@ def run_cell_ladder(
                     "non-finite sweep state at lambda=%g (cell %d, delta=%r) "
                     "— recording non-convergence and stopping the cell's "
                     "ladder", lmv, g, delta_h[g])
+                rec.counter("pipeline.sweep.nan", cell=g, lmbd=lmv)
+                # the degrade is survivable, the evidence is kept: the
+                # flight post-mortem (or the live ledger's obs.crash event)
+                obs.flight.dump("sweep.nan",
+                                site=f"entropy cell={g} lambda={lmv:g}")
             if failed:
                 nonconv[g] = lmv
+            rec.counter("pipeline.lambda.boundary", cell=g, lmbd=lmv,
+                        sweeps=t_g, failed=failed)
             rows_l[g].append(lmv)
             rows_e[g].append(phi)
             rows_m[g].append(m0)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Iterator
 
+from graphdyn_torch import obs
 from graphdyn_torch.resilience import faults as _faults
 from graphdyn_torch.resilience.shutdown import (
     raise_if_requested,
@@ -99,6 +100,8 @@ class GroupDriver:
         re-runs from ``next_rep`` on resume)."""
         _beat("chunk")
         if shutdown_requested():
+            obs.counter("resilience.shutdown", where="chunk",
+                        next_rep=next_rep)
             self.save_prefix(next_rep)
             raise_if_requested(where="chunk")
 
@@ -120,8 +123,10 @@ class GroupDriver:
         if self.pc is not None:
             self.pc.maybe_save(self.payload(), {**self.run_id,
                                                 "next_rep": k + 1})
+        obs.counter("pipeline.rep.boundary", rep=k)
         _faults.maybe_fail("rep.boundary", key=f"rep={k}")
         if shutdown_requested():
+            obs.counter("resilience.shutdown", where="rep", next_rep=k + 1)
             self.save_prefix(k + 1)
             raise_if_requested(where="rep")
 

@@ -38,12 +38,12 @@ has no counterpart (ROADMAP A18).
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from graphdyn_torch import obs
 from graphdyn_torch.config import HPRConfig
 from graphdyn_torch.graphs import stack_graphs
 from graphdyn_torch.ops.bdcm import (
@@ -384,9 +384,28 @@ class HPRGroupExec:
         called between chunks."""
         if chunk_sweeps < 1:
             raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
-        while bool(st.active.any()):
-            st = self.advance(st, min(st.t + int(chunk_sweeps),
-                                      self.spec.TT + 2))
+        rec = obs.current()
+        chunk_i = 0
+        go = bool(st.active.any())
+        while go:
+            t_start = st.t
+            # the chunk span closes after the chunk's one host read, so its
+            # wall includes the card; cold marks the first chunk (the
+            # kernels' first launches)
+            with rec.span("pipeline.hpr.chunk", chunk=chunk_i,
+                          cold=chunk_i == 0) as sp:
+                st = self.advance(st, min(st.t + int(chunk_sweeps),
+                                          self.spec.TT + 2))
+                if rec.enabled:
+                    live = int(st.active.sum())
+                    go = live > 0
+                    sp.set(sweeps_advanced=st.t - t_start, active=live)
+                else:
+                    go = bool(st.active.any())
+            if rec.enabled:
+                obs.memband.emit_memory_gauges(self.device, loop="hpr.chunk",
+                                               chunk=chunk_i)
+            chunk_i += 1
             if on_chunk is not None:
                 on_chunk()
         return st
@@ -466,17 +485,17 @@ def hpr_ensemble_grouped(
 
     with HostPrefetcher(build, range(start_k, n_rep), depth=prefetch) as pf:
         for ks in group_ranges(start_k, n_rep, group_size):
-            t0 = time.perf_counter()
-            items = [pf.get(i) for i in ks]
-            u_grp = None if uniforms is None else (
-                lambda t, ks=ks: np.asarray(uniforms(t))[ks])
-            res = run_hpr_group(
-                items, [seed + i for i in ks], config,
-                group_size=group_size, chunk_sweeps=chunk_sweeps,
-                kernel=kernel, device=dev, uniforms=u_grp,
-                on_chunk=lambda k0=ks[0]: drv.chunk_poll(k0),
-            )
-            elapsed = time.perf_counter() - t0
+            with obs.timed("pipeline.hpr.group", reps=len(ks)) as sw:
+                items = [pf.get(i) for i in ks]
+                u_grp = None if uniforms is None else (
+                    lambda t, ks=ks: np.asarray(uniforms(t))[ks])
+                res = run_hpr_group(
+                    items, [seed + i for i in ks], config,
+                    group_size=group_size, chunk_sweeps=chunk_sweeps,
+                    kernel=kernel, device=dev, uniforms=u_grp,
+                    on_chunk=lambda k0=ks[0]: drv.chunk_poll(k0),
+                )
+            elapsed = sw.wall_s
             for j, i in enumerate(ks):
                 conf[i] = res.s[j]
                 # the serial result's f32 mean, widened into the f64 array

@@ -105,7 +105,19 @@ class HostPrefetcher:
     def close(self, timeout_s: float | None = None) -> None:
         """Stop the worker, drain the queue and join the thread
         (idempotent); a worker still alive after ``timeout_s`` is logged
-        as hung and abandoned (it is a daemon)."""
+        as hung, counted (``pipeline.prefetch.hung``) and abandoned (it is
+        a daemon). The first close of a prefetcher that built something
+        emits the ``pipeline.prefetch.overlap_util`` gauge while recording:
+        the share of build time hidden behind the consumer (1 − wait/build).
+        """
+        from graphdyn_torch import obs
+
+        if obs.enabled() and self.build_s > 0 and not self._stop.is_set():
+            obs.gauge("pipeline.prefetch.overlap_util",
+                      max(0.0, 1.0 - self.wait_s / self.build_s),
+                      build_s=round(self.build_s, 6),
+                      wait_s=round(self.wait_s, 6), depth=self.depth,
+                      items=self._pos)
         self._stop.set()
         if self._q is not None:
             while True:                     # drain so a blocked put exits
@@ -120,6 +132,8 @@ class HostPrefetcher:
                 log.warning("prefetch worker %s is still alive %.3gs after "
                             "close(); abandoning the daemon thread",
                             self._thread.name, timeout_s)
+                obs.counter("pipeline.prefetch.hung", depth=self.depth,
+                            items=self._pos, timeout_s=timeout_s)
             self._thread = None
 
     def __enter__(self) -> "HostPrefetcher":

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from graphdyn_torch import obs
 from graphdyn_torch.config import SAConfig
 from graphdyn_torch.models import sa as _sa
 from graphdyn_torch.ops.dynamics import rule_coefficients
@@ -142,7 +143,7 @@ def run_sa_group(graphs, preps, rep_seeds, config: SAConfig, *,
             idx, st._replace(chunk_t=torch.zeros_like(st.chunk_t)), consts,
             chunk_steps=int(chunk_steps), **static)
 
-    state = _sa.run_chunks(advance, state, on_chunk=on_chunk)
+    state = _sa.run_chunks(advance, state, on_chunk=on_chunk, span="sa")
     return SAGroupResult(
         s=state.s[:G_real].cpu().numpy(),
         num_steps=state.t[:G_real].cpu().numpy(),
@@ -204,13 +205,21 @@ def sa_ensemble_grouped(
 
     with HostPrefetcher(build, range(start_k, n_stat), depth=prefetch) as pf:
         for ks in group_ranges(start_k, n_stat, group_size):
-            items = [pf.get(i) for i in ks]
-            res = run_sa_group(
-                [it[0] for it in items], [it[1] for it in items],
-                [seed + i for i in ks], config, group_size=group_size,
-                chunk_steps=chunk_steps,
-                on_chunk=lambda _st, k0=ks[0]: drv.chunk_poll(k0),
-                device=dev)
+            with obs.timed("pipeline.sa.group", reps=len(ks)) as sw:
+                items = [pf.get(i) for i in ks]
+                res = run_sa_group(
+                    [it[0] for it in items], [it[1] for it in items],
+                    [seed + i for i in ks], config, group_size=group_size,
+                    chunk_steps=chunk_steps,
+                    on_chunk=lambda _st, k0=ks[0]: drv.chunk_poll(k0),
+                    device=dev)
+            if obs.enabled():
+                # spin-updates/s through the driver (a candidate rollout
+                # re-rolls the whole graph: n spins per accepted step)
+                obs.gauge("ops.rollout.rate",
+                          n * int(np.sum(res.num_steps))
+                          / max(sw.wall_s, 1e-9),
+                          solver="sa_group", reps=len(ks))
             for j, i in enumerate(ks):
                 conf[i] = res.s[j]
                 # exact f64 sum, then the serial result's f32 cast

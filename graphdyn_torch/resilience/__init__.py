@@ -15,8 +15,9 @@ package drives the port unchanged).
 - :mod:`~graphdyn_torch.resilience.store` — the durable checkpoint store
   (manifests, retained versions, the mirror, ``run_journal.jsonl``),
   exported lazily below;
-- :mod:`~graphdyn_torch.resilience.hooks` — the telemetry hook (records
-  nothing yet).
+- :mod:`~graphdyn_torch.resilience.hooks` — the telemetry hook: the
+  layer's counters, gauges and spans go to :mod:`graphdyn_torch.obs`, its
+  post-mortems to :mod:`graphdyn_torch.obs.flight`.
 """
 
 from graphdyn_torch.resilience.faults import (  # noqa: F401

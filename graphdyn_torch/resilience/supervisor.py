@@ -28,9 +28,11 @@ environment variables, same journal events).
         the run with :data:`EX_QUARANTINE` (86)
   ====  =========================================================
 
-  A crash's site is the ``obs.crash`` event of the episode's post-mortem
-  file when there is one (``obs_postmortem.jsonl``, which the JAX package
-  writes; the port writes none yet), else ``exit:<code>``. Every episode
+  A crash's site is the ``obs.crash`` event of the episode's flight
+  post-mortem (``obs_postmortem.jsonl``, which a dying run writes into its
+  working directory, :mod:`graphdyn_torch.obs.flight`) when there is one,
+  else ``exit:<code>``; the post-mortems are kept as
+  ``<workdir>/supervise/postmortem.ep<N>.jsonl``. Every episode
   transition is journaled into the checkpoint directory's
   ``run_journal.jsonl``.
 """

@@ -34,6 +34,18 @@ RULE_TIES = [("majority", "stay"), ("majority", "change"),
              ("minority", "stay"), ("minority", "change")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port runs small tensors here: one intra-op thread per test
+    process avoids oversubscribing the cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _words(n, W, seed):
     rng = np.random.default_rng(seed)
     return rng.integers(0, 2**32, size=(n, W), dtype=np.uint64).astype(

@@ -31,6 +31,18 @@ GRAPHS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port runs small tensors here: one intra-op thread per test
+    process avoids oversubscribing the cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _setup(gname, R=5, seed=3):
     g = GRAPHS[gname]
     tables = jc.build_chromatic_tables(g, seed=0)

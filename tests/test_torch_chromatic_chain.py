@@ -41,6 +41,18 @@ SWEEPS = 3
 CFG = dict(par_a=1.0005, par_b=1.0005)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port runs small tensors here: one intra-op thread per test
+    process avoids oversubscribing the cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @lru_cache(maxsize=None)
 def _start(gname, rule, tie, R=5):
     """The reference's initial state (``chromatic_anneal``'s assembly) and

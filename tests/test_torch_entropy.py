@@ -394,10 +394,19 @@ def test_entropy_cli_keys_match_jax(extra, tmp_path):
         assert set(fj.files) == set(ft.files)
 
 
-def test_entropy_cli_refuses_unported_flags(tmp_path, capsys):
-    with pytest.raises(SystemExit, match="not ported"):
+def test_entropy_cli_refuses_unported_flags(tmp_path, capsys, monkeypatch):
+    # --plot draws since the telemetry slice (the figures are held to the
+    # JAX package's by tests/test_torch_plotting.py); without matplotlib it
+    # is refused before the run, as the JAX package refuses it
+    import importlib.util
+
+    find_spec = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a:
+                        None if name == "matplotlib" else find_spec(name, *a))
+    with pytest.raises(SystemExit, match="requires matplotlib"):
         tcli.main(["entropy", "--n", "20", "--device", "cpu", "--plot",
                    str(tmp_path / "x.png")])
+    monkeypatch.undo()
     # --checkpoint runs since the durability slice (its resume is held by
     # tests/test_torch_resume.py); a finished run removes its snapshot
     ck = str(tmp_path / "ck")

@@ -127,6 +127,28 @@ def test_grid_matches_jax_grid():
                                    rtol=0, atol=1e-4, err_msg=f)
 
 
+@pytest.mark.parametrize("group_size", [None, 0], ids=["grouped", "serial"])
+@pytest.mark.parametrize("method", ["networkx", "native"])
+def test_grid_samplers_match_jax_grid(method, group_size):
+    """``graph_method`` passes through to the ER sampler on both paths (the
+    networkx sampler and the native C++ one), as the JAX package's grid
+    takes it."""
+    if method == "networkx":
+        pytest.importorskip("networkx")
+    cfg = dict(lmbd_max=0.1, lmbd_step=0.1, num_rep=1)
+    deg = np.array([1.4])
+    want = jem.entropy_grid(30, deg, _jcfg(**cfg), seed=5,
+                            graph_method=method, group_size=group_size)
+    got = tem.entropy_grid(30, deg, _pcfg(**cfg), seed=5, graph_method=method,
+                           group_size=group_size, device=CPU)
+    for f in ("nodes_isolated", "mean_degrees", "max_degrees",
+              "mean_degrees_total", "counts", "n_lambda"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), f)
+    for f in ("ent", "m_init", "ent1"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=0, atol=1e-4, err_msg=f)
+
+
 def test_union_against_per_graph_with_isolate_and_edgeless_members():
     """Heterogeneous ER members (isolates included), an all-isolate member
     and an edgeless one: each member equals its own per-graph ladder (a

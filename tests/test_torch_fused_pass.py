@@ -37,6 +37,18 @@ JAX_GRAPHS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port runs small tensors here: one intra-op thread per test
+    process avoids oversubscribing the cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _assert_state_equal(got: tf.FusedState, want, what: str):
     g = interop.fused_state_to_numpy(got)
     for name in want._fields:

@@ -359,11 +359,13 @@ CLI_FORMS = {
 }
 
 
-def test_cli_prints_the_reference_keys(tmp_path):
+def test_cli_prints_the_reference_keys(tmp_path, monkeypatch):
     """``python -m graphdyn_torch hpr --device cpu`` prints the JSON keys of
     ``python -m graphdyn hpr`` under the same flags, in the default,
     ``--batch-replicas`` and ``--dtype float64`` forms, and its ``--out``
-    npz holds the same keys."""
+    npz holds the same keys. (The refused run's flight post-mortem lands in
+    the test's own directory.)"""
+    monkeypatch.chdir(tmp_path)
     from graphdyn_torch.cli import main
 
     base = ["hpr", "--n", "60", "--max-sweeps", "50"]

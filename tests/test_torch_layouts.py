@@ -11,6 +11,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import graphdyn.graphs as jg
 from graphdyn.config import DynamicsConfig as JDyn
@@ -23,6 +24,18 @@ from graphdyn_torch.models import sa as tsa
 from graphdyn_torch.ops.bucketed import BUCKETED_CV_THRESHOLD, auto_layout
 from graphdyn_torch.ops.lightcone import build_lightcone_tables
 from graphdyn_torch.search.fused import fused_anneal
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port runs small tensors here: one intra-op thread per test
+    process avoids oversubscribing the cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _cfg(p=1, c=1):

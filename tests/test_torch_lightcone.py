@@ -36,6 +36,18 @@ CHAINS = [(1, 1, "majority", "stay"), (3, 1, "majority", "stay"),
           (2, 2, "majority", "stay"), (2, 1, "minority", "change")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port runs small tensors here: one intra-op thread per test
+    process avoids oversubscribing the cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _port_graph(g):
     return graph_from_arrays(g.nbr, g.deg, g.edges)
 

@@ -102,7 +102,14 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.resilience.supervisor",
                  "graphdyn_torch.resilience.store",
                  "graphdyn_torch.resilience.hooks",
-                 "graphdyn_torch.utils.io"):
+                 "graphdyn_torch.utils.io",
+                 "graphdyn_torch.obs", "graphdyn_torch.obs.recorder",
+                 "graphdyn_torch.obs.flight", "graphdyn_torch.obs.trace",
+                 "graphdyn_torch.obs.report", "graphdyn_torch.obs.memband",
+                 "graphdyn_torch.obs.roofline", "graphdyn_torch.obs.trend",
+                 "graphdyn_torch.obs.__main__",
+                 "graphdyn_torch.utils.profiling",
+                 "graphdyn_torch.utils.validate"):
         assert name in out["modules"]
 
 

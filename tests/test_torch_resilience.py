@@ -374,11 +374,15 @@ def test_pallas_lower_site_raises_never_plain_fallback(action, exc):
     assert np.isfinite(sweep(data.init_messages(0), 0.25).numpy()).all()
 
 
-def test_pallas_lower_site_fails_hpr_and_entropy_cli(tmp_path, capsys):
+def test_pallas_lower_site_fails_hpr_and_entropy_cli(tmp_path, capsys,
+                                                    monkeypatch):
     """Through the CLI: an injected build failure of a sweep class ends the
-    run with the exception (a non-zero exit) and no result file."""
+    run with the exception (a non-zero exit) and no result file; its flight
+    post-mortem lands in the working directory."""
     from graphdyn_torch.cli import main
     from graphdyn_torch.resilience import faults
+
+    monkeypatch.chdir(tmp_path)
 
     for args in (["hpr", "--n", "40", "--max-sweeps", "20"],
                  ["entropy", "--n", "40", "--deg", "1.5", "--num-rep", "1",
@@ -389,6 +393,7 @@ def test_pallas_lower_site_fails_hpr_and_entropy_cli(tmp_path, capsys):
                 main(args + ["--device", "cpu", "--out", out])
         capsys.readouterr()
         assert not os.path.exists(out)
+        assert os.path.exists(tmp_path / "obs_postmortem.jsonl")
 
 
 def test_nan_in_sweep_carry_degrades_to_nonconvergence(caplog, tmp_path,

@@ -20,6 +20,18 @@ N, D, N_STAT, BUDGET = 24, 3, 5, 2000
 CFG = SAConfig(dynamics=DynamicsConfig(p=2, c=1))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port runs small tensors here: one intra-op thread per test
+    process avoids oversubscribing the cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def serial():
     return tsa.sa_ensemble(N, D, CFG, n_stat=N_STAT, seed=3,

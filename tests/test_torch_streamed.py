@@ -34,6 +34,18 @@ RULE_TIES = [("majority", "stay"), ("majority", "change"),
              ("minority", "stay"), ("minority", "change")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port runs small tensors here: one intra-op thread per test
+    process avoids oversubscribing the cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _graphs(kind, n, seed):
     if kind == "rrg":
         return (jg.random_regular_graph(n, 3, seed=seed),

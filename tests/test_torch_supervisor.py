@@ -2,9 +2,9 @@
 as ``tests/test_supervisor.py`` holds the JAX package's: heartbeats, the
 watchdog's stall and deadline ladder, the ``stall`` fault action, and the
 restart loop's exit-code policy (quarantine after N same-site crashes,
-seeded-jitter backoff, journaled episodes). The port's telemetry hook
-records nothing yet, so the JAX tests of the flight ring have port
-counterparts on the hook and the ledger reader instead."""
+seeded-jitter backoff, journaled episodes). The hook routes to the port's
+telemetry (``graphdyn_torch.obs``); the flight ring's own tests are in
+``tests/test_torch_obs_device.py``."""
 
 import json
 import os
@@ -43,14 +43,26 @@ def test_beat_is_monotonic_and_readable():
     assert n == n2 and t >= t0 and where == "rep"
 
 
-def test_hooks_record_nothing():
-    """The telemetry hook is a no-op until the port's recorder exists: a
-    beat, a counter and a post-mortem dump leave no file behind."""
+def test_hooks_record_nothing(tmp_path):
+    """With no recorder installed the hook records nothing to a ledger: a
+    beat, a counter and a gauge go only to the flight ring, and a dump
+    writes the post-mortem into the workdir it is given."""
+    from graphdyn_torch.obs import flight
+
+    flight.clear()
     assert not hooks.enabled()
     sup.beat("lambda")
     hooks.counter("x", 1, a=1)
     hooks.gauge("y", 2.0)
-    assert hooks.dump("exception", exc=RuntimeError("boom")) is None
+    assert [e["name"] for e in flight.snapshot()] == ["obs.heartbeat", "x",
+                                                      "y"]
+    path = hooks.dump("exception", exc=RuntimeError("boom"),
+                      workdir=str(tmp_path))
+    assert path == str(tmp_path / hooks.POSTMORTEM_NAME)
+    events, torn = hooks.read_ledger(path)
+    assert torn == 0 and events[0]["run"]["postmortem"]
+    assert events[-1]["name"] == "obs.crash"
+    assert events[-1]["attrs"]["exc_type"] == "RuntimeError"
     with hooks.current().span("io.ckpt.write", path="p") as sp:
         sp.set(bytes=1)
 

@@ -33,6 +33,18 @@ CFG = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
 JCFG = JSA(dynamics=JDyn(p=1, c=1))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port runs small tensors here: one intra-op thread per test
+    process avoids oversubscribing the cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("args", [(1,), (2,), (8,), (5, 0.5, 20.0),
                                   (8, 1.0, 64.0)])
 def test_ladder_betas_equal_jax(args):
