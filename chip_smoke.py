@@ -90,7 +90,26 @@ must count 0 there):
   CLI with churn (KB launches = chunks × steps over both legs), ``temper``,
   ``fused --deadline`` (exit 75), ``run-supervised -- sa`` through a crash
   (and a crash loop, exit 86), and an injected ``pallas.lower`` failure,
-  which must end the run.
+  which must end the run;
+- node-axis sharding (the ``parallel`` group): K1/K2′'s launch on the halo
+  shard layout against its plain twin, bit for bit, for the four (rule,
+  tie) on every shard of the headline RRG's and config 3's partitions (pad
+  rows included), timed beside its bound; ``packed_rollout(partition=)``
+  for 20 steps at the headline and config 3 on two ranks spawned on the one
+  card over gloo (P = 2, exchanges staged through pinned host buffers) and
+  on a one-rank NCCL group (P = 1), each equal to the unsharded K1/K2′
+  rollout, with the step's and the exchange's ms, the bytes per step, the
+  edge cut and the partitioner's host seconds; ``consensus --sharded`` at
+  the headline width at P = 1 and P = 2 equal to unsharded; config 5's
+  single-card width through ``sa_sharded(rollout_mode='lightcone')`` (d=5
+  RRG, n=10⁶, 1024 replicas on a 16-point ladder, 2 chunks), µs per step
+  and peak memory; ``sa_sharded`` in gather and halo modes at P = 2 equal
+  to the one-process chain, and a P = 2 run preempted and resumed at P = 1
+  equal to it; memcheck's halo row; ``hpr --device-init`` at config 2
+  (set-up seconds beside the host init's, K3′ launches = sweeps, card ==
+  CPU on a small shape, in the ``bdcm`` group);
+- the chaos soak's bounded matrix on the card (``soak``: 11 scenarios,
+  seed 0 and more seeds while the run has time).
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
 n=10⁶, R=1024), with its peak device memory; the packed step and its bare
@@ -362,6 +381,22 @@ OBS_ENTROPY_LMBD_MAX = 0.5
 OBS_REPEATS = 5
 OBS_HPR_SWEEPS, OBS_HPR_CHUNK = 400, 80
 OBS_SA_STEPS = 1280
+# node-axis sharding (the parallel group): steps of each halo main path and
+# of its timed split; the small SA shape of the sharded chains; the
+# consensus leg at the headline width; config 5's light-cone run through
+# the CLI (cut to CONFIG5_CHUNKS chunks); the spawned ranks' time limit
+PAR_STEPS, PAR_TIMED_STEPS = 20, 5
+PAR_SA_N, PAR_SA_R, PAR_SA_L = 2000, 8, 300
+PAR_CONSENSUS_ARGV = ["consensus", "--graph", "rrg", "--n", str(10**6),
+                      "--d", "3", "--replicas", "16384", "--m0", "0.1",
+                      "--max-steps", "20", "--chunk", "10", "--device",
+                      "cuda"]
+CONFIG5_CHUNKS, CONFIG5_CHUNK = 2, 256
+PAR_SPAWN_TIMEOUT_S = 600
+# the soak group adds seeds past seed 0 while the run is inside this
+SOAK_UNTIL_S = 900
+# the chromatic phase's profiled chunk (its 64-sweep timing run is apart)
+CHROMATIC_PROFILE_SWEEPS = 8
 
 
 _T0 = time.perf_counter()
@@ -2919,25 +2954,33 @@ def phase_chromatic_main() -> dict:
     tables = build_chromatic_tables(g, seed=args.seed)
     cfg = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
 
-    def sweeps64():
+    def sweeps(k):
         return chromatic_anneal(g, cfg, n_replicas=32, seed=args.seed,
-                                m_target=1.0, max_sweeps=64, chunk_sweeps=64,
+                                m_target=1.0, max_sweeps=k, chunk_sweeps=k,
                                 tables=tables, device="cuda")
 
-    sweeps64()
+    sweeps(64)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r64 = sweeps64()
+    r64 = sweeps(64)
     wall64 = time.perf_counter() - t0
-    prof = profile_breakdown(sweeps64, "chromatic, 64 sweeps on prebuilt "
-                             "tables", top=6)
+    # the busy share over a shorter chunk: the profiler's tables over 64
+    # sweeps took ~100 s of post-processing on the card's host
+    k = CHROMATIC_PROFILE_SWEEPS
+    sweeps(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweeps(k)
+    wall_k = time.perf_counter() - t0
+    prof = profile_breakdown(lambda: sweeps(k), f"chromatic, {k} sweeps on "
+                             "prebuilt tables", top=6)
     if r64.sweeps != 64:
         raise AssertionError(f"chromatic timing run: {r64.sweeps} sweeps")
     out = {"wall_s": wall, "sweeps": res.sweeps, "chi": res.chi,
            "sweeps_per_s": res.sweeps / wall,
            "run_sweeps_per_s": run_sweeps / wall,
            "timed_sweeps_per_s": 64 / wall64,
-           "timed_busy_share": prof["device_us"] / (wall64 * 1e6),
+           "timed_busy_share": prof["device_us"] / (wall_k * 1e6),
            "class_steps_per_s": res.device_steps / wall,
            "first_passage_sweeps": res.sweeps_to_target.tolist(),
            "reached": int(reached.sum()),
@@ -2956,9 +2999,9 @@ def phase_chromatic_main() -> dict:
         f"sums) {launches}")
     log(f"[28 chromatic main] 64 sweeps on prebuilt tables (m_target 1.0, "
         f"no replica stops): {wall64:.3f} s = {out['timed_sweeps_per_s']:.2f} "
-        f"sweeps/s, {64 * res.chi / wall64:.1f} class steps/s; device "
-        f"{prof['device_us'] / 1e3:.3f} ms: busy share "
-        f"{out['timed_busy_share']:.4f}")
+        f"sweeps/s, {64 * res.chi / wall64:.1f} class steps/s; {k} sweeps: "
+        f"{wall_k:.3f} s, device {prof['device_us'] / 1e3:.3f} ms under the "
+        f"profiler: busy share {out['timed_busy_share']:.4f}")
     return out
 
 
@@ -4587,6 +4630,477 @@ def phase_obs(tmp: str) -> dict:
             "flight": phase_obs_flight(tmp)}
 
 
+# ---------------------------------------------------------------------------
+# node-axis sharding over torch.distributed (the parallel group)
+# ---------------------------------------------------------------------------
+
+
+def _shard_bound(tables, p: int, W: int) -> dict:
+    """The least time of one K1/K2′ launch on shard ``p`` of ``tables``:
+    the rows the function needs read once (its real owned rows and every
+    other row that one of them has as a neighbour: real ghosts, hubs, the
+    zero row), its real owned rows written once, the neighbour indices of
+    those rows (it loops to each row's degree) and their degrees, over HBM
+    bandwidth; the logic of those rows over the INT32 rate."""
+    from graphdyn_torch.obs.roofline import INT32_OPS_PER_S, majority_ops
+
+    cnt = int(tables.counts[p])
+    deg = tables.deg_loc[p, :cnt].astype(np.int64)
+    nbr = tables.nbr_loc[p, :cnt]
+    used = nbr[np.arange(nbr.shape[1])[None, :] < deg[:, None]]
+    reads = cnt + int(np.unique(used[used >= cnt]).size)
+    nbytes = 4 * W * (reads + cnt) + 4 * int(deg.sum()) + 4 * cnt
+    ops = majority_ops(W, deg)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+    return {"bytes": nbytes, "rows_read": reads, "ops": ops,
+            "bound_ms": bound_ms,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / INT32_OPS_PER_S else "operations")}
+
+
+def phase_shard_step_parity(cases) -> dict:
+    """K1/K2′'s launch on the halo shard layout against its plain twin, bit
+    for bit, for every (rule, tie) on every shard of each partition in
+    ``cases`` (``(label, graph, partition, W)``), into a buffer of sentinel
+    words that must keep them past the real owned rows; then its ms per
+    launch on the widest shard of the first (CUDA events) beside the plain
+    twin's and the bound."""
+    from graphdyn_torch.parallel import halo as ph
+
+    out = {"cases": []}
+    for label, g, part, W in cases:
+        t = ph.build_halo_tables(g, part)
+        sp = _random_words(g.n, W, 5).cpu()
+        from graphdyn_torch.interop import words_to_numpy, words_from_numpy
+
+        sp_h = words_to_numpy(sp)
+        for p in range(t.P):
+            src_h = words_from_numpy(ph.scatter_shard(t, sp_h, p))
+            src = src_h.cuda()
+            nbr = torch.as_tensor(t.nbr_loc[p], device="cuda")
+            deg = torch.as_tensor(t.deg_loc[p], device="cuda")
+            for rule, tie in RULE_TIES:
+                step = ph.ShardStep(nbr, deg, n_update=int(t.counts[p]),
+                                    rule=rule, tie=tie)
+                got = step(src, torch.full_like(src, 0x5A5A5A5A))
+                want = ph.shard_step_plain(nbr, deg, src,
+                                           torch.full_like(src, 0x5A5A5A5A),
+                                           n_update=int(t.counts[p]),
+                                           rule=rule, tie=tie)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"shard-layout K1/K2' != plain twin: {label} shard "
+                        f"{p} {rule}/{tie}")
+            out["cases"].append({"label": label, "shard": p,
+                                 "rows": t.n_rows, "real": int(t.counts[p]),
+                                 "pad_rows": t.n_local_max - int(t.counts[p]),
+                                 "ghosts": int(t.ghost_counts[p]),
+                                 "hubs": t.n_hubs})
+        if "ms" not in out:
+            p = int(np.argmax(t.counts + t.ghost_counts))
+            src = words_from_numpy(ph.scatter_shard(t, sp_h, p)).cuda()
+            dst = src.clone()
+            nbr = torch.as_tensor(t.nbr_loc[p], device="cuda")
+            deg = torch.as_tensor(t.deg_loc[p], device="cuda")
+            step = ph.ShardStep(nbr, deg, n_update=int(t.counts[p]),
+                                rule="majority", tie="stay")
+            step(src, dst)
+            out["ms"] = _cuda_ms(lambda: step(src, dst), 20)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ph.shard_step_plain(nbr, deg, src, dst,
+                                n_update=int(t.counts[p]))
+            end.record()
+            torch.cuda.synchronize()
+            out["plain_ms"] = start.elapsed_time(end)
+            out.update(_shard_bound(t, p, W))
+            out["shape"] = (f"{label}: shard {p} of {t.P}, [{t.n_rows}, {W}] "
+                            f"({int(t.counts[p])} real owned rows, "
+                            f"{t.n_local_max - int(t.counts[p])} pad, "
+                            f"{int(t.ghost_counts[p])} ghosts)")
+            del src, dst
+    log(f"[53 shard step] K1/K2' on the halo shard layout == its plain twin "
+        f"bit for bit and writes no row past the real owned ones, 4 (rule, "
+        f"tie) x every shard of {[c[0] for c in cases]}; {out['shape']}: "
+        f"{out['ms']} ms/launch, plain {out['plain_ms']} ms, bound "
+        f"{out['bound_ms']} ms ({out['bound_by']}: {out['bytes']} B, "
+        f"{out['rows_read']} rows read); library_ms null (no single PyTorch "
+        f"call computes a packed majority step)")
+    return out
+
+
+def _par_inputs(tmp: str, ctx: dict) -> dict:
+    """The inputs the spawned ranks read from ``tmp``: the headline and
+    config-3 graphs and partitions, the small SA graph and its streams."""
+    import pickle
+
+    t0 = time.perf_counter()
+    part_h = graphs.partition_graph(ctx["g_h"], 2, seed=0)
+    t_part_h = time.perf_counter() - t0
+    g_e = ctx["config3"][0]
+    t0 = time.perf_counter()
+    part_e = graphs.partition_graph(g_e, 2, seed=0)
+    t_part_e = time.perf_counter() - t0
+    g_sa = random_regular_graph(PAR_SA_N, 3, seed=2)
+    rng = np.random.default_rng(3)
+    s0 = np.where(rng.random((PAR_SA_R, PAR_SA_N)) < 0.6, 1, -1
+                  ).astype(np.int8)
+    prop = rng.integers(0, PAR_SA_N, size=(PAR_SA_R, PAR_SA_L)
+                        ).astype(np.int32)
+    unif = rng.random(size=(PAR_SA_R, PAR_SA_L))
+    inputs = {"g_h": ctx["g_h"], "part_h": part_h, "g_e": g_e,
+              "part_e": part_e, "g_sa": g_sa, "s0": s0, "prop": prop,
+              "unif": unif, "ckpt": os.path.join(tmp, "ck", "sa")}
+    with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f, protocol=4)
+    inputs["part_s"] = {"headline": t_part_h, "config3": t_part_e}
+    return inputs
+
+
+def _par_rank(rank: int, world: int, tmp: str) -> dict:
+    """One spawned rank of the parallel group's P=2 legs (two ranks sharing
+    the card over gloo, :func:`graphdyn_torch.scripts.halo_ranks.
+    run_ranks`): the headline and config-3 halo rollouts, the sharded
+    consensus at the headline width, the sharded SA in its gather and halo
+    modes under injected streams, and a checkpointed run that is preempted
+    at its second chunk boundary."""
+    import pickle
+
+    from graphdyn_torch.parallel.mesh import make_mesh
+    from graphdyn_torch.parallel.sa_sharded import sa_sharded
+    from graphdyn_torch.scripts.halo_ranks import halo_leg
+
+    res = {}
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    mesh = make_mesh((1, world), ("replica", "node"), device="cuda")
+    for key, g, part, W, seed, label in (
+            ("headline", inp["g_h"], inp["part_h"], HEADLINE_R // 32, 1,
+             "headline"),
+            ("config3", inp["g_e"], inp["part_e"], CONFIG3_R // 32, 3,
+             "config 3")):
+        res[key] = halo_leg(g, part, W, seed, mesh, label, steps=PAR_STEPS,
+                            timed=PAR_TIMED_STEPS)
+    buf = io.StringIO()
+    packed_cuda.LAUNCHES = 0
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(PAR_CONSENSUS_ARGV + ["--sharded"])
+    res["consensus"] = {"rc": rc, "out": buf.getvalue(),
+                        "launches": packed_cuda.LAUNCHES}
+    cfg = _sa_config()
+    for mode in ("gather", "halo"):
+        t0 = time.perf_counter()
+        r = sa_sharded(inp["g_sa"], cfg, mesh=mesh, s0=inp["s0"],
+                       proposals=inp["prop"], uniforms=inp["unif"],
+                       node_mode=mode, chunk_steps=64, device="cuda")
+        res[f"sa_{mode}"] = {f: getattr(r, f) for f in r._fields}
+        res[f"sa_{mode}"]["wall_s"] = time.perf_counter() - t0
+    plan = faults.FaultPlan([faults.FaultSpec("chunk.boundary", "preempt",
+                                              at=2)])
+    try:
+        with plan:
+            sa_sharded(inp["g_sa"], cfg, mesh=mesh, s0=inp["s0"],
+                       proposals=inp["prop"], uniforms=inp["unif"],
+                       node_mode="halo", chunk_steps=64,
+                       checkpoint_path=inp["ckpt"],
+                       checkpoint_interval_s=0.0, device="cuda")
+        res["preempt"] = "finished"
+    except faults.InjectedPreemption:
+        res["preempt"] = "preempted"
+    return res
+
+
+def _same_result(got: dict, want, what: str) -> None:
+    for f in ("s", "num_steps", "m_final", "mag_reached"):
+        if not np.array_equal(np.asarray(got[f]), np.asarray(getattr(want, f))):
+            raise AssertionError(f"{what}: {f} differs from its twin")
+
+
+def phase_config5_lightcone(tmp: str) -> dict:
+    """Config 5's single-card width as a user runs it: ``sa --sharded
+    --rollout-mode lightcone`` through the CLI on the one-rank job, d=5
+    RRG, n=10⁶, 1024 replicas on the CLI's ladder (``--ladder-max-frac``:
+    a0 linear in [a0-frac, 4·a0-frac], one value per replica, where the
+    configuration has 16 rungs of 64 replicas each), p=c=1, cut to
+    CONFIG5_CHUNKS chunks of CONFIG5_CHUNK steps, with ``--obs-ledger``.
+    µs per chain step (one step advances all 1024 replicas) from the
+    ledger's ``pipeline.sa_sharded.chunk`` spans, and the call's peak
+    device memory."""
+    ledger = os.path.join(tmp, "config5.jsonl")
+    a0_frac = _sa_config().a0_frac
+    argv = ["--obs-ledger", ledger, "sa", "--sharded", "--rollout-mode",
+            "lightcone", "--n", str(SCALE_N), "--d", str(SCALE_D), "--p",
+            "1", "--c", "1", "--n-replicas", str(SCALE_R), "--a0-frac",
+            str(a0_frac), "--ladder-max-frac", str(4 * a0_frac),
+            "--max-steps", str(CONFIG5_CHUNKS * CONFIG5_CHUNK),
+            "--chunk-steps", str(CONFIG5_CHUNK), "--seed", "0", "--device",
+            "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    steps = np.asarray(doc["num_steps"])
+    m_final = np.asarray(doc["m_final"], np.float64)
+    if rc != 0 or doc["solver"] != "sa_sharded" \
+            or doc["mesh"] != {"replica": 1, "node": 1} \
+            or steps.shape != (SCALE_R,) or steps.max() < 1 \
+            or steps.max() > CONFIG5_CHUNKS * CONFIG5_CHUNK + 1 \
+            or not np.isfinite(m_final).all():
+        raise AssertionError(f"config 5 sa --sharded: exit {rc}, solver "
+                             f"{doc['solver']}, mesh {doc['mesh']}, steps "
+                             f"{steps.max()}")
+    spans = [e for e in obs_read_ledger(ledger)[0] if e.get("ev") == "span"]
+    chunks = [e["wall_s"] for e in spans
+              if e["name"] == "pipeline.sa_sharded.chunk"]
+    (run,) = [e["wall_s"] for e in spans if e["name"] == "run"]
+    loop_s = float(sum(chunks))
+    us = loop_s / (len(chunks) * CONFIG5_CHUNK) * 1e6
+    log(f"[56 config 5] {' '.join(argv[2:])}: {len(chunks)} chunks of "
+        f"{CONFIG5_CHUNK} steps (chains stopped at {int(steps.max())}): "
+        f"{us:.1f} us per step of all {SCALE_R} replicas (the chunk spans' "
+        f"{loop_s:.3f} s, each chunk synchronised); the command {wall:.3f} s"
+        f" ({run:.3f} s in its run span: graph, host light-cone tables, "
+        f"placement, the trajectory cache, the chunks); peak device memory "
+        f"{peak} B; m_final {sorted(set(m_final.tolist()))[:4]}")
+    return {"wall_s": wall, "run_span_s": run, "steps": int(steps.max()),
+            "us_per_step": us, "loop_s": loop_s, "chunks": len(chunks),
+            "peak_bytes": peak}
+
+
+def phase_parallel(ctx: dict) -> dict:
+    """Node-axis sharding: the shard-layout launch against
+    its twin; the P=2 legs on two spawned ranks sharing the card over gloo
+    (the headline and config-3 halo rollouts, the sharded consensus, the
+    sharded SA and a preempted SA run); the P=1 legs on a one-rank NCCL
+    group in this process (the same rollouts and consensus, config 5's
+    light-cone width, and the P=2 run resumed at P=1); memcheck's halo
+    row."""
+    import torch.distributed as dist
+
+    from graphdyn_torch.obs import memband
+    from graphdyn_torch.parallel.mesh import init_distributed, make_mesh
+    from graphdyn_torch.parallel.sa_sharded import sa_sharded
+    from graphdyn_torch.scripts.halo_ranks import halo_leg, run_ranks
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        inp = _par_inputs(tmp, ctx)
+        out["partition_s"] = inp["part_s"]
+        out["shard_step"] = phase_shard_step_parity(
+            [("headline P=2", ctx["g_h"], inp["part_h"], HEADLINE_R // 32),
+             ("config 3 P=2", inp["g_e"], inp["part_e"], CONFIG3_R // 32),
+             ("config 3 P=3", inp["g_e"],
+              graphs.partition_graph(inp["g_e"], 3, seed=0), 3)])
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(_par_rank, 2, tmp, device="cuda", backend="gloo",
+                          root=tmp, timeout=PAR_SPAWN_TIMEOUT_S)
+        out["spawn_wall_s"] = time.perf_counter() - t0
+        r0 = ranks[0]
+        for leg in ("headline", "config3"):
+            for r in ranks:
+                if not r[leg]["equal"] \
+                        or r[leg]["launches"]["shard"] != PAR_STEPS:
+                    raise AssertionError(f"P=2 {leg}: {r[leg]}")
+        log(f"[54 halo P=2] two ranks on one card over gloo (staged through "
+            f"pinned host buffers), {PAR_STEPS} steps each, equal to the "
+            f"unsharded K1/K2' rollout: "
+            + "; ".join(
+                f"{r0[k]['label']}: edge_cut {r0[k]['edge_cut']}, partition "
+                f"{inp['part_s'][k]:.3f} s on the host, main path wall "
+                f"{r0[k]['wall_s']:.3f} s, shard launches (rank 0/1) "
+                f"{[r[k]['launches']['shard'] for r in ranks]}, per step "
+                f"(median of {PAR_TIMED_STEPS} timed steps, rank 0 / 1) "
+                f"step {[round(r[k]['step_ms'], 3) for r in ranks]} ms + "
+                f"exchange {[round(r[k]['exchange_ms'], 3) for r in ranks]} "
+                f"ms for "
+                f"{r0[k]['halo_bytes_per_step']} B (halo_bytes_per_step; "
+                f"{r0[k]['halo_rows']} useful rows, {r0[k]['slab_rows']} "
+                f"shipped)" for k in ("headline", "config3"))
+            + f"; spawn wall {out['spawn_wall_s']:.3f} s")
+        init_distributed(world_size=1, rank=0, backend="nccl",
+                         device="cuda")
+        try:
+            mesh1 = make_mesh((1, 1), ("replica", "node"), device="cuda")
+            p1 = {}
+            for k, g, W, seed in (("headline", ctx["g_h"], HEADLINE_R // 32,
+                                   1), ("config3", inp["g_e"],
+                                        CONFIG3_R // 32, 3)):
+                part1 = graphs.partition_graph(g, 1, seed=0)
+                p1[k] = halo_leg(g, part1, W, seed, mesh1, k,
+                                 steps=PAR_STEPS, timed=PAR_TIMED_STEPS)
+                if not p1[k]["equal"] or p1[k]["launches"]["packed_step"] \
+                        != PAR_STEPS:
+                    raise AssertionError(f"P=1 {k}: {p1[k]}")
+            out["p1"], out["p2"] = p1, {k: r0[k] for k in ("headline",
+                                                           "config3")}
+            docs = {}
+            for label, extra in (("unsharded", []), ("P=1", ["--sharded"])):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(PAR_CONSENSUS_ARGV + extra)
+                docs[label] = json.loads(buf.getvalue().strip()
+                                         .splitlines()[-1])
+                if rc != 0:
+                    raise AssertionError(f"consensus {label} exit {rc}")
+            c2 = r0["consensus"]
+            docs["P=2"] = json.loads(c2["out"].strip().splitlines()[-1])
+            if ranks[1]["consensus"]["out"].strip() or c2["rc"] != 0 \
+                    or ranks[1]["consensus"]["rc"] != 0:
+                raise AssertionError("consensus --sharded: rank 1 printed or "
+                                     "a rank failed")
+            if not (docs["unsharded"]["rows"] == docs["P=1"]["rows"]
+                    == docs["P=2"]["rows"]):
+                raise AssertionError("consensus --sharded differs from the "
+                                     "unsharded sweep")
+            log(f"[55 consensus] {' '.join(PAR_CONSENSUS_ARGV)}: --sharded at "
+                f"P=1 (one NCCL rank) and P=2 (two gloo ranks, word slabs "
+                f"of {HEADLINE_R // 64} words) equal to the unsharded rows; "
+                f"K1/K2' launches on each rank {c2['launches']}")
+            out["consensus_launches_p2"] = c2["launches"]
+            out["config5"] = phase_config5_lightcone(tmp)
+            # the small SA shape: P=2 gather and halo equal to the one-
+            # process port; the P=2 preempted run resumed at P=1
+            cfg = _sa_config()
+            want = simulated_annealing(inp["g_sa"], cfg, s0=inp["s0"],
+                                       proposals=inp["prop"],
+                                       uniforms=inp["unif"], device="cuda")
+            for mode in ("gather", "halo"):
+                _same_result(r0[f"sa_{mode}"], want, f"sa_sharded {mode} P=2")
+            if any(r["preempt"] != "preempted" for r in ranks):
+                raise AssertionError("the P=2 checkpointed run was not "
+                                     "preempted")
+            t0 = time.perf_counter()
+            res = sa_sharded(inp["g_sa"], cfg, mesh=mesh1, s0=inp["s0"],
+                             proposals=inp["prop"], uniforms=inp["unif"],
+                             chunk_steps=64, checkpoint_path=inp["ckpt"],
+                             checkpoint_interval_s=0.0, device="cuda")
+            resume_wall = time.perf_counter() - t0
+            _same_result({f: getattr(res, f) for f in res._fields}, want,
+                         "sa_sharded resumed at P=1")
+            log(f"[57 sa_sharded] RRG d=3 n={PAR_SA_N}, R={PAR_SA_R}, "
+                f"{PAR_SA_L} injected draws: gather and halo at P=2 equal to "
+                f"simulated_annealing (walls "
+                f"{r0['sa_gather']['wall_s']:.3f} / "
+                f"{r0['sa_halo']['wall_s']:.3f} s); preempted at its 2nd "
+                f"chunk boundary at P=2 (halo), resumed at P=1 from rank 0's "
+                f"global snapshot: equal to the uninterrupted chain "
+                f"({resume_wall:.3f} s)")
+            out["sa"] = {"gather_wall_s": r0["sa_gather"]["wall_s"],
+                         "halo_wall_s": r0["sa_halo"]["wall_s"],
+                         "resume_wall_s": resume_wall}
+        finally:
+            dist.destroy_process_group()
+    # memcheck's halo row (the obs group's memcheck prints it among the
+    # others): the widest smoke shard's peak against its model
+    dev = torch.device("cuda")
+    base = torch.cuda.memory_allocated(dev)
+    halo_row = memband._row("halo_shard",
+                            memband._measure_halo_shard(dev, 8, 8),
+                            memband._halo_smoke_model(8), None)
+    if not halo_row.ok or halo_row.measured is None:
+        raise AssertionError(f"memcheck halo row: {halo_row}")
+    log(f"[58 memcheck] halo_shard: measured peak {halo_row.measured} B "
+        f"against the widest shard's model {halo_row.model} B -> frac "
+        f"{halo_row.frac:.3f} (band [{halo_row.lo:g}, {halo_row.hi:g}]); "
+        f"{base} B held when it started")
+    out["memcheck_halo"] = halo_row._asdict()
+    return out
+
+
+def phase_config2_device_init(host_setup: dict) -> dict:
+    """``hpr_solve_batch(device_init=True)`` at config 2's width (256 ×
+    RRG(10⁵, 3), float32): the on-device initial draw's seconds beside the
+    host init's of the same call (phase 15's ``init_draw`` + ``upload``),
+    the same draw on a small shape equal on the card and the CPU, then
+    ``hpr --device-init`` through the CLI with its K3′ launches counted
+    (one per sweep)."""
+    from graphdyn_torch.models.hpr import device_init_state
+
+    for dt in (torch.float32, torch.float64):
+        a = device_init_state(5, 300, 900, 4, dt, 9, torch.device("cuda"))
+        b = device_init_state(5, 300, 900, 4, dt, 9, torch.device("cpu"))
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(a, b)):
+            raise AssertionError(f"device init: card != CPU ({dt})")
+    g = random_regular_graph(CONFIG2_N, CONFIG2_D, seed=0)
+    twoE = 2 * g.num_edges
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = device_init_state(CONFIG2_R, g.n, twoE, 4, torch.float32, 0,
+                           torch.device("cuda"))
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    chi = st[0]
+    row_err = float((chi.sum(dim=(1, 2)) - 1).abs().max())
+    del st, chi
+    torch.cuda.empty_cache()
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["hpr", "--batch-replicas", str(CONFIG2_R), "--n",
+                       str(CONFIG2_N), "--d", str(CONFIG2_D), "--max-sweeps",
+                       str(CONFIG2_SWEEPS), "--device-init", "--device",
+                       "cuda"])
+    wall = time.perf_counter() - t0
+    doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or doc["solver"] != "hpr_batch":
+        raise AssertionError(f"hpr --device-init exit {rc}")
+    launches = _bdcm_counts("hpr --device-init (config 2)",
+                            _hpr_clock(np.asarray(doc["num_steps"]),
+                                       CONFIG2_SWEEPS))
+    host_s = host_setup["init_draw"] + host_setup["upload"]
+    log(f"[15b config 2] device init (chi {CONFIG2_R * twoE}x4x4, biases, "
+        f"seeds; Threefry on the card) {t_dev:.3f} s beside the host init's "
+        f"{host_s:.3f} s (numpy draw {host_setup['init_draw']:.3f} s + upload "
+        f"{host_setup['upload']:.3f} s) in this call; rows sum to 1 within "
+        f"{row_err:.3e}; card == CPU bit for bit on a small shape (f32, f64);"
+        f" hpr --device-init: wall {wall:.3f} s, bdcm_sweep launches (one "
+        f"per sweep) {launches}")
+    return {"device_init_s": t_dev, "host_init_s": host_s,
+            "cli_wall_s": wall, "launches": launches, "row_err": row_err}
+
+
+def _group_soak(ctx: dict) -> dict:
+    """The chaos soak's bounded matrix on the card (every workload on
+    ``--device cuda``): seed 0 always, further seeds while the run is
+    inside SOAK_UNTIL_S seconds."""
+    from graphdyn_torch.resilience.soak import SCENARIOS, run_soak
+
+    seeds, walls, failed = [], [], 0
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            for seed in range(3):
+                if seed and time.perf_counter() - _T0 > SOAK_UNTIL_S:
+                    break
+                t0 = time.perf_counter()
+                rep = run_soak(seeds=[seed], root=os.path.join(tmp, "soak"),
+                               device="cuda")
+                walls.append(time.perf_counter() - t0)
+                seeds.append(seed)
+                bad = [(r["scenario"], r["problems"]) for r in rep["runs"]
+                       if not r["ok"]]
+                failed += len(bad)
+                if bad:
+                    raise AssertionError(f"soak seed {seed}: {bad}")
+        finally:
+            os.chdir(cwd)
+    log(f"[59 soak] {len(SCENARIOS)} scenarios x seeds {seeds} on the card, "
+        f"each bit-exact against its fault-free oracle with a valid journal "
+        f"and flight story; seconds per seed {[round(w, 3) for w in walls]}")
+    return {"seeds": seeds, "walls_s": walls, "failed": failed}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4597,7 +5111,7 @@ def card_line() -> str:
 
 #: the phase groups, in the order a full run takes them
 GROUPS = ("packed", "fused", "bdcm", "gather", "entropy", "sa", "powerlaw",
-          "durable", "obs")
+          "durable", "obs", "parallel", "soak")
 #: the groups whose results the durable group holds its resumed runs to
 DURABLE_NEEDS = ("fused", "bdcm", "entropy", "sa")
 
@@ -4683,6 +5197,7 @@ def _group_bdcm(ctx: dict) -> dict:
            "cfg2": phase_config2_setup_timing(),
            "cfg2_main": phase_config2_main(), "hpr_t5": phase_hpr_t5(),
            "t6": phase_sweep_t6(), "glob": phase_entropy_global()}
+    out["cfg2_devinit"] = phase_config2_device_init(out["cfg2"]["setup_s"])
     phase_t7_refused()
     return out
 
@@ -4759,6 +5274,14 @@ def _group_obs(ctx: dict) -> dict:
     memory, the roofline check and the flight post-mortem."""
     with tempfile.TemporaryDirectory(dir=HERE) as tmp:
         return phase_obs(tmp)
+
+
+def _group_parallel(ctx: dict) -> dict:
+    """Node-axis sharding: the shard-layout K1/K2′ launch, the
+    halo rollouts at P=1 and P=2, the sharded consensus, config 5's
+    light-cone width, the sharded SA and its resume across P, memcheck's
+    halo row."""
+    return phase_parallel(ctx)
 
 
 def run_groups(names) -> dict:
@@ -4858,7 +5381,11 @@ def kernels_line(res: dict, built: dict) -> list[dict]:
                          for dt, v in glob.items()},
                       **{f"hpr_cli_resumed_{dt}": v["launches"]
                          for dt, v in durable["hpr"].items()},
+                      "hpr_cli_device_init_config2":
+                          bd["cfg2_devinit"]["launches"],
                       **entropy_launches}
+    par = res["parallel"]
+    shard = par["shard_step"]
 
     return [{
         "name": "packed_step",
@@ -5083,6 +5610,34 @@ def kernels_line(res: dict, built: dict) -> list[dict]:
         "parts": pl_main["parts"],
         "parity_cases": kb_parity["cases"],
         "ptxas": built["bucketed_step"],
+    }, {
+        "name": "packed_step_shard",
+        "route": "cuda",
+        "source": "graphdyn_torch/csrc/packed_step.cu",
+        "replaces": "graphdyn/ops/pallas_packed.py:224 (K2 _general_step_ext) "
+                    "as graphdyn/parallel/halo.py:384-392 runs it per shard "
+                    "(the halo shard layout's step)",
+        "parity": "bit-exact",
+        "launches": sum(par["p2"][k]["launches"]["shard"]
+                        for k in ("headline", "config3")),
+        "launches_note": "rank 0's shard-layout launches over the P=2 "
+                         "headline and config-3 main paths (each rank "
+                         "launches as many)",
+        "max_abs_err": 0.0,
+        "ms": shard["ms"],
+        "plain_ms": shard["plain_ms"],
+        "bound_ms": shard["bound_ms"],
+        "bound_by": shard["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a packed majority "
+                        "step",
+        "shape": shard["shape"],
+        "bound_terms": {k: shard[k] for k in ("bytes", "ops")},
+        "parity_cases": shard["cases"],
+        "exchange": {k: {f: par["p2"][k][f] for f in (
+            "step_ms", "exchange_ms", "halo_bytes_per_step", "edge_cut")}
+            for k in ("headline", "config3")},
+        "ptxas": built["packed_step"],
     }]
 
 
@@ -5135,7 +5690,8 @@ def main(argv=None) -> int:
             "graph_setup_s": res["t_powerlaw_s"]},
         "stream": {str(k): v for k, v in res["powerlaw"]["stream"].items()},
         "layouts": res["powerlaw"]["layouts"], "durable": res["durable"],
-        "obs": res["obs"]}}, default=str))
+        "obs": res["obs"], "parallel": res["parallel"],
+        "soak": res["soak"]}}, default=str))
     log(f"[24 gather] row_gather probe {res['gather']['probe']['wall_s']:.3f}"
         f" s")
     log(f"[10] seconds in all: {time.perf_counter() - t_start:.3f} "

@@ -20,6 +20,11 @@ package, so each counterpart is found under the same name:
 - ``graphdyn_torch.models``    — the opinion-consensus m(0) sweep, the
   serial SA chain (``simulated_annealing``, ``sa_ensemble``), HPr and the
   BDCM entropy ladders.
+- ``graphdyn_torch.parallel``  — meshes over ``torch.distributed`` ranks,
+  node-axis sharding by a full gather or by the halo exchange (the
+  packed-step kernel on the shard layout), and the sharded SA solver.
+- ``graphdyn_torch.resilience`` — checkpoints, shutdown, supervision and
+  the chaos soak.
 - ``graphdyn_torch.interop``   — numpy bridges to the JAX package's arrays.
 
 Entry points take ``device=`` and default to CUDA; without a CUDA device they

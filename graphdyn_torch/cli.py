@@ -4,7 +4,10 @@
   plus ``--device`` (default ``cuda``). It prints one JSON document, the
   sweep's :func:`~graphdyn_torch.models.consensus.consensus_doc`, with
   ``--out`` also writes it atomically, and with ``--plot PNG`` renders the
-  curve (needs matplotlib).
+  curve (needs matplotlib). ``--sharded`` shards the packed word axis over
+  the ranks of a ``torchrun`` job (one rank per card; a single process is a
+  one-rank mesh), bit-identical to the unsharded sweep; rank 0 prints and
+  writes.
 - ``fused``: the fused one-kernel annealer with the JAX package's flags and
   defaults, ``--kernel {auto,cuda,plain}`` for ``{auto,xla,pallas}`` and
   ``--device`` (default ``cuda``). It prints the reference's JSON keys, and
@@ -13,8 +16,8 @@
   (an ensemble of ``--n-rep`` fresh RRGs, or ``--batch-replicas`` chains on
   one graph), ``--kernel {auto,cuda,plain}`` for ``{auto,xla,pallas}`` and
   ``--device`` (default ``cuda``). It prints the reference's JSON keys, and
-  with ``--out`` writes the reference's npz keys. ``--device-init`` is
-  refused (not ported yet).
+  with ``--out`` writes the reference's npz keys. ``--device-init`` (with
+  ``--batch-replicas``) draws the initial state on the device.
 - ``entropy``: the BDCM entropy λ-ladders with the JAX package's flags and
   defaults (the grouped ``entropy_grid``, or ``--union G`` ER members per
   degree through ``entropy_ensemble_union``), ``--kernel {auto,cuda,plain}``
@@ -27,8 +30,15 @@
   replica-exchange ladder (``temper_search``); ``chromatic``: the chromatic
   block sweeps (``chromatic_anneal``). The reference's flags and defaults,
   ``--device`` for ``--backend``; each prints the reference's JSON keys and
-  with ``--out`` writes its npz keys. Refused with the reason (not ported
-  yet): ``--sharded``/``--shards``/``--lane-shards`` (A15).
+  with ``--out`` writes its npz keys. ``sa --sharded`` runs the mesh
+  solver (``parallel.sa_sharded``) over the ranks of a ``torchrun --nproc-
+  per-node N`` job with the reference's flags (``--n-replicas``,
+  ``--chunk-steps``, ``--shards P`` for a node axis of P ranks in the halo
+  mode, ``--ladder-max-frac``, ``--rollout-mode``), its refusals and its
+  JSON keys (``"solver": "sa_sharded"``, ``"mesh"``, ``"node_mode"``),
+  printed by rank 0; every rank exits with the same code, 75 after a
+  SIGTERM on any of them. Refused with the reason (not ported yet):
+  ``temper --lane-shards`` and ``sa --sharded --layout streamed`` (A15b).
   ``sa --layout bucketed|streamed`` runs the serial
   repetition loop on that layout (``--stream-chunks`` chunks when
   streamed). ``sa --chunk-steps`` is the number of masked MCMC steps
@@ -37,7 +47,7 @@
   seeded power-law graph, with the reference's flags and defaults, chunks
   on ``--device`` (default ``cuda``). It prints the reference's JSON keys
   and with ``--out`` writes its npz keys (``conf``, ``m_end``). Refused
-  (not ported yet): ``--shards`` ≥ 2 and ``--hub-threshold`` (A15).
+  (not ported yet): ``--shards`` ≥ 2 and ``--hub-threshold`` (A15b).
 - ``run-supervised``: the restart loop of
   :mod:`graphdyn_torch.resilience.supervisor` around another command.
 
@@ -155,6 +165,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     cons.add_argument("--seed", type=int, default=0, help="graph seed")
     cons.add_argument(
+        "--sharded", action="store_true",
+        help="shard the packed word axis over the ranks of the job (torchrun "
+             "--nproc-per-node N; zero per-step collectives; bit-identical "
+             "to unsharded)",
+    )
+    cons.add_argument(
         "--device", default="cuda",
         help="torch device to run on (default cuda; 'cpu' runs the plain "
              "PyTorch version)",
@@ -254,8 +270,13 @@ def build_parser() -> argparse.ArgumentParser:
              "program (hpr_solve_batch) instead of --n-rep fresh-graph "
              "repetitions",
     )
-    hpr.add_argument("--device-init", action="store_true",
-                     help="not ported yet (ROADMAP A11's remainder): refused")
+    hpr.add_argument(
+        "--device-init", action="store_true",
+        help="with --batch-replicas: draw the initial chi, biases and chain "
+             "seeds on the device from the port's Threefry init stream "
+             "(nothing union-sized crosses the host link; statistically "
+             "equivalent to the host draw, not bit-equal)",
+    )
     hpr.add_argument(
         "--device", default="cuda",
         help="torch device to run on (default cuda; 'cpu' runs the plain "
@@ -382,19 +403,34 @@ def _add_search_parsers(sub) -> None:
              "structure) or O(ball) light-cone roll vs a cached trajectory "
              "(bit-identical chains; runs the serial repetition loop)",
     )
-    sa.add_argument("--sharded", action="store_true",
-                    help="not ported yet (ROADMAP A15): refused")
-    sa.add_argument("--n-replicas", type=int, default=32,
-                    help="replica count for --sharded (not ported yet)")
+    sa.add_argument(
+        "--sharded", action="store_true",
+        help="run the mesh solver over the ranks of the job (torchrun "
+             "--nproc-per-node N): replicas over the replica axis, nodes "
+             "over the node axis; bit-identical chains to the unsharded "
+             "solver under the same draws",
+    )
+    sa.add_argument(
+        "--n-replicas", type=int, default=32,
+        help="replica count for --sharded; with --ladder-max-frac the per-"
+             "replica a0 spans [a0-frac, ladder-max-frac] linearly",
+    )
     sa.add_argument(
         "--chunk-steps", type=int, default=None, metavar="K",
         help="masked MCMC steps per chunk between two host reads (default "
              "256); splitting the loop cannot change the chain",
     )
-    sa.add_argument("--shards", type=int, default=None, metavar="P",
-                    help="not ported yet (ROADMAP A15): refused")
-    sa.add_argument("--ladder-max-frac", type=float, default=None,
-                    help="with --sharded (not ported yet)")
+    sa.add_argument(
+        "--shards", type=int, default=None, metavar="P",
+        help="with --sharded: partition the graph's NODE axis into P parts "
+             "(edge-cut partitioner) and run the halo exchange over a node "
+             "axis of P ranks; P=1 keeps one node shard",
+    )
+    sa.add_argument(
+        "--ladder-max-frac", type=float, default=None,
+        help="with --sharded: a0 = linspace(a0-frac, this, n-replicas) * n "
+             "(a temperature ladder on the replica axis)",
+    )
     sa.add_argument(
         "--layout", choices=["auto", "padded", "bucketed", "streamed"],
         default="auto",
@@ -447,7 +483,7 @@ def _add_search_parsers(sub) -> None:
     tmp.add_argument("--max-steps", type=int, default=None)
     tmp.add_argument("--seed", type=int, default=0)
     tmp.add_argument("--lane-shards", type=int, default=None, metavar="P",
-                     help="not ported yet (ROADMAP A15): refused")
+                     help="not ported yet (ROADMAP A15b): refused")
     _add_checkpoint_flags(tmp, "(swap boundaries); SIGTERM then saves at "
                           "the next boundary and exits 75")
     _add_device_flag(tmp)
@@ -513,9 +549,9 @@ def _add_stream_parser(sub) -> None:
                       help="host-prefetch lookahead; 0 makes the gathers and "
                            "copies synchronous")
     strm.add_argument("--shards", type=int, default=1, metavar="P",
-                      help="P >= 2 is not ported yet (ROADMAP A15): refused")
+                      help="P >= 2 is not ported yet (ROADMAP A15b): refused")
     strm.add_argument("--hub-threshold", type=int, default=None, metavar="D",
-                      help="not ported yet (ROADMAP A15): refused")
+                      help="not ported yet (ROADMAP A15b): refused")
     strm.add_argument("--churn-rate", type=float, default=0.0, metavar="R",
                       help="live edge churn: Poisson(R/2) adds and drops "
                            "per step (seeded_churn)")
@@ -763,13 +799,123 @@ def _refuse(reason: str, item: str):
                      f"(ROADMAP.md {item})")
 
 
+def _writer() -> bool:
+    """True on the rank that prints and writes (rank 0, or the only
+    process)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _process_group(dev):
+    """The job's process group for a sharded command (``torchrun``'s
+    environment; a no-op for a single process) and whether this call made
+    it, so the command tears down only its own."""
+    import torch.distributed as dist
+
+    from graphdyn_torch.parallel.mesh import init_distributed
+
+    made = not dist.is_initialized()
+    init_distributed(device=dev)
+    return made and dist.is_initialized()
+
+
+def _sa_sharded_main(args, dev):
+    """``sa --sharded``: the mesh solver over the job's ranks
+    (``graphdyn/cli.py:890-975``)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from graphdyn_torch.graphs import random_regular_graph
+    from graphdyn_torch.parallel.mesh import make_mesh, rank_device
+    from graphdyn_torch.parallel.sa_sharded import sa_sharded
+    from graphdyn_torch.utils.io import save_results_npz
+
+    if args.layout == "streamed":
+        _refuse("sa --sharded --layout streamed (the sharded out-of-core "
+                "chain)", "A15b")
+    dev = rank_device(args.device)
+    made = _process_group(dev)
+    try:
+        n_dev = dist.get_world_size() if dist.is_initialized() else 1
+        node_mode = "gather"
+        if args.shards is not None:
+            if args.rollout_mode == "lightcone":
+                raise SystemExit(
+                    "--shards partitions the node axis; --rollout-mode "
+                    "lightcone keeps whole replicas per device, so there is "
+                    "no node axis to shard")
+            if args.shards < 1:
+                raise SystemExit("--shards must be >= 1")
+            if args.shards > n_dev:
+                raise SystemExit(
+                    f"--shards {args.shards} > {n_dev} ranks in the job")
+            node_shards = args.shards
+            if node_shards >= 2:
+                node_mode = "halo"
+        elif args.rollout_mode == "lightcone":
+            node_shards = 1
+        else:
+            node_shards = 2 if n_dev % 2 == 0 and n_dev > 1 else 1
+        if n_dev % node_shards:
+            raise SystemExit(f"--shards {node_shards} does not divide the "
+                             f"job's {n_dev} ranks")
+        mesh = make_mesh((max(n_dev // node_shards, 1), node_shards),
+                         ("replica", "node"), device=dev)
+        g = random_regular_graph(args.n, args.d, seed=args.seed)
+        a0 = None
+        if args.ladder_max_frac is not None:
+            a0 = np.linspace(args.a0_frac, args.ladder_max_frac,
+                             args.n_replicas) * args.n
+        res = sa_sharded(
+            g, _sa_config(args), mesh=mesh, n_replicas=args.n_replicas,
+            a0=a0, seed=args.seed, max_steps=args.max_steps,
+            checkpoint_path=args.checkpoint,
+            checkpoint_interval_s=args.checkpoint_interval,
+            rollout_mode=args.rollout_mode, node_mode=node_mode,
+            chunk_steps=args.chunk_steps, device=dev,
+        )
+        if _writer():
+            if args.out:
+                save_results_npz(
+                    args.out, mag_reached=res.mag_reached,
+                    num_steps=res.num_steps, conf=res.s,
+                    m_final=res.m_final,
+                )
+            print(json.dumps({
+                "solver": "sa_sharded",
+                "mesh": {"replica": max(n_dev // node_shards, 1),
+                         "node": node_shards},
+                "node_mode": node_mode,
+                "mag_reached": res.mag_reached.tolist(),
+                "num_steps": res.num_steps.tolist(),
+                "m_final": res.m_final.tolist(),
+                "out": args.out,
+            }))
+        return res
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 def _sa_main(args, dev):
     """The ``sa`` command; returns the ``SAEnsembleResult``."""
     from graphdyn_torch.models.sa import CHUNK_STEPS, sa_ensemble
 
-    if args.sharded or args.shards is not None:
-        _refuse("--sharded/--shards (the multi-device SA solver)",
-                "A15: parallel/ onto torch.distributed")
+    if args.shards is not None and not args.sharded:
+        # a silently ignored sharding request would run the serial driver
+        # while the operator believes the job sharded
+        raise SystemExit(
+            "--shards partitions the node axis of the MESH solver; pass "
+            "--sharded as well (the per-repetition driver has no node axis "
+            "to shard)")
+    if args.sharded and args.layout not in ("auto", "padded", "streamed"):
+        raise SystemExit(
+            f"--layout {args.layout} selects a per-repetition driver "
+            "layout; the mesh solver shards the padded node axis (drop "
+            "--sharded, or --layout auto/padded)")
+    if args.sharded:
+        return _sa_sharded_main(args, dev)
     out = sa_ensemble(
         args.n, args.d, _sa_config(args), n_stat=args.n_stat, seed=args.seed,
         max_steps=args.max_steps, save_path=args.out,
@@ -797,7 +943,8 @@ def _temper_main(args, dev):
     from graphdyn_torch.utils.io import save_results_npz
 
     if args.lane_shards is not None:
-        _refuse("--lane-shards", "A15: parallel/ onto torch.distributed")
+        _refuse("--lane-shards (the lane-sharded ladder)",
+                "A15b: the ensemble meshes")
     g = random_regular_graph(args.n, args.d, seed=args.seed)
     res = temper_search(
         g, _sa_config(args),
@@ -877,7 +1024,7 @@ def _stream_main(args, dev) -> dict:
         raise SystemExit("--shards must be >= 1")
     if args.shards >= 2 or args.hub_threshold is not None:
         _refuse("--shards >= 2 / --hub-threshold (the sharded stream)",
-                "A15: parallel/ onto torch.distributed")
+                "A15b: the sharded out-of-core stream")
     g = powerlaw_graph(args.n, gamma=args.gamma, dmin=args.dmin,
                        seed=args.graph_seed)
     rng = np.random.default_rng(args.seed)
@@ -1038,19 +1185,37 @@ def _run(args) -> int:
         return 0
     if args.plot:
         _require_matplotlib()
-    if args.graph == "rrg":
-        g, n_iso, nbr_dev, deg_dev = rrg_consensus_ensemble(
-            args.n, d=args.d, seed=args.seed, device=dev
+    mesh = None
+    made = False
+    if args.sharded:
+        import torch.distributed as dist
+
+        from graphdyn_torch.parallel.mesh import make_mesh, rank_device
+
+        dev = rank_device(args.device)
+        made = _process_group(dev)
+        mesh = make_mesh(None, ("replica",), device=dev)
+    try:
+        if args.graph == "rrg":
+            g, n_iso, nbr_dev, deg_dev = rrg_consensus_ensemble(
+                args.n, d=args.d, seed=args.seed, device=dev
+            )
+        else:
+            g, n_iso, nbr_dev, deg_dev = er_consensus_ensemble(
+                args.n, c=args.c, seed=args.seed, device=dev
+            )
+        rows = consensus_curve(
+            g, args.replicas, args.m0, args.max_steps, chunk=args.chunk,
+            nbr_dev=nbr_dev, deg_dev=deg_dev, rule=args.rule, tie=args.tie,
+            near_eps=args.near_eps, graph_seed=args.seed, device=dev,
+            mesh=mesh,
         )
-    else:
-        g, n_iso, nbr_dev, deg_dev = er_consensus_ensemble(
-            args.n, c=args.c, seed=args.seed, device=dev
-        )
-    rows = consensus_curve(
-        g, args.replicas, args.m0, args.max_steps, chunk=args.chunk,
-        nbr_dev=nbr_dev, deg_dev=deg_dev, rule=args.rule, tie=args.tie,
-        near_eps=args.near_eps, graph_seed=args.seed, device=dev,
-    )
+        writer = _writer()
+    finally:
+        if made:
+            dist.destroy_process_group()
+    if not writer:
+        return 0
     doc = consensus_doc(
         g, n_iso, rows, c=args.c, seed=args.seed, rule=args.rule,
         tie=args.tie, near_eps=args.near_eps, solver="consensus",

@@ -8,14 +8,27 @@
 // graphdyn/ops/packed.py:_packed_rollout_device, which computes the same words.
 //
 // Layout. 32 replicas per word: replica r of node i is bit r%32 of word
-// state[i, r/32]. The state is [n+1, W]; row n is the ghost row, always zero,
-// so a ghost-padded neighbor slot (index n) contributes nothing. Every step
-// writes 0 to row n: under tie=change the ghost (degree 0, so its count
-// always ties) would otherwise flip to all-ones.
+// state[i, r/32]. A launch updates rows [0, n) of dst from src and, when
+// zero_tail is set, writes 0 to row n; it touches no other row. Two layouts
+// use it:
+// - the ghost-extended state [n+1, W] (zero_tail set): a ghost-padded
+//   neighbor slot (index n) reads the zero row and adds nothing; under
+//   tie=change the ghost (degree 0, its count always ties) would otherwise
+//   flip to all-ones;
+// - the halo shard layout of graphdyn/parallel/halo.py:17-30 (ported in
+//   graphdyn_torch/parallel/halo.py): owned rows (interior, then boundary,
+//   then inert pad rows), ghost rows, replicated hub rows, a trash row and
+//   the zero row last. n is the shard's count of real owned rows and
+//   zero_tail is clear: the two ping-pong buffers start as copies of one
+//   state, pad and zero rows are never written (the pad rows' inertness is
+//   the JAX package's where(real, out, sp[:nm]), halo.py:392), and the hub
+//   update and the exchange refresh the hub and ghost rows (the trash row
+//   takes the pad receive lanes) after each launch.
 //
 // What bounds it on an H100: HBM bytes. The floor is each input read once
 // and the output written once:
-//   8*W*(n+1)  (state in and out)  +  4*sum(deg)  (+ 4*n for deg, general path)
+//   4*W*(n + rows read as neighbours only)  +  4*W*n  (state in and out)
+//   +  4*sum(deg)  (+ 4*n for deg, general path)
 // The arithmetic is a few dozen 32-bit logic ops per word, far below the
 // card's ALU rate.
 //
@@ -46,7 +59,8 @@
 //   graphdyn/ops/packed.py (_compare_planes, _rule_tie_combine).
 // The index map (row and words of each thread) is mirrored in Python by
 // graphdyn_torch/ops/packed_cuda.py:launch_plan/index_map, which the CPU
-// tests check covers every (row, word) of [n+1, W] exactly once.
+// tests check covers every (row, word) of rows [0, n + zero_tail) exactly
+// once.
 //
 // C interface (bound with ctypes): graphdyn_packed_step returns the
 // cudaError_t of the launch, 0 on success. It launches on the given stream
@@ -97,16 +111,17 @@ packed_step_kernel(const int32_t* __restrict__ nbr,
                    const int32_t* __restrict__ deg,
                    const uint32_t* __restrict__ src,
                    uint32_t* __restrict__ dst,
-                   int64_t n, int dmax, int64_t W, int d_uniform, int64_t vpr)
+                   int64_t n, int zero_tail, int dmax, int64_t W,
+                   int d_uniform, int64_t vpr)
 {
     // the index map of packed_cuda.py:index_map
     const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (t >= (n + 1) * vpr) return;
+    if (t >= (n + zero_tail) * vpr) return;
     const int64_t row = t / vpr;
     const int64_t w0 = (t - row * vpr) * U;
     const size_t idx = (size_t)row * (size_t)W + (size_t)w0;
     Words<U> out;
-    if (row == n) {              // the ghost row stays zero
+    if (row == n) {              // the zero row stays zero
 #pragma unroll
         for (int i = 0; i < U; ++i) out.w[i] = 0u;
         store_words<U>(dst + idx, out);
@@ -183,6 +198,7 @@ struct Launch {
     const uint32_t* src;
     uint32_t* dst;
     int64_t n;
+    int zero_tail;
     int dmax;
     int64_t W;
     int d_uniform;
@@ -197,13 +213,13 @@ void launch_width(const Launch& a, int U)
     if (U == 4)
         packed_step_kernel<NP, FAST, MINORITY, CHANGE, 4>
             <<<a.grid, kThreads, 0, a.stream>>>(
-                a.nbr, a.deg, a.src, a.dst, a.n, a.dmax, a.W, a.d_uniform,
-                a.vpr);
+                a.nbr, a.deg, a.src, a.dst, a.n, a.zero_tail, a.dmax, a.W,
+                a.d_uniform, a.vpr);
     else
         packed_step_kernel<NP, FAST, MINORITY, CHANGE, 1>
             <<<a.grid, kThreads, 0, a.stream>>>(
-                a.nbr, a.deg, a.src, a.dst, a.n, a.dmax, a.W, a.d_uniform,
-                a.vpr);
+                a.nbr, a.deg, a.src, a.dst, a.n, a.zero_tail, a.dmax, a.W,
+                a.d_uniform, a.vpr);
 }
 
 template <int NP>
@@ -225,14 +241,16 @@ void launch_planes(const Launch& a, int fast, int minority, int change, int U)
 
 // U: words per thread, 4 (a uint4; needs W % 4 == 0 and 16-byte aligned
 // states) or 1. The caller's plan (packed_cuda.py:launch_plan) chooses it;
-// the grid follows from it here as it does there.
+// the grid follows from it here as it does there. Rows [0, n) are updated
+// from nbr/deg (which hold at least n rows); with zero_tail, row n is
+// written 0. A launch with no row to write launches nothing.
 extern "C" int graphdyn_packed_step(
     const void* nbr, const void* deg, const void* src, void* dst,
-    long long n, int dmax, long long W, int n_planes, int fast,
-    int d_uniform, int minority, int change, int U, void* stream)
+    long long n, int zero_tail, int dmax, long long W, int n_planes,
+    int fast, int d_uniform, int minority, int change, int U, void* stream)
 {
-    if (n < 0 || W < 1 || dmax < 1 || n_planes < 1 || n_planes > 32
-        || (U != 1 && U != 4)
+    if (n < 0 || (zero_tail != 0 && zero_tail != 1) || W < 1 || dmax < 1
+        || n_planes < 1 || n_planes > 32 || (U != 1 && U != 4)
         || (U == 4 && (W % 4 != 0 || (uintptr_t)src % 16 != 0
                        || (uintptr_t)dst % 16 != 0)))
         return (int)cudaErrorInvalidValue;
@@ -242,11 +260,14 @@ extern "C" int graphdyn_packed_step(
     a.src = static_cast<const uint32_t*>(src);
     a.dst = static_cast<uint32_t*>(dst);
     a.n = n;
+    a.zero_tail = zero_tail;
     a.dmax = dmax;
     a.W = W;
     a.d_uniform = d_uniform;
     a.vpr = W / U;
-    const long long blocks = ((n + 1) * a.vpr + kThreads - 1) / kThreads;
+    const long long blocks = ((n + zero_tail) * a.vpr + kThreads - 1)
+                             / kThreads;
+    if (blocks == 0) return (int)cudaSuccess;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
     a.grid = dim3((unsigned)blocks);
     a.stream = static_cast<cudaStream_t>(stream);

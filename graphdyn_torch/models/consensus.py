@@ -17,6 +17,14 @@ Two consensus notions are tracked per replica (both returned):
 
 Every entry point takes ``device=`` and defaults to CUDA; without a CUDA
 device it raises unless the caller passes ``device="cpu"``.
+
+``mesh=`` (a 1-D ``DeviceMesh``, one rank per card) shards the packed WORD
+axis: every gather of the scan indexes the node axis, so each rank rolls
+its own ``[n+1, W/P]`` word slab through K1/K2′ with no per-step
+collective; one scalar ``all_reduce`` per slab of steps keeps the early
+exit common, and the per-replica flags are gathered at the end. The slab
+holds the bits of the unsharded draw, so sharded and unsharded points are
+equal bit for bit.
 """
 
 from __future__ import annotations
@@ -36,12 +44,27 @@ from graphdyn_torch.ops import packed
 from graphdyn_torch.utils.platform import resolve_device
 
 
-def _not_sharded(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (word-axis sharding) is not ported yet: it comes with "
-            "slice 3 of the port (ROADMAP.md A15)"
-        )
+def _word_shard(mesh, W: int, R: int):
+    """``(axis, slab)``: the mesh's one dimension and this rank's slice of
+    the W packed words (each rank owns whole words, 32 replicas each)."""
+    from graphdyn_torch.parallel.mesh import axis_index, axis_size
+
+    (axis,) = mesh.mesh_dim_names
+    P = axis_size(mesh, axis)
+    if W % P:
+        raise ValueError(
+            f"the mesh size {P} must divide the packed word count W={W} "
+            f"(R={R}): each device owns whole words (32 replicas each)")
+    k, Wl = axis_index(mesh, axis), W // P
+    return axis, slice(k * Wl, (k + 1) * Wl)
+
+
+def _gather_flags(out: dict, mesh, axis: str) -> dict:
+    """The per-replica outputs of every rank's slab, in replica order."""
+    from graphdyn_torch.parallel.mesh import all_gather_tiled
+
+    return {k: (all_gather_tiled(v, mesh, axis) if isinstance(v, torch.Tensor)
+                and v.ndim == 1 else v) for k, v in out.items()}
 
 
 def _device_tables(g, dev: torch.device):
@@ -100,11 +123,25 @@ def consensus_point(g, R: int, m0: float, max_steps: int, chunk: int = 10,
     """One m(0) point: biased on-device init, chunked consensus scan,
     per-replica statistics reduced to a plain dict (the JAX package's keys).
     Callers sweeping many points pass ``nbr_dev``/``deg_dev`` once. The scan
-    runs all W·32 packed replicas; the row reports the first ``R``."""
+    runs all W·32 packed replicas; the row reports the first ``R``.
+    ``mesh``: word-axis sharding (module docstring); every rank of the mesh
+    calls this with the same arguments and returns the same row."""
     dev = resolve_device(device)
-    _not_sharded(mesh)
     W = -(-R // 32)
-    sp = packed.draw_packed_biased(seed, g.n, W, m0, device=dev)
+    all_done = axis = None
+    draw = {}
+    if mesh is not None:
+        from graphdyn_torch.parallel.mesh import psum
+
+        axis, draw["cols"] = _word_shard(mesh, W, R)
+
+        def all_done(local: bool) -> bool:
+            # the slab loop goes on while any rank has a replica short of
+            # near-consensus: one scalar all_reduce per slab
+            return int(psum(torch.tensor([int(not local)], device=dev),
+                            mesh, axis)) == 0
+
+    sp = packed.draw_packed_biased(seed, g.n, W, m0, device=dev, **draw)
     if nbr_dev is None or deg_dev is None:
         nbr_dev, deg_dev = _device_tables(g, dev)
     # one m(0) point = one chunked scan, whose last read of the flags ends
@@ -112,10 +149,12 @@ def consensus_point(g, R: int, m0: float, max_steps: int, chunk: int = 10,
     # spin-updates/s
     with obs.timed("ops.packed.scan", m0=float(m0), R=W * 32) as sw:
         out = packed.packed_consensus_scan(
-            nbr_dev.to(dev), deg_dev.to(dev), sp, R=W * 32,
+            nbr_dev.to(dev), deg_dev.to(dev), sp, R=sp.shape[1] * 32,
             max_steps=max_steps, chunk=chunk, near_eps=near_eps, rule=rule,
-            tie=tie,
+            tie=tie, all_done=all_done,
         )
+        if mesh is not None:
+            out = _gather_flags(out, mesh, axis)
     if obs.enabled():
         steps_run = int(out["steps_run"])
         obs.gauge("ops.rollout.rate",
@@ -139,7 +178,6 @@ def consensus_curve_ensemble(n: int, R: int, m0_list: Sequence[float],
     and instance spread). ``graph`` picks ``"er"`` (G(n, c/n), isolates
     removed) or ``"rrg"`` (d-regular). Returns ``(per_seed, aggregate)``."""
     dev = resolve_device(device)
-    _not_sharded(mesh)
     per_seed = []
     for s in graph_seeds:
         if graph == "er":
@@ -153,7 +191,7 @@ def consensus_curve_ensemble(n: int, R: int, m0_list: Sequence[float],
         rows = consensus_curve(
             g, R, m0_list, max_steps, chunk, nbr_dev=nbr_dev,
             deg_dev=deg_dev, rule=rule, tie=tie, near_eps=near_eps,
-            graph_seed=s, device=dev,
+            graph_seed=s, device=dev, mesh=mesh,
             progress=(lambda pt, s=s: progress(s, pt)) if progress else None,
         )
         per_seed.append({"graph_seed": int(s), "n": g.n,
@@ -268,7 +306,6 @@ def consensus_curve(g, R: int, m0_list: Sequence[float], max_steps: int,
     replica-draw seed folds ``(graph_seed, k)`` via :func:`draw_seed`).
     ``progress`` is an optional per-row callback."""
     dev = resolve_device(device)
-    _not_sharded(mesh)
     if nbr_dev is None or deg_dev is None:
         nbr_dev, deg_dev = _device_tables(g, dev)
     rows = []
@@ -276,7 +313,7 @@ def consensus_curve(g, R: int, m0_list: Sequence[float], max_steps: int,
         pt = consensus_point(
             g, R, m0, max_steps, chunk, seed=draw_seed(graph_seed, k),
             nbr_dev=nbr_dev, deg_dev=deg_dev, rule=rule, tie=tie,
-            near_eps=near_eps, device=dev,
+            near_eps=near_eps, device=dev, mesh=mesh,
         )
         rows.append(pt)
         if progress is not None:

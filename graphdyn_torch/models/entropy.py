@@ -38,7 +38,7 @@ ladder re-enters at its first unvisited λ with the saved chi, so it equals
 the uninterrupted run bit for bit. A non-finite fixed point (the
 ``sweep.nan`` site) records non-convergence and stops the ladder.
 
-Not ported yet, refused with ``NotImplementedError``: ``mesh=`` (A15).
+Not ported yet, refused with ``NotImplementedError``: ``mesh=`` (A15b).
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ log = logging.getLogger("graphdyn_torch.models")
 
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
-        raise _not_ported("mesh=", "A15: parallel/ onto torch.distributed")
+        raise _not_ported("mesh=", "A15b: the ensemble meshes")
 
 
 def _plateau_prefix(prev_rows, plateau_eps: float, plateau_patience: int):

@@ -36,9 +36,13 @@ snapshots its completed repetitions (and, serially, the chain in flight at
 JAX package's chains draw from ``jax.random``, so their snapshots are
 refused.
 
-Not ported yet: ``mesh=`` (A15) and ``device_init=True`` (the reference
-draws that init from ``jax.random``; A11's remainder). Each raises
-``NotImplementedError``.
+``hpr_solve_batch(device_init=True)`` draws the initial chi, biases and
+chain seeds on the device from the port's Threefry stream
+(:func:`graphdyn_torch.ops.bdcm.draw_chi_device`), so nothing union-sized
+crosses the host link; the draw is the same bits on the CPU and the card.
+
+Not ported yet: ``mesh=`` (ROADMAP.md A15b, the ensemble meshes), which
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,14 +81,10 @@ _HPR_BATCH_FIELDS = ("chi", "biases", "s", "seeds", "t", "m_final", "active",
                      "steps")
 
 
-def _refuse(mesh=None, device_init=False) -> None:
+def _refuse(mesh=None) -> None:
     if mesh is not None:
-        raise _not_ported("mesh=", "A15: parallel/ onto torch.distributed")
-    if device_init:
-        raise _not_ported(
-            "device_init=True", "A11's remainder: the reference draws that "
-            "initial state from jax.random; the port's union tables are "
-            "built on the device already")
+        raise _not_ported("mesh=", "A15b: the ensemble meshes of hpr, "
+                          "entropy and temper")
 
 
 class HPRResult(NamedTuple):
@@ -394,12 +394,24 @@ def hpr_solve_batch(
     ``seed + r``. Finished chains freeze under per-replica masks; the host
     reads ``any(active)`` once per ``chunk_sweeps`` sweeps. ``uniforms``:
     None or ``callable(t) -> [R·n]``. ``checkpoint_path``: exact resume
-    (module docstring)."""
+    (module docstring).
+
+    ``device_init=True`` draws the initial state on the device instead
+    (:func:`device_init_state`: chi, biases and the chains' stream seeds
+    from the Threefry init stream keyed by ``seed``), the JAX package's
+    ``device_init`` path with the port's own stream: only statistics
+    compare with the host draw. As in the JAX package it refuses ``mesh=``
+    and ``checkpoint_path=``."""
     # the one timing idiom: an always-measuring obs span; its wall
     # feeds elapsed_s and its event lands in a live ledger
     _sw = obs.timed("solver.hpr_batch").start()
     try:
-        _refuse(mesh, device_init)
+        if device_init and mesh is not None:
+            raise ValueError("device_init=True is incompatible with mesh=")
+        if device_init and checkpoint_path is not None:
+            raise ValueError(
+                "device_init=True is incompatible with checkpoint_path=")
+        _refuse(mesh)
         dev = resolve_device(device)
         config = config or HPRConfig()
         R = n_replicas if n_replicas is not None else config.n_replicas
@@ -436,7 +448,10 @@ def hpr_solve_batch(
                     f: (int(arrays["t"][0]) if f == "t" else
                         torch.from_numpy(np.asarray(arrays[f])).to(dev))
                     for f in _HPR_BATCH_FIELDS})
-        if st is None:
+        if st is None and device_init:
+            st = _initial_state(graph, config, R, *device_init_state(
+                R, n, twoE, K, setup.dtype, seed, dev))
+        elif st is None:
             st = _batch_init(graph, config, R, seed, seeds, np_dt, K, twoE,
                              dev)
         if ckpt is None:
@@ -467,31 +482,57 @@ def _batch_init(graph: Graph, config: HPRConfig, R: int, seed: int, seeds,
     """The batched chains' initial state: the reference's numpy draw and
     the initial rollout stop test."""
     n = graph.n
-    dyn = config.dynamics
     rng = np.random.default_rng(seed)
     chi0, biases0, s0 = host_init(rng, R * twoE, K, R * n, np_dt,
                                   chi0=_draw_union_chi(rng, R, twoE, K, np_dt))
+    return _initial_state(
+        graph, config, R, torch.from_numpy(chi0).to(dev),
+        torch.from_numpy(biases0).to(dev), torch.as_tensor(s0, device=dev),
+        torch.tensor(seeds, dtype=torch.int64, device=dev))
 
-    s_dev = torch.as_tensor(s0, device=dev)
-    # initial stop test: the base-graph batched rollout on the device; only
-    # the [R] sums come back, the f64 division happens on the host
+
+def device_init_state(R: int, n: int, twoE: int, K: int, dtype, seed: int,
+                      device):
+    """The on-device initial state of ``R`` batched chains, from the
+    Threefry init stream keyed by ``seed``
+    (:func:`graphdyn_torch.ops.bdcm.counter_draw`), the counterpart of the
+    JAX package's ``device_init`` draw (``graphdyn/models/hpr.py:583-606``):
+    chi ``[R·2E, K, K]`` row-normalized (purpose 0), biases ``[R·n, 2]``
+    normalized per row (purpose 1), ``s0 = +1`` where ``b[:, 0] > b[:, 1]``,
+    and one uint32 stream seed per chain (purpose 2, word 0 of counter
+    ``r``). Every value is exact integer work or an IEEE add or divide in a
+    fixed order, so the CPU and the card draw the same bits. Returns
+    ``(chi0, biases0, s0, seeds)`` on ``device``."""
+    from graphdyn_torch.ops.bdcm import counter_draw, draw_chi_device
+
+    seed = _check_seed(seed)
+    chi0 = draw_chi_device(seed, R * twoE, K, dtype, device)
+    b = counter_draw(seed, 1, 0, 2 * R * n, dtype, device).view(R * n, 2)
+    biases0 = b / (b[:, :1] + b[:, 1:])
+    s0 = torch.where(biases0[:, 0] > biases0[:, 1], 1, -1).to(torch.int8)
+    seeds = counter_draw(seed, 2, 0, R, torch.int64, device)
+    return chi0, biases0, s0, seeds
+
+
+def _initial_state(graph: Graph, config: HPRConfig, R: int, chi0, biases0,
+                   s0, seeds) -> _BatchState:
+    """The batched chains' state at t = 0 from device tensors: the initial
+    rollout stop test on the base graph (only the [R] sums come back; the
+    f64 division happens on the host)."""
+    n = graph.n
+    dyn = config.dynamics
+    dev = s0.device
     s_end = batched_rollout(
         torch.as_tensor(graph.nbr, dtype=torch.int32, device=dev),
-        s_dev.reshape(R, n), dyn.p + dyn.c - 1, dyn.rule, dyn.tie)
+        s0.reshape(R, n), dyn.p + dyn.c - 1, dyn.rule, dyn.tie)
     sums = s_end.sum(dim=1, dtype=torch.int32).cpu().numpy()
     m0 = (sums.astype(np.int64) / n).astype(np.float32)
-    st = _BatchState(
-        chi=torch.from_numpy(chi0).to(dev),
-        biases=torch.from_numpy(biases0).to(dev),
-        s=s_dev,
-        seeds=torch.tensor(seeds, dtype=torch.int64, device=dev),
-        t=0,
+    return _BatchState(
+        chi=chi0, biases=biases0, s=s0, seeds=seeds, t=0,
         m_final=torch.from_numpy(m0).to(dev),
         active=torch.from_numpy(m0 < 1.0).to(dev),
         steps=torch.zeros(R, dtype=torch.int32, device=dev),
     )
-    del chi0
-    return st
 
 
 def ensemble_run_id(n: int, d: int, config: HPRConfig, *, n_rep: int,

@@ -18,10 +18,12 @@ Two consumers:
   program against its byte model. A program's measured peak is the
   allocator's peak while it ran, less the bytes already allocated when it
   started. Off the card every row reports ``null`` plus the reason and
-  passes structurally. The halo row waits for the port of ``parallel/``
-  (ROADMAP A15): its measurement is ``null`` with that reason on the card
-  too. The JAX package's ``derived:*`` rows check its HLO-derived models,
-  which the port does not have.
+  passes structurally. The halo row measures one rank's shard on the card
+  (the widest shard of the 2-part smoke partition, stepped by the K1/K2′
+  launch on the shard layout with its slab buffers) against
+  :func:`halo_shard_bytes` of that shard, as the JAX package charges the
+  widest shard. The JAX package's ``derived:*`` rows check its HLO-derived
+  models, which the port does not have.
 
 The byte models are the JAX package's, held equal to them by the tests. The
 bucketed and streamed ones live beside their layouts (``ops/bucketed.py``,
@@ -48,10 +50,6 @@ MEM_BANDS: dict[str, tuple[float, float]] = {
     "bucketed_state": (0.25, 16.0),
     "streamed_chunk": (0.05, 64.0),
 }
-
-HALO_REASON = ("the halo layout is not ported to graphdyn_torch yet "
-               "(ROADMAP.md A15: parallel/ onto torch.distributed)")
-
 
 # ---------------------------------------------------------------------------
 # byte models
@@ -327,6 +325,28 @@ def _smoke_plan(n: int = 4096, chunks: int = 8, W: int = 8):
     return g, build_stream_plan(g, W=W, n_chunks=chunks)
 
 
+def _halo_smoke_tables(n: int = 8192, P: int = 2):
+    """The halo smoke partition's tables (d=3 RRG, the headline degree),
+    the JAX package's smoke shape."""
+    from graphdyn_torch.graphs import partition_graph, random_regular_graph
+    from graphdyn_torch.parallel.halo import build_halo_tables
+
+    g = random_regular_graph(n, 3, seed=0)
+    part = partition_graph(g, P, seed=0)
+    return g, part, build_halo_tables(g, part)
+
+
+def _widest_shard(tables) -> int:
+    return int(np.argmax(tables.counts + tables.ghost_counts))
+
+
+def _halo_smoke_model(W: int = 8) -> float:
+    """The widest shard's ``halo_shard`` model bytes at the smoke shape."""
+    _, _, t = _halo_smoke_tables()
+    return float(max(halo_shard_bytes(int(t.counts[p]), int(t.ghost_counts[p]),
+                                      W) for p in range(t.P)))
+
+
 def _models(W: int = 8) -> dict:
     """Every row's model bytes at the smoke shapes."""
     from graphdyn_torch.ops.streamed import plan_device_bytes
@@ -337,6 +357,7 @@ def _models(W: int = 8) -> dict:
     return {"packed_state": float(packed_state_bytes(32768, 3, W)),
             "bdcm_stack": float(stacked_bdcm_bytes(stk)),
             "entropy_cell_chunk": float(entropy_chunk_bytes(stk)),
+            "halo_shard": _halo_smoke_model(W),
             "bucketed_state": float(bucketed_state_bytes(
                 b.n, W, b.table_entries)),
             "streamed_chunk": float(plan_device_bytes(plan, W))}
@@ -363,6 +384,7 @@ def _measure(dev, W: int = 8, steps: int = 8) -> dict:
     with _Peak(dev) as p:
         entropy_smoke(device=dev, chunks=1)
     out["bdcm_stack"] = out["entropy_cell_chunk"] = p.bytes
+    out["halo_shard"] = _measure_halo_shard(dev, W, steps)
     g, b = _smoke_powerlaw()
     with _Peak(dev) as p:
         bucketed_rollout(b, torch.zeros((g.n, W), dtype=torch.int32,
@@ -376,12 +398,43 @@ def _measure(dev, W: int = 8, steps: int = 8) -> dict:
     return out
 
 
+def _measure_halo_shard(dev, W: int, steps: int) -> int:
+    """One rank's peak on the shard layout: the widest smoke shard's state
+    and spare buffer, its tables, ``steps`` K1/K2′ launches on the layout
+    and, after each, the slab gathers and ghost-row scatters of the
+    exchange (taken from the shard itself: one card has no partner rank,
+    and the buffers are the same size)."""
+    import torch
+
+    from graphdyn_torch.parallel.halo import ShardStep
+
+    _, _, t = _halo_smoke_tables()
+    p = _widest_shard(t)
+    with _Peak(dev) as pk:
+        step = ShardStep(torch.as_tensor(t.nbr_loc[p], device=dev),
+                         torch.as_tensor(t.deg_loc[p], device=dev),
+                         n_update=int(t.counts[p]), rule="majority",
+                         tie="stay")
+        sends = [torch.as_tensor(x[p], dtype=torch.int64, device=dev)
+                 for (_, x, _) in t.schedule]
+        recvs = [torch.as_tensor(x[p], dtype=torch.int64, device=dev)
+                 for (_, _, x) in t.schedule]
+        src = torch.zeros((t.n_rows, W), dtype=torch.int32, device=dev)
+        spare = src.clone()
+        for _ in range(steps):
+            dst = step(src, spare)
+            for si, ri in zip(sends, recvs):
+                dst.index_copy_(0, ri, dst.index_select(0, si))
+            src, spare = dst, src
+        del step, sends, recvs, src, spare, dst
+    return pk.bytes
+
+
 def run_memcheck(*, diag=None, device=None) -> list[MemRow]:
     """Every modelled program's peak against its band on ``device``
     (default the card; raises ``RuntimeError`` with none). With
     ``device="cpu"`` the structural rows (models evaluated, measured null
-    plus the reason). The halo row is null with its reason everywhere.
-    Each row names its device. Emits one ``obs.memband.<program>`` gauge
+    plus the reason). Each row names its device. Emits one ``obs.memband.<program>`` gauge
     per row when recording."""
     import torch
 
@@ -395,7 +448,6 @@ def run_memcheck(*, diag=None, device=None) -> list[MemRow]:
     measured = _measure(dev) if stats is not None else {}
     rows = [_row(p, measured.get(p), m, reason if stats is None else None)
             for p, m in models.items()]
-    rows.insert(3, _row("halo_shard", None, 0.0, HALO_REASON))
     rows = [row._replace(device=name) for row in rows]
     for row in rows:
         obs.gauge(f"obs.memband.{row.program}", row.measured,

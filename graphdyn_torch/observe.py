@@ -2,7 +2,8 @@
 
 The port's counterpart of ``graphdyn/observe.py``. Spins are ±1 integer
 tensors whose trailing axis is the node axis; results stay on the input's
-device.
+device. The mesh-wide variant reduces over a ``DeviceMesh`` dimension
+(:mod:`graphdyn_torch.parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,17 @@ def consensus_fraction(s_end, target: int = 1) -> torch.Tensor:
     s_end = torch.as_tensor(s_end)
     reached = (s_end == target).all(dim=-1)
     return reached.to(torch.float32).mean()
+
+
+def consensus_fraction_psum(s_end, mesh, axis_name: str,
+                            target: int = 1) -> torch.Tensor:
+    """Mesh-wide consensus fraction: :func:`consensus_fraction` of this
+    rank's local batch, then its mean over the ranks of the mesh dimension
+    ``axis_name`` (``lax.pmean``: an ``all_reduce`` sum divided by the
+    dimension's size)."""
+    from graphdyn_torch.parallel.mesh import pmean
+
+    return pmean(consensus_fraction(s_end, target), mesh, axis_name)
 
 
 def tilted_entropy(phi, lmbd, m_init):

@@ -220,6 +220,66 @@ class BDCMData:
         return torch.from_numpy(chi.astype(self.np_dtype))
 
 
+#: key word 1 base of the on-device initial-state draws (key word 0 is the
+#: run seed); purpose k (0 chi, 1 biases, 2 chain seeds) uses TAG + k
+HPR_INIT_TAG = 0x48504931  # b"HPI1"
+#: elements per block of an on-device draw (bounds the int64 temporaries)
+_DRAW_ELEMS = 1 << 24
+_M32 = 0xFFFFFFFF
+
+
+def counter_draw(seed: int, purpose: int, start: int, count: int, dtype,
+                 device) -> torch.Tensor:
+    """Elements ``start .. start+count-1`` of the on-device init stream
+    ``(seed, HPR_INIT_TAG + purpose)``: element ``j`` is the Threefry-2x32
+    block of counter ``(j >> 32, j & 0xFFFFFFFF)``; float32 takes the top 24
+    bits of word 0, float64 53 bits (word 0 and the top 21 of word 1), both
+    exact, so the values do not depend on the device."""
+    from graphdyn_torch.ops.fused import threefry2x32
+
+    j = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(int(seed) & _M32, HPR_INIT_TAG + int(purpose),
+                          j >> 32, j & _M32)
+    if dtype == torch.float32:
+        return (y0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    if dtype == torch.float64:
+        return ((y0 << 21) | (y1 >> 11)).to(torch.float64) * (1.0 / (1 << 53))
+    if dtype == torch.int64:        # the raw uint32 word 0
+        return y0
+    raise ValueError(f"counter_draw: no stream for {dtype}")
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis (a power of two) by pairwise halving: every add
+    is elementwise in a fixed order, so the CPU and the card round alike
+    (a library reduction may not)."""
+    m = x.shape[-1]
+    while m > 1:
+        m //= 2
+        x = x[..., :m] + x[..., m:]
+    return x
+
+
+def draw_chi_device(seed: int, rows: int, K: int, dtype,
+                    device) -> torch.Tensor:
+    """Row-normalized random chi ``[rows, K, K]`` drawn on ``device`` from
+    purpose 0 of the init stream (the counterpart of the JAX package's
+    ``ops/bdcm.draw_chi_device``, ``graphdyn/ops/bdcm.py:196``: a uniform
+    draw divided by its row sum). The row sums are pairwise trees, so the
+    draw is the same bits on the CPU and on the card. Built in blocks of
+    rows, so the temporaries stay small at config-2 size."""
+    kk = K * K
+    out = torch.empty((rows, K, K), dtype=dtype, device=device)
+    flat = out.view(rows, kk)
+    step = max(1, _DRAW_ELEMS // kk)
+    for r0 in range(0, rows, step):
+        rc = min(step, rows - r0)
+        u = counter_draw(seed, 0, r0 * kk, rc * kk, dtype,
+                         device).view(rc, kk)
+        flat[r0:r0 + rc] = u / _tree_sum(u)
+    return out
+
+
 def replicate_bdcm_device(base: BDCMData, R: int, device) -> BDCMData:
     """R-replica disjoint-union ``BDCMData`` in the replica-major layout
     (:func:`graphdyn_torch.graphs.replicate_edge_tables`), with every

@@ -203,7 +203,7 @@ class _KernelStep:
             self.dims = packed_cuda.check_launch(self.nbr, self.deg, ext,
                                                  self.spare)
             self.plan = packed_cuda.launch_plan(
-                self.dims[2], aligned=packed_cuda.aligned16(ext, self.spare))
+                self.dims[3], aligned=packed_cuda.aligned16(ext, self.spare))
         packed_cuda._launch(self.nbr, self.deg, ext, self.spare, self.dims,
                             self.minority, self.change, self.d_uniform,
                             self.plan)
@@ -241,15 +241,40 @@ def packed_rollout(nbr, deg, sp, steps: int, rule: str = "majority",
     CUDA tensors go through the hand-written kernel (one launch per step,
     two ``[n+1, W]`` buffers allocated once and ping-ponged); CPU tensors
     through :func:`packed_rollout_plain`. The input ``sp`` is never written.
-    ``partition``/``mesh`` (node sharding) come with a later slice of the
-    port and are refused.
+
+    ``partition=None`` or a P = 1 :class:`graphdyn_torch.graphs.Partition`
+    runs that single-device program unchanged (``mesh`` is then unused). A
+    P >= 2 partition routes through the halo exchange
+    (:func:`graphdyn_torch.parallel.halo.halo_rollout`): every rank of the
+    node axis calls this with the same global state and gets the same
+    global result, bit-exact to the P = 1 program. It needs a process group
+    (``torchrun``, or :func:`graphdyn_torch.parallel.mesh.init_distributed`)
+    whose ``mesh`` node dimension (default: a 1-D ``node`` mesh over the
+    whole world) has ``partition.P`` ranks, and refuses otherwise.
     """
-    if partition is not None or mesh is not None:
-        raise NotImplementedError(
-            "packed_rollout(partition=, mesh=) is not ported yet: node "
-            "sharding comes with slice 3 of the port (ROADMAP.md A15)"
-        )
-    return _rollout(nbr, deg, sp, steps, rule, tie, plain=False)
+    if partition is None or partition.P == 1:
+        return _rollout(nbr, deg, sp, steps, rule, tie, plain=False)
+    import torch.distributed as dist
+
+    from graphdyn_torch.parallel.mesh import NODE, axis_size
+
+    if not dist.is_initialized():
+        raise ValueError(
+            f"packed_rollout(partition=) with P={partition.P} runs one rank "
+            "per part and needs a process group: launch it under torchrun "
+            f"--nproc-per-node {partition.P} (or call graphdyn_torch."
+            "parallel.mesh.init_distributed first)")
+    have = (axis_size(mesh, NODE) if mesh is not None
+            else dist.get_world_size())
+    if have != partition.P:
+        raise ValueError(
+            f"packed_rollout(partition=) has P={partition.P} parts but the "
+            f"{'mesh node dimension' if mesh is not None else 'world'} has "
+            f"{have} ranks")
+    from graphdyn_torch.parallel.halo import halo_rollout
+
+    return halo_rollout(nbr, deg, sp, steps, partition=partition, rule=rule,
+                        tie=tie, mesh=mesh)
 
 
 def packed_rollout_plain(nbr, deg, sp, steps: int, rule: str = "majority",
@@ -306,7 +331,8 @@ def packed_consensus_fraction(sp: torch.Tensor, n_replicas: int,
 
 
 def draw_packed_biased(seed: int, n: int, W: int, m0: float,
-                       device: str | torch.device | None = None) -> torch.Tensor:
+                       device: str | torch.device | None = None,
+                       cols: slice | None = None) -> torch.Tensor:
     """int32[n, W] packed spins drawn on ``device`` (default CUDA) with
     initial magnetization bias: each bit is +1 independently with
     probability (1+m0)/2, so E[m(0)] = m0 per replica
@@ -314,18 +340,22 @@ def draw_packed_biased(seed: int, n: int, W: int, m0: float,
 
     Drawn from a ``torch.Generator`` seeded with ``seed`` on the device, in
     row chunks. The bits differ from the JAX package's ``jax.random`` draw for
-    the same seed; only their statistics agree.
+    the same seed; only their statistics agree. ``cols`` keeps only those
+    words of each row (a rank's word slab): the draw is the whole state's,
+    chunk by chunk, so a slab holds the bits of the unsharded draw.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     p = (1.0 + m0) / 2.0
-    out = torch.empty((n, W), dtype=torch.int32, device=dev)
+    cols = slice(0, W) if cols is None else cols
+    Wl = len(range(W)[cols])
+    out = torch.empty((n, Wl), dtype=torch.int32, device=dev)
     shifts = torch.arange(WORD, dtype=torch.int64, device=dev)
     rows = _row_chunk(3 * W * WORD * 8)
     for i0 in range(0, n, rows):
         rc = min(rows, n - i0)
-        u = torch.rand((rc, W, WORD), generator=gen, device=dev)
+        u = torch.rand((rc, W, WORD), generator=gen, device=dev)[:, cols]
         out[i0:i0 + rc] = _fold_u32(((u < p).long() << shifts).sum(dim=2))
     return out
 
@@ -358,7 +388,8 @@ def _replica_magnetization(sp: torch.Tensor, R: int) -> torch.Tensor:
 
 def packed_consensus_scan(nbr, deg, sp, R: int, max_steps: int,
                           chunk: int = 10, near_eps: float = 0.01,
-                          rule: str = "majority", tie: str = "stay") -> dict:
+                          rule: str = "majority", tie: str = "stay",
+                          all_done=None) -> dict:
     """Roll packed replicas until every one has (near-)reached consensus or
     ``max_steps`` is spent, recording per-replica first-passage steps.
 
@@ -379,6 +410,11 @@ def packed_consensus_scan(nbr, deg, sp, R: int, max_steps: int,
 
     ``chunk`` must divide ``max_steps``: the loop advances in whole slabs,
     so a non-dividing pair would run past the recorded budget — refused.
+
+    ``all_done(local: bool) -> bool`` decides the early exit from this
+    state's own verdict; a word-sharded scan passes one that ands the
+    verdicts of every rank (one scalar ``all_reduce`` per slab), so every
+    rank runs the same slabs as the unsharded scan.
     """
     if max_steps % chunk:
         raise ValueError(
@@ -399,7 +435,8 @@ def packed_consensus_scan(nbr, deg, sp, R: int, max_steps: int,
     strict_t = torch.full((R,), -1, dtype=torch.int32, device=dev)
     near_t = torch.full((R,), -1, dtype=torch.int32, device=dev)
     t = 0
-    while t < max_steps and not bool(near.all()):     # one sync per slab
+    done = bool if all_done is None else all_done
+    while t < max_steps and not done(bool(near.all())):  # one sync per slab
         for _ in range(chunk):
             ext = step(ext)
         t += chunk

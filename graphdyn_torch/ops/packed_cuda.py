@@ -4,10 +4,13 @@ counter, its fast-path gate and its launch plan.
 The kernel (``graphdyn_torch/csrc/packed_step.cu``) replaces the JAX
 package's Pallas kernels K1 (``graphdyn/ops/pallas_packed.py:
 pallas_packed_step``) and K2 (``_general_step_ext``): one synchronous packed
-majority/minority step on the ghost-extended state ``[n+1, W]``. It walks
-the state in node order with 16-byte vectors; :func:`launch_plan` chooses
-the thread's width and :func:`index_map` is the kernel's index map, word
-for word, for the tests.
+majority/minority step. A launch updates the first ``n`` rows of ``dst``
+and, on the ghost-extended state ``[n+1, W]`` (:func:`packed_step`), writes
+its zero row 0; on the halo shard layout of
+:mod:`graphdyn_torch.parallel.halo` (:func:`packed_step_rows`) it writes
+the shard's real owned rows and no other. It walks the state in node order with 16-byte vectors;
+:func:`launch_plan` chooses the thread's width and :func:`index_map` is the
+kernel's index map, word for word, for the tests.
 
 Build: ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, loaded with ctypes at the first CUDA use, through
@@ -34,6 +37,8 @@ THREADS = 256           # per block
 # kernel launches made through packed_step since the last reset; a run shows
 # that its path went through the kernel by zeroing this and reading it after
 LAUNCHES = 0
+# of those, the launches on the halo shard layout (packed_step_rows)
+SHARD_LAUNCHES = 0
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -55,7 +60,8 @@ def _library():
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
@@ -77,12 +83,13 @@ def launch_plan(W: int, *, aligned: bool = True) -> dict:
     return {"U": U, "VPR": W // U}
 
 
-def index_map(n: int, W: int, plan: dict):
+def index_map(n: int, W: int, plan: dict, zero_tail: bool = True):
     """Yield ``(thread, row, first_word, words)`` for every thread of a
-    launch over the ghost-extended state ``[n+1, W]`` that touches words:
-    the kernel's own arithmetic (``packed_step_kernel``), for tests."""
+    launch that updates ``n`` rows of W words and, with ``zero_tail`` (the
+    ghost-extended state ``[n+1, W]``), zeroes row n: the kernel's own
+    arithmetic (``packed_step_kernel``), for tests."""
     U, vpr = plan["U"], plan["VPR"]
-    total = (n + 1) * vpr
+    total = (n + int(zero_tail)) * vpr
     for t in range(-(-total // THREADS) * THREADS):
         if t >= total:
             continue
@@ -121,10 +128,7 @@ def check_tables(nbr: torch.Tensor, deg: torch.Tensor) -> None:
         )
 
 
-def check_launch(nbr: torch.Tensor, deg: torch.Tensor, src: torch.Tensor,
-                 dst: torch.Tensor) -> tuple[int, int, int, int]:
-    """Check the types, devices, shapes and contiguity that a launch needs,
-    and return its dimensions ``(n, dmax, W, planes)`` for :func:`_launch`."""
+def _check_tensors(nbr, deg, src, dst) -> None:
     for name, t in (("nbr", nbr), ("deg", deg), ("src", src), ("dst", dst)):
         if t.device.type != "cuda":
             raise ValueError(f"packed_step: {name} is on {t.device}, not CUDA")
@@ -136,26 +140,60 @@ def check_launch(nbr: torch.Tensor, deg: torch.Tensor, src: torch.Tensor,
             raise ValueError("packed_step: tensors on different devices")
     if nbr.ndim != 2 or src.ndim != 2:
         raise ValueError("packed_step: nbr and src must be 2-D")
-    n, dmax = nbr.shape
-    W = src.shape[1]
-    if tuple(deg.shape) != (n,):
-        raise ValueError(f"packed_step: deg shape {tuple(deg.shape)} != ({n},)")
-    if tuple(src.shape) != (n + 1, W) or tuple(dst.shape) != (n + 1, W):
-        raise ValueError(
-            f"packed_step: states must be [n+1, W] = [{n + 1}, {W}], got "
-            f"{tuple(src.shape)} and {tuple(dst.shape)}"
-        )
+    if tuple(deg.shape) != (nbr.shape[0],):
+        raise ValueError(f"packed_step: deg shape {tuple(deg.shape)} != "
+                         f"({nbr.shape[0]},)")
+    if src.shape != dst.shape:
+        raise ValueError(f"packed_step: src {tuple(src.shape)} and dst "
+                         f"{tuple(dst.shape)} differ in shape")
     if src.data_ptr() == dst.data_ptr():
         raise ValueError("packed_step: src and dst must be distinct buffers")
-    if W < 1:
+    if src.shape[1] < 1:
         raise ValueError("packed_step: W must be >= 1")
+
+
+def _planes(dmax: int) -> int:
     planes = n_planes(dmax)
     if planes > MAX_PLANES:
         raise ValueError(
             f"packed_step: dmax={dmax} needs {planes} bit planes; the kernel "
             f"takes at most {MAX_PLANES}"
         )
-    return n, dmax, W, planes
+    return planes
+
+
+def check_launch(nbr: torch.Tensor, deg: torch.Tensor, src: torch.Tensor,
+                 dst: torch.Tensor) -> tuple[int, ...]:
+    """Check the types, devices, shapes and contiguity that a launch on the
+    ghost-extended state ``[n+1, W]`` needs, and return its dimensions
+    ``(n, zero_tail, dmax, W, planes)`` = ``(n, 1, ...)`` for
+    :func:`_launch`."""
+    _check_tensors(nbr, deg, src, dst)
+    n, dmax = nbr.shape
+    W = src.shape[1]
+    if tuple(src.shape) != (n + 1, W):
+        raise ValueError(
+            f"packed_step: states must be [n+1, W] = [{n + 1}, {W}], got "
+            f"{tuple(src.shape)} and {tuple(dst.shape)}"
+        )
+    return n, 1, dmax, W, _planes(dmax)
+
+
+def check_rows_launch(nbr: torch.Tensor, deg: torch.Tensor,
+                      src: torch.Tensor, dst: torch.Tensor,
+                      n_update: int) -> tuple[int, ...]:
+    """:func:`check_launch` for a launch that updates the first
+    ``n_update`` rows of a state of any row count and writes no other (the
+    halo shard layout): ``nbr``/``deg`` and the states hold at least
+    ``n_update`` rows."""
+    _check_tensors(nbr, deg, src, dst)
+    W = src.shape[1]
+    dmax = nbr.shape[1]
+    if not 0 <= n_update <= min(nbr.shape[0], src.shape[0]):
+        raise ValueError(f"packed_step: n_update={n_update} outside the "
+                         f"table's {nbr.shape[0]} rows or the state's "
+                         f"{src.shape[0]}")
+    return n_update, 0, dmax, W, _planes(dmax)
 
 
 def kernel_planes(planes: int) -> int:
@@ -173,13 +211,13 @@ def _launch(nbr, deg, src, dst, dims, minority: bool, change: bool,
     comes from :func:`check_launch` and ``plan`` from :func:`launch_plan` on
     tensors of these shapes and alignment."""
     global LAUNCHES
-    n, dmax, W, planes = dims
+    n, zero_tail, dmax, W, planes = dims
     fn = _library().graphdyn_packed_step
     with torch.cuda.device(src.device):
         rc = fn(
             nbr.data_ptr(), deg.data_ptr(), src.data_ptr(), dst.data_ptr(),
-            n, dmax, W, planes, int(d_uniform > 0), int(d_uniform),
-            int(minority), int(change), plan["U"],
+            n, zero_tail, dmax, W, planes, int(d_uniform > 0),
+            int(d_uniform), int(minority), int(change), plan["U"],
             torch.cuda.current_stream(src.device).cuda_stream,
         )
     if rc != 0:
@@ -205,5 +243,23 @@ def packed_step(nbr: torch.Tensor, deg: torch.Tensor, src: torch.Tensor,
     types, devices, shapes and contiguity with :func:`check_launch` on every
     call. Does not synchronise."""
     dims = check_launch(nbr, deg, src, dst)
-    plan = launch_plan(dims[2], aligned=aligned16(src, dst))
+    plan = launch_plan(dims[3], aligned=aligned16(src, dst))
     _launch(nbr, deg, src, dst, dims, minority, change, d_uniform, plan)
+
+
+def packed_step_rows(nbr: torch.Tensor, deg: torch.Tensor, src: torch.Tensor,
+                     dst: torch.Tensor, *, n_update: int, minority: bool,
+                     change: bool, d_uniform: int = 0) -> None:
+    """Launch one packed step ``src -> dst`` on the halo shard layout
+    (:mod:`graphdyn_torch.parallel.halo`): rows ``[0, n_update)`` (a
+    shard's real owned rows) are updated from ``nbr``/``deg`` (local row
+    indices, ghost slots pointing at the zero row); no other row of ``dst``
+    is written. Counted in :data:`LAUNCHES` and :data:`SHARD_LAUNCHES`; a
+    shard with no real row launches nothing. Does not synchronise."""
+    global SHARD_LAUNCHES
+    dims = check_rows_launch(nbr, deg, src, dst, n_update)
+    if n_update == 0:
+        return
+    plan = launch_plan(dims[3], aligned=aligned16(src, dst))
+    _launch(nbr, deg, src, dst, dims, minority, change, d_uniform, plan)
+    SHARD_LAUNCHES += 1

@@ -29,7 +29,7 @@ run bit for bit. Telemetry, the JAX package's: a ``stream.step`` span per
 step (closed after the chunks' words are back on the host), the
 ``stream.h2d_bytes``/``stream.d2h_bytes`` gauges, the ``stream.resume``
 counter and the ``stream.overlap_util`` gauge. Not ported yet: the sharded
-plan (``partition=``, A15); it raises.
+plan (``partition=``, A15b); it raises.
 """
 
 from __future__ import annotations
@@ -235,11 +235,11 @@ def build_stream_plan(graph: Graph, *, W: int, n_chunks: int | None = None,
     (greedy: a chunk closes when its modelled bytes, with the slab bound
     ``M ≤ C + Σdeg``, would pass half the budget) must be given; a node
     that cannot fit alone raises. ``partition=`` (the sharded plan) is not
-    ported yet (ROADMAP.md A15)."""
+    ported yet (ROADMAP.md A15b)."""
     if partition is not None:
         raise NotImplementedError(
             "build_stream_plan(partition=) is not ported to graphdyn_torch "
-            "yet (ROADMAP.md A15: parallel/ onto torch.distributed)")
+            "yet (ROADMAP.md A15b: the sharded out-of-core stream)")
     if adj is None:
         adj = _adjacency_lists(graph)
     order = degree_buckets(graph).order

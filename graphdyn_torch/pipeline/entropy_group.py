@@ -37,7 +37,7 @@ is checked once per completed fixed point per cell. Each chunk runs in a
 ``pipeline.entropy.chunk`` span (closed after the chunk's host read), with
 the ``obs.mem.*`` gauges after it, a ``pipeline.lambda.boundary`` counter per
 crossed cell, and a ``pipeline.sweep.nan`` counter and a flight post-mortem
-at a poisoned cell. Not ported yet: the cell-axis mesh (A15).
+at a poisoned cell. Not ported yet: the cell-axis mesh (A15b).
 """
 
 from __future__ import annotations
@@ -89,8 +89,8 @@ class EntropyCellExec:
                  kernel: str = "auto", device=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= is not ported to graphdyn_torch yet (ROADMAP.md A15: "
-                "parallel/ onto torch.distributed)")
+                "mesh= is not ported to graphdyn_torch yet (ROADMAP.md A15b: "
+                "the ensemble meshes)")
         G_real = len(cells)
         G = group_size or G_real
         if G < G_real:

@@ -25,6 +25,7 @@ from graphdyn_torch.resilience.faults import (  # noqa: F401
     FaultSpec,
     InjectedFault,
     InjectedLoweringError,
+    InjectedUnavailable,
     InjectedPreemption,
     InjectedWriteError,
     check_fault,

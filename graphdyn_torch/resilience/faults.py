@@ -39,6 +39,10 @@ site                 instrumented in
                      version: the run raises
 ``sweep.nan``        the BDCM sweep and the entropy fixed points — ``nan``
                      poisons the returned messages
+``multihost.init``   ``parallel.mesh.init_distributed`` — ``raise``: the
+                     rendezvous is not up yet
+                     (:class:`InjectedUnavailable`), retried until the
+                     deadline
 ===================  =====================================================
 
 CLI-level tests inject through the ``GRAPHDYN_FAULT_PLAN`` environment
@@ -81,6 +85,11 @@ class InjectedPreemption(InjectedFault):
 
 class InjectedLoweringError(InjectedFault):
     """Simulated kernel build/launch failure (the ``pallas.lower`` site)."""
+
+
+class InjectedUnavailable(InjectedFault, RuntimeError):
+    """Simulated transient service unavailability (e.g. the process-group
+    rendezvous not up yet: the ``multihost.init`` site)."""
 
 
 @dataclass
@@ -271,6 +280,8 @@ def maybe_fail(site: str, key: str = "") -> None:
             raise InjectedLoweringError(
                 f"injected lowering failure at {key or site}"
             )
+        if site == "multihost.init":
+            raise InjectedUnavailable("injected: coordinator unavailable")
     raise InjectedFault(f"injected {spec.action} at {site} (hit {spec.hits})")
 
 

@@ -26,7 +26,7 @@ The port's state also counts attempts and accepts per lane pair
 :class:`graphdyn_torch.utils.io.ChainCheckpointer` and resumes it bit for
 bit; without it a graceful shutdown (SIGTERM, ``--deadline``) exits 75 at
 the next chunk with nothing to save (the ladder re-derives from the seed).
-Not ported yet: ``mesh=`` lane sharding (ROADMAP A15); it raises.
+Not ported yet: ``mesh=`` lane sharding (ROADMAP A15b); it raises.
 """
 
 from __future__ import annotations
@@ -282,7 +282,7 @@ def temper_search(
             "scheduling polls lane liveness at every chunk boundary")
     if mesh is not None:
         raise _sa._not_ported("mesh= (lane sharding)",
-                              "A15: parallel/ onto torch.distributed")
+                              "A15b: the ensemble meshes")
     dev = resolve_device(device)
     config = config or SAConfig()
     n = graph.n

@@ -348,20 +348,49 @@ class ChainCheckpointer:
 
     ``extra_meta``: additional identity fields (e.g. replica count) checked
     for equality on load and stamped on save alongside kind/seed/fp.
+
+    ``sync`` (a :class:`graphdyn_torch.parallel.mesh.WorldSync`) makes the
+    protocol a sharded run's: only rank 0 (``sync.writer``) reads, writes
+    and removes the file, the loaded snapshot (or the refusal) is broadcast
+    to every rank, and each chunk boundary's save and shutdown decisions are
+    or-reduced over the ranks, so a SIGTERM on any rank snapshots and stops
+    every rank at the same boundary. ``payload`` is then called on every
+    rank (it gathers the global state, a collective).
     """
 
     def __init__(self, path: str, *, kind: str, seed: int, fp: str,
-                 interval_s: float, extra_meta: dict | None = None):
+                 interval_s: float, extra_meta: dict | None = None,
+                 sync=None):
         self.path = path
+        self.sync = sync
         self._meta = {"kind": kind, "seed": int(seed), "fp": fp,
                       **(extra_meta or {})}
         self.ckpt = open_checkpoint(path)
         self._pc = PeriodicCheckpointer(path, interval_s=interval_s)
 
+    @property
+    def writer(self) -> bool:
+        return self.sync is None or self.sync.writer
+
     def load_state(self, check=None) -> dict | None:
         """Load and validate; returns the arrays dict, or None when no
         checkpoint exists. ``check(arrays) -> bool`` adds shape/content
-        validation. Raises ValueError on any identity mismatch."""
+        validation. Raises ValueError on any identity mismatch (on every
+        rank, under ``sync``)."""
+        if self.sync is None:
+            return self._load_state(check)
+        got = None
+        if self.sync.writer:
+            try:
+                got = ("ok", self._load_state(check))
+            except ValueError as e:
+                got = ("refused", str(e))
+        got = self.sync.bcast(got)
+        if got[0] == "refused":
+            raise ValueError(got[1])
+        return got[1]
+
+    def _load_state(self, check=None) -> dict | None:
         loaded = self.ckpt.load()
         if loaded is None:
             return None
@@ -405,6 +434,9 @@ class ChainCheckpointer:
         :class:`~graphdyn_torch.resilience.ShutdownRequested` — so the on-disk
         checkpoint is never older than one chunk when the CLI exits 75.
         Fault site ``chunk.boundary`` simulates a hard preemption here."""
+        if self.sync is not None:
+            return self._drive_synced(state, advance=advance, active=active,
+                                      payload=payload)
         k = 0
         while active(state):
             state = advance(state)
@@ -423,6 +455,37 @@ class ChainCheckpointer:
                 elif self.due():
                     self.maybe_save(payload(state))
         self.remove()
+        return state
+
+    def _drive_synced(self, state, *, advance, active, payload):
+        """:meth:`drive` over the ranks of ``sync``: the same boundaries,
+        with the shutdown flag of any rank and rank 0's save clock or-reduced
+        into one decision that every rank takes."""
+        from graphdyn_torch.resilience.shutdown import ShutdownRequested
+
+        k = 0
+        while active(state):
+            state = advance(state)
+            k += 1
+            _beat("chunk")
+            _faults.maybe_fail("chunk.boundary", key=f"{self.path}#{k}")
+            if active(state):
+                stop, due = self.sync.any(shutdown_requested(),
+                                          self.writer and self.due())
+                if stop or due:
+                    arrays = payload(state)
+                    if self.writer:
+                        if not self.save_now(arrays) and stop:
+                            log.warning(
+                                "shutdown snapshot for %s could not be "
+                                "written — resume will fall back to the "
+                                "last periodic checkpoint (if any)",
+                                self.path)
+                if stop:
+                    raise_if_requested(where="chunk")
+                    raise ShutdownRequested(None, where="chunk")
+        if self.writer:
+            self.remove()
         return state
 
 

@@ -155,10 +155,20 @@ def test_curve_is_deterministic_and_refuses_mesh():
     b = tc.consensus_curve(g, 32, [0.0, 0.2], 20, graph_seed=3, device="cpu")
     assert a == b and seen == a
     assert [r["m0"] for r in a] == [0.0, 0.2]
+    # mesh= shards the word axis since the node-sharding slice
+    # (tests/test_torch_sharded.py); a word count the mesh does not divide
+    # is refused, as in the JAX package
+    class Mesh3:
+        mesh_dim_names = ("replica",)
+        shape = (3,)
+
+        def get_local_rank(self, name):
+            return 0
+
     for fn, args in ((tc.consensus_point, (g, 32, 0.1, 10)),
                      (tc.consensus_curve, (g, 32, [0.1], 10))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*args, mesh=object(), device="cpu")
+        with pytest.raises(ValueError, match="must divide"):
+            fn(*args, mesh=Mesh3(), device="cpu")
 
 
 def test_cli_consensus_prints_the_doc(tmp_path):

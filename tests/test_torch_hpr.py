@@ -395,13 +395,17 @@ def test_cli_prints_the_reference_keys(tmp_path, monkeypatch):
         with np.load(out + ".npz") as got, \
                 np.load(str(tmp_path / f"j_{name}.npz")) as ref:
             assert sorted(got.files) == sorted(ref.files), name
-    for extra, exc in ((["--batch-replicas", "2", "--device-init",
-                        "--checkpoint", "x"], SystemExit),
-                       (["--batch-replicas", "2", "--device-init"],
-                        NotImplementedError),
-                       (["--device-init"], SystemExit)):
-        with pytest.raises(exc):
+    for extra in (["--batch-replicas", "2", "--device-init",
+                   "--checkpoint", "x"], ["--device-init"]):
+        with pytest.raises(SystemExit):
             main(base + extra + ["--device", "cpu"])
+    # --device-init runs since its port (tests/test_torch_hpr_device_init.py)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(base + ["--batch-replicas", "2", "--device-init",
+                            "--device", "cpu"]) == 0
+    assert list(json.loads(buf.getvalue().strip().splitlines()[-1])) \
+        == list(want["batch"])
 
 
 def test_refused_arguments_name_the_roadmap(tmp_path):
@@ -411,10 +415,13 @@ def test_refused_arguments_name_the_roadmap(tmp_path):
     th.hpr_solve(g, HPRConfig(max_sweeps=40), checkpoint_path=str(
         tmp_path / "ck"), device=CPU)
     assert not (tmp_path / "ck.npz").exists()
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(NotImplementedError, match="A15b"):
         th.hpr_solve_batch(g, n_replicas=2, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        th.hpr_solve_batch(g, n_replicas=2, device_init=True, device=CPU)
+    # device_init runs since its port; with mesh= it is refused first, as
+    # in the JAX package
+    with pytest.raises(ValueError, match="incompatible with mesh="):
+        th.hpr_solve_batch(g, n_replicas=2, mesh=object(), device_init=True,
+                           device=CPU)
     with pytest.raises(ValueError, match="chunk_sweeps"):
         th.hpr_solve(g, checkpoint_path=str(tmp_path / "x"), chunk_sweeps=0,
                      device=CPU)

@@ -188,8 +188,12 @@ def test_memcheck_structural_pass_off_the_card():
     for r in rows:
         assert r.ok and r.measured is None and r.frac is None, r
         assert r.reason and r.device == "cpu"
-        assert r.model > 0 or r.program == "halo_shard"
-    assert "A15" in rows[3].reason
+        assert r.model > 0
+    # the halo row charges the widest shard of the JAX package's smoke
+    # partition, as its model does
+    from graphdyn.obs import memband as jmem
+
+    assert rows[3].model == jmem._halo_smoke_model(W=8)
 
 
 def test_memrow_band_logic_and_peak_null_plus_reason():

@@ -290,10 +290,16 @@ def test_packed_rollout_refusals_and_identity():
     nbr, deg = _tables(g)
     sp = words_from_numpy(_words(g.n, 1, 1))
     assert tp.packed_rollout(nbr, deg, sp, 0) is sp
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.packed_rollout(nbr, deg, sp, 1, partition=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.packed_rollout(nbr, deg, sp, 1, mesh=object())
+    # node sharding is ported (tests/test_torch_halo.py): a P = 1 partition
+    # is the single-device program, P >= 2 needs a process group of P ranks
+    from graphdyn_torch.graphs import partition_graph
+
+    want = tp.packed_rollout(nbr, deg, sp, 3)
+    one = partition_graph(g, 1)
+    assert torch.equal(tp.packed_rollout(nbr, deg, sp, 3, partition=one),
+                       want)
+    with pytest.raises(ValueError, match="process group"):
+        tp.packed_rollout(nbr, deg, sp, 1, partition=partition_graph(g, 2))
     with pytest.raises(TypeError, match="int32"):
         tp.packed_rollout(nbr.long(), deg, sp, 1)
     with pytest.raises(ValueError, match="shapes"):

@@ -36,6 +36,10 @@ from graphdyn_torch.search import chromatic as tsc
 from graphdyn_torch.search import fused as tsf
 from graphdyn_torch.pipeline import sa_group as tsg
 from graphdyn_torch.search import tempering as tst
+from graphdyn_torch.parallel import halo as tph
+from graphdyn_torch.parallel import mesh as tpm
+from graphdyn_torch.parallel.sa_sharded import sa_sharded as t_sa_sharded
+from graphdyn_torch.resilience import soak as tsoak
 from graphdyn_torch.utils.platform import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -109,7 +113,13 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.obs.roofline", "graphdyn_torch.obs.trend",
                  "graphdyn_torch.obs.__main__",
                  "graphdyn_torch.utils.profiling",
-                 "graphdyn_torch.utils.validate"):
+                 "graphdyn_torch.utils.validate",
+                 "graphdyn_torch.parallel", "graphdyn_torch.parallel.mesh",
+                 "graphdyn_torch.parallel.sharded",
+                 "graphdyn_torch.parallel.halo",
+                 "graphdyn_torch.parallel.sa_sharded",
+                 "graphdyn_torch.scripts.halo_ranks",
+                 "graphdyn_torch.resilience.soak"):
         assert name in out["modules"]
 
 
@@ -129,6 +139,17 @@ def test_source_imports_no_jax_or_graphdyn(path):
 
 def _small_graph():
     return tg.random_regular_graph(20, 3, seed=0)
+
+
+class _OneMesh:
+    """A 1 × 1 replica × node mesh seen from its one rank (no process
+    group is made: the entry point must refuse before it would need one)."""
+
+    mesh_dim_names = ("replica", "node")
+    shape = (1, 1)
+
+    def get_local_rank(self, name):
+        return 0
 
 
 def _spins():
@@ -196,6 +217,17 @@ ENTRY_POINTS = {
     "simulated_annealing_streamed": lambda: tsa.simulated_annealing(
         _small_graph(), SAConfig(), n_replicas=2, max_steps=2,
         layout="streamed"),
+    "hpr_solve_batch_device_init": lambda: th.hpr_solve_batch(
+        _small_graph(), HPRConfig(max_sweeps=2), n_replicas=2,
+        device_init=True),
+    "init_distributed": lambda: tpm.init_distributed(world_size=1, rank=0),
+    "make_mesh": lambda: tpm.make_mesh((1,), ("node",)),
+    "device_pool": lambda: tpm.device_pool(2),
+    "sa_sharded": lambda: t_sa_sharded(_small_graph(), mesh=_OneMesh(),
+                                         n_replicas=2, max_steps=2),
+    "HaloProgram": lambda: tph.HaloProgram(
+        _small_graph(), tg.partition_graph(_small_graph(), 1), steps=1),
+    "run_soak": lambda: tsoak.run_soak(scenarios=["torn_write"], seeds=[0]),
 }
 
 
@@ -223,8 +255,13 @@ def test_entry_point_without_device_refuses_on_cuda_less_host(name, monkeypatch)
     ["stream", "--n", "50", "--steps", "1"],
     ["sa", "--n", "50", "--d", "3", "--n-stat", "2", "--max-steps", "2",
      "--layout", "streamed"],
+    ["consensus", "--n", "50", "--max-steps", "10", "--sharded"],
+    ["hpr", "--n", "50", "--max-sweeps", "2", "--batch-replicas", "2",
+     "--device-init"],
+    ["sa", "--n", "50", "--d", "3", "--max-steps", "2", "--sharded"],
 ], ids=["consensus", "fused", "hpr", "hpr_batch", "entropy", "entropy_union",
-        "sa", "chromatic", "temper", "stream", "sa_streamed"])
+        "sa", "chromatic", "temper", "stream", "sa_streamed",
+        "consensus_sharded", "hpr_device_init", "sa_sharded"])
 def test_cli_without_device_refuses_on_cuda_less_host(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
@@ -273,6 +310,15 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():
     before = packed_cuda.LAUNCHES
     tp.packed_rollout(nbr, deg, ext[:-1], 3)
     assert packed_cuda.LAUNCHES == before
+    # the shard-layout launch refuses CPU tensors; its CPU step is the plain
+    # twin and never launches
+    with pytest.raises(ValueError, match="not CUDA"):
+        packed_cuda.packed_step_rows(nbr, deg, ext, ext.clone(), n_update=g.n,
+                                     minority=False, change=False)
+    step = tph.ShardStep(nbr, deg, n_update=g.n, rule="majority", tie="stay")
+    step(ext, ext.clone())
+    assert packed_cuda.LAUNCHES == before
+    assert packed_cuda.SHARD_LAUNCHES == 0
 
 
 def test_bucketed_wrapper_refuses_cpu_tensors_and_cpu_path_never_launches():

@@ -291,16 +291,18 @@ def test_cli_json_and_npz_keys_are_the_references(case, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["sa", "--sharded"], "A15"), (["sa", "--shards", "2"], "A15"),
-    # checkpoints run since the durability slice; a sharded run's own
-    # checkpoints wait with the sharding (A15)
-    (["sa", "--sharded", "--checkpoint", "x"], "A15"),
-    # the layouts run since the power-law slice; with a flag that is not
-    # ported they still refuse, naming that flag's item
-    (["sa", "--layout", "bucketed", "--sharded"], "A15"),
-    (["sa", "--layout", "streamed", "--shards", "2"], "A15"),
-    (["temper", "--lane-shards", "2"], "A15"),
-    (["temper", "--lane-shards", "2", "--checkpoint", "x"], "A15"),
+    # sa --sharded runs since the node-sharding slice
+    # (tests/test_torch_sa_sharded_cli.py); its streamed layout waits (A15b)
+    (["sa", "--sharded", "--layout", "streamed"], "A15b"),
+    (["sa", "--shards", "2"], "pass --sharded as well"),
+    (["stream", "--shards", "2", "--checkpoint", "x"], "A15b"),
+    # the layouts run since the power-law slice; the mesh solver refuses a
+    # per-repetition layout, as the JAX package's CLI does
+    (["sa", "--layout", "bucketed", "--sharded"],
+     "per-repetition driver layout"),
+    (["sa", "--layout", "streamed", "--sharded", "--shards", "2"], "A15b"),
+    (["temper", "--lane-shards", "2"], "A15b"),
+    (["temper", "--lane-shards", "2", "--checkpoint", "x"], "A15b"),
 ], ids=["sharded", "shards", "sa_checkpoint", "bucketed", "streamed",
         "lane_shards", "temper_checkpoint"])
 def test_cli_refuses_what_is_not_ported(argv, item):
