@@ -31,7 +31,7 @@ must count 0 there):
   under the near-tie rule; and config 2 (union of 256 copies of a d=3 RRG,
   n=10⁵, 20 sweeps) through ``hpr_solve_batch`` and the CLI;
 - the BDCM kernels past T = 4 and past a block's shared memory: the ``hpr``
-  CLI at T = 5 (``--p 4 --c 1`` on RRG d=4, n=10⁴, 50 sweeps) in float32
+  CLI at T = 5 (``--p 4 --c 1`` on RRG d=4, n=10⁴, 20 sweeps) in float32
   and float64; ``make_sweep`` at T = 6 (p=5, c=1) on RRG(10³, 3); and
   ``entropy_sweep`` at T = 4 on ER(2000, 6/1999), whose hub classes take
   the global-lattice path (4 λ, one 16-sweep chunk per λ, the first λ held
@@ -108,7 +108,25 @@ must count 0 there):
   equal to it; memcheck's halo row; ``hpr --device-init`` at config 2
   (set-up seconds beside the host init's, K3′ launches = sweeps, card ==
   CPU on a small shape, in the ``bdcm`` group);
-- the chaos soak's bounded matrix on the card (``soak``: 11 scenarios,
+- the rest of ``parallel/`` (in the ``parallel`` group), every P = 2 leg in
+  one job of two ranks spawned on the card over gloo and its P = 1 twin on
+  a one-rank NCCL group, each leg's counts set to 0 just before it and
+  read on every rank just after: ``sharded_streamed_rollout`` at the stream
+  bench shape (KB launches = the rank's chunks × steps; ms per step split
+  into the chunk walk and the exchange, the bytes, the per-shard overlap),
+  equal to ``streamed_rollout`` and the resident KB rollout; ``stream
+  --shards 2 --hub-threshold`` at the churn row's shape, repartitioning and
+  equal to ``--shards 1``, and the same run preempted at P = 2 and resumed
+  at P = 1; ``entropy_ensemble_union(mesh=)`` on config 4's union (K3
+  launches = classes × sweeps, ms per sweep split into K3 and the gathers)
+  within f32 tolerance of (or equal to) the unsharded run; config 2's
+  replica mesh equal to the unsharded run (K3′ launches = sweeps);
+  ``entropy_ensemble(mesh=)``, the cell mesh, ``temper --lane-shards 2``,
+  ``sa_ensemble_grouped(mesh=)`` and ``sa_sharded(layout='streamed')``
+  equal to their P = 1 twins; KB on a shard chunk and K3 on an edge slice
+  against their plain versions, timed beside their bounds; memcheck's
+  ``streamed_shard`` row;
+- the chaos soak's bounded matrix on the card (``soak``: 12 scenarios,
   seed 0 and more seeds while the run has time).
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
@@ -133,6 +151,7 @@ without a CUDA device the script exits non-zero at once. Imports neither
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -304,13 +323,21 @@ CONTRACT_TOL = {torch.float32: (1e-5, 1e-7), torch.float64: (1e-12, 1e-15)}
 # 2 (`BASELINE.md:30`), cut only in its sweep count; HPr at T = 5 (the CLI
 # with --p 4 --c 1, its other defaults), cut to HPR_T5_SWEEPS sweeps
 HPR_N, HPR_D = 10_000, 4
-HPR_T5_SWEEPS = 50
+# the sweeps of the reference shape's profiled run (50 until the rest of
+# parallel/ joined) and the T = 5 chains' first sweeps held to plain (3 until
+# then)
+REF_PROFILE_SWEEPS, HPR_T5_FIRST_SWEEPS = 10, 1
+HPR_T5_SWEEPS = 20       # cut from 50 since the rest of parallel/ joined
 # T = 6: one make_sweep run on RRG(10^3, 3) at p=5, c=1 (one class, d=2,
 # M=729, K=64, the block path); the global path at T = 4: entropy_sweep on
 # ER(2000, 6/1999) at p=3, c=1, 4 λ in [0, 3], its sweeps cut to one chunk
 # of GLOBAL_MAX_SWEEPS per λ
 T6_N, T6_SWEEPS = 1000, 3
 GLOBAL_N, GLOBAL_C, GLOBAL_SEED, GLOBAL_MAX_SWEEPS = 2000, 6.0, 0, 16
+# ... cut since the rest of parallel/ joined: λ ∈ {0, 1} (was {0, 1, 2, 3}),
+# the first 2 sweeps against plain (was 3), the plain ladder's chunks of 2
+# sweeps (its fixed point stops after one sweep either way)
+GLOBAL_LAMBDAS, GLOBAL_FIRST_SWEEPS, GLOBAL_PLAIN_CHUNK = (0.0, 1.0), 2, 2
 CONFIG2_N, CONFIG2_D, CONFIG2_R, CONFIG2_SWEEPS = 100_000, 3, 256, 20
 # the row gather (P): the widths held against index_select, and the port's
 # own gathers as (label, n_src, W, n_idx): the rows and the gathers per step
@@ -352,7 +379,7 @@ SA_MAIN_STEPS, TEMPER_MAIN_STEPS = 2_500, 5_000
 GATHER_REPS = 9
 # the entropy CLI's λ ladder, cut from its default 12.0 (121 points) to
 # keep the script's time since the power-law and durability phases joined
-ENTROPY_CLI_LMBD_MAX = 3.0
+ENTROPY_CLI_LMBD_MAX = 2.0   # 3.0 until the rest of parallel/ joined
 # the power-law path: bench.py:powerlaw_rate_row's shape
 # (powerlaw_graph(10^5, gamma=2.2, dmin=2, seed=0), R=1024, 20 steps x 3
 # iterations) and stream_rate_row's (n=65,536, the same law, R=1024, 10
@@ -378,25 +405,48 @@ ENTROPY_NAN_AT = 14
 # ~1640 sweeps; a profiled run of all of them writes a 250 MB trace) and of
 # the sa chunk loop (5 chunks of 256 steps)
 OBS_ENTROPY_LMBD_MAX = 0.5
-OBS_REPEATS = 5
-OBS_HPR_SWEEPS, OBS_HPR_CHUNK = 400, 80
-OBS_SA_STEPS = 1280
+OBS_REPEATS = 3
+# (cut from 400 sweeps and 1280 steps since the rest of parallel/ joined)
+OBS_HPR_SWEEPS, OBS_HPR_CHUNK = 240, 80
+OBS_SA_STEPS = 768
 # node-axis sharding (the parallel group): steps of each halo main path and
 # of its timed split; the small SA shape of the sharded chains; the
 # consensus leg at the headline width; config 5's light-cone run through
 # the CLI (cut to CONFIG5_CHUNKS chunks); the spawned ranks' time limit
-PAR_STEPS, PAR_TIMED_STEPS = 20, 5
+PAR_STEPS, PAR_TIMED_STEPS = 10, 5
 PAR_SA_N, PAR_SA_R, PAR_SA_L = 2000, 8, 300
 PAR_CONSENSUS_ARGV = ["consensus", "--graph", "rrg", "--n", str(10**6),
                       "--d", "3", "--replicas", "16384", "--m0", "0.1",
                       "--max-steps", "20", "--chunk", "10", "--device",
                       "cuda"]
-CONFIG5_CHUNKS, CONFIG5_CHUNK = 2, 256
+CONFIG5_CHUNKS, CONFIG5_CHUNK = 1, 256   # 2 chunks until the rest of parallel/
 PAR_SPAWN_TIMEOUT_S = 600
+# the rest of parallel/ (in the parallel group): the churn repartition
+# row's shape and churn seed (bench.py:933-989: powerlaw_graph(16384, 2.2,
+# 2, 0), R=512, 12 steps, 512 mutations a step, seed 7) at the hub
+# threshold of the base graph's PB_CHURN_Q degree quantile (39): the row's
+# max(dmax // 2, 4) = 2789 lies above every degree but the top hub's, so
+# no churned node crosses it; at the quantile, 4 nodes are promoted at 3
+# steps. No threshold demotes on this schedule: its drops are uniform node
+# pairs, of which one in 12 steps is an edge (the demotion runs in the CPU
+# tests' crafted schedules); config 4's
+# union through the edge-sharded fixed point, its ladder cut to PB_UNION_L
+# of config 4's 32 λ (its width is config 4's); the cell mesh on the
+# entropy CLI's first group of 8 cells, λ ≤ PB_CELL_LMBD_MAX; the sa
+# defaults' grouped ensemble in groups of PB_SA_GROUP; the stream run that
+# is preempted at its PB_RESUME_AT-th chunk boundary at P=2 and resumed at
+# P=1; the timed sweeps of the edge-sharded fixed point; the congruent
+# ensemble's first PB_CONGRUENT_L of config 4's λ; the streamed SA chain's
+# step budget
+PB_CHURN_N, PB_CHURN_R, PB_CHURN_STEPS, PB_CHURN_MUT = 16384, 512, 12, 512
+PB_CHURN_SEED, PB_CHURN_Q = 7, 0.98
+PB_UNION_L, PB_CELL_LMBD_MAX, PB_SA_GROUP = 2, 0.5, 6
+PB_CONGRUENT_L, PB_SA_STREAM_STEPS = 8, 100
+PB_RESUME_AT, PB_TIMED_SWEEPS = 4, 64
 # the soak group adds seeds past seed 0 while the run is inside this
 SOAK_UNTIL_S = 900
 # the chromatic phase's profiled chunk (its 64-sweep timing run is apart)
-CHROMATIC_PROFILE_SWEEPS = 8
+CHROMATIC_PROFILE_SWEEPS = 2   # 8 until the rest of parallel/ joined
 
 
 _T0 = time.perf_counter()
@@ -1190,8 +1240,8 @@ def phase_contract_parity() -> dict:
     up to :data:`CONTRACT_BIG_M`), eps_clamp ∈ {0, 1e-12}; then the
     kernel's ms per launch at each pair's largest case (shared factor,
     CUDA events around 20 queued launches) beside its bound and the plain
-    version's (one call). Returns the max abs and rel errors per dtype and
-    the timings."""
+    version's (its parity call at that case, timed by CUDA events). Returns
+    the max abs and rel errors per dtype and the timings."""
     t0 = time.perf_counter()
     errs = {torch.float32: [0.0, 0.0], torch.float64: [0.0, 0.0]}
     timings = {}
@@ -1216,8 +1266,20 @@ def phase_contract_parity() -> dict:
                                                  per_group, seed)
                     kw = dict(d=d, T=T, damp=0.4, eps_clamp=eps)
                     k = dp_contract_grouped(ci, a, co, kernel="cuda", **kw)
+                    # the plain version's time at the timed case (the
+                    # largest, shared factor) is this call's
+                    timed = not per_group and (G, Ed, eps) == cases[-1]
+                    if timed:
+                        ev0 = torch.cuda.Event(enable_timing=True)
+                        ev1 = torch.cuda.Event(enable_timing=True)
+                        torch.cuda.synchronize()
+                        ev0.record()
                     p = dp_contract_grouped(ci, a, co, kernel="plain", **kw)
+                    if timed:
+                        ev1.record()
                     torch.cuda.synchronize()
+                    if timed:
+                        plain_ms = ev0.elapsed_time(ev1)
                     e_abs, e_rel = _contract_err(k, p, dtype)
                     errs[dtype][0] = max(errs[dtype][0], e_abs)
                     errs[dtype][1] = max(errs[dtype][1], e_rel)
@@ -1227,8 +1289,6 @@ def phase_contract_parity() -> dict:
             ci, a, co = _contract_inputs(G, Ed, d, T, dtype, False, seed)
             ms = _cuda_ms(lambda: dp_contract_grouped(
                 ci, a, co, kernel="cuda", d=d, T=T, damp=0.4), 20, lead_ms=20)
-            plain_ms = _cuda_ms(lambda: dp_contract_grouped(
-                ci, a, co, kernel="plain", d=d, T=T, damp=0.4), 1, lead_ms=20)
             bound = contract_bound(G, Ed, d, T, dtype)
             timings[f"d={d} T={T} {str(dtype)[6:]}"] = {
                 "path": plan["path"], "G": G, "Ed": Ed, "ms": ms,
@@ -1556,11 +1616,13 @@ def phase_hpr_ref_timing() -> dict:
         if dtype == "float32":
             holder = [st]
 
-            def fifty():
-                holder[0] = ex.advance(holder[0], holder[0].t + 50)
+            def profiled():
+                holder[0] = ex.advance(holder[0],
+                                       holder[0].t + REF_PROFILE_SWEEPS)
 
-            profile_breakdown(fifty,
-                              "reference shape, 50 sweeps of the G=1 executor")
+            profile_breakdown(profiled,
+                              f"reference shape, {REF_PROFILE_SWEEPS} sweeps "
+                              f"of the G=1 executor")
             st = holder[0]
         plan = ex.tables
         bias = NodeBias(st.biases.reshape(-1, 2))
@@ -1871,7 +1933,10 @@ def phase_config2_main() -> dict:
     torch.cuda.empty_cache()
     return {"wall_s": wall, "cli_wall_s": wall_cli, "peak_bytes": peak,
             "launches_batch": launches, "launches_cli": launches_cli,
-            "launches": launches + launches_cli}
+            "launches": launches + launches_cli,
+            # what the parallel group holds config 2's replica mesh to
+            "result": {"s_sha": _sha(res.s), "num_steps": res.num_steps,
+                       "m_final": res.m_final}}
 
 
 # ---------------------------------------------------------------------------
@@ -1927,7 +1992,7 @@ def phase_hpr_t5() -> dict:
     1`` on RRG d=4, n=10⁴ (its other defaults, the sweeps cut to
     :data:`HPR_T5_SWEEPS`) in float32 and float64, with the BDCM counts set
     to 0 just before and read just after (K3′ launches = the sweeps); then
-    the first 3 sweeps of a chain from the CLI's init, each held against
+    the first sweeps of a chain from the CLI's init, each held against
     the plain sweep of the same state, and ms per sweep beside
     :func:`sweep_bound` (:func:`phase_sweep`)."""
     g = random_regular_graph(HPR_N, HPR_D, seed=0)
@@ -1957,7 +2022,7 @@ def phase_hpr_t5() -> dict:
         label = f"HPr T=5 {dtype}"
         errs = []
         with _plain_chunks():
-            for t in range(3):
+            for t in range(HPR_T5_FIRST_SWEEPS):
                 bias = NodeBias(st.biases.reshape(-1, 2))
                 errs.append(_sweep_vs_plain(f"{label} sweep {t}", st.chi,
                                             ex.a_tilted, bias, None,
@@ -1974,8 +2039,9 @@ def phase_hpr_t5() -> dict:
             f"--c 1 --max-sweeps {HPR_T5_SWEEPS} --dtype {dtype}: "
             f"{doc['num_steps'][0]} sweeps, mag_reached "
             f"{doc['mag_reached'][0]}, wall {wall:.3f} s; bdcm_sweep launches "
-            f"(one per sweep) {launches}; the first 3 sweeps against plain "
-            f"(abs, rel): {errs}; K3' {timing['ms']} ms/sweep, bound "
+            f"(one per sweep) {launches}; the first {HPR_T5_FIRST_SWEEPS} "
+            f"sweeps against plain (abs, rel): {errs}; K3' {timing['ms']} "
+            f"ms/sweep, bound "
             f"{timing['bound_ms']} ms ({timing['bound_by']}), paths "
             f"{timing['paths']}")
         del ex, st
@@ -2029,7 +2095,7 @@ def phase_entropy_global() -> dict:
     """The global-lattice path at T = 4: ER(2000, 6/1999) (config 3's law)
     at p=3, c=1, in float32 and float64. Its classes and their paths are
     logged, and at least one hub class must take ``'global'`` (d ≥ 13 in
-    f32, ≥ 10 in f64); the first 3 sweeps of ``make_sweep`` at λ=0.5 each
+    f32, ≥ 10 in f64); the first sweeps of ``make_sweep`` at λ=0.5 each
     held against the plain sweep, ms per sweep beside the bound
     (:func:`phase_sweep`); then ``entropy_sweep`` at λ ∈ {0, 1, 2, 3} with
     one chunk of :data:`GLOBAL_MAX_SWEEPS` sweeps per λ (its fixed-point
@@ -2039,11 +2105,16 @@ def phase_entropy_global() -> dict:
     λ held against the plain ladder's on the card: φ, m_init and ent1
     within 1e-9 (f64) / 1e-4 (f32), the same sweeps (the plain ladder at
     λ = 0 only: a plain sweep of this graph takes 1.2 s in f32, 2 s in
-    f64 on an H100, and a chunk is 16 of them)."""
+    f64 on an H100, and a chunk is 16 of them: the plain ladder runs in
+    chunks of :data:`GLOBAL_PLAIN_CHUNK` sweeps, which changes no value of
+    a fixed point that stops after one sweep, only the masked sweeps it
+    runs after that)."""
+    from graphdyn_torch.pipeline import entropy_group
+
     g = erdos_renyi_graph(GLOBAL_N, GLOBAL_C / (GLOBAL_N - 1),
                           seed=GLOBAL_SEED)
     sub, _ = graphs.remove_isolates(g)
-    lambdas = np.array([0.0, 1.0, 2.0, 3.0])
+    lambdas = np.array(GLOBAL_LAMBDAS)
     out = {}
     for dt, atol in (("float32", 1e-4), ("float64", 1e-9)):
         label = f"ER(2000, 6) T=4 {dt}"
@@ -2058,7 +2129,7 @@ def phase_entropy_global() -> dict:
                                                           data.x0)
         errs, x = [], c
         with _plain_chunks():
-            for t in range(3):
+            for t in range(GLOBAL_FIRST_SWEEPS):
                 x, err = _sweep_vs_plain(f"{label} sweep {t}", x, a_t, None,
                                          valid, plan, spec)
                 errs.append(err)
@@ -2075,10 +2146,15 @@ def phase_entropy_global() -> dict:
         launches = _bdcm_counts(f"entropy_sweep {label}",
                                 _ladder_sweeps([res.sweeps]))
         t0 = time.perf_counter()
-        with _plain_chunks():
-            res_p = entropy_sweep(g, cfg, seed=GLOBAL_SEED,
-                                  lambdas=lambdas[:1], kernel="plain",
-                                  device="cuda")
+        chunk = entropy_group.CHUNK_SWEEPS
+        entropy_group.CHUNK_SWEEPS = GLOBAL_PLAIN_CHUNK
+        try:
+            with _plain_chunks():
+                res_p = entropy_sweep(g, cfg, seed=GLOBAL_SEED,
+                                      lambdas=lambdas[:1], kernel="plain",
+                                      device="cuda")
+        finally:
+            entropy_group.CHUNK_SWEEPS = chunk
         plain_wall = time.perf_counter() - t0
         got, want = eref.curve_record(res), eref.curve_record(res_p)
         if (got["lambdas"] != lambdas.tolist()
@@ -2104,8 +2180,8 @@ def phase_entropy_global() -> dict:
             f"{got['sweeps']}, wall {wall:.3f} s (the plain ladder at λ=0 "
             f"{plain_wall:.3f} s), bdcm_sweep launches (one per sweep) "
             f"{launches}; φ, m_init, ent1 at λ=0 within {phi_err} of the "
-            f"plain ladder's (atol {atol}); the first 3 sweeps against plain "
-            f"(abs, rel): {errs}")
+            f"plain ladder's (atol {atol}); the first {GLOBAL_FIRST_SWEEPS} "
+            f"sweeps against plain (abs, rel): {errs}")
         torch.cuda.empty_cache()
     return out
 
@@ -2629,7 +2705,7 @@ def phase_congruent_ensemble() -> dict:
 def phase_entropy_cli() -> dict:
     """``python -m graphdyn_torch entropy --device cuda`` at its defaults
     (n=1000, deg 1.0 1.5 2.0, num_rep 3, the grouped entropy_grid) but for
-    its λ ladder, cut to λ ≤ :data:`ENTROPY_CLI_LMBD_MAX` (31 of the 121
+    its λ ladder, cut to λ ≤ :data:`ENTROPY_CLI_LMBD_MAX` (21 of the 121
     points) to keep the script's time, in process, with its wall time and
     the reference's JSON keys."""
     _reset_bdcm_counts()
@@ -4765,7 +4841,9 @@ def _par_rank(rank: int, world: int, tmp: str) -> dict:
     run_ranks`): the headline and config-3 halo rollouts, the sharded
     consensus at the headline width, the sharded SA in its gather and halo
     modes under injected streams, and a checkpointed run that is preempted
-    at its second chunk boundary."""
+    at its second chunk boundary; then the P=2 legs of the rest of
+    parallel/ (:func:`_pb_legs`), from a directory of the rank's own (where
+    a preempted command's flight post-mortem lands)."""
     import pickle
 
     from graphdyn_torch.parallel.mesh import make_mesh
@@ -4809,6 +4887,10 @@ def _par_rank(rank: int, world: int, tmp: str) -> dict:
         res["preempt"] = "finished"
     except faults.InjectedPreemption:
         res["preempt"] = "preempted"
+    cwd = os.path.join(tmp, f"rank{rank}")
+    os.makedirs(cwd, exist_ok=True)
+    os.chdir(cwd)
+    res["pb"] = _pb_legs(world, tmp)
     return res
 
 
@@ -4882,7 +4964,9 @@ def phase_parallel(ctx: dict) -> dict:
     sharded SA and a preempted SA run); the P=1 legs on a one-rank NCCL
     group in this process (the same rollouts and consensus, config 5's
     light-cone width, and the P=2 run resumed at P=1); memcheck's halo
-    row."""
+    row. The same spawn and NCCL group run the legs of the rest of
+    parallel/ (:func:`_pb_legs`), which :func:`phase_parallel_b` checks
+    (``out["b"]``)."""
     import torch.distributed as dist
 
     from graphdyn_torch.obs import memband
@@ -4904,6 +4988,7 @@ def phase_parallel(ctx: dict) -> dict:
         ranks = run_ranks(_par_rank, 2, tmp, device="cuda", backend="gloo",
                           root=tmp, timeout=PAR_SPAWN_TIMEOUT_S)
         out["spawn_wall_s"] = time.perf_counter() - t0
+        pb_ranks = [r.pop("pb") for r in ranks]
         r0 = ranks[0]
         for leg in ("headline", "config3"):
             for r in ranks:
@@ -4997,8 +5082,11 @@ def phase_parallel(ctx: dict) -> dict:
             out["sa"] = {"gather_wall_s": r0["sa_gather"]["wall_s"],
                          "halo_wall_s": r0["sa_halo"]["wall_s"],
                          "resume_wall_s": resume_wall}
+            # the P=1 twins of the rest of parallel/ on this one-rank group
+            pb_one = _pb_legs(1, tmp)
         finally:
             dist.destroy_process_group()
+        out["b"] = phase_parallel_b(ctx, pb_ranks, pb_one, tmp)
     # memcheck's halo row (the obs group's memcheck prints it among the
     # others): the widest smoke shard's peak against its model
     dev = torch.device("cuda")
@@ -5067,6 +5155,652 @@ def phase_config2_device_init(host_setup: dict) -> dict:
         f"per sweep) {launches}")
     return {"device_init_s": t_dev, "host_init_s": host_s,
             "cli_wall_s": wall, "launches": launches, "row_err": row_err}
+
+
+# ---------------------------------------------------------------------------
+# the rest of parallel/: the sharded stream, the edge-sharded BDCM sweep and
+# the ensemble meshes (in the parallel group)
+# ---------------------------------------------------------------------------
+
+
+def _pb_stream_inputs():
+    """The stream bench shape (``bench.py:701-745``): the graph, its device
+    budget (a quarter of the resident model) and the CLI's initial state,
+    packed (host)."""
+    from graphdyn_torch.ops.packed import pack_spins
+
+    W = STREAM_R // 32
+    g = graphs.powerlaw_graph(STREAM_N, gamma=2.2, dmin=2, seed=0)
+    rng = np.random.default_rng(0)
+    s0 = (2 * rng.integers(0, 2, size=(STREAM_R, STREAM_N)) - 1).astype(
+        np.int8)
+    return g, _stream_budget(g, W), pack_spins(torch.as_tensor(s0))
+
+
+@functools.lru_cache(maxsize=None)
+def _pb_churn_thr() -> int:
+    """The churn leg's hub threshold: the :data:`PB_CHURN_Q` quantile of
+    the base graph's degrees."""
+    g = graphs.powerlaw_graph(PB_CHURN_N, gamma=2.2, dmin=2, seed=0)
+    return int(np.quantile(g.deg, PB_CHURN_Q))
+
+
+def _pb_churn_argv(shards: int, out: str, device: str = "cuda") -> list:
+    """``stream`` at the churn repartition row's shape, ``--shards``
+    ``shards`` (``--hub-threshold`` :func:`_pb_churn_thr` when sharded)."""
+    argv = ["stream", "--n", str(PB_CHURN_N), "--gamma", "2.2", "--dmin",
+            "2", "--replicas", str(PB_CHURN_R), "--steps",
+            str(PB_CHURN_STEPS), "--churn-rate", str(float(PB_CHURN_MUT)),
+            "--churn-seed", str(PB_CHURN_SEED), "--chunks", "4", "--seed",
+            "0", "--device", device, "--out", out, "--shards", str(shards)]
+    return argv + (["--hub-threshold", str(_pb_churn_thr())] if shards > 1
+                   else [])
+
+
+def _pb_cells():
+    """The entropy CLI's first group of cells (n=1000, deg 1.0 1.5 2.0,
+    num_rep 3, class_bucket 64: the first 8 of its 9 cells) and their
+    initial chi, as ``entropy_grid`` builds them."""
+    from graphdyn_torch.ops.bdcm import BDCMData as _BD
+
+    cells, chis = [], []
+    for di, deg in enumerate((1.0, 1.5, 2.0)):
+        for rep in range(3):
+            if len(cells) == 8:
+                break
+            g = erdos_renyi_graph(1000, deg / 999, seed=1000 * di + rep)
+            sub, n_iso = graphs.remove_isolates(g)
+            data = _BD(sub, class_bucket=64)
+            cells.append((data, g.n, n_iso))
+            chis.append(data.init_messages(1000 * di + rep))
+    return cells, chis
+
+
+def _pb_sa_prep():
+    """PR 12's small ``sa_sharded`` shape: RRG(2000, 3), 8 replicas, 300
+    injected draws."""
+    g_sa = random_regular_graph(PAR_SA_N, 3, seed=2)
+    rng = np.random.default_rng(3)
+    s0 = np.where(rng.random((PAR_SA_R, PAR_SA_N)) < 0.6, 1, -1
+                  ).astype(np.int8)
+    prop = rng.integers(0, PAR_SA_N, size=(PAR_SA_R, PAR_SA_L)
+                        ).astype(np.int32)
+    unif = rng.random(size=(PAR_SA_R, PAR_SA_L))
+    return g_sa, s0, prop, unif
+
+
+def _pb_legs(world: int, tmp: str, device="cuda") -> dict:
+    """Every leg of the rest of parallel/ on a job of ``world`` ranks (the
+    spawned P=2 job, or this process as a one-rank job for the P=1 twins),
+    each leg's kernel counts set to 0 just before it and read just after.
+    Config 2's replica mesh runs at P=2 only: its twin is the unsharded run
+    of the bdcm group."""
+    from graphdyn_torch.interop import words_to_numpy
+    from graphdyn_torch.models.hpr import hpr_solve_batch
+    from graphdyn_torch.parallel.mesh import make_mesh
+    from graphdyn_torch.parallel.sa_sharded import sa_sharded
+    from graphdyn_torch.parallel.sharded import make_sharded_fixed_point
+    from graphdyn_torch.parallel.stream import sharded_streamed_rollout
+    from graphdyn_torch.pipeline.entropy_group import run_cell_ladder
+    from graphdyn_torch.pipeline.sa_group import sa_ensemble_grouped
+
+    import torch.distributed as dist
+
+    cuda = torch.device(device).type == "cuda"
+
+    def mesh(axes):
+        return make_mesh((1, world), axes, device=device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    res = {}
+    # the sharded stream at the stream bench shape
+    g, budget, sp = _pb_stream_inputs()
+    st: dict = {}
+    bucketed_cuda.LAUNCHES = 0
+    sync()
+    t0 = time.perf_counter()
+    out = sharded_streamed_rollout(
+        g, sp, STREAM_STEPS, n_shards=world, device_budget_bytes=budget,
+        mesh=mesh(("replica", "node")), stats_out=st, device=device)
+    res["stream"] = {"words": words_to_numpy(out), "stats": st,
+                     "wall_s": time.perf_counter() - t0,
+                     "launches": bucketed_cuda.LAUNCHES}
+    # churn with live repartition through the CLI, then the same command
+    # with a checkpoint, preempted at a chunk boundary (P=2 only)
+    buf = io.StringIO()
+    path = os.path.join(tmp, f"churn{world}.npz")
+    bucketed_cuda.LAUNCHES = 0
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(_pb_churn_argv(world, path, device))
+    res["churn"] = {"rc": rc, "out": buf.getvalue(), "path": path,
+                    "launches": bucketed_cuda.LAUNCHES}
+    if world > 1:
+        ck = os.path.join(tmp, "ck", "stream")
+        argv = _pb_churn_argv(world, os.path.join(tmp, "resumed.npz"),
+                              device) + [
+            "--checkpoint", ck, "--checkpoint-interval", "0"]
+        buf = io.StringIO()
+        with faults.FaultPlan([faults.FaultSpec(
+                "chunk.boundary", "signal", at=PB_RESUME_AT)]), \
+                contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        clear_shutdown()
+        res["preempted"] = {"rc": rc, "ckpt": ck}
+    # config 4's union through the edge-sharded fixed point
+    gs = _config4_graphs()
+    _reset_bdcm_counts()
+    sync()
+    t0 = time.perf_counter()
+    un = entropy_ensemble_union(
+        gs, _config4_config(), seed=0, lambdas=_config4_lambdas()[:PB_UNION_L],
+        mesh=mesh(("replica", "edge")), device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    subs = [graphs.remove_isolates(x)[0] for x in gs]
+    data = BDCMData(graphs.disjoint_union(subs)[0])
+    res["union"] = {"res": un._asdict(), "wall_s": wall,
+                    "k3": bdcm_cuda.LAUNCHES, "k3p": bdcm_sweep.LAUNCHES,
+                    "classes": len(data.edge_classes)}
+    # the timed sweeps, recorded: each class's K3 launch and its gather in
+    # their own spans, each closed once the card has finished it
+    fp = make_sharded_fixed_point(
+        data, mesh(("replica", "edge")), damp=_config4_config().damp,
+        eps=0.0, max_sweeps=PB_TIMED_SWEEPS, device=device)
+    ledger = os.path.join(tmp, f"split{world}_{dist.get_rank()}.jsonl")
+    with obs.recording(ledger):
+        fp(data.init_messages(0).to(device), 0.0)
+    spans = [e for e in obs_read_ledger(ledger)[0] if e.get("ev") == "span"
+             and e["name"] in ("parallel.sharded.contract",
+                               "parallel.sharded.gather")]
+    res["union"]["split"] = {
+        f"{k}_s": sum(e["wall_s"] for e in spans
+                      if e["name"] == f"parallel.sharded.{k}")
+        for k in ("contract", "gather")}
+    res["union"]["split"]["spans"] = len(spans)
+    if world > 1:
+        # config 2's replica mesh (each rank draws every chain's initial
+        # state with numpy, as the unsharded solver does, and keeps its
+        # block)
+        g2 = random_regular_graph(CONFIG2_N, CONFIG2_D, seed=0)
+        _reset_bdcm_counts()
+        sync()
+        t0 = time.perf_counter()
+        h = hpr_solve_batch(g2, HPRConfig(max_sweeps=CONFIG2_SWEEPS),
+                            n_replicas=CONFIG2_R, seed=0,
+                            mesh=make_mesh((world,), ("replica",),
+                                           device=device),
+                            device=device)
+        res["hpr"] = {"res": {f: getattr(h, f) for f in ("s", "num_steps",
+                                                          "m_final")},
+                      "wall_s": time.perf_counter() - t0,
+                      "k3p": bdcm_sweep.LAUNCHES}
+        del h
+        if cuda:
+            torch.cuda.empty_cache()
+    # the congruent ensemble on the graph axis
+    gs = [random_regular_graph(CONFIG4_N, 3, seed=k) for k in range(CONFIG4_G)]
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    ce = entropy_ensemble(gs, _config4_config(), seed=0,
+                          lambdas=_config4_lambdas()[:PB_CONGRUENT_L],
+                          mesh=mesh(("replica", "graph")), device=device)
+    res["congruent"] = {"res": ce._asdict(),
+                        "wall_s": time.perf_counter() - t0,
+                        "k3p": bdcm_sweep.LAUNCHES}
+    # the cell mesh on the entropy CLI's cells
+    cells, chis = _pb_cells()
+    cfg = EntropyConfig(lmbd_max=PB_CELL_LMBD_MAX)
+    _reset_bdcm_counts()
+    t0 = time.perf_counter()
+    ex = EntropyCellExec(cells, cfg, group_size=8,
+                         mesh=mesh(("replica", "cell")), device=device)
+    cl = run_cell_ladder(ex, chis, lambda_ladder(cfg), eps=cfg.eps,
+                         ent_floor=cfg.ent_floor)
+    res["cells"] = {"res": cl._asdict(), "wall_s": time.perf_counter() - t0,
+                    "k3p": bdcm_sweep.LAUNCHES}
+    # temper --lane-shards at the CLI defaults, cut in steps
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["temper", "--device", device, "--max-steps",
+                       str(TEMPER_MAIN_STEPS)]
+                      + (["--lane-shards", str(world)] if world > 1 else []))
+    res["temper"] = {"rc": rc, "out": buf.getvalue(),
+                     "wall_s": time.perf_counter() - t0}
+    # the sa defaults' grouped ensemble on the group axis
+    args = cli.build_parser().parse_args(["sa"])
+    t0 = time.perf_counter()
+    sag = sa_ensemble_grouped(
+        args.n, args.d, cli._sa_config(args), n_stat=args.n_stat,
+        seed=args.seed, max_steps=SA_MAIN_STEPS, group_size=PB_SA_GROUP,
+        mesh=mesh(("replica", "group")), device=device)
+    res["sa_group"] = {"res": sag._asdict(),
+                       "wall_s": time.perf_counter() - t0}
+    # sa_sharded(layout='streamed') on PR 12's small shape
+    g_sa, s0, prop, unif = _pb_sa_prep()
+    bucketed_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    r = sa_sharded(g_sa, _sa_config(), mesh=mesh(("replica", "node")),
+                   s0=s0, proposals=prop, uniforms=unif,
+                   max_steps=PB_SA_STREAM_STEPS, layout="streamed",
+                   device=device)
+    res["sa_streamed"] = {"res": {f: getattr(r, f) for f in r._fields},
+                          "wall_s": time.perf_counter() - t0,
+                          "launches": bucketed_cuda.LAUNCHES}
+    return res
+
+
+def _same_arrays(a: dict, b: dict, what: str, skip=()) -> None:
+    for f in b:
+        if f in skip or f.endswith("_s"):
+            continue
+        x, y = a[f], b[f]
+        if isinstance(y, list):
+            if len(x) != len(y) or not all(
+                    np.array_equal(np.asarray(u), np.asarray(v))
+                    for u, v in zip(x, y)):
+                raise AssertionError(f"{what}: {f} differs from its twin")
+        elif not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"{what}: {f} differs from its twin")
+
+
+def _pb_kb_row(plan_tables, W: int) -> dict:
+    """KB on a shard's chunk walk: the stream bench shape's rank-0 shard at
+    P=2, its largest chunk staged on the card, one launch timed against the
+    plain version (same slab) and its bound (the slab, the table, the
+    degree and self vectors read once, the output written once; the
+    majority logic of its degrees)."""
+    from graphdyn_torch.obs.roofline import INT32_OPS_PER_S
+    from graphdyn_torch.obs.roofline import _bound as _rbound
+    from graphdyn_torch.obs.roofline import majority_ops
+    from graphdyn_torch.ops.bucketed import PlainBucketStep
+
+    chunks = [c for c in plan_tables.shard_chunks[0] if c.C]
+    ch = max(chunks, key=lambda c: c.C * c.width + c.M)
+    nbr, deg, self_loc = (torch.as_tensor(a, device="cuda")
+                          for a in (ch.nbr_loc, ch.deg, ch.self_loc))
+    rng = np.random.default_rng(5)
+    slab = torch.as_tensor(rng.integers(0, 2**32, size=(ch.M + 1, W),
+                                        dtype=np.uint64).astype(np.uint32)
+                           .view(np.int32), device="cuda")
+    slab[-1] = 0
+    out = torch.empty((ch.C, W), dtype=torch.int32, device="cuda")
+    launch = bucketed_cuda.Launch(
+        [(nbr, deg, self_loc, 0)], W=W, src_rows=ch.M + 1, dst_rows=ch.C,
+        device=slab.device, rule="majority", tie="stay",
+        aligned=bucketed_cuda.aligned16(slab, out))
+    counted = bucketed_cuda.LAUNCHES
+    launch(slab, out)
+    ms = _cuda_ms(lambda: launch(slab, out), 20)
+    bucketed_cuda.LAUNCHES = counted      # timing launches do not count
+    plain = PlainBucketStep(nbr, deg, "majority", "stay")
+    want = plain(slab, slab.index_select(0, self_loc.long()))
+    err = _max_abs_err(out, want)
+    if err:
+        raise AssertionError("KB on a shard chunk != its plain version")
+    t = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    t.record()
+    plain(slab, slab.index_select(0, self_loc.long()))
+    e.record()
+    torch.cuda.synchronize()
+    nbytes = 4 * W * (ch.M + 1) + 4 * W * ch.C + 4 * ch.C * ch.width \
+        + 8 * ch.C
+    ops = majority_ops(W, ch.deg)
+    b = _rbound(nbytes, ops, INT32_OPS_PER_S)
+    return {"ms": ms, "plain_ms": t.elapsed_time(e), "max_abs_err": err,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "bytes": nbytes, "ops": ops,
+            "shape": f"stream bench shape, P=2, shard 0's largest chunk: "
+                     f"C={ch.C} rows, M={ch.M} slab rows, width {ch.width}, "
+                     f"W={W}"}
+
+
+def _pb_k3_row() -> dict:
+    """K3 on the edge-sharded path: config 4's union at P=2, rank 0's slice
+    of its largest class (a launch on [1, Ed/2, d, K, K]), timed against
+    the plain version on the card, with the error and the bound of
+    ``obs/roofline.contract_bound``."""
+    from graphdyn_torch.obs.roofline import contract_bound
+    from graphdyn_torch.ops import bdcm as bdcm_ops
+
+    subs = [graphs.remove_isolates(x)[0] for x in _config4_graphs()]
+    data = BDCMData(graphs.disjoint_union(subs)[0])
+    cls = max(data.edge_classes, key=lambda c: c.idx.shape[0] * c.d)
+    Ed = cls.idx.shape[0]
+    half = -(-Ed // 2)
+    chi = data.init_messages(0).to("cuda")
+    ins = torch.as_tensor(cls.in_edges[:half], device="cuda").long()
+    idx = torch.as_tensor(cls.idx[:half], device="cuda").long()
+    valid = torch.as_tensor(data.valid, dtype=data.dtype, device="cuda")
+    chi_in = (chi[ins] * valid[:, None])[None].contiguous()
+    old = chi[idx][None].contiguous()
+    a = torch.as_tensor(cls.A, dtype=data.dtype, device="cuda") * \
+        bdcm_ops.tilt_vector(0.5, data.x0, data.dtype).to("cuda")[:, None,
+                                                                   None]
+    counted = bdcm_cuda.LAUNCHES
+    got = bdcm_cuda.dp_contract_cuda(chi_in, a, old, d=cls.d, T=data.T,
+                                     damp=0.5)
+    ms = _cuda_ms(lambda: bdcm_cuda.dp_contract_cuda(
+        chi_in, a, old, d=cls.d, T=data.T, damp=0.5), 20)
+    bdcm_cuda.LAUNCHES = counted
+    t = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    t.record()
+    want = bdcm_ops.dp_contract_grouped_plain(chi_in, a, old, d=cls.d,
+                                              T=data.T, damp=0.5)
+    e.record()
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-7):
+        raise AssertionError(f"K3 on the edge slice: max abs err {err}")
+    b = contract_bound(1, half, cls.d, data.T, data.dtype)
+    return {"ms": ms, "plain_ms": t.elapsed_time(e), "max_abs_err": err,
+            "max_rel_err": rel, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "bytes": b["bytes"],
+            "flops": b["flops"],
+            "shape": f"config 4 union, P=2: rank 0's slice of its class "
+                     f"d={cls.d} (Ed={Ed}), [1, {half}, {cls.d}, {data.K}, "
+                     f"{data.K}] f32"}
+
+
+def phase_parallel_b(ctx: dict, ranks: list, one: dict, tmp: str) -> dict:
+    """The rest of parallel/ on the card, from the parallel group's runs of
+    :func:`_pb_legs`: ``ranks`` (its spawned two-rank job, gloo on the one
+    card) and ``one`` (its one-rank NCCL group) in ``tmp``. Each P=2 result
+    held to its twin (and the stream to the resident and single-device
+    streamed rollouts, config 2's replica mesh to the unsharded run), the
+    P=2 stream run preempted and resumed at P=1; KB on a shard chunk and K3
+    on an edge slice against their plain versions; memcheck's
+    streamed_shard row."""
+    from graphdyn_torch.interop import words_to_numpy
+    from graphdyn_torch.models.hpr import hpr_solve_batch
+    from graphdyn_torch.obs import memband
+    from graphdyn_torch.parallel.halo import build_halo_tables
+    from graphdyn_torch.parallel.stream import build_shard_stream_plan
+
+    out = {}
+    r0 = ranks[0]
+    # the stream: P=2 == P=1 == single-device == resident
+    g, budget, sp = _pb_stream_inputs()
+    want = words_to_numpy(bucketed.bucketed_rollout_global(
+        g, sp.to("cuda"), STREAM_STEPS)).copy()
+    if "powerlaw" not in ctx:
+        # (the power-law group's phase 38 holds streamed_rollout to the
+        # resident rollout at this shape in a full run)
+        single = words_to_numpy(streamed.streamed_rollout(
+            g, sp, STREAM_STEPS, device_budget_bytes=budget))
+        if not np.array_equal(single, want):
+            raise AssertionError("streamed_rollout != resident")
+    for label, r in (("P=2 rank 0", r0), ("P=2 rank 1", ranks[1]),
+                     ("P=1", one)):
+        s = r["stream"]
+        if not np.array_equal(s["words"], want):
+            raise AssertionError(f"sharded stream {label} != resident")
+        if s["launches"] != s["stats"]["shard_chunks"] * STREAM_STEPS:
+            raise AssertionError(
+                f"sharded stream {label}: {s['launches']} KB launches "
+                f"for {s['stats']['shard_chunks']} chunks x "
+                f"{STREAM_STEPS} steps")
+    st2, st1 = r0["stream"]["stats"], one["stream"]["stats"]
+    # per step: the chunk walk and the exchange (their sum is the steady
+    # step); apart: the call's seconds outside the steps (the shard plan,
+    # the halo tables, placement, the final gather)
+    split = {}
+    for k, r in (("P=2 rank 0", r0), ("P=2 rank 1", ranks[1]), ("P=1", one)):
+        walk, exch = (r["stream"]["stats"]["walk_s"],
+                      r["stream"]["stats"]["exchange_s"])
+        split[k] = {"walk_ms": walk * 1e3 / STREAM_STEPS,
+                    "exchange_ms": exch * 1e3 / STREAM_STEPS,
+                    "steady_ms": (walk + exch) * 1e3 / STREAM_STEPS,
+                    "outside_steps_s": r["stream"]["wall_s"] - walk - exch}
+    out["stream"] = {"split": split, "P2": {k: st2[k] for k in (
+        "h2d_bytes", "d2h_bytes", "exchange_bytes", "per_shard_overlap",
+        "chunks", "shard_chunks")}, "P1": {k: st1[k] for k in (
+            "h2d_bytes", "d2h_bytes", "exchange_bytes",
+            "per_shard_overlap", "chunks")},
+        "launches": [r["stream"]["launches"] for r in ranks],
+        "budget": budget}
+    log(f"[60 sharded stream] sharded_streamed_rollout at the stream "
+        f"bench shape (n={STREAM_N}, R={STREAM_R}, budget {budget} B a "
+        f"shard, {STREAM_STEPS} steps): P=2 (two gloo ranks on the card) "
+        f"and P=1 equal to streamed_rollout and the resident "
+        f"bucketed_rollout_global bit for bit; per step (host clock, "
+        f"synchronised; steady = walk + exchange, outside_steps_s the "
+        f"call's seconds apart from its steps) {split}; P=2 h2d {st2['h2d_bytes']} B, d2h "
+        f"{st2['d2h_bytes']} B, exchange {st2['exchange_bytes']} B a "
+        f"step, per_shard_overlap {st2['per_shard_overlap']}, chunks "
+        f"{st2['chunks']}; P=1 h2d {st1['h2d_bytes']} B; KB launches "
+        f"(rank 0 / 1) {out['stream']['launches']} = shard chunks x "
+        f"steps")
+    # churn with repartition: --shards 2 == --shards 1
+    docs = {}
+    for label, r in (("P=2", r0), ("P=1", one)):
+        c = r["churn"]
+        if c["rc"] != 0:
+            raise AssertionError(f"stream churn {label}: exit {c['rc']}")
+        docs[label] = json.loads(c["out"].strip().splitlines()[-1])
+    if ranks[1]["churn"]["out"].strip() or ranks[1]["churn"]["rc"]:
+        raise AssertionError("stream --shards 2: rank 1 printed or failed")
+    with np.load(r0["churn"]["path"]) as a, \
+            np.load(one["churn"]["path"]) as b:
+        if not all(np.array_equal(a[k], b[k]) for k in b.files):
+            raise AssertionError("stream --shards 2 != --shards 1")
+    if docs["P=2"]["repartitions"] < 2 \
+            or docs["P=2"]["mutations"] != docs["P=1"]["mutations"]:
+        raise AssertionError(f"stream churn: {docs}")
+    out["churn"] = {"docs": docs, "launches": [r["churn"]["launches"]
+                                               for r in ranks]}
+    log(f"[61 churn repartition] {' '.join(_pb_churn_argv(2, 'x')[:-4])}"
+        f" ...: --shards 2 == --shards 1 (npz); repartitions "
+        f"{docs['P=2']['repartitions']}, mutations "
+        f"{docs['P=2']['mutations']}, chunks {docs['P=2']['chunks']}; "
+        f"KB launches (rank 0 / 1) {out['churn']['launches']}")
+    # the P=2 checkpointed run, preempted, resumed at P=1
+    if any(r["preempted"]["rc"] != EX_TEMPFAIL for r in ranks):
+        raise AssertionError("the P=2 stream run was not preempted: "
+                             f"{[r['preempted'] for r in ranks]}")
+    res_path = os.path.join(tmp, "resumed1.npz")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(_pb_churn_argv(1, res_path) + [
+            "--checkpoint", r0["preempted"]["ckpt"]])
+    wall = time.perf_counter() - t0
+    with np.load(res_path) as a, np.load(one["churn"]["path"]) as b:
+        if rc or not all(np.array_equal(a[k], b[k]) for k in b.files):
+            raise AssertionError("stream resumed at P=1 != its twin")
+    out["resume_wall_s"] = wall
+    log(f"[62 stream resume] the churned stream preempted at its "
+        f"{PB_RESUME_AT}th chunk boundary at P=2 (exit 75 on both "
+        f"ranks), resumed at P=1 from rank 0's global snapshot and the "
+        f"journal: equal to the uninterrupted run ({wall:.3f} s)")
+    # the edge-sharded fixed point on config 4's union
+    u2, u1 = r0["union"], one["union"]
+    sweeps = _ladder_sweeps([u2["res"]["sweeps"]])
+    for label, r in (("P=2 rank 0", r0), ("P=2 rank 1", ranks[1]),
+                     ("P=1", one)):
+        u = r["union"]
+        if u["k3"] != u["classes"] * _ladder_sweeps(
+                [u["res"]["sweeps"]]) or u["k3p"]:
+            raise AssertionError(
+                f"edge-sharded union {label}: K3 {u['k3']} launches for "
+                f"{u['classes']} classes x {sweeps} sweeps, K3' "
+                f"{u['k3p']}")
+    _same_arrays(ranks[1]["union"]["res"], u2["res"], "union P=2 ranks")
+    unsharded = entropy_ensemble_union(
+        _config4_graphs(), _config4_config(), seed=0,
+        lambdas=_config4_lambdas()[:PB_UNION_L], device="cuda")._asdict()
+    _reset_bdcm_counts()
+    how = {}
+    for label, r in (("P=2", u2), ("P=1", u1)):
+        try:
+            _same_arrays(r["res"], unsharded, f"union {label}")
+            how[label] = "bit for bit"
+        except AssertionError:
+            if not np.array_equal(r["res"]["lambdas"],
+                                  unsharded["lambdas"]) \
+                    or np.max(np.abs(np.asarray(r["res"]["sweeps"])
+                                     - np.asarray(unsharded["sweeps"]))) \
+                    > 1:
+                raise
+            for f in ("ent", "m_init", "ent1"):
+                if not np.allclose(r["res"][f], unsharded[f], rtol=2e-5,
+                                   atol=1e-7):
+                    raise AssertionError(
+                        f"edge-sharded union {label}: {f} beyond f32 "
+                        f"rtol 2e-5 / atol 1e-7 of the unsharded run")
+            how[label] = "within f32 rtol 2e-5 / atol 1e-7"
+    sp_ = u2["split"]
+    out["union"] = {"how": how, "wall_s": {"P=2": u2["wall_s"],
+                                           "P=1": u1["wall_s"]},
+                    "k3_launches": [r["union"]["k3"] for r in ranks],
+                    "classes": u2["classes"], "sweeps": sweeps,
+                    "ms_per_sweep": (sp_["contract_s"] + sp_["gather_s"])
+                    * 1e3 / PB_TIMED_SWEEPS,
+                    "contract_ms_per_sweep": sp_["contract_s"] * 1e3
+                    / PB_TIMED_SWEEPS,
+                    "gather_ms_per_sweep": sp_["gather_s"] * 1e3
+                    / PB_TIMED_SWEEPS,
+                    "p1_split": {k: u1["split"][f"{k}_s"] * 1e3
+                                 / PB_TIMED_SWEEPS
+                                 for k in ("contract", "gather")}}
+    for label, r in (("P=2 rank 0", r0), ("P=2 rank 1", ranks[1]),
+                     ("P=1", one)):
+        if r["union"]["split"]["spans"] != 2 * u2["classes"] \
+                * PB_TIMED_SWEEPS:
+            raise AssertionError(
+                f"edge-sharded union {label}: "
+                f"{r['union']['split']['spans']} spans for {u2['classes']} "
+                f"classes x {PB_TIMED_SWEEPS} sweeps")
+    log(f"[63 edge-sharded union] entropy_ensemble_union(mesh=) on "
+        f"config 4's union ({CONFIG4_G} x ER({CONFIG4_N}, "
+        f"{CONFIG4_C}/{CONFIG4_N - 1}), f32), {PB_UNION_L} of its "
+        f"{CONFIG4_L} lambda: P=2 {how['P=2']}, P=1 {how['P=1']} of the "
+        f"unsharded run; walls P=2 {u2['wall_s']:.3f} s, P=1 "
+        f"{u1['wall_s']:.3f} s; K3 launches (rank 0 / 1) "
+        f"{out['union']['k3_launches']} = {u2['classes']} classes x "
+        f"{sweeps} sweeps, K3' 0; {PB_TIMED_SWEEPS} timed sweeps at P=2: "
+        f"{out['union']['ms_per_sweep']:.4f} ms a sweep = K3 "
+        f"{out['union']['contract_ms_per_sweep']:.4f} + gathers "
+        f"{out['union']['gather_ms_per_sweep']:.4f} (the recorded "
+        f"parallel.sharded.contract / .gather spans, each closed after a "
+        f"device sync); P=1 ms a sweep {out['union']['p1_split']}")
+    # config 2's replica mesh against the unsharded run
+    h2 = r0["hpr"]["res"]
+    cfg2 = ctx.get("bdcm", {}).get("cfg2_main", {}).get("result")
+    if cfg2 is None:
+        h = hpr_solve_batch(random_regular_graph(CONFIG2_N, CONFIG2_D,
+                                                 seed=0),
+                            HPRConfig(max_sweeps=CONFIG2_SWEEPS),
+                            n_replicas=CONFIG2_R, seed=0, device="cuda")
+        cfg2 = {"s_sha": _sha(h.s), "num_steps": h.num_steps,
+                "m_final": h.m_final}
+        del h
+    clock = _hpr_clock(h2["num_steps"], CONFIG2_SWEEPS)
+    for label, r in (("P=2 rank 0", r0), ("P=2 rank 1", ranks[1])):
+        h = r["hpr"]["res"]
+        if _sha(h["s"]) != cfg2["s_sha"] or not (
+                np.array_equal(h["num_steps"], cfg2["num_steps"])
+                and np.array_equal(h["m_final"], cfg2["m_final"])):
+            raise AssertionError(f"config 2 replica mesh {label} != the "
+                                 "unsharded run")
+        if r["hpr"]["k3p"] != clock:
+            raise AssertionError(f"config 2 replica mesh {label}: K3' "
+                                 f"{r['hpr']['k3p']} launches for "
+                                 f"{clock} sweeps")
+    out["hpr"] = {"wall_s": r0["hpr"]["wall_s"],
+                  "k3p": [r["hpr"]["k3p"] for r in ranks]}
+    log(f"[64 hpr replica mesh] config 2 ({CONFIG2_R} x RRG("
+        f"{CONFIG2_N}, {CONFIG2_D}), f32, {CONFIG2_SWEEPS} sweeps) at "
+        f"P=2, {CONFIG2_R // 2} replicas a rank: equal to the unsharded "
+        f"hpr_solve_batch bit for bit; wall {r0['hpr']['wall_s']:.3f} s "
+        f"(each rank's numpy draw of all chains included); K3' launches "
+        f"(rank 0 / 1) {out['hpr']['k3p']} = sweeps")
+    # the other meshes: P=2 == P=1
+    for key in ("congruent", "cells", "sa_group", "sa_streamed"):
+        _same_arrays(r0[key]["res"], one[key]["res"], f"{key} P=2")
+        _same_arrays(ranks[1][key]["res"], one[key]["res"], f"{key} P=2")
+    for key in ("congruent", "cells"):
+        if r0[key]["k3p"] != one[key]["k3p"] or r0[key]["k3p"] <= 0:
+            raise AssertionError(f"{key}: K3' launches {r0[key]['k3p']} "
+                                 f"at P=2, {one[key]['k3p']} at P=1")
+    g_sa, s0, prop, unif = _pb_sa_prep()
+    want_sa = simulated_annealing(g_sa, _sa_config(), s0=s0,
+                                  proposals=prop, uniforms=unif,
+                                  max_steps=PB_SA_STREAM_STEPS,
+                                  device="cuda")
+    _same_result(r0["sa_streamed"]["res"], want_sa,
+                 "sa_sharded(layout='streamed') P=2")
+    docs = {}
+    for label, r in (("P=2", r0), ("P=1", one)):
+        if r["temper"]["rc"] != 0:
+            raise AssertionError(f"temper {label}: exit "
+                                 f"{r['temper']['rc']}")
+        docs[label] = json.loads(r["temper"]["out"].strip()
+                                 .splitlines()[-1])
+    if ranks[1]["temper"]["out"].strip() or any(
+            docs["P=2"][k] != docs["P=1"][k] for k in docs["P=1"]
+            if k != "lane_shards"):
+        raise AssertionError("temper --lane-shards 2 != temper")
+    walls = {k: {"P=2": r0[k]["wall_s"], "P=1": one[k]["wall_s"]}
+             for k in ("congruent", "cells", "temper", "sa_group",
+                       "sa_streamed")}
+    out["meshes"] = walls
+    log(f"[65 meshes] at P=2 equal to P=1 (and sa_sharded streamed to "
+        f"simulated_annealing): entropy_ensemble(mesh=) on {CONFIG4_G} x "
+        f"RRG({CONFIG4_N}, 3), {PB_CONGRUENT_L} lambda (K3' "
+        f"{r0['congruent']['k3p']} a rank); "
+        f"the cell mesh on the entropy CLI's first 8 cells, lambda <= "
+        f"{PB_CELL_LMBD_MAX} (K3' {r0['cells']['k3p']} a rank); temper "
+        f"--lane-shards 2, {TEMPER_MAIN_STEPS} steps; sa_ensemble_grouped"
+        f"(mesh=) on the sa defaults, groups of {PB_SA_GROUP}, "
+        f"{SA_MAIN_STEPS} steps; sa_sharded(layout='streamed') on RRG("
+        f"{PAR_SA_N}, 3), R={PAR_SA_R}, {PB_SA_STREAM_STEPS} steps (KB "
+        f"launches "
+        f"{r0['sa_streamed']['launches']}); walls {walls}")
+    out["launches"] = {"kb_shard": r0["stream"]["launches"],
+                       "k3_edge": r0["union"]["k3"]}
+    # the kernels on the new paths against their plain versions
+    W = STREAM_R // 32
+    g, budget, _ = _pb_stream_inputs()
+    part = graphs.partition_graph(g, 2, seed=0)
+    plan = build_shard_stream_plan(
+        g, W=W, partition=part, device_budget_bytes=budget,
+        tables=build_halo_tables(g, part, owned_nbr=False))
+    out["kb_row"] = _pb_kb_row(plan, W)
+    out["k3_row"] = _pb_k3_row()
+    log(f"[66 kernels] KB on a shard chunk: {out['kb_row']['shape']}: "
+        f"{out['kb_row']['ms']} ms a launch, plain "
+        f"{out['kb_row']['plain_ms']} ms, bound {out['kb_row']['bound_ms']} "
+        f"ms ({out['kb_row']['bound_by']}), bit-equal; K3 on an edge slice: "
+        f"{out['k3_row']['shape']}: {out['k3_row']['ms']} ms, plain "
+        f"{out['k3_row']['plain_ms']} ms, bound {out['k3_row']['bound_ms']} "
+        f"ms ({out['k3_row']['bound_by']}), max abs err "
+        f"{out['k3_row']['max_abs_err']}; library_ms null for both (no "
+        f"PyTorch call computes either)")
+    dev = torch.device("cuda")
+    row = memband._row("streamed_shard",
+                       memband._measure_stream_shard(dev, 8, 8),
+                       memband.shard_plan_device_bytes(
+                           memband._smoke_shard_plan(W=8)[1], 8), None)
+    if not row.ok or row.measured is None:
+        raise AssertionError(f"memcheck streamed_shard row: {row}")
+    log(f"[67 memcheck] streamed_shard: measured peak {row.measured} B "
+        f"against the widest shard's model {row.model} B -> frac "
+        f"{row.frac:.3f} (band [{row.lo:g}, {row.hi:g}])")
+    out["memcheck_stream_shard"] = row._asdict()
+    return out
+
+
+def _sha(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
 def _group_soak(ctx: dict) -> dict:
@@ -5280,7 +6014,12 @@ def _group_parallel(ctx: dict) -> dict:
     """Node-axis sharding: the shard-layout K1/K2′ launch, the
     halo rollouts at P=1 and P=2, the sharded consensus, config 5's
     light-cone width, the sharded SA and its resume across P, memcheck's
-    halo row."""
+    halo row; then the rest of parallel/: the sharded stream with churn
+    repartition and its resume across P, the edge-sharded BDCM fixed point
+    on K3, the ensemble meshes (HPr, entropy, the cells, the SA group,
+    temper) and ``sa --sharded --layout streamed``, each at P=2 against its
+    twin; KB on a shard chunk and K3 on an edge slice; memcheck's
+    streamed_shard row."""
     return phase_parallel(ctx)
 
 
@@ -5386,6 +6125,7 @@ def kernels_line(res: dict, built: dict) -> list[dict]:
                       **entropy_launches}
     par = res["parallel"]
     shard = par["shard_step"]
+    pb = par["b"]
 
     return [{
         "name": "packed_step",
@@ -5638,6 +6378,53 @@ def kernels_line(res: dict, built: dict) -> list[dict]:
             "step_ms", "exchange_ms", "halo_bytes_per_step", "edge_cut")}
             for k in ("headline", "config3")},
         "ptxas": built["packed_step"],
+    }, {
+        "name": "bucketed_step_shard_walk",
+        "route": "cuda",
+        "source": "graphdyn_torch/csrc/bucketed_step.cu",
+        "replaces": "graphdyn/ops/streamed.py:295 (_stream_chunk_device, "
+                    "XLA) as graphdyn/parallel/stream.py:711 runs it on each "
+                    "shard's chunks; no pl.pallas_call",
+        "parity": "bit-exact",
+        "launches": pb["launches"]["kb_shard"],
+        "launches_note": "rank 0's KB launches on the P=2 stream bench "
+                         "main path (= its chunks x steps; each rank as "
+                         "many as its chunks)",
+        "max_abs_err": pb["kb_row"]["max_abs_err"],
+        "ms": pb["kb_row"]["ms"],
+        "plain_ms": pb["kb_row"]["plain_ms"],
+        "bound_ms": pb["kb_row"]["bound_ms"],
+        "bound_by": pb["kb_row"]["bound_by"],
+        "library_ms": None,
+        "library_note": "no PyTorch call computes a packed bucketed step",
+        "shape": pb["kb_row"]["shape"],
+        "bound_terms": {k: pb["kb_row"][k] for k in ("bytes", "ops")},
+        "stream": pb["stream"],
+        "churn": pb["churn"],
+    }, {
+        "name": "dp_contract_edge_sharded",
+        "route": "cuda",
+        "source": "graphdyn_torch/csrc/bdcm_contract.cu",
+        "replaces": "graphdyn/ops/pallas_bdcm.py:200 (K3 dp_contract_grouped)"
+                    " as graphdyn/parallel/sharded.py:271-403 runs each "
+                    "class's edge slice",
+        "parity": "rtol 1e-5 (f32) per launch",
+        "launches": pb["launches"]["k3_edge"],
+        "launches_note": "rank 0's K3 launches on the P=2 edge-sharded "
+                         "config-4 union ladder (= classes x sweeps; each "
+                         "rank as many)",
+        "max_abs_err": pb["k3_row"]["max_abs_err"],
+        "max_rel_err": pb["k3_row"]["max_rel_err"],
+        "ms": pb["k3_row"]["ms"],
+        "plain_ms": pb["k3_row"]["plain_ms"],
+        "bound_ms": pb["k3_row"]["bound_ms"],
+        "bound_by": pb["k3_row"]["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the rho-lattice DP "
+                        "and the factor contraction",
+        "shape": pb["k3_row"]["shape"],
+        "bound_terms": {k: pb["k3_row"][k] for k in ("bytes", "flops")},
+        "union": pb["union"],
     }]
 
 
@@ -5690,7 +6477,10 @@ def main(argv=None) -> int:
             "graph_setup_s": res["t_powerlaw_s"]},
         "stream": {str(k): v for k, v in res["powerlaw"]["stream"].items()},
         "layouts": res["powerlaw"]["layouts"], "durable": res["durable"],
-        "obs": res["obs"], "parallel": res["parallel"],
+        "obs": res["obs"],
+        "parallel": {k: v for k, v in res["parallel"].items() if k != "b"},
+        "parallel_b": {k: v for k, v in res["parallel"]["b"].items()
+                       if k not in ("kb_row", "k3_row")},
         "soak": res["soak"]}}, default=str))
     log(f"[24 gather] row_gather probe {res['gather']['probe']['wall_s']:.3f}"
         f" s")

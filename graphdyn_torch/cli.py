@@ -37,8 +37,12 @@
   mode, ``--ladder-max-frac``, ``--rollout-mode``), its refusals and its
   JSON keys (``"solver": "sa_sharded"``, ``"mesh"``, ``"node_mode"``),
   printed by rank 0; every rank exits with the same code, 75 after a
-  SIGTERM on any of them. Refused with the reason (not ported yet):
-  ``temper --lane-shards`` and ``sa --sharded --layout streamed`` (A15b).
+  SIGTERM on any of them. ``sa --sharded --layout streamed`` runs the
+  host-stepped chain with every end sum from the sharded stream (one shard
+  per rank of the node axis, ``--stream-chunks`` chunks a shard).
+  ``temper --lane-shards P`` shards the ladder's lanes over the P ranks of
+  the job (every lane keeps its stream, so the result does not depend on
+  P).
   ``sa --layout bucketed|streamed`` runs the serial
   repetition loop on that layout (``--stream-chunks`` chunks when
   streamed). ``sa --chunk-steps`` is the number of masked MCMC steps
@@ -46,8 +50,11 @@
 - ``stream``: the out-of-core streamed rollout (``streamed_rollout``) on a
   seeded power-law graph, with the reference's flags and defaults, chunks
   on ``--device`` (default ``cuda``). It prints the reference's JSON keys
-  and with ``--out`` writes its npz keys (``conf``, ``m_end``). Refused
-  (not ported yet): ``--shards`` ≥ 2 and ``--hub-threshold`` (A15b).
+  and with ``--out`` writes its npz keys (``conf``, ``m_end``).
+  ``--shards P`` ≥ 2 runs the sharded stream (``parallel.stream``) over the
+  P ranks of a ``torchrun --nproc-per-node P`` job, rank 0 printing; with
+  ``--hub-threshold D`` nodes of degree ≥ D are replicated hubs and churn
+  repartitions live.
 - ``run-supervised``: the restart loop of
   :mod:`graphdyn_torch.resilience.supervisor` around another command.
 
@@ -483,7 +490,9 @@ def _add_search_parsers(sub) -> None:
     tmp.add_argument("--max-steps", type=int, default=None)
     tmp.add_argument("--seed", type=int, default=0)
     tmp.add_argument("--lane-shards", type=int, default=None, metavar="P",
-                     help="not ported yet (ROADMAP A15b): refused")
+                     help="shard the lanes over the P ranks of the job "
+                          "(torchrun --nproc-per-node P); bit-identical to "
+                          "the unsharded ladder")
     _add_checkpoint_flags(tmp, "(swap boundaries); SIGTERM then saves at "
                           "the next boundary and exits 75")
     _add_device_flag(tmp)
@@ -549,9 +558,17 @@ def _add_stream_parser(sub) -> None:
                       help="host-prefetch lookahead; 0 makes the gathers and "
                            "copies synchronous")
     strm.add_argument("--shards", type=int, default=1, metavar="P",
-                      help="P >= 2 is not ported yet (ROADMAP A15b): refused")
+                      help="shard the chunk walk over the P ranks of the job "
+                           "(torchrun --nproc-per-node P): each rank walks "
+                           "its shard's chunks on its own prefetch lane; "
+                           "boundary words and hub partials ride the halo "
+                           "exchange; --chunks/--device-budget apply PER "
+                           "SHARD (bit-exact to --shards 1 at any P)")
     strm.add_argument("--hub-threshold", type=int, default=None, metavar="D",
-                      help="not ported yet (ROADMAP A15b): refused")
+                      help="with --shards >= 2: replicate nodes of degree "
+                           ">= D as hubs, and let churn repartition live (a "
+                           "churned node crossing D is promoted at the step "
+                           "boundary, journaled as stream.repartition)")
     strm.add_argument("--churn-rate", type=float, default=0.0, metavar="R",
                       help="live edge churn: Poisson(R/2) adds and drops "
                            "per step (seeded_churn)")
@@ -794,11 +811,6 @@ def _require_matplotlib() -> None:
         raise SystemExit("--plot requires matplotlib, which is not installed")
 
 
-def _refuse(reason: str, item: str):
-    raise SystemExit(f"{reason} is not ported to graphdyn_torch yet "
-                     f"(ROADMAP.md {item})")
-
-
 def _writer() -> bool:
     """True on the rank that prints and writes (rank 0, or the only
     process)."""
@@ -809,15 +821,17 @@ def _writer() -> bool:
 
 def _process_group(dev):
     """The job's process group for a sharded command (``torchrun``'s
-    environment; a no-op for a single process) and whether this call made
-    it, so the command tears down only its own."""
+    environment; a no-op for a single process) and whether the command
+    started without one, so it tears down only its own: the job's group,
+    or the one-process world a mesh makes (``if made and
+    dist.is_initialized()``)."""
     import torch.distributed as dist
 
     from graphdyn_torch.parallel.mesh import init_distributed
 
     made = not dist.is_initialized()
     init_distributed(device=dev)
-    return made and dist.is_initialized()
+    return made
 
 
 def _sa_sharded_main(args, dev):
@@ -831,9 +845,6 @@ def _sa_sharded_main(args, dev):
     from graphdyn_torch.parallel.sa_sharded import sa_sharded
     from graphdyn_torch.utils.io import save_results_npz
 
-    if args.layout == "streamed":
-        _refuse("sa --sharded --layout streamed (the sharded out-of-core "
-                "chain)", "A15b")
     dev = rank_device(args.device)
     made = _process_group(dev)
     try:
@@ -851,7 +862,9 @@ def _sa_sharded_main(args, dev):
                 raise SystemExit(
                     f"--shards {args.shards} > {n_dev} ranks in the job")
             node_shards = args.shards
-            if node_shards >= 2:
+            if node_shards >= 2 and args.layout != "streamed":
+                # layout='streamed' runs its own halo composition inside
+                # the sharded streamed engine
                 node_mode = "halo"
         elif args.rollout_mode == "lightcone":
             node_shards = 1
@@ -873,7 +886,9 @@ def _sa_sharded_main(args, dev):
             checkpoint_path=args.checkpoint,
             checkpoint_interval_s=args.checkpoint_interval,
             rollout_mode=args.rollout_mode, node_mode=node_mode,
-            chunk_steps=args.chunk_steps, device=dev,
+            chunk_steps=args.chunk_steps,
+            layout="streamed" if args.layout == "streamed" else "padded",
+            stream_chunks=args.stream_chunks, device=dev,
         )
         if _writer():
             if args.out:
@@ -894,7 +909,7 @@ def _sa_sharded_main(args, dev):
             }))
         return res
     finally:
-        if made:
+        if made and dist.is_initialized():
             dist.destroy_process_group()
 
 
@@ -942,19 +957,45 @@ def _temper_main(args, dev):
     from graphdyn_torch.search.tempering import ladder_betas, temper_search
     from graphdyn_torch.utils.io import save_results_npz
 
+    import torch.distributed as dist
+
+    mesh = None
+    made = False
     if args.lane_shards is not None:
-        _refuse("--lane-shards (the lane-sharded ladder)",
-                "A15b: the ensemble meshes")
-    g = random_regular_graph(args.n, args.d, seed=args.seed)
-    res = temper_search(
-        g, _sa_config(args),
-        betas=ladder_betas(args.lanes, args.beta_min, args.beta_max),
-        seed=args.seed, max_steps=args.max_steps,
-        swap_interval=args.swap_interval, swap_moves=not args.no_swaps,
-        m_target=args.m_target, stop_on_first=args.stop_on_first,
-        checkpoint_path=args.checkpoint,
-        checkpoint_interval_s=args.checkpoint_interval, device=dev,
-    )
+        from graphdyn_torch.parallel.mesh import make_mesh, rank_device
+
+        if args.lane_shards < 1:
+            raise SystemExit("--lane-shards must be >= 1")
+        if args.lanes % args.lane_shards:
+            raise SystemExit(f"--lane-shards {args.lane_shards} must divide "
+                             f"--lanes {args.lanes}")
+        dev = rank_device(args.device)
+        made = _process_group(dev)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != args.lane_shards:
+            if made and dist.is_initialized():
+                dist.destroy_process_group()
+            raise SystemExit(f"--lane-shards {args.lane_shards} needs a job "
+                             f"of {args.lane_shards} ranks; it has {world}")
+        mesh = make_mesh((args.lane_shards,), ("lane",), device=dev)
+    try:
+        g = random_regular_graph(args.n, args.d, seed=args.seed)
+        res = temper_search(
+            g, _sa_config(args),
+            betas=ladder_betas(args.lanes, args.beta_min, args.beta_max),
+            seed=args.seed, max_steps=args.max_steps,
+            swap_interval=args.swap_interval, swap_moves=not args.no_swaps,
+            m_target=args.m_target, stop_on_first=args.stop_on_first,
+            checkpoint_path=args.checkpoint,
+            checkpoint_interval_s=args.checkpoint_interval, mesh=mesh,
+            device=dev,
+        )
+        writer = _writer()
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    if not writer:
+        return res
     if args.out:
         save_results_npz(
             args.out, conf=res.s, mag_reached=res.mag_reached,
@@ -1013,29 +1054,16 @@ def _chromatic_main(args, dev):
 
 def _stream_main(args, dev) -> dict:
     """The ``stream`` command; returns its JSON document."""
-    import numpy as np
-
-    from graphdyn_torch.graphs import powerlaw_graph
-    from graphdyn_torch.ops.packed import pack_spins, unpack_spins
-    from graphdyn_torch.ops.streamed import seeded_churn, streamed_rollout
-    from graphdyn_torch.utils.io import save_results_npz
+    from graphdyn_torch.ops.streamed import streamed_rollout
 
     if args.shards < 1:
         raise SystemExit("--shards must be >= 1")
-    if args.shards >= 2 or args.hub_threshold is not None:
-        _refuse("--shards >= 2 / --hub-threshold (the sharded stream)",
-                "A15b: the sharded out-of-core stream")
-    g = powerlaw_graph(args.n, gamma=args.gamma, dmin=args.dmin,
-                       seed=args.graph_seed)
-    rng = np.random.default_rng(args.seed)
-    s0 = (2 * rng.integers(0, 2, size=(args.replicas, args.n)) - 1
-          ).astype(np.int8)
-    churn = (seeded_churn(args.n, args.steps, rate=args.churn_rate,
-                          seed=args.churn_seed)
-             if args.churn_rate > 0 else None)
+    if args.shards >= 2:
+        return _stream_sharded_main(args, dev)
+    g, sp0, churn = _stream_inputs(args)
     stats: dict = {}
     sp_end = streamed_rollout(
-        g, pack_spins(s0), args.steps,
+        g, sp0, args.steps,
         rule=args.rule, tie=args.tie,
         n_chunks=None if args.device_budget is not None else args.chunks,
         device_budget_bytes=args.device_budget,
@@ -1044,9 +1072,79 @@ def _stream_main(args, dev) -> dict:
         checkpoint_interval_s=args.checkpoint_interval, seed=args.seed,
         stats_out=stats, device=dev,
     )
+    return _stream_doc(args, sp_end, stats)
+
+
+def _stream_inputs(args):
+    """The ``stream`` command's graph, packed initial state and churn."""
+    import numpy as np
+
+    from graphdyn_torch.graphs import powerlaw_graph
+    from graphdyn_torch.ops.packed import pack_spins
+    from graphdyn_torch.ops.streamed import seeded_churn
+
+    g = powerlaw_graph(args.n, gamma=args.gamma, dmin=args.dmin,
+                       seed=args.graph_seed)
+    rng = np.random.default_rng(args.seed)
+    s0 = (2 * rng.integers(0, 2, size=(args.replicas, args.n)) - 1
+          ).astype(np.int8)
+    churn = (seeded_churn(args.n, args.steps, rate=args.churn_rate,
+                          seed=args.churn_seed)
+             if args.churn_rate > 0 else None)
+    return g, pack_spins(s0), churn
+
+
+def _stream_sharded_main(args, dev) -> dict:
+    """``stream --shards P`` (P ≥ 2): the sharded stream over the job's
+    ranks (``graphdyn/cli.py:1012-1054``); the job's ranks split into
+    replica rows of P node shards, rank 0 prints and writes."""
+    import torch.distributed as dist
+
+    from graphdyn_torch.parallel.mesh import make_mesh, rank_device
+    from graphdyn_torch.parallel.stream import sharded_streamed_rollout
+
+    dev = rank_device(args.device)
+    made = _process_group(dev)
+    try:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if args.shards > world:
+            raise SystemExit(f"--shards {args.shards} > {world} ranks in "
+                             "the job")
+        if world % args.shards:
+            raise SystemExit(f"--shards {args.shards} does not divide the "
+                             f"job's {world} ranks")
+        mesh = make_mesh((world // args.shards, args.shards),
+                         ("replica", "node"), device=dev)
+        g, sp0, churn = _stream_inputs(args)
+        stats: dict = {}
+        sp_end = sharded_streamed_rollout(
+            g, sp0, args.steps, n_shards=args.shards, rule=args.rule,
+            tie=args.tie,
+            n_chunks=None if args.device_budget is not None else args.chunks,
+            device_budget_bytes=args.device_budget,
+            hub_threshold=args.hub_threshold, mesh=mesh,
+            prefetch_depth=args.prefetch_depth, churn=churn,
+            checkpoint_path=args.checkpoint,
+            checkpoint_interval_s=args.checkpoint_interval, seed=args.seed,
+            stats_out=stats, device=dev)
+        writer = _writer()
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    return _stream_doc(args, sp_end, stats, writer=writer)
+
+
+def _stream_doc(args, sp_end, stats: dict, writer: bool = True) -> dict:
+    """The ``stream`` command's JSON document, printed (and the npz
+    written) when ``writer`` (rank 0)."""
+    import numpy as np
+
+    from graphdyn_torch.ops.packed import unpack_spins
+    from graphdyn_torch.utils.io import save_results_npz
+
     s_end = unpack_spins(sp_end, args.replicas).numpy()
     m_end = s_end.astype(np.float64).sum(axis=1) / args.n
-    if args.out:
+    if args.out and writer:
         save_results_npz(args.out, conf=s_end, m_end=m_end)
     doc = {
         "solver": "stream", "n": args.n, "steps": args.steps,
@@ -1060,7 +1158,8 @@ def _stream_main(args, dev) -> dict:
         "m_end_mean": float(m_end.mean()),
         "out": args.out,
     }
-    print(json.dumps(doc))
+    if writer:
+        print(json.dumps(doc))
     return doc
 
 
@@ -1212,7 +1311,7 @@ def _run(args) -> int:
         )
         writer = _writer()
     finally:
-        if made:
+        if made and dist.is_initialized():
             dist.destroy_process_group()
     if not writer:
         return 0

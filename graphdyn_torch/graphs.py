@@ -545,7 +545,12 @@ def bfs_order(graph: Graph) -> np.ndarray:
     (B4 in ROADMAP.md measures what that buys the packed step). Dynamics
     are label-equivariant, so results only permute."""
     n = graph.n
-    nbr = graph.nbr
+    deg = graph.deg.astype(np.int64)
+    # the real slots in row order (a frontier's padded rows would gather
+    # dmax slots a node: the power-law tables are mostly padding)
+    flat = graph.nbr[np.arange(graph.nbr.shape[1])[None, :]
+                     < deg[:, None]].astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(deg)[:-1]])
     visited = np.zeros(n + 1, bool)
     visited[n] = True                      # ghost slot
     order = np.empty(n, np.int64)
@@ -559,7 +564,9 @@ def bfs_order(graph: Graph) -> np.ndarray:
         while frontier.size:
             order[pos : pos + frontier.size] = frontier
             pos += frontier.size
-            nxt = np.unique(nbr[frontier].reshape(-1))
+            d = deg[frontier]
+            base = np.repeat(starts[frontier] - np.cumsum(d) + d, d)
+            nxt = np.unique(flat[base + np.arange(int(d.sum()))])
             nxt = nxt[~visited[nxt]]
             visited[nxt] = True
             frontier = nxt
@@ -961,6 +968,8 @@ def power_graph(graph: Graph, radius: int) -> Graph:
         )
         grown = nbr_ext[ball.reshape(-1)].reshape(n, -1)
         ball = np.concatenate([ball, grown], axis=1)
+    if ball.shape[1] <= _ROW_BUILD_MAX:
+        return _graph_from_rows(n, ball)
     src = np.repeat(np.arange(n, dtype=np.int64), ball.shape[1])
     dst = ball.reshape(-1)
     keep = (dst != n) & (src != dst)
@@ -969,6 +978,40 @@ def power_graph(graph: Graph, radius: int) -> Graph:
     codes = np.unique(lo * n + hi)
     edges = np.stack([codes // n, codes % n], axis=1)
     return graph_from_edges(n, edges)
+
+
+#: the widest ball rows :func:`power_graph` builds row by row (narrow rows,
+#: many nodes: a per-row sort beats one global sort of the edge codes; wide
+#: hub rows do not)
+_ROW_BUILD_MAX = 64
+
+
+def _graph_from_rows(n: int, rows: np.ndarray) -> Graph:
+    """``graph_from_edges`` of the undirected edges ``{i, rows[i, k]}`` (a
+    symmetric relation; entries ``n`` and ``i`` itself ignored), built row
+    by row: each row sorted and deduplicated in place, its neighbours above
+    ``i`` ascending, then those below ``i`` ascending (the order
+    ``graph_from_edges`` gives its table), and the edges ``i < j`` in
+    (i, j) order, without the global sort of the edge codes."""
+    rows = np.sort(rows, axis=1)
+    i = np.arange(n, dtype=np.int64)[:, None]
+    live = (rows != n) & (rows != i)
+    live[:, 1:] &= rows[:, 1:] != rows[:, :-1]
+    deg = live.sum(axis=1)
+    if not deg.any():
+        return graph_from_edges(n, np.empty((0, 2), np.int64))
+    # within a row: the neighbours above i first (key 0), then below (1);
+    # sorting the keys stably keeps each part ascending
+    key = np.where(live, (rows < i).astype(np.int8), np.int8(2))
+    order = np.argsort(key, axis=1, kind="stable")
+    packed = np.take_along_axis(rows, order, axis=1)
+    width = max(int(deg.max()), 1)
+    nbr = np.where(np.arange(width)[None, :] < deg[:, None],
+                   packed[:, :width], n).astype(np.int32)
+    up = live & (rows > i)
+    src = np.repeat(np.arange(n, dtype=np.int64), up.sum(axis=1))
+    edges = np.stack([src, rows[up]], axis=1).astype(np.int32)
+    return Graph(nbr=nbr, deg=deg.astype(np.int32), edges=edges)
 
 
 def greedy_coloring(graph: Graph, *, seed: int = 0) -> np.ndarray:

@@ -38,7 +38,18 @@ ladder re-enters at its first unvisited λ with the saved chi, so it equals
 the uninterrupted run bit for bit. A non-finite fixed point (the
 ``sweep.nan`` site) records non-convergence and stops the ladder.
 
-Not ported yet, refused with ``NotImplementedError``: ``mesh=`` (A15b).
+Meshes (one process per rank, ``torch.distributed``):
+:func:`entropy_ensemble_union` with ``mesh=`` runs every fixed point
+edge-sharded over the mesh's ``edge`` dimension (:func:`graphdyn_torch.
+parallel.sharded.make_sharded_fixed_point`: chi replicated, each class's
+edges split, the per-class kernel K3 on the card);
+:func:`entropy_ensemble` with ``mesh=`` splits the graph axis over the
+``graph`` dimension, each rank sweeping its block of instances as the
+unsharded ensemble sweeps them (K3′ on the card), the joint fixed point's
+``max|Δchi|`` all-reduced every sweep and the per-member observables
+gathered. Every rank returns the same result. A mesh ladder keeps no
+checkpoint: ``checkpoint_path``/``checkpointer`` with ``mesh=`` are
+refused.
 """
 
 from __future__ import annotations
@@ -71,7 +82,6 @@ from graphdyn_torch.ops.bdcm import (
     make_node_partition,
     run_fixed_point,
 )
-from graphdyn_torch.models.hpr import _not_ported
 from graphdyn_torch.resilience import faults as _faults
 from graphdyn_torch.resilience.shutdown import (
     raise_if_requested,
@@ -87,9 +97,11 @@ from graphdyn_torch.utils.platform import resolve_device
 log = logging.getLogger("graphdyn_torch.models")
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise _not_ported("mesh=", "A15b: the ensemble meshes")
+def _refuse_mesh_checkpoint(mesh, *checkpoints) -> None:
+    if mesh is not None and any(c is not None for c in checkpoints):
+        raise ValueError(
+            "a mesh ladder keeps no checkpoint in graphdyn_torch: drop "
+            "checkpoint_path/checkpointer, or run without mesh=")
 
 
 def _plateau_prefix(prev_rows, plateau_eps: float, plateau_patience: int):
@@ -405,6 +417,7 @@ def entropy_ensemble(
     checkpoint_path: str | None = None,
     checkpoint_interval_s: float = 30.0,
     mesh=None,
+    graph_axis: str = "graph",
     kernel: str = "auto",
     device=None,
 ) -> EnsembleEntropyResult:
@@ -415,20 +428,52 @@ def entropy_ensemble(
     fixed point); the entropy-floor exit needs ``all`` (default) or ``any``
     instance to cross, per ``ent_floor_mode``. ``chi0`` warm-starts from a
     previous result's chi. ``checkpoint_path``: the managed λ-granular
-    resume (:func:`_run_managed_ladder`)."""
-    _refuse_mesh(mesh)
+    resume (:func:`_run_managed_ladder`). ``mesh``: split the graph axis
+    over the mesh's ``graph_axis`` dimension (module docstring; the graph
+    count must divide into it); every rank of it calls this together."""
+    _refuse_mesh_checkpoint(mesh, checkpoint_path)
     config = config or EntropyConfig()
     stop_fn = _ensemble_stop_fn(config, ent_floor_mode)
-    dev = resolve_device(device)
     dyn = config.dynamics
     for g in graphs:
         if (g.deg == 0).any():
             raise ValueError("entropy_ensemble requires isolate-free graphs")
-    ens = EnsembleBDCM([
-        BDCMData(g, p=dyn.p, c=dyn.c, attr_value=dyn.attr_value,
-                 rule=dyn.rule, tie=dyn.tie, dtype=config.dtype)
-        for g in graphs
-    ])
+    datas = [BDCMData(g, p=dyn.p, c=dyn.c, attr_value=dyn.attr_value,
+                      rule=dyn.rule, tie=dyn.tie, dtype=config.dtype)
+             for g in graphs]
+    ens = EnsembleBDCM(datas)
+    block = slice(None)
+    reduce = gather = None
+    if mesh is not None:
+        from graphdyn_torch.parallel.mesh import (
+            all_gather_tiled,
+            axis_index,
+            axis_size,
+            pmax,
+            rank_device,
+        )
+
+        shards = axis_size(mesh, graph_axis)
+        if len(graphs) % shards:
+            raise ValueError(
+                f"entropy_ensemble(mesh=...) needs the graph count divisible "
+                f"by the {graph_axis!r} axis ({len(graphs)} graphs, "
+                f"{shards} shards) — pad the ensemble or shrink the mesh")
+        Gl = len(graphs) // shards
+        r = axis_index(mesh, graph_axis)
+        block = slice(r * Gl, (r + 1) * Gl)
+        full = ens
+        ens = EnsembleBDCM(datas[block])
+        dev = rank_device(device)
+
+        def reduce(d):
+            return pmax(d, mesh, graph_axis)
+
+        def gather(x):
+            return all_gather_tiled(x.contiguous(), mesh, graph_axis, dim=0)
+    else:
+        full = ens
+        dev = resolve_device(device)
     sweep = make_ensemble_sweep(ens, damp=config.damp,
                                 eps_clamp=config.eps_clamp, kernel=kernel,
                                 device=dev)
@@ -442,20 +487,25 @@ def entropy_ensemble(
         return run_fixed_point(lambda c: sweep(c, lm), chi,
                                eps=float(config.eps),
                                t_max=int(config.max_sweeps),
-                               chunk_sweeps=CHUNK_SWEEPS)
+                               chunk_sweeps=CHUNK_SWEEPS, reduce=reduce)
+
+    def observe(c, lm):
+        phi, m0 = phi_fn(c, lm), minit_fn(c)
+        return (phi, m0) if gather is None else (gather(phi), gather(m0))
 
     if lambdas is None:
         lambdas = lambda_ladder(config)
 
     def chi_init():
-        return (ens.init_messages(seed) if chi0 is None
+        # the whole ensemble's draw, then this rank's block of it
+        return (full.init_messages(seed) if chi0 is None
                 else torch.as_tensor(np.asarray(chi0), dtype=ens.dtype)
-                ).to(dev)
+                )[block].to(dev)
 
     def ladder_fn(lam, chi, ck, meta, xtra, prev_rows=None):
         return _run_ladder(
             lam, chi, set_leaves=set_leaves, fixed_point=fixed_point,
-            observe=lambda c, lm: (phi_fn(c, lm), minit_fn(c)),
+            observe=observe,
             eps=config.eps, stop_fn=stop_fn,
             plateau_eps=config.plateau_eps,
             plateau_patience=config.plateau_patience, checkpointer=ck,
@@ -473,6 +523,8 @@ def entropy_ensemble(
     else:
         rows, nonconverged, chi = _ladder_rows(ladder_fn(
             np.asarray(lambdas, float), chi_init(), None, None, None))
+    if gather is not None:
+        chi = gather(chi)
     return EnsembleEntropyResult(**rows, nonconverged=nonconverged,
                                  chi=chi.cpu().numpy())
 
@@ -546,6 +598,7 @@ def entropy_ensemble_union(
     checkpoint_interval_s: float = 30.0,
     verbose: bool = False,
     mesh=None,
+    edge_axis: str = "edge",
     kernel: str = "auto",
     device=None,
 ) -> UnionEnsembleEntropyResult:
@@ -559,14 +612,22 @@ def entropy_ensemble_union(
     ladder). ``chi0`` resumes from a previous result's union chi.
     ``checkpoint_path``: the managed λ-granular resume
     (:func:`_run_managed_ladder`); ``checkpointer``: a caller-managed
-    :class:`~graphdyn_torch.utils.io.PeriodicCheckpointer` (one of the two)."""
-    _refuse_mesh(mesh)
+    :class:`~graphdyn_torch.utils.io.PeriodicCheckpointer` (one of the two).
+    ``mesh``: run every fixed point edge-sharded over the mesh's
+    ``edge_axis`` dimension (module docstring); every rank of it calls this
+    together."""
+    _refuse_mesh_checkpoint(mesh, checkpoint_path, checkpointer)
     if checkpoint_path is not None and checkpointer is not None:
         raise ValueError("pass either checkpoint_path (managed resume) or "
                          "checkpointer (caller-managed), not both")
     config = config or EntropyConfig()
     stop_fn = _ensemble_stop_fn(config, ent_floor_mode)
-    dev = resolve_device(device)
+    if mesh is not None:
+        from graphdyn_torch.parallel.mesh import rank_device
+
+        dev = rank_device(device)
+    else:
+        dev = resolve_device(device)
     dyn = config.dynamics
     G = len(graphs)
     subs, n_isos, n_totals = [], [], []
@@ -607,7 +668,16 @@ def entropy_ensemble_union(
 
     data = BDCMData(gu, p=dyn.p, c=dyn.c, attr_value=dyn.attr_value,
                     rule=dyn.rule, tie=dyn.tie, dtype=config.dtype)
-    fixed_point = make_fixed_point(data, config, kernel=kernel, device=dev)
+    if mesh is not None:
+        from graphdyn_torch.parallel.sharded import make_sharded_fixed_point
+
+        fixed_point = make_sharded_fixed_point(
+            data, mesh, damp=config.damp, eps=float(config.eps),
+            max_sweeps=int(config.max_sweeps), eps_clamp=config.eps_clamp,
+            edge_axis=edge_axis, kernel=kernel, device=dev)
+    else:
+        fixed_point = make_fixed_point(data, config, kernel=kernel,
+                                       device=dev)
     set_leaves = make_leaf_setter(data, device=dev)
     zi_fn = make_node_partition(data, eps_clamp=config.eps_clamp, device=dev)
     zij_fn = make_edge_partition(data, eps_clamp=config.eps_clamp, device=dev)

@@ -41,8 +41,15 @@ chain seeds on the device from the port's Threefry stream
 (:func:`graphdyn_torch.ops.bdcm.draw_chi_device`), so nothing union-sized
 crosses the host link; the draw is the same bits on the CPU and the card.
 
-Not ported yet: ``mesh=`` (ROADMAP.md A15b, the ensemble meshes), which
-raises ``NotImplementedError``.
+``mesh=`` (:func:`hpr_solve_batch`, :func:`make_hpr_batch_chunk`) splits
+the chains over the mesh's ``replica`` dimension, one process per rank:
+each rank runs its ``R/P``-chain union block exactly as the unsharded
+solver runs a union (one sweep-kernel launch a sweep on the card), and the
+host read that each chunk makes of ``any(active)`` is or-reduced over the
+ranks, so every rank runs the same chunks; stopped chains are frozen, so
+the result equals the unsharded run. Replicas round up to the shard count
+(padding chains start frozen); snapshots hold the global unpadded state,
+written by rank 0, so a run resumes on another mesh shape.
 """
 
 from __future__ import annotations
@@ -69,22 +76,11 @@ from graphdyn_torch.pipeline.hpr_group import (
 from graphdyn_torch.utils.platform import resolve_device
 
 
-def _not_ported(arg: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{arg} is not ported to graphdyn_torch yet (ROADMAP.md {item})")
-
-
 #: the chain snapshot's arrays (``hpr_solve``)
 _HPR_CHAIN_FIELDS = ("chi", "biases", "s", "seed", "t", "m_final")
 #: the batched chains' snapshot arrays (``hpr_solve_batch``)
 _HPR_BATCH_FIELDS = ("chi", "biases", "s", "seeds", "t", "m_final", "active",
                      "steps")
-
-
-def _refuse(mesh=None) -> None:
-    if mesh is not None:
-        raise _not_ported("mesh=", "A15b: the ensemble meshes of hpr, "
-                          "entropy and temper")
 
 
 class HPRResult(NamedTuple):
@@ -270,15 +266,36 @@ def union_setup(graph: Graph, config: HPRConfig, R: int, *, kernel="auto",
                  kernel=kernel, device=dev)
 
 
-def _draw_union_chi(rng, R: int, twoE: int, K: int, np_dt) -> np.ndarray:
+def _draw_union_chi(rng, R: int, twoE: int, K: int, np_dt,
+                    chains=None) -> np.ndarray:
     """Row-normalized random chi for the R-replica union, drawn replica by
     replica straight into the target dtype (a float64 draw of the whole
-    union would be about 20 GB of host memory at config 2)."""
+    union would be about 20 GB of host memory at config 2), and ``rng``
+    moved past it. Replica r's block is the stream's words ``[r·2E·K², (r+1)
+    ·2E·K²)`` (one 64-bit word a double), so the blocks are drawn by
+    threads from copies of ``rng``'s bit generator advanced to their first
+    word: the same bits as one sequential draw. ``chains``: draw only these
+    replicas' rows, leaving the others' unset (a mesh rank's block)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    per = twoE * K * K
     out = np.empty((R * twoE, K, K), np_dt)
-    for r in range(R):
-        blk = rng.random((twoE, K, K))
+    start = rng.bit_generator.state
+
+    def draw(r: int) -> None:
+        bg = type(rng.bit_generator)()
+        bg.state = start
+        bg.advance(r * per)
+        blk = np.random.Generator(bg).random((twoE, K, K))
         blk /= blk.sum(axis=(1, 2), keepdims=True)
         out[r * twoE : (r + 1) * twoE] = blk
+
+    todo = [r for r in range(R) if chains is None or r in chains]
+    with ThreadPoolExecutor(max_workers=max(1, min(8, os.cpu_count() or 1,
+                                                   len(todo)))) as ex:
+        list(ex.map(draw, todo))
+    rng.bit_generator.advance(R * per)
     return out
 
 
@@ -352,11 +369,39 @@ def _make_hpr_batch_body(setup: _HPRSetup, graph: Graph, R: int, uniforms):
 
 
 def make_hpr_batch_chunk(graph: Graph, config: HPRConfig, Rtot: int, *,
+                         mesh=None, replica_axis: str = "replica",
                          kernel: str = "auto", uniforms=None, device=None):
     """Build the chunk program ``(state, t_end) -> state`` advancing
     ``Rtot`` batched HPr chains until the sweep clock reaches ``t_end`` (a
     host loop of the body, no device→host read; frozen chains stay frozen),
-    and its setup. Single device."""
+    and its setup. With ``mesh``, the program and the setup are this rank's
+    block of ``Rtot / P`` chains on the ``replica_axis`` dimension
+    (``Rtot`` must divide), its state the block's rows and ``uniforms``
+    (``callable(t) -> [Rtot·n]``) cut to them; the caller or-reduces the
+    liveness read between chunks."""
+    if mesh is not None:
+        from graphdyn_torch.parallel.mesh import (
+            axis_index,
+            axis_size,
+            rank_device,
+        )
+
+        shards = axis_size(mesh, replica_axis)
+        if Rtot % shards:
+            raise ValueError(
+                f"Rtot={Rtot} not divisible by {shards} replica shards")
+        Rtot //= shards
+        device = rank_device(device)
+        if uniforms is not None:
+            lo = axis_index(mesh, replica_axis) * Rtot * graph.n
+            hi = lo + Rtot * graph.n
+            full = uniforms
+
+            def uniforms(t):
+                u = full(t)
+                u = (u.reshape(-1) if isinstance(u, torch.Tensor)
+                     else np.asarray(u).reshape(-1))
+                return u[lo:hi]
     setup = union_setup(graph, config, Rtot, kernel=kernel, device=device)
     body = _make_hpr_batch_body(setup, graph, Rtot, uniforms)
 
@@ -375,6 +420,7 @@ def hpr_solve_batch(
     n_replicas: int | None = None,
     seed: int = 0,
     mesh=None,
+    replica_axis: str = "replica",
     checkpoint_path: str | None = None,
     checkpoint_interval_s: float = 30.0,
     chunk_sweeps: int = 200,
@@ -394,7 +440,9 @@ def hpr_solve_batch(
     ``seed + r``. Finished chains freeze under per-replica masks; the host
     reads ``any(active)`` once per ``chunk_sweeps`` sweeps. ``uniforms``:
     None or ``callable(t) -> [R·n]``. ``checkpoint_path``: exact resume
-    (module docstring).
+    (module docstring). ``mesh``: the chains split over its
+    ``replica_axis`` dimension (module docstring); every rank of the mesh
+    calls this together and gets the whole result.
 
     ``device_init=True`` draws the initial state on the device instead
     (:func:`device_init_state`: chi, biases and the chains' stream seeds
@@ -411,8 +459,6 @@ def hpr_solve_batch(
         if device_init and checkpoint_path is not None:
             raise ValueError(
                 "device_init=True is incompatible with checkpoint_path=")
-        _refuse(mesh)
-        dev = resolve_device(device)
         config = config or HPRConfig()
         R = n_replicas if n_replicas is not None else config.n_replicas
         n = graph.n
@@ -422,10 +468,30 @@ def hpr_solve_batch(
         if chunk_sweeps < 1:
             raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
         seeds = [_check_seed(seed + r) for r in range(R)]
+        if mesh is None:
+            dev = resolve_device(device)
+            shards, sync = 1, None
+        else:
+            from graphdyn_torch.parallel.mesh import (
+                WorldSync,
+                axis_size,
+                rank_device,
+            )
 
-        run_chunk, setup = make_hpr_batch_chunk(graph, config, R,
-                                                kernel=kernel,
-                                                uniforms=uniforms, device=dev)
+            dev = rank_device(device)
+            shards, sync = axis_size(mesh, replica_axis), WorldSync(dev)
+        # padding chains (frozen from the start) round R up to the shards
+        R_pad = (-R) % shards
+        Rtot = R + R_pad
+        u_tot = uniforms
+        if uniforms is not None and R_pad:
+            def u_tot(t):
+                u = torch.as_tensor(np.asarray(uniforms(t))).reshape(-1)
+                return torch.cat([u, u.new_full((R_pad * n,), 0.5)])
+
+        run_chunk, setup = make_hpr_batch_chunk(
+            graph, config, Rtot, mesh=mesh, replica_axis=replica_axis,
+            kernel=kernel, uniforms=u_tot, device=dev)
         np_dt = setup.data.np_dtype
         ckpt = None
         st = None
@@ -439,52 +505,117 @@ def hpr_solve_batch(
                 checkpoint_path, kind="hpr_batch_chain", seed=seed,
                 fp=run_fingerprint(graph.edges, config, R, "graphdyn_torch",
                                    uniforms is not None),
-                interval_s=checkpoint_interval_s)
+                interval_s=checkpoint_interval_s, sync=sync)
             arrays = ckpt.load_state(
                 check=lambda a: a["s"].shape == (R * n,)
                 and a["t"].shape == (R,))
             if arrays is not None:
                 st = _BatchState(**{
                     f: (int(arrays["t"][0]) if f == "t" else
-                        torch.from_numpy(np.asarray(arrays[f])).to(dev))
+                        torch.from_numpy(np.asarray(arrays[f])))
                     for f in _HPR_BATCH_FIELDS})
         if st is None and device_init:
             st = _initial_state(graph, config, R, *device_init_state(
                 R, n, twoE, K, setup.dtype, seed, dev))
-        elif st is None:
+        elif st is None and mesh is None:
             st = _batch_init(graph, config, R, seed, seeds, np_dt, K, twoE,
                              dev)
+        elif st is None:
+            # on the host, drawing only this rank's chains' chi, so only
+            # its block goes to its device
+            from graphdyn_torch.parallel.mesh import axis_index
+
+            Rl = Rtot // shards
+            r0 = axis_index(mesh, replica_axis) * Rl
+            st = _batch_init(graph, config, R, seed, seeds, np_dt, K, twoE,
+                             torch.device("cpu"),
+                             chains=range(r0, min(r0 + Rl, R)))
+        if mesh is not None:
+            st = _rank_block(st, mesh, replica_axis, R_pad, n, twoE, K, dev)
+        else:
+            st = st._replace(**{f: getattr(st, f).to(dev)
+                                for f in _HPR_BATCH_FIELDS if f != "t"})
+
+        def active(x) -> bool:
+            go = bool(x.active.any())
+            return go if mesh is None else sync.any(go)[0]
+
+        def advance(x):
+            return run_chunk(x, min(x.t + int(chunk_sweeps), setup.TT + 2))
+
+        def whole(x, f: str) -> np.ndarray:
+            """Field ``f`` of every chain, unpadded, on the host."""
+            v = getattr(x, f)
+            if mesh is not None:
+                from graphdyn_torch.parallel.mesh import all_gather_tiled
+
+                v = all_gather_tiled(v.contiguous(), mesh, replica_axis,
+                                     dim=0)
+            per = {"chi": twoE, "biases": n, "s": n}.get(f, 1)
+            return v[:R * per].cpu().numpy()
+
         if ckpt is None:
-            while bool(st.active.any()):
-                st = run_chunk(st, min(st.t + int(chunk_sweeps), setup.TT + 2))
+            while active(st):
+                st = advance(st)
         else:
             st = ckpt.drive(
-                st, advance=lambda x: run_chunk(
-                    x, min(x.t + int(chunk_sweeps), setup.TT + 2)),
-                active=lambda x: bool(x.active.any()),
+                st, advance=advance, active=active,
                 payload=lambda x: {f: (np.full(R, x.t, np.int32) if f == "t"
-                                       else getattr(x, f).cpu().numpy())
+                                       else whole(x, f))
                                    for f in _HPR_BATCH_FIELDS})
-        s = st.s.cpu().numpy().reshape(R, n)
+        s = whole(st, "s").reshape(R, n)
         return HPRBatchResult(
             s=s,
             mag_reached=s.astype(np.float64).mean(axis=1).astype(np.float32),
-            num_steps=st.steps.cpu().numpy(),
-            m_final=st.m_final.cpu().numpy(),
+            num_steps=whole(st, "steps"),
+            m_final=whole(st, "m_final"),
             elapsed_s=_sw.stop().wall_s,
         )
     finally:
         _sw.stop()      # the exception path closes the span too
 
 
+def _rank_block(st: "_BatchState", mesh, replica_axis: str, R_pad: int,
+                n: int, twoE: int, K: int, dev) -> "_BatchState":
+    """This rank's block of the whole batch state ``st`` (host or device
+    tensors of R chains): padded with ``R_pad`` frozen chains (uniform chi,
+    even biases, all +1, inactive), then rows ``[r·Rl, (r+1)·Rl)`` of the
+    chains, on ``dev``."""
+    from graphdyn_torch.parallel.mesh import axis_index, axis_size
+
+    def pad(x, per, fill):
+        x = torch.as_tensor(x)
+        if not R_pad:
+            return x
+        return torch.cat([x, x.new_full((R_pad * per,) + x.shape[1:], fill)])
+
+    fields = {
+        "chi": pad(st.chi, twoE, 1.0 / (K * K)),
+        "biases": pad(st.biases, n, 0.5),
+        "s": pad(st.s, n, 1),
+        "seeds": pad(st.seeds, 1, 0),
+        "m_final": pad(st.m_final, 1, 1.0),
+        "active": pad(st.active, 1, False),
+        "steps": pad(st.steps, 1, 0),
+    }
+    Rl = fields["seeds"].shape[0] // axis_size(mesh, replica_axis)
+    r = axis_index(mesh, replica_axis)
+    per = {"chi": twoE, "biases": n, "s": n}
+    return _BatchState(t=st.t, **{
+        f: v[r * Rl * per.get(f, 1):(r + 1) * Rl * per.get(f, 1)]
+        .contiguous().to(dev) for f, v in fields.items()})
+
+
 def _batch_init(graph: Graph, config: HPRConfig, R: int, seed: int, seeds,
-                np_dt, K: int, twoE: int, dev) -> _BatchState:
+                np_dt, K: int, twoE: int, dev, chains=None) -> _BatchState:
     """The batched chains' initial state: the reference's numpy draw and
-    the initial rollout stop test."""
+    the initial rollout stop test. ``chains``: the replicas whose chi rows
+    are drawn (:func:`_draw_union_chi`; the others' rows are left unset)."""
     n = graph.n
     rng = np.random.default_rng(seed)
     chi0, biases0, s0 = host_init(rng, R * twoE, K, R * n, np_dt,
-                                  chi0=_draw_union_chi(rng, R, twoE, K, np_dt))
+                                  chi0=_draw_union_chi(rng, R, twoE, K, np_dt,
+                                                       chains))
     return _initial_state(
         graph, config, R, torch.from_numpy(chi0).to(dev),
         torch.from_numpy(biases0).to(dev), torch.as_tensor(s0, device=dev),

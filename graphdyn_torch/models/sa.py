@@ -115,11 +115,6 @@ class _SAState(NamedTuple):
     traj: torch.Tensor      # int8[R, T+1, n+2] light-cone trajectory; [R, 0, 0] in full mode
 
 
-def _not_ported(arg: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{arg} is not ported to graphdyn_torch yet (ROADMAP.md {item})")
-
-
 def resolve_dtype(dtype) -> torch.dtype:
     """``'float32'``/``'float64'`` (or the torch dtype) -> the torch dtype."""
     if isinstance(dtype, torch.dtype) and dtype in _DTYPES.values():
@@ -423,7 +418,8 @@ def state_payload(st, s_now) -> dict:
     return out
 
 
-def run_chunks(advance, state, *, on_chunk=None, span: str | None = None):
+def run_chunks(advance, state, *, on_chunk=None, span: str | None = None,
+               any_fn=None):
     """Call ``advance`` until no chain is active, with one host read of
     ``active.any()`` per chunk (counted in :data:`HOST_READS`); ``on_chunk``
     is called after each chunk. On the card the chunks after the first
@@ -433,7 +429,9 @@ def run_chunks(advance, state, *, on_chunk=None, span: str | None = None):
     ``pipeline.<span>.chunk`` span that closes after the chunk's host read
     (around ``replay()`` and around the call that captures, never inside the
     captured function), with ``obs.mem.*`` gauges (``loop="<span>.chunk"``)
-    after it while recording."""
+    after it while recording. ``any_fn(flag) -> bool`` combines the
+    chunk's liveness with other ranks' (a mesh's or-reduce), so every rank
+    runs the same chunks."""
     global HOST_READS
     advance = chunk_caller(advance)
     rec = obs.current()
@@ -461,6 +459,8 @@ def run_chunks(advance, state, *, on_chunk=None, span: str | None = None):
         chunk_i += 1
         if on_chunk is not None:
             on_chunk(state)
+        if any_fn is not None:
+            go = any_fn(go)
         if not go:
             return state
 
@@ -670,7 +670,7 @@ def simulated_annealing(
 
 def _sa_streamed(graph, config: SAConfig, *, n_replicas, seed, s0, a0, b0,
                  proposals, uniforms, max_steps, dtype, stream_chunks,
-                 device) -> SAResult:
+                 device, rollout=None) -> SAResult:
     """``layout='streamed'``: the same serial Metropolis chain, each
     candidate's end sum from the out-of-core streamed rollout
     (:func:`graphdyn_torch.ops.streamed.streamed_rollout`, its chunks on
@@ -680,7 +680,9 @@ def _sa_streamed(graph, config: SAConfig, *, n_replicas, seed, s0, a0, b0,
     (:func:`draw_sa_proposal`, :func:`metropolis_anneal_update`), and the
     integer end sums do not depend on the engine, so the chain equals
     ``layout='padded'`` under the same streams. The node labeling is the
-    caller's."""
+    caller's. ``rollout(words, steps) -> words`` replaces the single-device
+    streamed rollout (``sa_sharded(layout='streamed')`` passes the sharded
+    one)."""
     from graphdyn_torch.ops.packed import WORD, pack_spins, unpack_spins
     from graphdyn_torch.ops.streamed import build_stream_plan, streamed_rollout
 
@@ -689,20 +691,24 @@ def _sa_streamed(graph, config: SAConfig, *, n_replicas, seed, s0, a0, b0,
     host = torch.device("cpu")
     n = graph.n
     dyn = config.dynamics
-    rollout = dyn.p + dyn.c - 1
     (R, seed, s0, a0, b0, proposals, uniforms, max_steps, stream_len,
      injected) = prepare_sa_inputs(
         graph, config, n_replicas=n_replicas, seed=seed, s0=s0, a0=a0,
         b0=b0, proposals=proposals, uniforms=uniforms, max_steps=max_steps,
         dtype=dt)
     np_dt = np.float32 if dt == torch.float32 else np.float64
-    plan = build_stream_plan(graph, W=-(-R // WORD), n_chunks=stream_chunks)
+    steps = dyn.p + dyn.c - 1
+    if rollout is None:
+        plan = build_stream_plan(graph, W=-(-R // WORD),
+                                 n_chunks=stream_chunks)
+
+        def rollout(words, steps):
+            return streamed_rollout(graph, words, steps, rule=dyn.rule,
+                                    tie=dyn.tie, plan=plan, device=dev)
 
     def end_sums(s_batch):
         """Integer Σ_i s_end_i per replica through the streamed engine."""
-        out = streamed_rollout(graph, pack_spins(s_batch), rollout,
-                               rule=dyn.rule, tie=dyn.tie, plan=plan,
-                               device=dev)
+        out = rollout(pack_spins(s_batch), steps)
         return unpack_spins(out, R).sum(dim=1, dtype=torch.int32)
 
     s = torch.from_numpy(s0)

@@ -22,8 +22,14 @@ Two consumers:
   (the widest shard of the 2-part smoke partition, stepped by the K1/K2′
   launch on the shard layout with its slab buffers) against
   :func:`halo_shard_bytes` of that shard, as the JAX package charges the
-  widest shard. The JAX package's ``derived:*`` rows check its HLO-derived
-  models, which the port does not have.
+  widest shard. The sharded stream's row (``streamed_shard``) charges the
+  widest shard of the 2-part smoke plan its two largest chunks
+  (:func:`graphdyn_torch.parallel.stream.shard_plan_device_bytes`, the
+  number the JAX package's per-shard admission prices) and measures one
+  rank's walk of that shard's chunks on the card (KB launches from host
+  slabs; one card has no partner rank, and the exchange's slabs are not
+  part of the chunk model). The JAX package's ``derived:*`` rows check
+  its HLO-derived models, which the port does not have.
 
 The byte models are the JAX package's, held equal to them by the tests. The
 bucketed and streamed ones live beside their layouts (``ops/bucketed.py``,
@@ -49,6 +55,7 @@ MEM_BANDS: dict[str, tuple[float, float]] = {
     "halo_shard": (0.25, 16.0),
     "bucketed_state": (0.25, 16.0),
     "streamed_chunk": (0.05, 64.0),
+    "streamed_shard": (0.05, 64.0),
 }
 
 # ---------------------------------------------------------------------------
@@ -325,6 +332,23 @@ def _smoke_plan(n: int = 4096, chunks: int = 8, W: int = 8):
     return g, build_stream_plan(g, W=W, n_chunks=chunks)
 
 
+def _smoke_shard_plan(n: int = 4096, chunks: int = 4, W: int = 8,
+                      P: int = 2):
+    """The sharded stream's smoke plan: the streamed smoke graph in ``P``
+    parts, ``chunks`` chunks a shard."""
+    from graphdyn_torch.graphs import partition_graph
+    from graphdyn_torch.parallel.stream import build_shard_stream_plan
+
+    g, _ = _smoke_powerlaw(n)
+    return g, build_shard_stream_plan(g, W=W, partition=partition_graph(
+        g, P, seed=0), n_chunks=chunks)
+
+
+def _widest_stream_shard(plan, W: int) -> int:
+    """The shard whose two largest chunks model the most device bytes."""
+    return int(np.argmax([plan.shard_bytes(p, W) for p in range(plan.P)]))
+
+
 def _halo_smoke_tables(n: int = 8192, P: int = 2):
     """The halo smoke partition's tables (d=3 RRG, the headline degree),
     the JAX package's smoke shape."""
@@ -347,6 +371,13 @@ def _halo_smoke_model(W: int = 8) -> float:
                                       W) for p in range(t.P)))
 
 
+def shard_plan_device_bytes(plan, W: int) -> int:
+    """:func:`graphdyn_torch.parallel.stream.shard_plan_device_bytes`."""
+    from graphdyn_torch.parallel import stream
+
+    return stream.shard_plan_device_bytes(plan, W)
+
+
 def _models(W: int = 8) -> dict:
     """Every row's model bytes at the smoke shapes."""
     from graphdyn_torch.ops.streamed import plan_device_bytes
@@ -360,7 +391,9 @@ def _models(W: int = 8) -> dict:
             "halo_shard": _halo_smoke_model(W),
             "bucketed_state": float(bucketed_state_bytes(
                 b.n, W, b.table_entries)),
-            "streamed_chunk": float(plan_device_bytes(plan, W))}
+            "streamed_chunk": float(plan_device_bytes(plan, W)),
+            "streamed_shard": float(shard_plan_device_bytes(
+                _smoke_shard_plan(W=W)[1], W))}
 
 
 def _measure(dev, W: int = 8, steps: int = 8) -> dict:
@@ -395,7 +428,32 @@ def _measure(dev, W: int = 8, steps: int = 8) -> dict:
         streamed_rollout(g, np.zeros((g.n, W), np.uint32), steps, plan=plan,
                          device=dev)
     out["streamed_chunk"] = p.bytes
+    out["streamed_shard"] = _measure_stream_shard(dev, W, steps)
     return out
+
+
+def _measure_stream_shard(dev, W: int, steps: int) -> int:
+    """One rank's peak on the sharded stream: ``steps`` walks of the widest
+    smoke shard's chunks, prefetched and stepped by KB as a rank walks
+    them, from its host halo-layout state."""
+    import torch
+
+    from graphdyn_torch.ops.streamed import _ChunkStepper
+    from graphdyn_torch.pipeline.prefetch import HostPrefetcher
+
+    _, plan = _smoke_shard_plan(W=W)
+    p = _widest_stream_shard(plan, W)
+    chunks = [c for c in plan.shard_chunks[p] if c.C]
+    loc = torch.zeros((plan.tables.n_rows, W), dtype=torch.int32)
+    with _Peak(dev) as pk:
+        stepper = _ChunkStepper(dev, "majority", "stay")
+        for _ in range(steps):
+            with HostPrefetcher(lambda c: stepper.build(loc, c, chunks[c]),
+                                range(len(chunks)), depth=2) as pf:
+                for c in range(len(chunks)):
+                    stepper.step(pf.get(c))
+        del stepper
+    return pk.bytes
 
 
 def _measure_halo_shard(dev, W: int, steps: int) -> int:

@@ -968,20 +968,25 @@ def lane_delta(new: torch.Tensor, old: torch.Tensor, lanes: int) -> torch.Tensor
 
 
 def fixed_point_sweeps(sweep, chi, delta, t, active, *, eps: float,
-                       t_max: int, sweeps: int):
+                       t_max: int, sweeps: int, reduce=None):
     """Up to ``sweeps`` more sweeps of every live lane, as device ops with no
     host read: a lane is live while ``active & (delta > eps) & (t < t_max)``
     (the JAX package's per-lane while-loop condition; a NaN delta reads as
     stopped), and a lane that stops keeps its chi, delta and t bit for bit
     while the others go on. ``delta``, ``t`` and ``active`` are ``[L]``; chi's
     leading dimension is L (one lane per group member) or 1 with L = 1 (one
-    joint fixed point over all of chi). Returns ``(chi, delta, t)``."""
+    joint fixed point over all of chi). ``reduce(d) -> d``, when given,
+    combines each sweep's deltas across ranks (the meshes' ``all_reduce``
+    of ``max|Δchi|``) before the stop rule reads them. Returns ``(chi,
+    delta, t)``."""
     L = delta.shape[0]
     bcast = (L,) + (1,) * (chi.ndim - 1)
     for _ in range(sweeps):
         live = active & (delta > eps) & (t < t_max)
         new = sweep(chi)
         d_new = lane_delta(new, chi, L)
+        if reduce is not None:
+            d_new = reduce(d_new)
         chi = torch.where(live.view(bcast), new, chi)
         delta = torch.where(live, d_new, delta)
         t = t + live.to(t.dtype)
@@ -989,13 +994,14 @@ def fixed_point_sweeps(sweep, chi, delta, t, active, *, eps: float,
 
 
 def run_fixed_point(sweep, chi, *, eps: float, t_max: int,
-                    chunk_sweeps: int):
+                    chunk_sweeps: int, reduce=None):
     """One joint fixed point from ``chi``: sweep until ``max|Δchi| ≤ eps``
     or ``t_max`` sweeps (`ipynb:420-432`), in chunks of ``chunk_sweeps``
     sweeps with one host read of ``(delta, t)`` per chunk. Returns ``(chi*,
     sweeps, delta)`` with host scalars. The ``sweep.nan`` fault site is
     checked once per completed fixed point: a firing ``nan`` poisons the
-    first element of the returned messages and the delta."""
+    first element of the returned messages and the delta. ``reduce``: as
+    in :func:`fixed_point_sweeps`."""
     dev = chi.device
     delta = torch.full((1,), torch.inf, dtype=chi.dtype, device=dev)
     t = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -1003,7 +1009,8 @@ def run_fixed_point(sweep, chi, *, eps: float, t_max: int,
     while True:
         chi, delta, t = fixed_point_sweeps(sweep, chi, delta, t, active,
                                            eps=eps, t_max=t_max,
-                                           sweeps=chunk_sweeps)
+                                           sweeps=chunk_sweeps,
+                                           reduce=reduce)
         d, tt = float(delta[0]), int(t[0])
         if not d > eps or tt >= t_max:
             if _faults.transform_spec("sweep.nan", "nan") is not None:

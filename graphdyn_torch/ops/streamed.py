@@ -28,8 +28,10 @@ took from the journal alone, then goes on, so it equals the uninterrupted
 run bit for bit. Telemetry, the JAX package's: a ``stream.step`` span per
 step (closed after the chunks' words are back on the host), the
 ``stream.h2d_bytes``/``stream.d2h_bytes`` gauges, the ``stream.resume``
-counter and the ``stream.overlap_util`` gauge. Not ported yet: the sharded
-plan (``partition=``, A15b); it raises.
+counter and the ``stream.overlap_util`` gauge. ``build_stream_plan(
+partition=)`` returns the sharded plan of :mod:`graphdyn_torch.parallel.
+stream`, whose :func:`~graphdyn_torch.parallel.stream.
+sharded_streamed_rollout` walks one shard per rank.
 """
 
 from __future__ import annotations
@@ -234,12 +236,17 @@ def build_stream_plan(graph: Graph, *, W: int, n_chunks: int | None = None,
     ``n_chunks`` (equal contiguous slices) or ``device_budget_bytes``
     (greedy: a chunk closes when its modelled bytes, with the slab bound
     ``M ≤ C + Σdeg``, would pass half the budget) must be given; a node
-    that cannot fit alone raises. ``partition=`` (the sharded plan) is not
-    ported yet (ROADMAP.md A15b)."""
+    that cannot fit alone raises. ``partition=`` (a
+    :class:`~graphdyn_torch.graphs.Partition`) returns the sharded plan
+    instead (:func:`graphdyn_torch.parallel.stream.build_shard_stream_plan`:
+    each shard owns a part-major run of chunks, ``n_chunks`` / the budget
+    per shard)."""
     if partition is not None:
-        raise NotImplementedError(
-            "build_stream_plan(partition=) is not ported to graphdyn_torch "
-            "yet (ROADMAP.md A15b: the sharded out-of-core stream)")
+        from graphdyn_torch.parallel.stream import build_shard_stream_plan
+
+        return build_shard_stream_plan(
+            graph, W=W, partition=partition, n_chunks=n_chunks,
+            device_budget_bytes=device_budget_bytes, adj=adj)
     if adj is None:
         adj = _adjacency_lists(graph)
     order = degree_buckets(graph).order
@@ -420,21 +427,25 @@ class _ChunkStepper:
 
 
 def _check_chunk_tables(plan: StreamPlan) -> None:
+    """The host check that KB's launches skip, over a plan's chunks."""
+    _check_chunks(plan.chunks)
+
+
+def _check_chunks(chunks) -> None:
     """The host check that KB's launches skip: every slab-local index
     within its slab (ghost row included) and every degree within its
     width."""
-    for ch in plan.chunks:
+    for ch in chunks:
         if ch.C and (ch.nbr_loc.min() < 0 or ch.nbr_loc.max() > ch.M
                      or ch.deg.min() < 0 or ch.deg.max() > ch.width
                      or ch.self_loc.min() < 0 or ch.self_loc.max() >= ch.M):
             raise ValueError("stream plan chunk tables out of range")
 
 
-def _replay_churn_from_journal(jpath: str, t0: int, adj,
-                               plan: StreamPlan) -> tuple[StreamPlan, int]:
-    """Apply every journaled ``stream.churn`` batch with ``step < t0`` (the
-    journal, not the schedule, is the record of what this run applied).
-    Returns the rebuilt plan and the number of batches replayed."""
+def _journaled_churn(jpath: str, t0: int) -> list:
+    """The journaled ``stream.churn`` batches with ``step < t0``, once each
+    and in (step, seq) order, as ``(adds, drops)`` int64 ``[k, 2]`` pairs:
+    the journal, not the schedule, is the record of what a run applied."""
     from graphdyn_torch.resilience.hooks import read_ledger
 
     try:
@@ -447,18 +458,24 @@ def _replay_churn_from_journal(jpath: str, t0: int, adj,
             key = (int(ev.get("step", -1)), int(ev.get("seq", -1)))
             batches.setdefault(key, (ev.get("adds") or [],
                                      ev.get("drops") or []))
+    return [(np.asarray(adds, np.int64).reshape(-1, 2),
+             np.asarray(drops, np.int64).reshape(-1, 2))
+            for (step, _), (adds, drops) in sorted(batches.items())
+            if step < t0]
+
+
+def _replay_churn_from_journal(jpath: str, t0: int, adj,
+                               plan: StreamPlan) -> tuple[StreamPlan, int]:
+    """Apply every journaled ``stream.churn`` batch with ``step < t0``
+    (:func:`_journaled_churn`). Returns the rebuilt plan and the number of
+    batches replayed."""
     touched_all: set = set()
-    applied = 0
-    for (step, _), (adds, drops) in sorted(batches.items()):
-        if step >= t0:
-            continue
-        _, _, touched = adj.apply(np.asarray(adds, np.int64).reshape(-1, 2),
-                                  np.asarray(drops, np.int64).reshape(-1, 2))
-        touched_all |= touched
-        applied += 1
+    batches = _journaled_churn(jpath, t0)
+    for adds, drops in batches:
+        touched_all |= adj.apply(adds, drops)[2]
     if touched_all:
         plan = _rebuild_touched(plan, adj.neighbor_lists(), touched_all)
-    return plan, applied
+    return plan, len(batches)
 
 
 def streamed_rollout(graph: Graph, sp, steps: int, *,

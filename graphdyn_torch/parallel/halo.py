@@ -50,6 +50,7 @@ import torch
 from graphdyn_torch.graphs import Graph, Partition, partition_ghosts
 from graphdyn_torch.ops import packed_cuda
 from graphdyn_torch.ops.bucketed import UNROLL_MAX as _UNROLL_MAX
+from graphdyn_torch.ops.bucketed import _pack_lanes, _wide_bucket_counts
 from graphdyn_torch.ops.dynamics import Rule, TieBreak
 from graphdyn_torch.ops.packed import (
     _compare_planes,
@@ -142,9 +143,14 @@ class HaloTables(NamedTuple):
         return 4 * W * (self.n_slab_words + self.hub_ring_words)
 
 
-def build_halo_tables(graph: Graph, partition: Partition) -> HaloTables:
+def build_halo_tables(graph: Graph, partition: Partition, *,
+                      owned_nbr: bool = True) -> HaloTables:
     """Build the per-shard layout + static exchange schedule for
     ``partition`` (pure host NumPy; one-time cost per graph).
+    ``owned_nbr=False`` leaves the owned rows' neighbour table empty
+    (``nbr_loc`` of width 0): the sharded stream steps its chunks from
+    their own tables, and a power-law graph's table padded to ``dmax`` is
+    the costly part of the build.
 
     Hub-split partitions (``partition.hubs`` non-empty — see
     :func:`graphdyn_torch.graphs.partition_graph` ``hub_threshold``) get the
@@ -179,7 +185,8 @@ def build_halo_tables(graph: Graph, partition: Partition) -> HaloTables:
     trash_row, zero_row = n_rows - 2, n_rows - 1
     hub_row0 = n_local_max + n_ghost_max
 
-    nbr_loc = np.full((Pn, n_local_max, dmax), zero_row, np.int32)
+    nbr_loc = np.full((Pn, n_local_max, dmax if owned_nbr else 0), zero_row,
+                      np.int32)
     deg_loc = np.zeros((Pn, n_local_max), np.int32)
     real = np.zeros((Pn, n_local_max), bool)
     owned_global = np.full((Pn, n_local_max), -1, np.int64)
@@ -198,7 +205,9 @@ def build_halo_tables(graph: Graph, partition: Partition) -> HaloTables:
         lut[gl] = n_local_max + np.arange(gl.size)
         if H:
             lut[hubs] = hub_row0 + np.arange(H)
-        nbr_loc[p, :seg.size] = lut[graph.nbr[seg, :dmax].astype(np.int64)]
+        if owned_nbr:
+            nbr_loc[p, :seg.size] = lut[graph.nbr[seg, :dmax].astype(
+                np.int64)]
         deg_loc[p, :seg.size] = graph.deg[seg]
         real[p, :seg.size] = True
         owned_global[p, :seg.size] = seg
@@ -431,19 +440,34 @@ class _HubUpdate:
         self.even = _mask(torch.as_tensor(hd % 2 == 0, device=device))
         self.rule, self.tie = Rule(rule), TieBreak(tie)
 
-    def __call__(self, src, hub_nbr, mesh, node_axis):
+    def partial_planes(self, src, hub_nbr) -> torch.Tensor:
+        """This rank's partial counts ``[planes, H, W]`` over the rows
+        ``hub_nbr`` of ``src``: carry-save bit planes up to ``UNROLL_MAX``
+        slots, the segmented integer counts of the bucketed wide path past
+        it (the JAX package's split; both are the exact count)."""
         W = src.shape[1]
+        if hub_nbr.shape[1] > _UNROLL_MAX:
+            cnt = _wide_bucket_counts(src, hub_nbr)         # [H, W, 32]
+            return torch.stack([_pack_lanes((cnt >> b) & 1)
+                                for b in range(self.planes)])
         hpl = [src.new_zeros((self.H, W)) for _ in range(self.planes)]
         for j in range(hub_nbr.shape[1]):
             _csa_add_one(hpl, src.index_select(0, hub_nbr[:, j]))
-        acc = torch.stack(hpl)
+        return torch.stack(hpl)
+
+    def __call__(self, src, hub_nbr, mesh, node_axis, prev=None):
+        """The new hub rows from the partial counts over ``hub_nbr``'s rows
+        of ``src``; ``prev`` (default ``src``'s hub rows) is the hubs'
+        pre-step state."""
+        acc = self.partial_planes(src, hub_nbr)
         buf = acc
         for _ in range(axis_size(mesh, node_axis) - 1):
             (buf,) = exchange([buf], [1], mesh, node_axis)
             acc = _ripple_add(acc, buf)
         gt, eq = _compare_planes(list(acc), self.thr_bits)
-        return _rule_tie_combine(gt, eq & self.even,
-                                 src[self.h0:self.h0 + self.H], self.rule,
+        if prev is None:
+            prev = src[self.h0:self.h0 + self.H]
+        return _rule_tie_combine(gt, eq & self.even, prev, self.rule,
                                  self.tie)
 
 

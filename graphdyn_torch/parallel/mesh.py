@@ -297,13 +297,33 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return buf
 
 
+def _all_reduce(t: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
+    g = axis_group(mesh, axis)
+    out = _host(t) if staged(g, t) else t.clone()
+    dist.all_reduce(out, op=op, group=g)
+    return out.to(t.device)
+
+
 def psum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Σ of ``t`` over ``axis`` (``lax.psum``), returned as a new tensor on
     ``t``'s device; the input is not written."""
-    g = axis_group(mesh, axis)
-    out = _host(t) if staged(g, t) else t.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
-    return out.to(t.device)
+    return _all_reduce(t, mesh, axis, dist.ReduceOp.SUM)
+
+
+def pmax(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Elementwise max of ``t`` over ``axis`` (``lax.pmax``), as
+    :func:`psum` returns it."""
+    return _all_reduce(t, mesh, axis, dist.ReduceOp.MAX)
+
+
+def any_over(flag: bool, mesh, axis: str) -> bool:
+    """True when ``flag`` is True on any rank of ``axis``: one host flag
+    or-reduced (the meshes' per-chunk stop test), on the group's device."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend(axis_group(mesh, axis)) == "nccl"
+           else torch.device("cpu"))
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=dev)
+    return bool(pmax(t, mesh, axis)[0])
 
 
 def pmean(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -33,8 +33,11 @@ gathered from every rank, under the run's fingerprint; a run resumes from
 it at any mesh shape, node mode or rollout mode. A graceful shutdown
 (SIGTERM) on any rank makes every rank snapshot and raise
 ``ShutdownRequested`` at the same chunk boundary (exit 75 in the CLI).
-``layout='streamed'`` (the sharded out-of-core chain) comes with
-ROADMAP.md A15b and is refused.
+``layout='streamed'`` is the sharded out-of-core chain: the host-stepped
+streamed chain with every candidate's end sum from
+:func:`graphdyn_torch.parallel.stream.sharded_streamed_rollout`, one shard
+per rank of the node dimension (no chunked-chain resume, as in the JAX
+package).
 """
 
 from __future__ import annotations
@@ -398,6 +401,8 @@ def sa_sharded(
     node_mode: str = "gather",
     partition=None,
     layout: str = "padded",
+    stream_chunks: int = 4,
+    hub_threshold: int | None = None,
     device=None,
 ) -> SAResult:
     """Run R batched SA chains to completion over ``mesh`` (a ``DeviceMesh``
@@ -422,9 +427,37 @@ def sa_sharded(
             "(degree-bucketed layouts relabel nodes — use the unsharded "
             "solver's layout='bucketed')")
     if layout == "streamed":
-        raise NotImplementedError(
-            "sa_sharded(layout='streamed') is not ported to graphdyn_torch "
-            "yet (ROADMAP.md A15b: the sharded out-of-core stream)")
+        # the out-of-core composition: the unsharded streamed chain, every
+        # candidate's end sum from the sharded stream (each rank of the
+        # node dimension walking its own chunk run)
+        if rollout_mode != "full":
+            raise ValueError(
+                "layout='streamed' pages state through host RAM; "
+                "rollout_mode='lightcone' caches device-resident "
+                "trajectories — use rollout_mode='full'")
+        if checkpoint_path is not None:
+            raise ValueError(
+                "layout='streamed' has no chunked-chain resume (the chain "
+                "is host-stepped; the streamed rollout's own checkpoints "
+                "cover serve jobs, not this chain) — use layout='padded' "
+                "for checkpointed SA chains")
+        if lc_tables is not None:
+            raise ValueError("lc_tables requires rollout_mode='lightcone'")
+        if node_mode != "gather":
+            raise ValueError(
+                "layout='streamed' runs its own halo composition inside "
+                "the streamed engine — drop node_mode='halo'")
+        node_shards = axis_size(mesh, node_axis)
+        if partition is not None and partition.P != node_shards:
+            raise ValueError(
+                f"partition has P={partition.P} parts but the mesh "
+                f"{node_axis!r} axis has size {node_shards}")
+        return _sa_sharded_streamed(
+            graph, config, mesh=mesh, node_axis=node_axis,
+            n_replicas=n_replicas, seed=seed, s0=s0, a0=a0, b0=b0,
+            proposals=proposals, uniforms=uniforms, max_steps=max_steps,
+            dtype=dt, stream_chunks=stream_chunks,
+            hub_threshold=hub_threshold, partition=partition, device=dev)
     if rollout_mode not in ("full", "lightcone"):
         raise ValueError(
             f"rollout_mode must be 'full' or 'lightcone', got {rollout_mode!r}")
@@ -667,3 +700,42 @@ def _gather_rep(x: torch.Tensor, mesh, replica_axis: str) -> np.ndarray:
     numpy on every rank."""
     return all_gather_tiled(x.contiguous(), mesh, replica_axis,
                             dim=0).cpu().numpy()
+
+
+def _sa_sharded_streamed(graph, config: SAConfig, *, mesh, node_axis: str,
+                         n_replicas, seed, s0, a0, b0, proposals, uniforms,
+                         max_steps, dtype, stream_chunks: int,
+                         hub_threshold, partition, device) -> SAResult:
+    """``layout='streamed'``: the serial Metropolis chain of
+    :func:`graphdyn_torch.models.sa._sa_streamed`, every candidate's end sum
+    from :func:`graphdyn_torch.parallel.stream.sharded_streamed_rollout`
+    over the mesh's node dimension (``stream_chunks`` chunks a shard, hubs
+    split at ``hub_threshold``). The sharded stream equals the packed step
+    bit for bit and the draw and Metropolis arithmetic are the shared
+    helpers, so the chain equals ``layout='padded'`` under the same streams.
+    The node labeling is the caller's; every rank returns the result."""
+    from graphdyn_torch.models.sa import _sa_streamed, prepare_sa_inputs
+    from graphdyn_torch.parallel.stream import sharded_streamed_rollout
+
+    node_shards = axis_size(mesh, node_axis)
+    if partition is None:
+        resolved = prepare_sa_inputs(
+            graph, config, n_replicas=n_replicas, seed=seed, s0=s0, a0=a0,
+            b0=b0, proposals=proposals, uniforms=uniforms,
+            max_steps=max_steps, dtype=dtype)[1]
+        partition = partition_graph(graph, node_shards, seed=resolved or 0,
+                                    hub_threshold=hub_threshold)
+    dyn = config.dynamics
+
+    def rollout(words, steps):
+        return sharded_streamed_rollout(
+            graph, words, steps, n_shards=node_shards, rule=dyn.rule,
+            tie=dyn.tie, n_chunks=stream_chunks, hub_threshold=hub_threshold,
+            partition=partition, mesh=mesh, node_axis=node_axis,
+            device=device)
+
+    return _sa_streamed(
+        graph, config, n_replicas=n_replicas, seed=seed, s0=s0, a0=a0,
+        b0=b0, proposals=proposals, uniforms=uniforms, max_steps=max_steps,
+        dtype=dtype, stream_chunks=stream_chunks, device=device,
+        rollout=rollout)

@@ -7,9 +7,19 @@ block and that block's neighbor-table rows, and one int8 ``all_gather`` of
 the spin block per synchronous step (:func:`graphdyn_torch.parallel.mesh.
 all_gather_tiled`) gives it every spin it reads. This is the gather mode:
 the parity baseline of the halo exchange (:mod:`graphdyn_torch.parallel.
-halo`) and the cheaper path for small graphs. The edge-sharded BDCM sweep
-and fixed point of the JAX module come with a later slice (ROADMAP.md
-A15b).
+halo`) and the cheaper path for small graphs.
+
+The edge-sharded BDCM sweep (:func:`make_sharded_sweep`) and fixed point
+(:func:`make_sharded_fixed_point`) keep chi replicated on every rank of the
+mesh's ``edge`` dimension and split each degree class's edges: per class
+(in the Gauss-Seidel order of the unsharded sweep) rank ``r`` updates its
+``Ed/P`` slice through :func:`graphdyn_torch.ops.bdcm.dp_contract_grouped`
+(on the card one launch of the per-class kernel K3, ``csrc/
+bdcm_contract.cu``), and one ``all_gather_into_tensor`` of the slice's new
+rows (:func:`graphdyn_torch.parallel.mesh.all_gather_tiled`) gives every
+rank the class's update before the next class reads it. A sweep needs that
+collective between classes, so the one-launch sweep kernel K3′ does not
+serve here.
 
 Every function here runs on one rank: tensors are the rank's blocks, and
 the mesh's groups carry the collectives.
@@ -27,6 +37,7 @@ from graphdyn_torch.parallel.mesh import (
     all_gather_tiled,
     axis_index,
     axis_size,
+    pmax,
     pmean,
     psum,
     rank_device,
@@ -172,3 +183,160 @@ def place_sharded(mesh, x, spec, device=None) -> torch.Tensor:
         b = x.shape[d] // P
         idx.append(slice(k * b, (k + 1) * b))
     return x[tuple(idx)].contiguous().to(rank_device(device))
+
+
+# ---------------------------------------------------------------------------
+# edge-sharded BDCM sweep and fixed point
+# ---------------------------------------------------------------------------
+
+
+class _EdgeSlices:
+    """Per class of ``data`` (in class order): the class's edge ids padded
+    to a multiple of the shard count by repeating its first edge
+    (``graphdyn/parallel/sharded.py:296-304``), and this rank's slice of
+    them and of their incoming-edge table, as int64 tensors on ``device``.
+    ``rows`` is chi's row count (the ghost row included when the classes
+    are padded)."""
+
+    def __init__(self, data, mesh, edge_axis: str, device):
+        P = axis_size(mesh, edge_axis)
+        r = axis_index(mesh, edge_axis)
+        self.classes = []
+        for cls in data.edge_classes:
+            Ed = cls.idx.shape[0]
+            pad = (-Ed) % P
+            idx = np.concatenate([cls.idx, np.repeat(cls.idx[:1], pad)])
+            ins = np.concatenate(
+                [cls.in_edges, np.repeat(cls.in_edges[:1], pad, axis=0)])
+            b = idx.shape[0] // P
+            sl = slice(r * b, (r + 1) * b)
+
+            def t(x):
+                return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+            self.classes.append((int(cls.d), Ed, t(cls.idx), t(idx[sl]),
+                                 t(ins[sl])))
+        self.rows = data.num_directed + (1 if data.padded else 0)
+
+
+def _sharded_sweep_core(data, mesh, *, damp: float, eps_clamp: float,
+                        mask_invalid_src: bool, edge_axis: str, kernel: str,
+                        device):
+    """The shared core of :func:`make_sharded_sweep` and
+    :func:`make_sharded_fixed_point`: ``one(chi, a_tilted) -> chi'`` over
+    chi ``[2E, K, K]`` replicated on every rank of ``edge_axis``
+    (module docstring), and its per-class modes. ``chi`` is not written.
+    While recording, each class's update runs in a
+    ``parallel.sharded.contract`` span and its gather in a
+    ``parallel.sharded.gather`` span, each closed once the card has
+    finished it (two synchronisations a class, only while recording)."""
+    from graphdyn_torch import obs
+    from graphdyn_torch.ops.bdcm import dp_contract_grouped, resolve_modes
+
+    dev = rank_device(device)
+    sl = _EdgeSlices(data, mesh, edge_axis, dev)
+    modes = resolve_modes([d for d, *_ in sl.classes], T=data.T,
+                          dtype=data.dtype, kernel=kernel, device=dev)
+    valid = torch.as_tensor(data.valid, dtype=data.dtype, device=dev)
+    K = data.K
+
+    def fence(rec):
+        if rec.enabled and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def one(chi: torch.Tensor, a_tilted) -> torch.Tensor:
+        rec = obs.current()
+        n_real = chi.shape[0]
+        new = chi.clone()
+        if data.padded:
+            # the ghost row padded class members gather from and write to
+            new = torch.cat([new, new.new_full((1, K, K), 1.0 / (K * K))])
+        for k, ((d, Ed, idx_all, idx_r, ins_r), mode, a) in enumerate(
+                zip(sl.classes, modes, a_tilted)):
+            with rec.span("parallel.sharded.contract", cls=k):
+                chi_in = new[ins_r]                          # [Ed/P, d, K, K]
+                if mask_invalid_src:
+                    chi_in = chi_in * valid[:, None]
+                upd = dp_contract_grouped(chi_in[None], a, new[idx_r][None],
+                                          d=d, T=data.T, damp=damp,
+                                          eps_clamp=eps_clamp,
+                                          kernel=mode)[0]
+                fence(rec)
+            with rec.span("parallel.sharded.gather", cls=k):
+                rows = all_gather_tiled(upd, mesh, edge_axis, dim=0)
+                # the padded tail repeats the first edge's update: the real
+                # rows are the first Ed, in class order
+                new.index_copy_(0, idx_all, rows[:Ed])
+                fence(rec)
+        return new[:n_real]
+
+    return one, modes
+
+
+def make_sharded_sweep(data, mesh, *, damp: float, eps_clamp: float = 0.0,
+                       mask_invalid_src: bool = True, edge_axis: str = "edge",
+                       kernel: str = "auto", device=None):
+    """The edge-parallel BDCM sweep ``(chi, lmbd) -> chi'`` over ``mesh``'s
+    ``edge_axis`` (module docstring; ``graphdyn/parallel/sharded.py:
+    340-366``), chi ``[2E, K, K]`` replicated on every rank of it, the
+    tilt folded into each class's factor as the unsharded
+    :func:`graphdyn_torch.ops.bdcm.make_sweep` folds it. Every rank of the
+    axis calls it together with the same chi; every rank gets the same
+    result. On the CPU (the plain class update, whose rows do not depend on
+    the slice) it equals the unsharded sweep bit for bit."""
+    from graphdyn_torch.ops.bdcm import tilted_factors
+
+    dev = rank_device(device)
+    one, modes = _sharded_sweep_core(
+        data, mesh, damp=float(damp), eps_clamp=float(eps_clamp),
+        mask_invalid_src=bool(mask_invalid_src), edge_axis=edge_axis,
+        kernel=kernel, device=dev)
+    As = [torch.as_tensor(cls.A, dtype=data.dtype, device=dev)
+          for cls in data.edge_classes]
+    x0 = torch.as_tensor(data.x0, dtype=data.dtype, device=dev)
+
+    def sweep(chi, lmbd):
+        return one(chi, tilted_factors(As, x0, lmbd))
+
+    sweep.modes = modes
+    return sweep
+
+
+def make_sharded_fixed_point(data, mesh, *, damp: float, eps: float,
+                             max_sweeps: int, eps_clamp: float = 0.0,
+                             edge_axis: str = "edge", kernel: str = "auto",
+                             device=None):
+    """The edge-sharded BP fixed point ``(chi, lmbd) -> (chi*, sweeps,
+    delta)`` (``graphdyn/parallel/sharded.py:369-403``): every sweep is
+    :func:`make_sharded_sweep`'s (invalid sources masked), and one
+    ``all_reduce(MAX)`` of ``max|Δchi|`` a sweep feeds the JAX package's
+    stop rule (``delta > eps`` and ``t < max_sweeps``), in the chunks of
+    :func:`graphdyn_torch.ops.bdcm.run_fixed_point` with one host read per
+    chunk. The factors are tilted per λ as the unsharded
+    :func:`graphdyn_torch.ops.bdcm.make_fixed_point` tilts them, so on the
+    CPU the two agree bit for bit. While recording, the sweeps' classes
+    run in the spans of :func:`_sharded_sweep_core`."""
+    from graphdyn_torch.ops.bdcm import (
+        CHUNK_SWEEPS,
+        run_fixed_point,
+        tilt_vector,
+    )
+
+    dev = rank_device(device)
+    one, modes = _sharded_sweep_core(
+        data, mesh, damp=float(damp), eps_clamp=float(eps_clamp),
+        mask_invalid_src=True, edge_axis=edge_axis, kernel=kernel,
+        device=dev)
+    As = [torch.as_tensor(cls.A, dtype=data.dtype, device=dev)
+          for cls in data.edge_classes]
+
+    def fixed_point(chi, lmbd):
+        tilt = tilt_vector(lmbd, data.x0, data.dtype).to(dev)
+        a_t = [A * tilt[:, None, None] for A in As]
+        return run_fixed_point(
+            lambda c: one(c, a_t), chi, eps=float(eps), t_max=int(max_sweeps),
+            chunk_sweeps=CHUNK_SWEEPS,
+            reduce=lambda d: pmax(d, mesh, edge_axis))
+
+    fixed_point.modes = modes
+    return fixed_point

@@ -37,7 +37,20 @@ is checked once per completed fixed point per cell. Each chunk runs in a
 ``pipeline.entropy.chunk`` span (closed after the chunk's host read), with
 the ``obs.mem.*`` gauges after it, a ``pipeline.lambda.boundary`` counter per
 crossed cell, and a ``pipeline.sweep.nan`` counter and a flight post-mortem
-at a poisoned cell. Not ported yet: the cell-axis mesh (A15b).
+at a poisoned cell.
+
+``mesh=`` splits the cell axis over the mesh's ``cell`` dimension, one
+process per rank (the group size must divide into it): each rank holds the
+whole group's stacked tables and sweeps its own block of lanes exactly as
+the unsharded executor sweeps a lane (one launch of the sweep kernel K3′ a
+sweep on the card), so a lane's bits do not depend on the split. The
+chunk's host read gathers every lane's (delta, t), so every rank runs the
+same ladder; a crossed cell's (φ, m_init) is computed by its owner and
+summed over the ranks (the others add zeros). The JAX package keeps its XLA
+core on a mesh and refuses ``kernel='pallas'`` there, since a Pallas launch
+inside its GSPMD-partitioned cell axis is not a supported composition;
+nothing here corresponds to that limit, so the mesh runs the kernel as the
+unsharded executor does.
 """
 
 from __future__ import annotations
@@ -86,20 +99,37 @@ class EntropyCellExec:
     kernel; ``'plain'`` forces the plain version."""
 
     def __init__(self, cells, config, *, group_size: int | None = None,
-                 kernel: str = "auto", device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported to graphdyn_torch yet (ROADMAP.md A15b: "
-                "the ensemble meshes)")
+                 kernel: str = "auto", device=None, mesh=None,
+                 cell_axis: str = "cell"):
         G_real = len(cells)
         G = group_size or G_real
         if G < G_real:
             raise ValueError(f"group_size={G} < group population {G_real}")
-        dev = resolve_device(device)
+        self.mesh, self.cell_axis = mesh, cell_axis
+        if mesh is None:
+            dev = resolve_device(device)
+            lo, Gl = 0, G
+        else:
+            from graphdyn_torch.parallel.mesh import (
+                axis_index,
+                axis_size,
+                rank_device,
+            )
+
+            P = axis_size(mesh, cell_axis)
+            if G % P:
+                raise ValueError(f"group size {G} not divisible by the "
+                                 f"mesh's {P} {cell_axis!r} ranks")
+            dev = rank_device(device)
+            Gl = G // P
+            lo = axis_index(mesh, cell_axis) * Gl
         padded = list(cells) + [cells[0]] * (G - G_real)
         stk = stack_bdcm([c[0] for c in padded])
         self.stk = stk
         self.G, self.G_real, self.device = G, G_real, dev
+        # this rank's lanes (all of them without a mesh)
+        self.lo, self.Gl = lo, Gl
+        self.block = slice(lo, lo + Gl)
         self.dtype = stk.dtype
         self.rows = stk.twoE_max + 1
         self.eps = float(config.eps)
@@ -113,14 +143,16 @@ class EntropyCellExec:
                                 device=dev),
         )
         self.valid = torch.as_tensor(stk.valid, dtype=stk.dtype, device=dev)
+        blk = self.block
         self.tables = sweep_tables(
-            [(_flat_ids(list(idx), self.rows, dev),
-              _flat_ids(list(ie), self.rows, dev))
-             for _, idx, ie, _ in stk.edge_classes], self.spec, G=G,
+            [(_flat_ids(list(idx[blk]), self.rows, dev),
+              _flat_ids(list(ie[blk]), self.rows, dev))
+             for _, idx, ie, _ in stk.edge_classes], self.spec, G=Gl,
             rows=self.rows, valid=self.valid)
         self.As = [torch.as_tensor(A, dtype=stk.dtype, device=dev)
                    for _, _, _, A in stk.edge_classes]
-        self.leaf_idx = _flat_ids(list(stk.leaf_idx), self.rows, dev)  # [G, L]
+        self.leaf_idx = _flat_ids(list(stk.leaf_idx[blk]), self.rows,
+                                  dev)                          # [Gl, L]
         K = stk.K
         self._ghost = torch.full((K, K), 1.0 / (K * K), dtype=stk.dtype,
                                  device=dev)
@@ -133,22 +165,34 @@ class EntropyCellExec:
             for data, n_total, n_iso in cells
         ]
 
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's lanes of ``x`` (leading lane axis), all G of them."""
+        if self.mesh is None:
+            return x
+        from graphdyn_torch.parallel.mesh import all_gather_tiled
+
+        return all_gather_tiled(x.contiguous(), self.mesh, self.cell_axis,
+                                dim=0)
+
     # -- stacked (group) surface ----------------------------------------
 
     def stack_chi(self, chi_list) -> torch.Tensor:
-        """``[G, 2E_max + 1, K, K]`` on the device from per-real-cell chi
-        (pad lanes get copies of cell 0's chi; their lane is never active),
-        with the ghost row appended."""
+        """This rank's lanes of the stacked chi, ``[Gl, 2E_max + 1, K, K]``
+        on the device, from per-real-cell chi (pad lanes get copies of cell
+        0's chi; their lane is never active), with the ghost row
+        appended."""
         padded = list(chi_list) + [chi_list[0]] * (self.G - self.G_real)
-        stacked = self.stk.stack_chi(padded).to(self.device)
-        ghost = self._ghost.expand(self.G, 1, -1, -1)
+        stacked = self.stk.stack_chi(padded)[self.block].to(self.device)
+        ghost = self._ghost.expand(self.Gl, 1, -1, -1)
         return torch.cat([stacked, ghost], dim=1)
 
     def factors(self, lmbd_vec) -> list:
         """The per-group tilted factor ``A·exp(−λ_g·x_i(0))`` of every class,
-        ``[G, K, K, M]``, for the lanes' λ (host floats)."""
+        ``[Gl, K, K, M]``, for this rank's lanes' λ (``lmbd_vec``: host
+        floats of all G lanes)."""
         tilt = torch.stack([tilt_vector(lm, self.stk.x0, self.dtype)
-                            for lm in lmbd_vec]).to(self.device)
+                            for lm in list(lmbd_vec)[self.block]]
+                           ).to(self.device)
         return [A[None] * tilt[:, :, None, None] for A in self.As]
 
     def set_leaves(self, chi, lmbd_vec, active) -> torch.Tensor:
@@ -156,14 +200,14 @@ class EntropyCellExec:
         λ into ``chi`` (in place; returned). Pad leaf slots target the ghost
         row, which is reset to the uniform message afterwards, so it adds
         nothing to the next sweep's delta."""
-        lanes = [g for g in range(self.G) if active[g]]
+        lanes = [g for g in range(self.lo, self.lo + self.Gl) if active[g]]
         if not lanes or self.leaf_idx.shape[1] == 0:
             return chi
         K = self.spec.K
         msgs = torch.stack([leaf_message(lmbd_vec[g], self.stk.leaf01,
                                          self.stk.x0, self.dtype)
                             for g in lanes]).to(self.device)
-        ids = self.leaf_idx[lanes]                           # [A, L]
+        ids = self.leaf_idx[[g - self.lo for g in lanes]]    # [A, L]
         chi.view(-1, K, K)[ids.reshape(-1)] = \
             msgs[:, None].expand(-1, ids.shape[1], -1, -1).reshape(-1, K, K)
         chi[:, -1] = self._ghost
@@ -178,27 +222,56 @@ class EntropyCellExec:
 
     def fixed_point_chunk(self, chi, a_tilted, active, delta, t):
         """``(chi', delta[G], t[G])`` after at most ``CHUNK_SWEEPS`` more
-        sweeps of every unfinished lane (device tensors, no host read)."""
-        return fixed_point_sweeps(lambda c: self.sweep(c, a_tilted), chi,
-                                  delta, t, active, eps=self.eps,
-                                  t_max=self.t_max, sweeps=CHUNK_SWEEPS)
+        sweeps of every unfinished lane of this rank (device tensors, no
+        host read; ``active``/``delta``/``t`` over all G lanes, the new
+        ``delta``/``t`` gathered from every rank)."""
+        b = self.block
+        chi, d, tt = fixed_point_sweeps(
+            lambda c: self.sweep(c, a_tilted), chi, delta[b], t[b],
+            active[b], eps=self.eps, t_max=self.t_max, sweeps=CHUNK_SWEEPS)
+        return chi, self._gather(d), self._gather(tt)
 
     def poison_cell(self, chi, g: int) -> torch.Tensor:
         """The ``sweep.nan`` fault payload for cell ``g``: one NaN at its
-        first element (in place; returned)."""
-        chi[g, 0, 0, 0] = float("nan")
+        first element, on the rank that holds it (in place; returned)."""
+        if self.lo <= g < self.lo + self.Gl:
+            chi[g - self.lo, 0, 0, 0] = float("nan")
         return chi
 
     def unstack_chi(self, chi, g: int) -> torch.Tensor:
-        """Cell ``g``'s own ``[2E_g, K, K]`` slice of the stacked chi."""
-        return chi[g, : int(self.stk.twoE[g])]
+        """Cell ``g``'s own ``[2E_g, K, K]`` slice of this rank's stacked
+        chi (``g`` one of its lanes)."""
+        return chi[g - self.lo, : int(self.stk.twoE[g])]
+
+    def cell_chis(self, chi, gs) -> list:
+        """Cells ``gs``'s chi as host numpy, on every rank (with a mesh, one
+        gather of every rank's lanes)."""
+        full = self._gather(chi)
+        return [full[g, : int(self.stk.twoE[g])].cpu().numpy() for g in gs]
 
     def observe(self, chi, g: int, lmbd: float):
-        """(φ, m_init) of cell ``g`` via its serial observables, as 0-d
-        device tensors."""
+        """(φ, m_init) of cell ``g`` (one of this rank's lanes) via its
+        serial observables, as 0-d device tensors."""
         phi_fn, m_fn = self._observe[g]
         cg = self.unstack_chi(chi, g)
         return phi_fn(cg, lmbd), m_fn(cg)
+
+    def observe_many(self, chi, gs, lmbds) -> dict:
+        """``{g: (φ, m_init)}`` of cells ``gs`` at ``lmbds`` on every rank:
+        with a mesh each cell's owner computes it and the ranks sum (the
+        others add zeros)."""
+        if self.mesh is None:
+            return {g: self.observe(chi, g, lm) for g, lm in zip(gs, lmbds)}
+        from graphdyn_torch.parallel.mesh import psum
+
+        vals = torch.zeros((len(gs), 2), dtype=self.dtype,
+                           device=self.device)
+        for i, (g, lm) in enumerate(zip(gs, lmbds)):
+            if self.lo <= g < self.lo + self.Gl:
+                vals[i] = torch.stack(self.observe(chi, g, lm))
+        if gs:
+            vals = psum(vals, self.mesh, self.cell_axis)
+        return {g: (vals[i, 0], vals[i, 1]) for i, g in enumerate(gs)}
 
     def observe_fns(self, g: int):
         return self._observe[g]
@@ -360,8 +433,8 @@ def run_cell_ladder(
             if _faults.transform_spec("sweep.nan", "nan") is not None:
                 chi = ex.poison_cell(chi, g)
                 delta_h[g] = np.nan
-        observed = {g: ex.observe(chi, g, float(lambdas[k[g]]))
-                    for g in crossed}
+        observed = ex.observe_many(chi, crossed,
+                                   [float(lambdas[k[g]]) for g in crossed])
         fired = []
         for g in crossed:
             lmv = float(lambdas[k[g]])
@@ -395,8 +468,6 @@ def run_cell_ladder(
                 record(g, int(k[g]), lmv, phi, m0, e1, t_g, failed)
             if verbose:
                 print(f"cell={g} lambda={lmv:.2f} t={t_g} m_init={m0:.5f}")
-            if capture:
-                bchi[g] = ex.unstack_chi(chi, g).cpu().numpy()
             fired.append(lmv)
 
             # per-cell exits, then the next ladder position
@@ -418,6 +489,9 @@ def run_cell_ladder(
             lam[g] = lambdas[k[g]]
             need_leaf[g] = True
 
+        if capture and crossed:
+            for g, c in zip(crossed, ex.cell_chis(chi, crossed)):
+                bchi[g] = c
         _beat("lambda")
         stopping = shutdown_requested()
         if boundary is not None and (fired or stopping):
@@ -434,5 +508,5 @@ def run_cell_ladder(
         ent1=[np.array(r) for r in rows_e1],
         sweeps=[np.array(r, np.int64) for r in rows_t],
         nonconverged=nonconv,
-        chi=[ex.unstack_chi(chi, g).cpu().numpy() for g in range(Gr)],
+        chi=ex.cell_chis(chi, range(Gr)),
     )

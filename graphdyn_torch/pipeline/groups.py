@@ -55,11 +55,15 @@ class GroupDriver:
     snapshot and validated on resume."""
 
     def __init__(self, checkpoint_path: str | None, interval_s: float,
-                 run_id: dict, payload):
+                 run_id: dict, payload, sync=None):
         from graphdyn_torch.utils.io import PeriodicCheckpointer, open_checkpoint
 
         self.path = checkpoint_path
         self.run_id = run_id
+        # the ranks of a mesh run (graphdyn_torch.parallel.mesh.WorldSync):
+        # rank 0 writes, the shutdown polls are or-reduced
+        self.sync = sync
+        self.writer = sync is None or sync.writer
         self.payload = payload
         self.ck = open_checkpoint(checkpoint_path) if checkpoint_path else None
         self.pc = (
@@ -90,20 +94,32 @@ class GroupDriver:
     def save_prefix(self, next_rep: int) -> None:
         """Snapshot the completed prefix now (a serial driver whose chain
         in flight raised :class:`ShutdownRequested` after saving itself)."""
-        if self.pc is not None:
+        if self.pc is not None and self.writer:
             self.pc.save_now(self.payload(), {**self.run_id,
                                               "next_rep": next_rep})
+
+    def _stop(self) -> bool:
+        """A pending graceful shutdown, here or (with ``sync``) on any
+        rank."""
+        stop = shutdown_requested()
+        return self.sync.any(stop)[0] if self.sync is not None else stop
+
+    def _raise(self, where: str) -> None:
+        from graphdyn_torch.resilience.shutdown import ShutdownRequested
+
+        raise_if_requested(where=where)
+        raise ShutdownRequested(None, where=where)
 
     def chunk_poll(self, next_rep: int) -> None:
         """Between device chunks of an in-flight group: heartbeat, then
         honor a pending graceful shutdown with a prefix snapshot (the group
         re-runs from ``next_rep`` on resume)."""
         _beat("chunk")
-        if shutdown_requested():
+        if self._stop():
             obs.counter("resilience.shutdown", where="chunk",
                         next_rep=next_rep)
             self.save_prefix(next_rep)
-            raise_if_requested(where="chunk")
+            self._raise("chunk")
 
     def rep_boundary(self, k: int) -> None:
         """After repetition ``k``'s results land in the driver arrays:
@@ -112,7 +128,7 @@ class GroupDriver:
         per-repetition sequence. The heartbeat leads, so a snapshot that
         hangs (dead NFS) is itself a detectable stall."""
         _beat("rep")
-        if self.path is not None:
+        if self.path is not None and self.writer:
             # a serial-path run preempted mid-repetition leaves its chain
             # snapshot at <path>_chain<k>; this repetition is done (on
             # either path), so a stale file must go — a later serial run
@@ -120,16 +136,16 @@ class GroupDriver:
             from graphdyn_torch.utils.io import open_checkpoint
 
             open_checkpoint(f"{self.path}_chain{k}").remove()
-        if self.pc is not None:
+        if self.pc is not None and self.writer:
             self.pc.maybe_save(self.payload(), {**self.run_id,
                                                 "next_rep": k + 1})
         obs.counter("pipeline.rep.boundary", rep=k)
         _faults.maybe_fail("rep.boundary", key=f"rep={k}")
-        if shutdown_requested():
+        if self._stop():
             obs.counter("resilience.shutdown", where="rep", next_rep=k + 1)
             self.save_prefix(k + 1)
-            raise_if_requested(where="rep")
+            self._raise("rep")
 
     def finish(self) -> None:
-        if self.ck is not None:
+        if self.ck is not None and self.writer:
             self.ck.remove()

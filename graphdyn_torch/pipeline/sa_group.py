@@ -21,6 +21,13 @@ Checkpoints go through :class:`graphdyn_torch.pipeline.groups.GroupDriver`
 at group boundaries, with the serial driver's identity metadata: an
 interrupted group runs again from its start on resume, and snapshots pass
 between the serial and grouped paths and between group sizes.
+
+``mesh=`` splits the group axis over the mesh's ``group`` dimension, one
+process per rank (the group size must divide into it): each rank runs its
+block of repetitions as the unsharded program runs a group (repetitions
+are independent, so a row's chain does not depend on the split); the
+chunk's liveness read is or-reduced over the ranks, rank 0 writes the
+snapshots and the shutdown polls are or-reduced.
 """
 
 from __future__ import annotations
@@ -79,12 +86,13 @@ class SAGroupResult(NamedTuple):
 
 
 def _assemble_group(graphs, preps, rep_seeds, config: SAConfig, *, dtype,
-                    group_size, device):
+                    group_size, device, block: slice = slice(None)):
     """The group's tables, initial state and constants: the stacked
     per-repetition gather index (a short group padded with copies of its
     first row, inactive), the :func:`~graphdyn_torch.models.sa.
     prepare_sa_inputs` tuples' ``s0``/``a0``/``b0``, and stream seeds
-    ``seed + k``."""
+    ``seed + k``; ``block``: the rows of the padded group this rank
+    runs."""
     G_real = len(graphs)
     G = group_size or G_real
     if G < G_real:
@@ -101,7 +109,7 @@ def _assemble_group(graphs, preps, rep_seeds, config: SAConfig, *, dtype,
     max_steps = budgets.pop()
 
     def pad(rows):
-        return rows + [rows[0]] * (G - G_real)
+        return (rows + [rows[0]] * (G - G_real))[block]
 
     from graphdyn_torch.graphs import stack_graphs
 
@@ -112,8 +120,7 @@ def _assemble_group(graphs, preps, rep_seeds, config: SAConfig, *, dtype,
     b0 = np.concatenate(pad([p[4] for p in preps])).astype(np_dt)
     keys = torch.tensor([int(s) & 0xFFFFFFFF for s in pad(list(rep_seeds))],
                         dtype=torch.int64, device=device)
-    real = torch.zeros(G, dtype=torch.bool, device=device)
-    real[:G_real] = True
+    real = torch.as_tensor(np.arange(G)[block] < G_real, device=device)
     state = _sa_group_init(
         idx, torch.from_numpy(s0).to(device), keys,
         torch.from_numpy(a0).to(device), torch.from_numpy(b0).to(device),
@@ -127,28 +134,60 @@ def _assemble_group(graphs, preps, rep_seeds, config: SAConfig, *, dtype,
 def run_sa_group(graphs, preps, rep_seeds, config: SAConfig, *,
                  dtype="float32", group_size: int | None = None,
                  chunk_steps: int = _sa.CHUNK_STEPS, on_chunk=None,
+                 mesh=None, group_axis: str = "group",
                  device=None) -> SAGroupResult:
     """Run one group of single-replica SA chains as one batched program on
     ``device`` (default CUDA): ``graphs``/``preps``/``rep_seeds`` per repetition (the
     graph, the :func:`~graphdyn_torch.models.sa.prepare_sa_inputs` tuple for
     ``n_replicas=1, seed=seed+k``, and ``seed+k``). ``group_size`` pads the
     batch with inactive rows; ``on_chunk(state)`` is called after each
-    chunk. One host read per chunk."""
+    chunk. One host read per chunk. ``mesh``: the group's rows split over
+    its ``group_axis`` dimension (module docstring); every rank of it calls
+    this together and gets the whole result."""
+    block, any_fn = slice(None), None
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        from graphdyn_torch.parallel.mesh import (
+            any_over,
+            axis_index,
+            axis_size,
+            rank_device,
+        )
+
+        G = group_size or len(graphs)
+        P = axis_size(mesh, group_axis)
+        if G % P:
+            raise ValueError(f"group size {G} not divisible by the mesh's "
+                             f"{P} {group_axis!r} ranks")
+        r = axis_index(mesh, group_axis)
+        block = slice(r * (G // P), (r + 1) * (G // P))
+        dev = rank_device(device)
+
+        def any_fn(go):
+            return any_over(go, mesh, group_axis)
+
     G_real, idx, state, consts, static = _assemble_group(
         graphs, preps, rep_seeds, config, dtype=dtype, group_size=group_size,
-        device=resolve_device(device))
+        device=dev, block=block)
 
     def advance(st):
         return _sa_group_loop(
             idx, st._replace(chunk_t=torch.zeros_like(st.chunk_t)), consts,
             chunk_steps=int(chunk_steps), **static)
 
-    state = _sa.run_chunks(advance, state, on_chunk=on_chunk, span="sa")
-    return SAGroupResult(
-        s=state.s[:G_real].cpu().numpy(),
-        num_steps=state.t[:G_real].cpu().numpy(),
-        m_final=state.m_final[:G_real].cpu().numpy(),
-    )
+    state = _sa.run_chunks(advance, state, on_chunk=on_chunk, span="sa",
+                           any_fn=any_fn)
+
+    def whole(x):
+        if mesh is not None:
+            from graphdyn_torch.parallel.mesh import all_gather_tiled
+
+            x = all_gather_tiled(x.contiguous(), mesh, group_axis, dim=0)
+        return x[:G_real].cpu().numpy()
+
+    return SAGroupResult(s=whole(state.s), num_steps=whole(state.t),
+                         m_final=whole(state.m_final))
 
 
 def sa_ensemble_grouped(
@@ -166,6 +205,8 @@ def sa_ensemble_grouped(
     group_size: int = 8,
     prefetch: int = 2,
     chunk_steps: int = _sa.CHUNK_STEPS,
+    mesh=None,
+    group_axis: str = "group",
     device=None,
 ):
     """The grouped SA experiment driver: ``n_stat`` repetitions on fresh
@@ -173,12 +214,30 @@ def sa_ensemble_grouped(
     with the next graphs built on a background thread (``prefetch`` items
     ahead; 0 builds in line). Element for element equal to the serial
     :func:`graphdyn_torch.models.sa.sa_ensemble`, whose snapshots it
-    resumes and writes (``checkpoint_path``, at group boundaries)."""
+    resumes and writes (``checkpoint_path``, at group boundaries).
+    ``mesh``: every group split over its ``group_axis`` dimension (module
+    docstring; ``group_size`` must divide into it); every rank of it calls
+    this together and gets the whole result."""
     from graphdyn_torch.graphs import random_regular_graph
     from graphdyn_torch.pipeline.groups import GroupDriver, group_ranges
     from graphdyn_torch.pipeline.prefetch import HostPrefetcher
 
-    dev = resolve_device(device)
+    sync = None
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        from graphdyn_torch.parallel.mesh import (
+            WorldSync,
+            axis_size,
+            rank_device,
+        )
+
+        if group_size % axis_size(mesh, group_axis):
+            raise ValueError(
+                f"group size {group_size} not divisible by the mesh's "
+                f"{axis_size(mesh, group_axis)} {group_axis!r} ranks")
+        dev = rank_device(device)
+        sync = WorldSync(dev)
     config = config or SAConfig()
     mag = np.empty(n_stat, np.float64)
     steps = np.empty(n_stat, np.int64)
@@ -194,7 +253,7 @@ def sa_ensemble_grouped(
                       _sa.ensemble_run_id(n, d, config, n_stat=n_stat,
                                           seed=seed, max_steps=max_steps,
                                           graph_method=graph_method),
-                      payload)
+                      payload, sync=sync)
     start_k = drv.resume_into(payload())
 
     def build(k):
@@ -212,7 +271,7 @@ def sa_ensemble_grouped(
                     [seed + i for i in ks], config, group_size=group_size,
                     chunk_steps=chunk_steps,
                     on_chunk=lambda _st, k0=ks[0]: drv.chunk_poll(k0),
-                    device=dev)
+                    mesh=mesh, group_axis=group_axis, device=dev)
             if obs.enabled():
                 # spin-updates/s through the driver (a candidate rollout
                 # re-rolls the whole graph: n spins per accepted step)
@@ -233,6 +292,6 @@ def sa_ensemble_grouped(
                                          method=graph_method).nbr
     drv.finish()
     out = _sa.SAEnsembleResult(mag, steps, conf, graphs, m_final)
-    if save_path:
+    if save_path and (sync is None or sync.writer):
         _sa.save_ensemble_npz(save_path, out)
     return out

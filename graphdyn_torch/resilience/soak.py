@@ -54,14 +54,21 @@ scenario             composition
 ``stream_churn``     the out-of-core streamed rollout preempted twice at
                      chunk boundaries mid-churn; each requeue replays the
                      journaled mutations from the journal alone
+``stream_shard_requeue`` the sharded stream (``--shards 4``, churn-driven
+                     repartition) preempted at a chunk boundary mid-churn,
+                     requeued onto ``--shards 2``: the journal alone
+                     replays the mutations and the repartitions
 ==================== ======================================================
 
 The workloads reach the port's kernels on the card: the ``entropy`` runs
-the BDCM sweep kernel (K3′), ``stream`` the bucketed step (KB); ``sa`` is
-plain PyTorch. Left out, each refused with its ROADMAP.md item
-(:data:`NOT_PORTED`): ``stream_shard_requeue`` (A15b), ``race_mirror_exit``
-and ``race_prefetch_close`` (A18's race checker), ``serve_kill_requeue``
-(A19's job service).
+the BDCM sweep kernel (K3′), ``stream`` and ``stream_shard`` the bucketed
+step (KB); ``sa`` is plain PyTorch. A ``stream_shard`` episode is one job
+of spawned gloo ranks (:func:`graphdyn_torch.scripts.halo_ranks.
+run_ranks`), as many as its ``--shards``, each running the CLI with the
+episode's fault plan; rank 0 runs in the episode's directory, where its
+post-mortem lands. Left out, each refused with its ROADMAP.md item
+(:data:`NOT_PORTED`): ``race_mirror_exit`` and ``race_prefetch_close``
+(A18's race checker), ``serve_kill_requeue`` (A19's job service).
 
 Run it: ``python -m graphdyn_torch.resilience.soak [--bounded] [--seeds N]
 [--scenarios a,b,…] [--device cpu] [--list] [--format text|json]``.
@@ -188,6 +195,16 @@ def _plan_episodes(name: str, rng: np.random.Generator) -> list[Episode]:
             for _ in range(int(rng.integers(2, 4)))
         ]
         return eps + [Episode(specs=[], expect=EX_OK)]
+    if name == "stream_shard_requeue":
+        # preempt the sharded stream at a chunk boundary mid-churn, then
+        # requeue onto a shrunk shard count: the snapshot and the journal
+        # alone give the global state back, the requeued job replays the
+        # journaled mutations and partitions the replayed graph afresh
+        return [
+            Episode(specs=[{"site": "chunk.boundary", "action": "signal",
+                            "at": int(rng.integers(2, 5))}]),
+            Episode(specs=[], expect=EX_OK, post_args=("--shards", "2")),
+        ]
     if name == "stream_churn":
         # preempt the out-of-core streamed rollout at chunk boundaries
         # while its churn schedule is live — twice, so the second resume
@@ -287,13 +304,20 @@ SCENARIOS: dict[str, Scenario] = {
                  "from the journal alone (the schedule past the resume "
                  "point is never re-trusted)",
                  require_ops=("save", "load", "stream.churn")),
+        Scenario("stream_shard_requeue", "stream_shard",
+                 "sharded streamed rollout with churn-driven live "
+                 "repartition: preempted at a chunk boundary mid-churn, "
+                 "requeued onto a SHRUNK shard count — the journal alone "
+                 "replays the mutations and the repartition story "
+                 "bit-exactly at the new partition",
+                 require_ops=("save", "load", "stream.churn",
+                              "stream.repartition")),
     )
 }
 
 #: scenarios of the JAX package's catalogue not ported yet, with the
 #: ROADMAP.md item that brings each
 NOT_PORTED: dict[str, str] = {
-    "stream_shard_requeue": "A15b (the sharded out-of-core stream)",
     "race_mirror_exit": "A18 (the race checker's schedule fuzzer)",
     "race_prefetch_close": "A18 (the race checker's schedule fuzzer)",
     "serve_kill_requeue": "A19 (the job service)",
@@ -332,6 +356,16 @@ def _workload_args(kind: str, out: str, ckpt: str | None,
                 "--churn-rate", "2.0", "--churn-seed", "3",
                 "--chunks", "3", "--replicas", "32", "--seed", "0",
                 "--out", out]
+    elif kind == "stream_shard":
+        # the sharded stream with churn-driven repartition: at these args
+        # the seeded schedule crosses the hub threshold both ways over the
+        # run (the JAX package's pinned pair), so the journal carries
+        # stream.repartition next to stream.churn
+        args = ["stream", "--n", "160", "--gamma", "2.3", "--dmin", "2",
+                "--steps", "5", "--churn-rate", "12.0",
+                "--churn-seed", "25", "--chunks", "2", "--replicas", "32",
+                "--seed", "0", "--shards", "4", "--hub-threshold", "17",
+                "--out", out]
     else:
         raise ValueError(f"unknown workload {kind!r}")
     args += ["--device", device]
@@ -366,6 +400,47 @@ def _run_cli(args: list[str], cwd: str) -> int | str:
         os.chdir(old)
 
 
+def _ranked_episode(rank: int, world: int, args: list, cwd: str,
+                    specs: list, plan_seed: int):
+    """One rank of a ``stream_shard`` episode (run through
+    :func:`graphdyn_torch.scripts.halo_ranks.run_ranks`): the CLI with the
+    episode's fault plan, rank 0 in ``cwd`` and the others beside it."""
+    if rank:
+        cwd = os.path.join(cwd, f"rank{rank}")
+    plan = (_faults.FaultPlan([_faults.FaultSpec(**sp) for sp in specs],
+                              seed=plan_seed)
+            if specs else contextlib.nullcontext())
+    with plan:
+        return _run_cli(args, cwd)
+
+
+def _shards_of(args: list[str]) -> int:
+    """The last ``--shards`` of a command line (argparse is last-wins)."""
+    idx = [i for i, a in enumerate(args) if a == "--shards"]
+    return int(args[idx[-1] + 1]) if idx else 1
+
+
+def _run_episode(kind: str, args: list[str], cwd: str, specs: list,
+                 plan_seed: int, device: str) -> int | str:
+    """One episode: the CLI in this process under the fault plan, or for
+    ``stream_shard`` one job of spawned gloo ranks (every rank must exit
+    alike; a disagreement is reported as the rank codes)."""
+    if kind == "stream_shard":
+        from graphdyn_torch.scripts.halo_ranks import run_ranks
+
+        os.makedirs(cwd, exist_ok=True)
+        rcs = run_ranks(_ranked_episode, _shards_of(args), args, cwd,
+                        specs, plan_seed, device=device, backend="gloo",
+                        timeout=600)
+        return rcs[0] if len(set(map(str, rcs))) == 1 else \
+            f"ranks disagree: {rcs}"
+    plan = (_faults.FaultPlan([_faults.FaultSpec(**sp) for sp in specs],
+                              seed=plan_seed)
+            if specs else contextlib.nullcontext())
+    with plan:
+        return _run_cli(args, cwd)
+
+
 def _oracle(kind: str, root: str, cache: dict,
             device: str = "cuda") -> dict[str, np.ndarray]:
     """The fault-free reference run (no checkpointing, no faults), cached
@@ -375,7 +450,8 @@ def _oracle(kind: str, root: str, cache: dict,
 
         odir = os.path.join(root, "oracle", kind)
         out = os.path.join(odir, "res.npz")
-        rc = _run_cli(_workload_args(kind, out, None, None, device), odir)
+        rc = _run_episode(kind, _workload_args(kind, out, None, None,
+                                               device), odir, [], 0, device)
         if rc != 0:
             raise RuntimeError(f"oracle run for {kind!r} failed: rc={rc}")
         cache[(kind, device)] = load_results_npz(out)
@@ -515,12 +591,9 @@ def run_scenario(name: str, seed: int, root: str,
         _store._reset_journal_state()
         cwd = os.path.join(workdir, f"ep{i}")
         plan_seed = int(rng.integers(0, 2**31 - 1))
-        plan = (_faults.FaultPlan(
-            [_faults.FaultSpec(**s) for s in ep.specs], seed=plan_seed)
-            if ep.specs else contextlib.nullcontext())
-        with plan:
-            rc = _run_cli(list(ep.extra_args) + args + list(ep.post_args),
-                          cwd)
+        rc = _run_episode(scn.workload,
+                          list(ep.extra_args) + args + list(ep.post_args),
+                          cwd, ep.specs, plan_seed, device)
         ep_log.append({"episode": i, "rc": rc, "specs": ep.specs,
                        "pre": ep.pre, "extra_args": list(ep.extra_args),
                        "post_args": list(ep.post_args)})

@@ -26,7 +26,15 @@ The port's state also counts attempts and accepts per lane pair
 :class:`graphdyn_torch.utils.io.ChainCheckpointer` and resumes it bit for
 bit; without it a graceful shutdown (SIGTERM, ``--deadline``) exits 75 at
 the next chunk with nothing to save (the ladder re-derives from the seed).
-Not ported yet: ``mesh=`` lane sharding (ROADMAP A15b); it raises.
+``mesh=`` shards the lanes over the mesh's ``lane`` dimension, one process
+per rank: between chunks every rank holds the whole ladder; a chunk's steps
+run on each rank's block of lanes (each lane keeps its own stream, so its
+steps do not depend on the shard), then the lanes are gathered and the swap
+move runs on the whole ladder on every rank. With ``stop_on_first`` the
+ranks agree on the ladder's first passage and a rank whose lanes stepped
+past it replays its chunk up to it, so the result equals the unsharded
+ladder at any shard count, and a snapshot (the whole ladder, written by
+rank 0) resumes at any other.
 """
 
 from __future__ import annotations
@@ -120,6 +128,27 @@ def _temper_chunk(idx, state: _TemperState, consts: dict, swap_seed: int,
     ``stop_on_first``, none has reached the target, as the reference's loop
     condition; a step that does not run changes nothing), then the swap
     move if the chunk ran all its steps."""
+    st = _temper_steps(
+        idx, state, consts, proposals, uniforms, rollout_steps=rollout_steps,
+        R_coef=R_coef, C_coef=C_coef, max_steps=max_steps,
+        swap_interval=swap_interval, target_sum=target_sum,
+        stop_on_first=stop_on_first, injected=injected,
+        stream_len=stream_len)
+    return _swap_move(st, consts["inv_n"], swap_seed,
+                      swap_interval=swap_interval, swap_moves=swap_moves,
+                      target_sum=target_sum)
+
+
+def _temper_steps(idx, state: _TemperState, consts: dict, proposals,
+                  uniforms, *, rollout_steps: int, R_coef: int, C_coef: int,
+                  max_steps: int, swap_interval: int, target_sum: int,
+                  stop_on_first: bool = False, injected: bool = False,
+                  stream_len: int = 1, cap: int | None = None
+                  ) -> _TemperState:
+    """The ``swap_interval`` loop steps of a chunk (:func:`_temper_chunk`),
+    over the lanes ``state`` holds; ``chunk_t`` counts the steps that ran.
+    ``cap``: no step from the ``cap``-th on runs (a lane shard replaying
+    its chunk up to the ladder's first passage, found on another shard)."""
     K, n = state.s.shape
     dt = state.a.dtype
     i_all, u_all = _sa.draw_sa_proposal(
@@ -130,7 +159,8 @@ def _temper_chunk(idx, state: _TemperState, consts: dict, swap_seed: int,
     sum_end, a, b, t = state.sum_end, state.a, state.b, state.t
     m_final, active, t_target = state.m_final, state.active, state.t_target
     chunk_t = state.chunk_t
-    for j in range(swap_interval):
+    for j in range(swap_interval if cap is None else min(cap,
+                                                         swap_interval)):
         go = active.any()
         if stop_on_first:
             go = go & ~(t_target >= 0).any()
@@ -144,13 +174,22 @@ def _temper_chunk(idx, state: _TemperState, consts: dict, swap_seed: int,
         t = t_new
         active = torch.where(go, active_new, active)
         chunk_t = chunk_t + go.to(torch.int32)
-    s = s_ext[:, :n]
-    st = state._replace(s=s.contiguous(), sum_end=sum_end, a=a, b=b, t=t,
-                        m_final=m_final, active=active, t_target=t_target,
-                        chunk_t=chunk_t)
+    return state._replace(s=s_ext[:, :n].contiguous(), sum_end=sum_end,
+                          a=a, b=b, t=t, m_final=m_final, active=active,
+                          t_target=t_target, chunk_t=chunk_t)
+
+
+def _swap_move(st: _TemperState, inv_n, swap_seed: int, *,
+               swap_interval: int, swap_moves: bool,
+               target_sum: int) -> _TemperState:
+    """The end of a chunk over the whole ladder: the seeded even/odd swap
+    move when the chunk ran all its steps (module docstring), and the
+    round counter."""
     if not swap_moves:
         return st._replace(swap_round=st.swap_round + 1)
-
+    K = st.s.shape[0]
+    s = st.s
+    dt = st.a.dtype
     full_chunk = st.chunk_t == swap_interval
     parity = st.swap_round % 2
     idx_k = torch.arange(K, device=s.device)
@@ -160,7 +199,6 @@ def _temper_chunk(idx, state: _TemperState, consts: dict, swap_seed: int,
     pidx = partner.clamp(0, K - 1)
     eligible = valid & st.active & st.active[pidx] & full_chunk
     s0_sum = st.s.sum(dim=1, dtype=torch.int32)
-    inv_n = consts["inv_n"]
     # symmetric under i <-> j: both members of a pair take one decision
     delta = ((st.a - st.a[pidx]) * (s0_sum[pidx] - s0_sum).to(dt)
              - (st.b - st.b[pidx]) * (st.sum_end[pidx] - st.sum_end).to(dt)
@@ -254,6 +292,7 @@ def temper_search(
     checkpoint_path: str | None = None,
     checkpoint_interval_s: float = 30.0,
     mesh=None,
+    lane_axis: str = "lane",
     proposals=None,
     uniforms=None,
     device=None,
@@ -273,17 +312,27 @@ def temper_search(
     ``uniforms`` ``[K, L]`` inject the lanes' step streams.
     ``checkpoint_path`` snapshots the ladder between chunks (module
     docstring); it needs the per-chunk read, so ``sync_stop=False`` is
-    refused with it."""
-    from graphdyn_torch.resilience.shutdown import raise_if_requested
+    refused with it. ``mesh``: the lanes split over its ``lane_axis``
+    dimension (module docstring; the lane count must divide into it);
+    every rank of it calls this together and gets the whole result."""
+    from graphdyn_torch.resilience.shutdown import (
+        ShutdownRequested,
+        raise_if_requested,
+        shutdown_requested,
+    )
 
     if checkpoint_path is not None and sync_stop is False:
         raise ValueError(
             "sync_stop=False is incompatible with checkpoint_path: snapshot "
             "scheduling polls lane liveness at every chunk boundary")
-    if mesh is not None:
-        raise _sa._not_ported("mesh= (lane sharding)",
-                              "A15b: the ensemble meshes")
-    dev = resolve_device(device)
+    mesh_sync = None
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        from graphdyn_torch.parallel.mesh import WorldSync, rank_device
+
+        dev = rank_device(device)
+        mesh_sync = WorldSync(dev)
     config = config or SAConfig()
     n = graph.n
     if betas is None:
@@ -313,7 +362,12 @@ def temper_search(
             idx, st._replace(chunk_t=torch.zeros_like(st.chunk_t)), consts,
             seed, streams["proposals"], streams["uniforms"], **chunk_kwargs)
 
-    advance = _sa.chunk_caller(chunk)
+    if mesh is None:
+        advance = _sa.chunk_caller(chunk)
+    else:
+        advance = _lane_sharded_chunk(
+            mesh, lane_axis, idx, consts, seed, streams, K,
+            dict(chunk_kwargs))
 
     def running(st: _TemperState) -> bool:
         _sa.HOST_READS += 1
@@ -336,7 +390,8 @@ def temper_search(
                 *((np.asarray(streams["proposals"].cpu()),
                    np.asarray(streams["uniforms"].cpu()))
                   if streams["injected"] else ())),
-            interval_s=checkpoint_interval_s, extra_meta={"K": int(K)})
+            interval_s=checkpoint_interval_s, extra_meta={"K": int(K)},
+            sync=mesh_sync)
         arrays = ckpt.load_state(check=lambda a: a["s"].shape == (K, n))
         if arrays is not None:
             state = _TemperState(**{
@@ -370,14 +425,22 @@ def temper_search(
                 f"max_steps or raise swap_interval")
     # each chunk ends at a heartbeat and honours a graceful shutdown (exit
     # 75; nothing to save: the ladder re-derives from the seed)
+    def poll():
+        if mesh is None:
+            raise_if_requested(where="chunk")
+        elif mesh_sync.any(shutdown_requested())[0]:
+            # a request on any rank stops every rank at this boundary
+            raise_if_requested(where="chunk")
+            raise ShutdownRequested(None, where="chunk")
+
     if sync:
         while running(state):
             state = advance(state)
-            raise_if_requested(where="chunk")
+            poll()
     else:
         for _ in range(n_chunks):
             state = advance(state)
-            raise_if_requested(where="chunk")
+            poll()
     return _temper_result(state, betas, n, np_dt)
 
 
@@ -407,3 +470,71 @@ def _temper_result(state: _TemperState, betas, n: int, np_dt) -> TemperResult:
         pair_attempts=state.pair_att.cpu().numpy().astype(np.int64),
         pair_accepts=state.pair_acc.cpu().numpy().astype(np.int64),
     )
+
+
+#: the lanes' fields of :class:`_TemperState` (the rest are the ladder's)
+_LANE_FIELDS = ("s", "sum_end", "a", "b", "t", "m_final", "active", "key",
+                "t_target")
+
+
+def _lane_sharded_chunk(mesh, lane_axis: str, idx, consts: dict,
+                        swap_seed: int, streams: dict, K: int, kw: dict):
+    """The ladder's chunk over the ranks of ``lane_axis``: ``(whole ladder)
+    -> whole ladder``, the steps on this rank's block of lanes and the swap
+    move on the gathered ladder (module docstring). Every rank calls it
+    together."""
+    from graphdyn_torch.parallel.mesh import (
+        all_gather_tiled,
+        axis_index,
+        axis_size,
+        pmax,
+    )
+
+    P = axis_size(mesh, lane_axis)
+    if K % P:
+        raise ValueError(f"{K} lanes do not split over the {P} ranks of the "
+                         f"{lane_axis!r} axis")
+    Kl = K // P
+    r = axis_index(mesh, lane_axis)
+    blk = slice(r * Kl, (r + 1) * Kl)
+
+    def mine(x):
+        return x[blk] if x.ndim and x.shape[0] == K else x
+
+    consts_l = {k: mine(v) for k, v in consts.items()}
+    prop, unif = mine(streams["proposals"]), mine(streams["uniforms"])
+    swap_kw = dict(swap_interval=kw["swap_interval"],
+                   swap_moves=kw.pop("swap_moves"),
+                   target_sum=kw["target_sum"])
+    stop_on_first = kw["stop_on_first"]
+    big = kw["swap_interval"] + 1
+
+    def steps(st, cap=None):
+        return _temper_steps(idx, st, consts_l, prop, unif, cap=cap, **kw)
+
+    run = _sa.chunk_caller(steps)
+
+    def chunk(full: _TemperState) -> _TemperState:
+        loc = full._replace(chunk_t=torch.zeros_like(full.chunk_t),
+                            **{f: getattr(full, f)[blk].contiguous()
+                               for f in _LANE_FIELDS})
+        out = run(loc)
+        if stop_on_first:
+            # no lane had passed the target when the chunk began; the
+            # ladder stops after its first passage, so a shard whose lanes
+            # stepped past another shard's earlier passage steps again up
+            # to it
+            j = int(out.chunk_t) - 1 if bool((out.t_target >= 0).any()) \
+                else big
+            first = -int(pmax(torch.tensor([-j], device=out.s.device),
+                              mesh, lane_axis)[0])
+            if first < big and j != first:
+                out = steps(loc, cap=first + 1)
+        full = full._replace(
+            chunk_t=pmax(out.chunk_t.reshape(1), mesh, lane_axis)[0],
+            **{f: all_gather_tiled(getattr(out, f).contiguous(), mesh,
+                                   lane_axis, dim=0)
+               for f in _LANE_FIELDS})
+        return _swap_move(full, consts["inv_n"], swap_seed, **swap_kw)
+
+    return chunk

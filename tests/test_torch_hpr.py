@@ -415,8 +415,23 @@ def test_refused_arguments_name_the_roadmap(tmp_path):
     th.hpr_solve(g, HPRConfig(max_sweeps=40), checkpoint_path=str(
         tmp_path / "ck"), device=CPU)
     assert not (tmp_path / "ck.npz").exists()
-    with pytest.raises(NotImplementedError, match="A15b"):
-        th.hpr_solve_batch(g, n_replicas=2, mesh=object(), device=CPU)
+    # mesh= runs since the ensemble meshes (tests/test_torch_ensemble_mesh
+    # .py holds it on several ranks): a one-rank mesh is the unsharded run
+    import torch.distributed as dist
+
+    from graphdyn_torch.parallel.mesh import make_mesh
+
+    cfg = HPRConfig(max_sweeps=40)
+    one = th.hpr_solve_batch(g, cfg, n_replicas=2, device=CPU)
+    try:
+        got = th.hpr_solve_batch(
+            g, cfg, n_replicas=2, device=CPU,
+            mesh=make_mesh((1,), ("replica",), device=CPU))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()       # the one-process world
+    np.testing.assert_array_equal(got.s, one.s)
+    np.testing.assert_array_equal(got.num_steps, one.num_steps)
     # device_init runs since its port; with mesh= it is refused first, as
     # in the JAX package
     with pytest.raises(ValueError, match="incompatible with mesh="):

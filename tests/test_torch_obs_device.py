@@ -184,7 +184,7 @@ def test_memcheck_structural_pass_off_the_card():
     rows = memband.run_memcheck(device="cpu")
     assert [r.program for r in rows] == [
         "packed_state", "bdcm_stack", "entropy_cell_chunk", "halo_shard",
-        "bucketed_state", "streamed_chunk"]
+        "bucketed_state", "streamed_chunk", "streamed_shard"]
     for r in rows:
         assert r.ok and r.measured is None and r.frac is None, r
         assert r.reason and r.device == "cpu"
@@ -194,6 +194,18 @@ def test_memcheck_structural_pass_off_the_card():
     from graphdyn.obs import memband as jmem
 
     assert rows[3].model == jmem._halo_smoke_model(W=8)
+    # the sharded stream's row: the JAX package's shard_plan_device_bytes
+    # of the same smoke plan (its widest shard's two largest chunks)
+    from graphdyn import graphs as jg
+    from graphdyn.parallel.stream import (
+        build_shard_stream_plan,
+        shard_plan_device_bytes,
+    )
+
+    g = jg.powerlaw_graph(4096, gamma=2.5, dmin=2, seed=0)
+    plan = build_shard_stream_plan(g, W=8, partition=jg.partition_graph(
+        g, 2, seed=0), n_chunks=4)
+    assert rows[6].model == shard_plan_device_bytes(plan, 8)
 
 
 def test_memrow_band_logic_and_peak_null_plus_reason():

@@ -38,6 +38,8 @@ from graphdyn_torch.pipeline import sa_group as tsg
 from graphdyn_torch.search import tempering as tst
 from graphdyn_torch.parallel import halo as tph
 from graphdyn_torch.parallel import mesh as tpm
+from graphdyn_torch.parallel import sharded as tpsh
+from graphdyn_torch.parallel import stream as tpst
 from graphdyn_torch.parallel.sa_sharded import sa_sharded as t_sa_sharded
 from graphdyn_torch.resilience import soak as tsoak
 from graphdyn_torch.utils.platform import resolve_device
@@ -118,6 +120,7 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.parallel.sharded",
                  "graphdyn_torch.parallel.halo",
                  "graphdyn_torch.parallel.sa_sharded",
+                 "graphdyn_torch.parallel.stream",
                  "graphdyn_torch.scripts.halo_ranks",
                  "graphdyn_torch.resilience.soak"):
         assert name in out["modules"]
@@ -228,6 +231,11 @@ ENTRY_POINTS = {
     "HaloProgram": lambda: tph.HaloProgram(
         _small_graph(), tg.partition_graph(_small_graph(), 1), steps=1),
     "run_soak": lambda: tsoak.run_soak(scenarios=["torn_write"], seeds=[0]),
+    "sharded_streamed_rollout": lambda: tpst.sharded_streamed_rollout(
+        _small_graph(), np.zeros((20, 1), np.uint32), 1, n_shards=1,
+        n_chunks=2),
+    "make_sharded_sweep": lambda: tpsh.make_sharded_sweep(
+        tb.BDCMData(_small_graph()), _OneMesh(), damp=0.5),
 }
 
 

@@ -292,17 +292,24 @@ def test_cli_json_and_npz_keys_are_the_references(case, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     # sa --sharded runs since the node-sharding slice
-    # (tests/test_torch_sa_sharded_cli.py); its streamed layout waits (A15b)
-    (["sa", "--sharded", "--layout", "streamed"], "A15b"),
+    # (tests/test_torch_sa_sharded_cli.py) and its streamed layout, the
+    # sharded stream and the lane shards since the slice after it
+    # (tests/test_torch_stream_shard.py, tests/test_torch_ensemble_mesh*.py):
+    # what is left are the refusals of a job too small for the shards
+    (["sa", "--sharded", "--layout", "streamed", "--rollout-mode",
+      "lightcone", "--shards", "2"], "no node axis to shard"),
     (["sa", "--shards", "2"], "pass --sharded as well"),
-    (["stream", "--shards", "2", "--checkpoint", "x"], "A15b"),
+    (["stream", "--shards", "2", "--checkpoint", "x"],
+     "--shards 2 > 1 ranks in the job"),
     # the layouts run since the power-law slice; the mesh solver refuses a
     # per-repetition layout, as the JAX package's CLI does
     (["sa", "--layout", "bucketed", "--sharded"],
      "per-repetition driver layout"),
-    (["sa", "--layout", "streamed", "--sharded", "--shards", "2"], "A15b"),
-    (["temper", "--lane-shards", "2"], "A15b"),
-    (["temper", "--lane-shards", "2", "--checkpoint", "x"], "A15b"),
+    (["sa", "--layout", "streamed", "--sharded", "--shards", "2"],
+     "--shards 2 > 1 ranks in the job"),
+    (["temper", "--lane-shards", "2"], "needs a job of 2 ranks"),
+    (["temper", "--lane-shards", "3", "--checkpoint", "x"],
+     "must divide --lanes"),
 ], ids=["sharded", "shards", "sa_checkpoint", "bucketed", "streamed",
         "lane_shards", "temper_checkpoint"])
 def test_cli_refuses_what_is_not_ported(argv, item):

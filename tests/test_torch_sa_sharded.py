@@ -177,8 +177,11 @@ def test_refusals():
             return 0
 
     g = torch_ranks._graph(*RRG)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        sa_sharded(g, mesh=Mesh(), layout="streamed", device="cpu")
+    # layout='streamed' runs since the sharded stream
+    # (tests/test_torch_stream_shard.py); its own refusals stay
+    with pytest.raises(ValueError, match="pages state through host RAM"):
+        sa_sharded(g, mesh=Mesh(), layout="streamed",
+                   rollout_mode="lightcone", device="cpu")
     with pytest.raises(ValueError, match="node axis of size >= 2"):
         sa_sharded(g, mesh=Mesh(), node_mode="halo", device="cpu")
     with pytest.raises(ValueError, match="rollout_mode"):

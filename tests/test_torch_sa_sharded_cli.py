@@ -7,7 +7,9 @@
   both ranks snapshot and exit 75; the requeued job exits 0 on both ranks
   with the uninterrupted result;
 - ``consensus --sharded`` prints the unsharded document on rank 0 only;
-- the refusals of the JAX package's CLI and the A15b ones."""
+- the refusals of the JAX package's CLI, and those of a job smaller than
+  the shards it asks for (the streamed layout, the sharded stream and the
+  lane shards run since the slice after node sharding)."""
 
 import json
 
@@ -78,7 +80,8 @@ def test_consensus_sharded_cli(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("extra,match", [
     (["--shards", "2"], "pass --sharded as well"),
     (["--sharded", "--layout", "bucketed"], "per-repetition driver layout"),
-    (["--sharded", "--layout", "streamed"], "A15b"),
+    (["--sharded", "--layout", "streamed", "--shards", "3"],
+     "ranks in the job"),
     (["--sharded", "--shards", "2", "--rollout-mode", "lightcone"],
      "no node axis to shard"),
     (["--sharded", "--shards", "0"], "must be >= 1"),
@@ -91,12 +94,13 @@ def test_sa_sharded_refusals(extra, match, tmp_path, monkeypatch):
         main(base + extra)
 
 
-@pytest.mark.parametrize("argv", [
-    ["temper", "--lane-shards", "2"],
-    ["stream", "--shards", "2"],
-    ["stream", "--hub-threshold", "9"],
-])
-def test_a15b_refusals(argv, tmp_path, monkeypatch):
+@pytest.mark.parametrize("argv,match", [
+    (["temper", "--lane-shards", "2"], "needs a job of 2 ranks"),
+    (["stream", "--shards", "2"], "--shards 2 > 1 ranks in the job"),
+    (["stream", "--shards", "4", "--hub-threshold", "9"],
+     "--shards 4 > 1 ranks in the job"),
+], ids=["argv0", "argv1", "argv2"])
+def test_a15b_refusals(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="A15b"):
+    with pytest.raises(SystemExit, match=match):
         main(argv + ["--device", "cpu"])

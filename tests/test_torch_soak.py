@@ -1,8 +1,8 @@
 """The port's chaos soak harness (``graphdyn_torch.resilience.soak``): the
-catalogue's shape (the 11 ported scenarios with their evidence, the 4 left
+catalogue's shape (the 12 ported scenarios with their evidence, the 3 left
 out refused with their ROADMAP.md item wherever they are named), the
 command line, and the card refusal. The bounded matrix itself runs in
-``tests/test_torch_soak_*.py`` (six files, so that ``--dist loadfile``
+``tests/test_torch_soak_*.py`` (seven files, so that ``--dist loadfile``
 spreads it over the test workers)."""
 
 import contextlib
@@ -20,9 +20,9 @@ from graphdyn_torch.resilience import soak
 PORTED = {"torn_write", "write_degrade", "truncated_read", "bitrot",
           "mirror_failover", "mirror_degraded", "requeue_storm",
           "hang_detect", "deadline_preempt", "crash_loop_quarantine",
-          "stream_churn"}
-LEFT_OUT = {"stream_shard_requeue": "A15b", "race_mirror_exit": "A18",
-            "race_prefetch_close": "A18", "serve_kill_requeue": "A19"}
+          "stream_churn", "stream_shard_requeue"}
+LEFT_OUT = {"race_mirror_exit": "A18", "race_prefetch_close": "A18",
+            "serve_kill_requeue": "A19"}
 
 
 def test_catalogue_shape_matches_the_jax_package():
@@ -50,7 +50,7 @@ def test_episode_plans_match_the_jax_package(name, seed):
 
 
 def test_workloads_are_the_jax_package_lines_on_a_device():
-    for kind in ("sa", "entropy", "stream"):
+    for kind in ("sa", "entropy", "stream", "stream_shard"):
         got = soak._workload_args(kind, "o.npz", "ck", "m", "cpu")
         want = jsoak._workload_args(kind, "o.npz", "ck", "m")
         i = got.index("--device")

@@ -180,8 +180,14 @@ def test_stream_plan_refusals_and_not_ported(tmp_path):
         ts.build_stream_plan(g, W=1, n_chunks=g.n + 1)
     with pytest.raises(ValueError, match="cannot be streamed"):
         ts.build_stream_plan(g, W=1, device_budget_bytes=64)
-    with pytest.raises(NotImplementedError, match="A15"):
-        ts.build_stream_plan(g, W=1, n_chunks=2, partition=object())
+    # partition= returns the sharded plan since the sharded stream
+    # (tests/test_torch_stream_shard.py holds its arrays to the JAX
+    # package's)
+    from graphdyn_torch.parallel.stream import ShardStreamPlan
+
+    plan = ts.build_stream_plan(g, W=1, n_chunks=2,
+                                partition=tg.partition_graph(g, 2, seed=0))
+    assert isinstance(plan, ShardStreamPlan) and plan.P == 2
     sp = np.zeros((g.n, 1), np.uint32)
     # checkpoints run since the durability slice (their resume is held by
     # tests/test_torch_resume.py); a finished run leaves no snapshot
@@ -222,9 +228,16 @@ def test_stream_cli_keys_and_npz_equal_jax_cli(tmp_path, capsys):
         np.testing.assert_array_equal(a[k], b[k])
 
 
+# the sharded stream runs since its slice (tests/test_torch_stream_shard.py,
+# the CLI under ranks in tests/test_torch_ensemble_mesh_cli.py): what a
+# one-process job refuses is a shard count larger than the job
 @pytest.mark.parametrize("extra,item", [
-    (["--shards", "2"], "A15"), (["--hub-threshold", "5"], "A15"),
-    (["--shards", "2", "--checkpoint", "x"], "A15")])
+    (["--shards", "2"], "--shards 2 > 1 ranks in the job"),
+    (["--hub-threshold", "5", "--shards", "3"],
+     "--shards 3 > 1 ranks in the job"),
+    (["--shards", "2", "--checkpoint", "x"],
+     "--shards 2 > 1 ranks in the job")],
+    ids=["extra0-A15", "extra1-A15", "extra2-A15"])
 def test_stream_cli_refusals_name_the_roadmap_item(extra, item):
     from graphdyn_torch.cli import main
 

@@ -175,6 +175,17 @@ def test_assembly_equals_jax_and_a_chunk_resumes_a_jax_state(monkeypatch):
                                       err_msg=name)
 
 
+class _TwoLaneMesh:
+    """Rank 0's view of a two-rank lane mesh (no process group: the lane
+    split is refused before any collective)."""
+
+    mesh_dim_names = ("lane",)
+    shape = (2,)
+
+    def get_local_rank(self, name):
+        return 0
+
+
 def test_validations_and_refusals():
     with pytest.raises(ValueError, match="m_target"):
         tt.temper_search(TG, CFG, n_lanes=2, m_target=0.0, device="cpu")
@@ -188,8 +199,11 @@ def test_validations_and_refusals():
     with pytest.raises(ValueError, match="plannable"):
         tt.temper_search(TG, CFG, n_lanes=2, sync_stop=False,
                          max_steps=10**6, swap_interval=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tt.temper_search(TG, CFG, n_lanes=2, mesh=object(), device="cpu")
+    # mesh= runs since the lane shards (tests/test_torch_ensemble_mesh.py);
+    # lanes that do not split over the mesh are refused
+    with pytest.raises(ValueError, match="do not split"):
+        tt.temper_search(TG, CFG, n_lanes=3, mesh=_TwoLaneMesh(),
+                         device="cpu")
     with pytest.raises(ValueError, match="checkpoint_path"):
         tt.temper_search(TG, CFG, n_lanes=2, checkpoint_path="x",
                          sync_stop=False, device="cpu")

@@ -12,6 +12,7 @@ port.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 #: seconds a whole spawn may take before the parent gives up on it
@@ -322,4 +323,472 @@ def cli_worker(rank: int, world: int, argv: list, legs: list,
             out.append((rc, buf.getvalue()))
     finally:
         os.chdir(old)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded out-of-core stream
+# ---------------------------------------------------------------------------
+
+#: hub threshold of the power-law stream cases (the JAX tests' THR)
+STREAM_THR = 12
+
+
+def stream_graph(kind: str, n: int = 200, seed: int = 5):
+    """The JAX stream tests' graphs (``tests/test_stream_shard.py:_graph``)."""
+    from graphdyn_torch import graphs as tg
+
+    if kind == "rrg":
+        return tg.random_regular_graph(n, 3, seed=seed)
+    return tg.powerlaw_graph(n, gamma=2.3, dmin=2, seed=seed)
+
+
+def stream_sp0(n: int, R: int, seed: int):
+    """Packed uint32 words of ±1 spins drawn from ``seed``."""
+    import numpy as np
+
+    from graphdyn_torch.interop import words_to_numpy
+    from graphdyn_torch.ops.packed import pack_spins
+
+    rng = np.random.default_rng(seed)
+    s = (2 * rng.integers(0, 2, size=(R, n)) - 1).astype(np.int8)
+    return words_to_numpy(pack_spins(s))
+
+
+def stream_churn(g, steps: int = 5, seed: int = 3):
+    """Background churn plus one batch that pushes a node over
+    :data:`STREAM_THR` and one that strips the top hub below it, so both a
+    promotion and a demotion repartition (``test_stream_shard.py:
+    _churn_with_repartition``)."""
+    import numpy as np
+
+    from graphdyn_torch.ops.streamed import ChurnBatch, seeded_churn
+
+    THR = STREAM_THR
+    deg = g.deg.astype(int)
+    v = int(np.argmax((deg < THR) & (deg >= THR - 6)))
+    others = [u for u in range(g.n) if u != v][: (THR - deg[v]) + 4]
+    adds = np.array([[v, u] for u in others], np.int64)
+    hub = int(np.argmax(deg))
+    nbrs = g.nbr[hub, : deg[hub]].astype(np.int64)
+    drops = np.array([[hub, int(u)] for u in nbrs[: deg[hub] - THR + 3]],
+                     np.int64)
+    empty = np.empty((0, 2), np.int64)
+    return sorted(seeded_churn(g.n, steps, rate=6.0, seed=seed)
+                  + [ChurnBatch(step=1, adds=adds, drops=empty),
+                     ChurnBatch(step=3, adds=empty, drops=drops)],
+                  key=lambda b: b.step)
+
+
+def stream_shard_worker(rank: int, world: int, cases: list,
+                        root: str) -> dict:
+    """``sharded_streamed_rollout`` (and ``sa_sharded(layout='streamed')``)
+    for every case, a dict with ``key``, ``what`` and its arguments, on a
+    (replica, node) mesh whose node dimension has ``P`` ranks. Returns
+    ``{key: result}`` (the global words, stats, journal ops, ledger
+    gauges, or the SA result) from every rank."""
+    import json
+
+    import numpy as np
+
+    from graphdyn_torch import graphs as tg
+    from graphdyn_torch.interop import words_to_numpy
+    from graphdyn_torch.ops.streamed import seeded_churn
+    from graphdyn_torch.parallel.stream import sharded_streamed_rollout
+    from graphdyn_torch.resilience import faults
+
+    meshes = {}
+
+    def mesh(P):
+        if P not in meshes:
+            meshes[P] = _mesh_for(P, world)
+        return meshes[P]
+
+    out = {}
+    for c in cases:
+        key, what = c["key"], c["what"]
+        if what == "sa":
+            from graphdyn_torch.config import SAConfig
+            from graphdyn_torch.parallel.sa_sharded import sa_sharded
+
+            g = tg.random_regular_graph(40, 3, seed=5)
+            rng = np.random.default_rng(6)
+            R, L = 4, 2000
+            s0 = (2 * rng.integers(0, 2, size=(R, g.n)) - 1).astype(np.int8)
+            prop = rng.integers(0, g.n, size=(R, L)).astype(np.int32)
+            unif = rng.random(size=(R, L))
+            res = sa_sharded(g, SAConfig(), mesh=mesh(c["P"]), s0=s0,
+                             proposals=prop, uniforms=unif, max_steps=30,
+                             layout="streamed", stream_chunks=2,
+                             hub_threshold=c.get("hub"), device="cpu")
+            out[key] = _sa_result(res)
+            continue
+        g = stream_graph(c["kind"], c.get("n", 200))
+        sp = stream_sp0(g.n, c.get("R", 32), c["seed"])
+        churn = None
+        if c.get("churn") == "repart":
+            churn = stream_churn(g)
+        elif c.get("churn") == "random":
+            churn = seeded_churn(g.n, c["steps"], rate=6.0, seed=9)
+        P = c["P"] if "P" in c else c["legs"][0][0]
+        kw = dict(n_shards=P, rule=c.get("rule", "majority"),
+                  tie=c.get("tie", "stay"), n_chunks=c.get("n_chunks"),
+                  device_budget_bytes=c.get("budget"),
+                  hub_threshold=c.get("hub"), churn=churn, mesh=mesh(P),
+                  device="cpu")
+        if c.get("partition"):
+            kw["partition"] = tg.partition_graph(g, P, seed=0,
+                                                 hub_threshold=c.get("hub"))
+        if what == "roll":
+            stats: dict = {}
+            led = None
+            if c.get("record"):
+                from graphdyn_torch import obs
+
+                led = os.path.join(root, f"{key}-obs{rank}.jsonl")
+                with obs.recording(led):
+                    res = sharded_streamed_rollout(g, sp, c["steps"],
+                                                   stats_out=stats, **kw)
+                from graphdyn_torch.obs.recorder import read_ledger
+
+                events, _ = read_ledger(led)
+                led = [(e.get("name"), e.get("attrs", {}).get("shard"))
+                       for e in events if e.get("ev") == "gauge"]
+            else:
+                res = sharded_streamed_rollout(g, sp, c["steps"],
+                                               stats_out=stats, **kw)
+            out[key] = {"words": words_to_numpy(res), "stats": stats,
+                        "gauges": led}
+        elif what == "requeue":
+            # legs (P, preempt at the k-th chunk boundary or None) on one
+            # checkpoint path
+            ck = os.path.join(root, key, "run.ckpt")
+            legs = []
+            for P, at in c["legs"]:
+                kw.update(n_shards=P, mesh=mesh(P))
+                plan = (faults.FaultPlan([faults.FaultSpec(
+                    "chunk.boundary", "preempt", at=at)])
+                    if at is not None else None)
+                try:
+                    if plan is not None:
+                        plan.__enter__()
+                    res = sharded_streamed_rollout(
+                        g, sp, c["steps"], checkpoint_path=ck,
+                        checkpoint_interval_s=0.0, **kw)
+                    legs.append(("done", words_to_numpy(res)))
+                except faults.InjectedPreemption:
+                    legs.append(("preempted", None))
+                finally:
+                    if plan is not None:
+                        plan.__exit__(None, None, None)
+            from graphdyn_torch.resilience.store import journal_path_for
+
+            jp = journal_path_for(ck)
+            ops = sorted({str(json.loads(line).get("op"))
+                          for line in open(jp)})
+            out[key] = {"legs": legs, "ops": ops, "ckpt": ck}
+        else:
+            raise ValueError(what)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the edge-sharded BDCM sweep and the ensemble meshes
+# ---------------------------------------------------------------------------
+
+
+def bdcm_graphs(kind: str):
+    """The JAX package's sharded-sweep and entropy-mesh test graphs
+    (``tests/test_parallel.py:96-172``)."""
+    from graphdyn_torch import graphs as tg
+
+    if kind == "rrg":
+        return tg.random_regular_graph(200, 4, seed=2)
+    if kind == "er":
+        return tg.erdos_renyi_graph(300, 3.0 / 299, seed=2)
+    if kind == "er64":
+        return tg.erdos_renyi_graph(200, 2.5 / 199, seed=3)
+    if kind == "union":
+        return [tg.erdos_renyi_graph(60, 1.8 / 59, seed=k) for k in range(4)]
+    if kind == "congruent":
+        return [tg.random_regular_graph(24, 3, seed=k) for k in range(8)]
+    raise ValueError(kind)
+
+
+def bdcm_mesh_worker(rank: int, world: int, cases: list) -> dict:
+    """The edge-sharded sweep and fixed point and the entropy meshes for
+    every case (a dict: key, what, graph kind, P, dtype, sweeps), each on a
+    mesh whose sharded dimension has P ranks; ``fp_spans`` records a fixed
+    point to ``<ledger>-<rank>.jsonl`` and counts its spans. Returns
+    ``{key: result}``."""
+    import torch
+
+    from graphdyn_torch.config import EntropyConfig
+    from graphdyn_torch.models.entropy import (
+        entropy_ensemble,
+        entropy_ensemble_union,
+    )
+    from graphdyn_torch.ops.bdcm import BDCMData
+    from graphdyn_torch.parallel.mesh import make_mesh
+    from graphdyn_torch.parallel.sharded import (
+        make_sharded_fixed_point,
+        make_sharded_sweep,
+    )
+
+    meshes = {}
+
+    def mesh(P, axis):
+        if (P, axis) not in meshes:
+            meshes[P, axis] = make_mesh((world // P, P), ("rest", axis),
+                                        device="cpu")
+        return meshes[P, axis]
+
+    out = {}
+    for c in cases:
+        key, what, P = c["key"], c["what"], c["P"]
+        if what == "sweep":
+            data = BDCMData(bdcm_graphs(c["graph"]), p=1, c=1,
+                            dtype=c["dtype"])
+            sw = make_sharded_sweep(data, mesh(P, "edge"), damp=0.2,
+                                    device="cpu")
+            chi = data.init_messages(seed=4)
+            lam = torch.tensor(0.7, dtype=data.dtype)
+            for _ in range(c["sweeps"]):
+                chi = sw(chi, lam)
+            out[key] = chi.numpy()
+        elif what == "fixed_point":
+            data = BDCMData(bdcm_graphs(c["graph"]), p=1, c=1,
+                            dtype=c["dtype"])
+            cfg = EntropyConfig(max_sweeps=c["sweeps"], eps=1e-7)
+            fp = make_sharded_fixed_point(
+                data, mesh(P, "edge"), damp=cfg.damp, eps=cfg.eps,
+                max_sweeps=cfg.max_sweeps, device="cpu")
+            chi, t, delta = fp(data.init_messages(seed=4), 0.5)
+            out[key] = (chi.numpy(), t, delta)
+        elif what == "fp_spans":
+            from graphdyn_torch import obs
+            from graphdyn_torch.obs.recorder import read_ledger
+
+            data = BDCMData(bdcm_graphs(c["graph"]), p=1, c=1,
+                            dtype=c["dtype"])
+            cfg = EntropyConfig(max_sweeps=c["sweeps"], eps=0.0)
+            fp = make_sharded_fixed_point(
+                data, mesh(P, "edge"), damp=cfg.damp, eps=cfg.eps,
+                max_sweeps=cfg.max_sweeps, device="cpu")
+            path = f"{c['ledger']}-{rank}.jsonl"
+            with obs.recording(path):
+                chi, t, _ = fp(data.init_messages(seed=4), 0.5)
+            names = [e["name"] for e in read_ledger(path)[0]
+                     if e.get("ev") == "span"]
+            out[key] = {"chi": chi.numpy(), "t": t,
+                        "classes": len(data.edge_classes),
+                        "contract": names.count("parallel.sharded.contract"),
+                        "gather": names.count("parallel.sharded.gather")}
+        elif what == "union":
+            cfg = EntropyConfig(lmbd_max=1.0, lmbd_step=0.5, max_sweeps=300)
+            out[key] = entropy_ensemble_union(
+                bdcm_graphs("union"), cfg, seed=0, mesh=mesh(P, "edge"),
+                device="cpu")._asdict()
+        elif what == "congruent":
+            cfg = EntropyConfig(lmbd_max=1.0, lmbd_step=0.5, max_sweeps=300)
+            out[key] = entropy_ensemble(
+                bdcm_graphs("congruent"), cfg, seed=0,
+                mesh=mesh(P, "graph"), device="cpu")._asdict()
+        else:
+            raise ValueError(what)
+    return out
+
+
+@contextlib.contextmanager
+def replayed_sa_draws(table):
+    """The SA chains' counter-stream draws replaced by a table
+    ``(key0, proposals int32[K, L], uniforms f32[K, L])``: the chain keyed
+    ``key0 + k`` reads row ``k`` at its step counter, clamped to ``L − 1``
+    (the JAX package's ``jax.random`` draws of keys ``key0 + k``, made by
+    the test process). ``None``: the port's own stream."""
+    if table is None:
+        yield
+        return
+    import torch
+
+    from graphdyn_torch.models import sa as tsa
+
+    key0, prop, unif = table
+    prop, unif = torch.from_numpy(prop), torch.from_numpy(unif)
+    own = tsa.draw_sa_proposal
+
+    def replay(key, t, proposals, uniforms, *, injected, stream_len, n, dt,
+               steps=1):
+        if injected:
+            return own(key, t, proposals, uniforms, injected=True,
+                       stream_len=stream_len, n=n, dt=dt, steps=steps)
+        row = (key.cpu().to(torch.int64) - key0)[:, None]
+        tt = (t.cpu().to(torch.int64)[:, None] + torch.arange(steps)).clamp(
+            max=prop.shape[1] - 1)
+        return (prop[row, tt].to(torch.int64).to(key.device),
+                unif[row, tt].to(device=key.device, dtype=dt))
+
+    tsa.draw_sa_proposal = replay
+    try:
+        yield
+    finally:
+        tsa.draw_sa_proposal = own
+
+
+@contextlib.contextmanager
+def replayed_swaps(table):
+    """The ladder's swap uniforms replaced by ``table[round]`` (float32
+    ``[rounds, K]``, the JAX package's draws); ``None``: the port's own."""
+    if table is None:
+        yield
+        return
+    import torch
+
+    from graphdyn_torch.search import tempering as tt
+
+    own = tt.swap_uniforms
+
+    def replay(seed, swap_round, K, dt):
+        return torch.from_numpy(table[int(swap_round)]).to(dt)
+
+    tt.swap_uniforms = replay
+    try:
+        yield
+    finally:
+        tt.swap_uniforms = own
+
+
+def ensemble_mesh_worker(rank: int, world: int, cases: list,
+                         root: str) -> dict:
+    """The ensemble meshes for every case (a dict: key, what, P and the
+    driver's arguments): ``hpr_solve_batch(mesh=)`` (with a resume leg),
+    the entropy cell group, ``run_sa_group``/``sa_ensemble_grouped`` and
+    ``temper_search(mesh=)`` (with a requeue leg), each on a mesh whose
+    sharded dimension has P ranks. A case may carry the JAX package's
+    streams: ``U`` (HPr uniforms ``[sweeps, R, n]``, with ``dtype``),
+    ``draws`` (:func:`replayed_sa_draws`), ``I``/``U``/``SW`` (a ladder's
+    proposals, uniforms and swap uniforms). Returns ``{key: result}``."""
+    import numpy as np
+
+    from graphdyn_torch import graphs as tg
+    from graphdyn_torch.config import (
+        DynamicsConfig,
+        EntropyConfig,
+        HPRConfig,
+        SAConfig,
+    )
+    from graphdyn_torch.parallel.mesh import make_mesh
+    from graphdyn_torch.resilience import ShutdownRequested, faults
+
+    meshes = {}
+
+    def mesh(P, axis):
+        if (P, axis) not in meshes:
+            meshes[P, axis] = make_mesh((world // P, P), ("rest", axis),
+                                        device="cpu")
+        return meshes[P, axis]
+
+    def legs_of(c, run):
+        """Run ``run(P, ckpt)`` per leg ``(P, signal at or None)`` on one
+        checkpoint path."""
+        ck = os.path.join(root, c["key"], "ck")
+        legs = []
+        for P, at in c["legs"]:
+            plan = (faults.FaultPlan([faults.FaultSpec(
+                c.get("site", "chunk.boundary"), "signal", at=at)])
+                if at is not None else None)
+            try:
+                if plan is not None:
+                    plan.__enter__()
+                legs.append(("done", run(P, ck)))
+            except ShutdownRequested:
+                from graphdyn_torch.resilience.shutdown import (
+                    clear_shutdown,
+                )
+
+                clear_shutdown()
+                legs.append(("preempted", None))
+            finally:
+                if plan is not None:
+                    plan.__exit__(None, None, None)
+        return legs
+
+    out = {}
+    for c in cases:
+        key, what = c["key"], c["what"]
+        if what == "hpr":
+            from graphdyn_torch.models.hpr import hpr_solve_batch
+
+            g = tg.random_regular_graph(30, 3, seed=1)
+            cfg = HPRConfig(max_sweeps=c.get("max_sweeps", 2000),
+                            dtype=c.get("dtype", "float32"))
+            U = c.get("U")
+
+            def hpr(P, ck=None, c=c, g=g, cfg=cfg, U=U):
+                return hpr_solve_batch(
+                    g, cfg, n_replicas=c["R"], seed=0,
+                    mesh=mesh(P, "replica"), replica_axis="replica",
+                    checkpoint_path=ck, checkpoint_interval_s=0.0,
+                    chunk_sweeps=c.get("chunk", 200),
+                    uniforms=None if U is None else (lambda t: U[t]),
+                    device="cpu")._asdict()
+
+            out[key] = (legs_of(c, hpr) if "legs" in c else hpr(c["P"]))
+        elif what == "cells":
+            from graphdyn_torch.ops.bdcm import BDCMData
+            from graphdyn_torch.pipeline.entropy_group import (
+                EntropyCellExec,
+                run_cell_ladder,
+            )
+
+            cfg = EntropyConfig(lmbd_max=0.2, lmbd_step=0.1)
+            cells, chis = [], []
+            for sd in range(4):
+                g = tg.erdos_renyi_graph(40, (1.0 + 0.3 * sd) / 39, seed=sd)
+                sub, n_iso = tg.remove_isolates(g)
+                data = BDCMData(sub, p=1, c=1, class_bucket=32)
+                cells.append((data, g.n, n_iso))
+                chis.append(data.init_messages(sd).numpy())
+            ex = EntropyCellExec(cells, cfg, group_size=4,
+                                 mesh=mesh(c["P"], "cell"), device="cpu")
+            res = run_cell_ladder(ex, chis, np.array([0.0, 0.1, 0.2]),
+                                  eps=cfg.eps, ent_floor=cfg.ent_floor)
+            out[key] = res._asdict()
+        elif what == "sa_group":
+            from graphdyn_torch.pipeline.sa_group import sa_ensemble_grouped
+
+            cfg = SAConfig(dynamics=DynamicsConfig(p=c.get("p", 1), c=1))
+
+            def sag(P, ck=None, c=c, cfg=cfg):
+                return sa_ensemble_grouped(
+                    c["n"], 3, cfg, n_stat=c["n_stat"], seed=7,
+                    max_steps=c["max_steps"], group_size=c["group"],
+                    chunk_steps=c.get("chunk", 256),
+                    checkpoint_path=ck, checkpoint_interval_s=0.0,
+                    mesh=mesh(P, "group"), device="cpu")._asdict()
+
+            with replayed_sa_draws(c.get("draws")):
+                out[key] = (legs_of(c, sag) if "legs" in c
+                            else sag(c["P"]))
+        elif what == "temper":
+            from graphdyn_torch.search.tempering import temper_search
+
+            g = tg.random_regular_graph(c["n"], c.get("d", 3), seed=c["gs"])
+            cfg = SAConfig(dynamics=DynamicsConfig(p=1, c=1))
+
+            def tmp(P, ck=None, c=c, g=g, cfg=cfg):
+                return temper_search(
+                    g, cfg, n_lanes=c["lanes"], seed=c["seed"],
+                    max_steps=c["max_steps"],
+                    swap_interval=c["swap_interval"], m_target=0.95,
+                    stop_on_first=c.get("stop_on_first", False),
+                    checkpoint_path=ck, checkpoint_interval_s=0.0,
+                    proposals=c.get("I"), uniforms=c.get("U"),
+                    mesh=mesh(P, "lane"), device="cpu")._asdict()
+
+            with replayed_swaps(c.get("SW")):
+                out[key] = (legs_of(c, tmp) if "legs" in c
+                            else tmp(c["P"]))
+        else:
+            raise ValueError(what)
     return out
