@@ -126,7 +126,19 @@ must count 0 there):
   equal to their P = 1 twins; KB on a shard chunk and K3 on an edge slice
   against their plain versions, timed beside their bounds; memcheck's
   ``streamed_shard`` row;
-- the chaos soak's bounded matrix on the card (``soak``: 12 scenarios,
+- the job service (``serve``): ``run_service(device="cuda")`` on one
+  spool, job by job: two config-1 fused jobs of two tenants on one graph
+  (the boot warm-up first, the second job a bucket hit) on K4′ and
+  K1/K2′, a bucketed job on the power-law bench graph (R = 1024, 20 steps)
+  and a streamed job on the stream shape (its budget pinned so its plan
+  takes at least two chunks) on KB, each equal bit for bit to its direct
+  call; the oversized fused job (n = 10⁷, 4096 replicas), a ``shards=2``
+  job on one card and an under-declared bucketed job refused with their
+  reasons; a config-1 job in 2-sweep chunks under a fixed 0.02 s slice
+  evicted, then done and equal to its twin; each fused job's allocator
+  peak held to its admission price; the ``serve.job`` walls, the table
+  build and boot warm-up spans and the bucket hit rate printed;
+- the chaos soak's bounded matrix on the card (``soak``: 13 scenarios,
   seed 0 and more seeds while the run has time).
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
@@ -3489,6 +3501,16 @@ def _stream_budget(g, W: int) -> int:
                2 * streamed.streamed_min_bytes(int(g.deg.max()), W))
 
 
+@functools.lru_cache(maxsize=1)
+def _stream_shape() -> tuple:
+    """The stream bench shape's graph (``powerlaw_graph(STREAM_N, 2.2, 2,
+    0)``) and its device budget (:func:`_stream_budget` at R = STREAM_R),
+    built once per process: the stream, durability, parallel and serve
+    phases read it and never write it."""
+    g = graphs.powerlaw_graph(STREAM_N, gamma=2.2, dmin=2, seed=0)
+    return g, _stream_budget(g, STREAM_R // 32)
+
+
 def _run_cli(argv) -> tuple[dict, float]:
     """Run the port's CLI in this process; its JSON line and wall time."""
     buf = io.StringIO()
@@ -3518,8 +3540,7 @@ def phase_stream_main() -> dict:
     (``wait_s``) per step."""
     out = {}
     W = STREAM_R // 32
-    g = graphs.powerlaw_graph(STREAM_N, gamma=2.2, dmin=2, seed=0)
-    budget = _stream_budget(g, W)
+    g, budget = _stream_shape()
     rng = np.random.default_rng(0)
     s0 = (2 * rng.integers(0, 2, size=(STREAM_R, STREAM_N)) - 1).astype(
         np.int8)
@@ -4135,12 +4156,11 @@ def phase_stream_durable(tmp: str) -> dict:
     then with ``--checkpoint``: a graceful-shutdown request at the 3rd
     ``chunk.boundary`` (exit 75), resumed (the journaled churn replayed).
     Equal bit for bit; KB's launches over both legs = chunks × steps."""
-    W = STREAM_R // 32
-    g = graphs.powerlaw_graph(STREAM_N, gamma=2.2, dmin=2, seed=0)
+    _, budget = _stream_shape()
     steps = 4
     base = ["stream", "--n", str(STREAM_N), "--gamma", "2.2", "--replicas",
             str(STREAM_R), "--steps", str(steps), "--device-budget",
-            str(_stream_budget(g, W)), "--churn-rate", "64", "--churn-seed",
+            str(budget), "--churn-rate", "64", "--churn-seed",
             "3", "--device", "cuda"]
     ref = os.path.join(tmp, "stream_ref.npz")
     doc, _ = _run_cli(base + ["--out", ref])
@@ -5169,12 +5189,11 @@ def _pb_stream_inputs():
     packed (host)."""
     from graphdyn_torch.ops.packed import pack_spins
 
-    W = STREAM_R // 32
-    g = graphs.powerlaw_graph(STREAM_N, gamma=2.2, dmin=2, seed=0)
+    g, budget = _stream_shape()
     rng = np.random.default_rng(0)
     s0 = (2 * rng.integers(0, 2, size=(STREAM_R, STREAM_N)) - 1).astype(
         np.int8)
-    return g, _stream_budget(g, W), pack_spins(torch.as_tensor(s0))
+    return g, budget, pack_spins(torch.as_tensor(s0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -5835,6 +5854,263 @@ def _group_soak(ctx: dict) -> dict:
     return {"seeds": seeds, "walls_s": walls, "failed": failed}
 
 
+# ---------------------------------------------------------------------------
+# the job service (graphdyn_torch.serve) on the card
+# ---------------------------------------------------------------------------
+
+#: the served fused jobs: config 1 at run (a)'s settings (two tenants, one
+#: graph, two chain seeds)
+SERVE_FUSED = dict(n=CONFIG1["n"], d=CONFIG1["d"],
+                   replicas=CONFIG1["replicas"], graph_seed=CONFIG1["seed"],
+                   **CONFIG1_RUNS["a"])
+#: the deadline-evicted job: config 1 at a third seed, cut into
+#: SERVE_EVICT_CHUNK_SWEEPS-sweep chunks (2500 of them, under the fused
+#: loop's fixed-plan limit, so each is launched and waited on even after
+#: every replica froze: tens of ms of completion waits alone), under a fixed
+#: slice of SERVE_EVICT_TIMEOUT_S, twice the per-job watchdog's 10 ms poll
+#: floor, so the first attempt surely outlasts the first poll
+SERVE_EVICT_CHUNK_SWEEPS = 2
+SERVE_EVICT_TIMEOUT_S = 0.02
+
+
+def _serve_spans(ledger: str) -> dict:
+    """``{name: [span events]}`` of the ``serve.*`` spans in ``ledger``."""
+    events, _ = obs_read_ledger(ledger)
+    out: dict = {}
+    for e in events:
+        if e.get("ev") == "span" and e["name"].startswith("serve."):
+            out.setdefault(e["name"], []).append(e)
+    return out
+
+
+def _serve_fused_twin(cache, spec: dict) -> dict:
+    """A fused job run directly with the cache's tables on the card."""
+    from graphdyn_torch.serve.bucketing import _sa_config, graph_key
+
+    g, tables = cache._graphs[graph_key(spec)]
+    res = fused_anneal(g, _sa_config(spec), n_replicas=int(spec["replicas"]),
+                       seed=int(spec["seed"]),
+                       m_target=float(spec["m_target"]),
+                       max_sweeps=int(spec["max_sweeps"]),
+                       chunk_sweeps=int(spec["chunk_sweeps"]),
+                       tables=tables, device="cuda")
+    return {"conf": res.s, "mag_reached": res.mag_reached, "m_end": res.m_end,
+            "steps_to_target": res.steps_to_target}
+
+
+def _serve_same(got_path: str, want: dict, what: str) -> None:
+    with np.load(got_path) as f:
+        got = {k: f[k] for k in f.files}
+    for k, v in want.items():
+        if not np.array_equal(got[k], np.asarray(v)):
+            raise AssertionError(f"served {what}: {k!r} differs from the "
+                                 "direct run")
+
+
+def phase_serve(ctx: dict) -> dict:
+    """The job service on the card through ``run_service(device="cuda")``,
+    one spool: two config-1 fused jobs (the boot warm-up first, the second
+    job a bucket hit), a bucketed job on the power-law bench graph and a
+    streamed job on the stream shape (its budget pinned so its plan takes
+    at least two chunks), each equal bit for bit to its direct call; the
+    oversized fused job (n = 10⁷, 4096 replicas), a ``shards=2`` job on one
+    card and an under-declared bucketed job refused with their reasons; a
+    config-1 job with a short ``timeout_s`` evicted and then done, equal to
+    its twin. K4′, K1/K2′ and KB counts are set to 0 before the service
+    runs and read after it; each fused job's allocator peak (reset before
+    it, less the bytes in use at its start) is held to its admission
+    price."""
+    from graphdyn_torch.obs.memband import fused_model_bytes
+    from graphdyn_torch.ops.packed import pack_spins, unpack_spins
+    from graphdyn_torch.serve import admission
+    from graphdyn_torch.serve.bucketing import BucketCache, graph_key
+    from graphdyn_torch.serve.lifecycle import run_service
+    from graphdyn_torch.serve.spool import Spool
+    from graphdyn_torch.serve.worker import _random_spins
+
+    out: dict = {}
+    t_start = time.perf_counter()
+    g_s, stream_budget = _stream_shape()
+    W_s = STREAM_R // 32
+    card_budget = admission.device_budget_bytes("cuda")
+    fused = [dict(SERVE_FUSED, seed=s) for s in (0, 1)]
+    bucketed_spec = {"solver": "bucketed", "n": POWERLAW_N, "d": 2,
+                     "gamma": 2.2, "graph_seed": 0, "seed": 0,
+                     "replicas": POWERLAW_R, "max_sweeps": POWERLAW_STEPS,
+                     "edges": ctx["pl_edges"]}
+    stream_spec = {"solver": "streamed", "n": STREAM_N, "d": 2,
+                   "gamma": 2.2, "graph_seed": 0, "seed": 0,
+                   "replicas": STREAM_R, "max_sweeps": STREAM_STEPS,
+                   "edges": int(g_s.num_edges), "dmax": int(g_s.dmax)}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        root, ledger = os.path.join(tmp, "spool"), os.path.join(tmp, "o.jsonl")
+        sp = Spool(root)
+        ids = {"alice": sp.submit(fused[0], "alice"),
+               "bob": sp.submit(fused[1], "bob"),
+               "carol": sp.submit(bucketed_spec, "carol"),
+               "dave": sp.submit({"n": 10**7, "d": 3, "replicas": 4096},
+                                 "dave"),
+               "erin": sp.submit({**stream_spec, "shards": 2}, "erin"),
+               "frank": sp.submit({"solver": "bucketed", "n": 4096, "d": 2,
+                                   "gamma": 2.2, "edges": 1}, "frank")}
+        cache = BucketCache()
+        peaks, served = {}, {}
+        fused_cuda.LAUNCHES = packed_cuda.LAUNCHES = 0
+        bucketed_cuda.LAUNCHES = 0
+        with obs.recording(ledger):
+            for i, name in enumerate(ids):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                launches0 = (fused_cuda.LAUNCHES, bucketed_cuda.LAUNCHES)
+                rc = run_service(root, max_jobs=1, warm=(i == 0),
+                                 device="cuda", cache=cache)
+                if rc != 0:
+                    raise AssertionError(f"serve run for {name}: exit {rc}")
+                peaks[name] = torch.cuda.max_memory_allocated() - base
+                served[name] = (fused_cuda.LAUNCHES - launches0[0],
+                                bucketed_cuda.LAUNCHES - launches0[1])
+            # the streamed job under its pinned budget
+            sid = sp.submit(stream_spec, "gina")
+            os.environ[admission.BUDGET_ENV] = str(stream_budget)
+            try:
+                launches0 = bucketed_cuda.LAUNCHES
+                if run_service(root, max_jobs=1, warm=False, device="cuda",
+                               cache=cache) != 0:
+                    raise AssertionError("serve run for the streamed job")
+                served["gina"] = (0, bucketed_cuda.LAUNCHES - launches0)
+            finally:
+                del os.environ[admission.BUDGET_ENV]
+            spans = _serve_spans(ledger)
+            walls = {e["attrs"]["job"]: e["wall_s"]
+                     for e in spans.get("serve.job", [])}
+            # the deadline-evicted job
+            timeout = SERVE_EVICT_TIMEOUT_S
+            tim_spec = dict(SERVE_FUSED, seed=2,
+                            chunk_sweeps=SERVE_EVICT_CHUNK_SWEEPS)
+            tid = sp.submit(tim_spec, "tim", timeout_s=timeout)
+            if run_service(root, idle_exit_s=0.0, warm=False, device="cuda",
+                           cache=cache) != 0:
+                raise AssertionError("serve run for the evicted job")
+        launches = {"fused_chunk": fused_cuda.LAUNCHES,
+                    "packed_step": packed_cuda.LAUNCHES,
+                    "bucketed_step": bucketed_cuda.LAUNCHES}
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"the service did not go through every "
+                                 f"kernel of its path: {launches}")
+        recs = {r["id"]: r for r in sp.jobs()}
+        spans = _serve_spans(ledger)
+        walls = {e["attrs"]["job"]: e["wall_s"]
+                 for e in spans.get("serve.job", [])}
+        states = {name: recs[jid]["state"] for name, jid in ids.items()}
+        states["gina"], states["tim"] = recs[sid]["state"], recs[tid]["state"]
+        want_states = {"alice": "done", "bob": "done", "carol": "done",
+                       "dave": "refused", "erin": "refused",
+                       "frank": "refused", "gina": "done", "tim": "done"}
+        if states != want_states:
+            raise AssertionError(f"served states {states}; reasons "
+                                 f"{[r['reason'] for r in recs.values()]}")
+        # results equal to the direct calls
+        for name in ("alice", "bob"):
+            spec = recs[ids[name]]["spec"]
+            _serve_same(recs[ids[name]]["result"],
+                        _serve_fused_twin(cache, spec), f"fused job {name}")
+        _serve_same(recs[tid]["result"], _serve_fused_twin(cache, recs[tid][
+            "spec"]), "evicted job tim (its uninterrupted twin)")
+        g_pl, b_pl = cache._graphs[graph_key(recs[ids["carol"]]["spec"])]
+        s0 = _random_spins(bucketed_spec, POWERLAW_N)
+        want_b = unpack_spins(bucketed.bucketed_rollout_global(
+            g_pl, pack_spins(torch.as_tensor(s0, device="cuda")),
+            POWERLAW_STEPS, buckets=b_pl), POWERLAW_R).cpu().numpy()
+        _serve_same(recs[ids["carol"]]["result"], {"conf": want_b},
+                    "bucketed job carol")
+        s0 = _random_spins(stream_spec, STREAM_N)
+        plan = streamed.build_stream_plan(g_s, W=W_s,
+                                          device_budget_bytes=stream_budget)
+        want_s = unpack_spins(streamed.streamed_rollout(
+            g_s, pack_spins(s0), STREAM_STEPS, plan=plan, device="cuda"),
+            STREAM_R).cpu().numpy()
+        _serve_same(recs[sid]["result"], {"conf": want_s,
+                                          "chunks": np.asarray(plan.K)},
+                    "streamed job gina")
+        if plan.K < 2:
+            raise AssertionError(f"the streamed job's plan has {plan.K} "
+                                 "chunk(s)")
+        # the refusals and the eviction, from the records and the journal
+        reasons = {n: recs[ids[n]]["reason"] for n in ("dave", "erin",
+                                                       "frank")}
+        price = admission.admit(recs[ids["dave"]]["spec"], device="cuda")
+        if not (f"{price.model_bytes} B" in reasons["dave"]
+                and f"{card_budget} B" in reasons["dave"]):
+            raise AssertionError(f"oversized refusal: {reasons['dave']}")
+        if "this worker has 1 devices" not in reasons["erin"]:
+            raise AssertionError(f"shards=2 refusal: {reasons['erin']}")
+        if "under-priced" not in reasons["frank"]:
+            raise AssertionError(f"under-declared refusal: "
+                                 f"{reasons['frank']}")
+        events, problems = tstore.validate_journal(
+            os.path.join(root, tstore.JOURNAL_NAME))
+        if problems:
+            raise AssertionError(f"serve journal: {problems}")
+        evicts = [e for e in events if e.get("op") == "serve.evict"
+                  and e.get("job") == tid]
+        tim_walls = [e["wall_s"] for e in spans["serve.job"]
+                     if e["attrs"]["job"] == tid]
+        if not tim_walls or tim_walls[0] <= timeout:
+            raise AssertionError(
+                f"the short-timeout job's first attempt ran {tim_walls[:1]} "
+                f"s, within its {timeout} s slice: a near miss, not an "
+                "eviction")
+        if not evicts or recs[tid]["requeues"] < 1:
+            raise AssertionError(f"the short-timeout job was not evicted: "
+                                 f"{recs[tid]}; attempt walls {tim_walls} s")
+        # each fused job's peak against its admission price
+        f_price = fused_model_bytes(SERVE_FUSED["n"], 1,
+                                    admission.chi_bound(SERVE_FUSED["d"]),
+                                    SERVE_FUSED["d"])
+        for name in ("alice", "bob"):
+            if peaks[name] > f_price:
+                raise AssertionError(
+                    f"fused job {name}: allocator peak {peaks[name]} B over "
+                    f"its admission price {f_price} B")
+        stats = cache.stats()
+        if stats["hits"] < 2:
+            raise AssertionError(f"the fused jobs were not bucket hits: "
+                                 f"{stats}")
+    out = {
+        "walls_s": {n: walls.get(jid) for n, jid in
+                    {**ids, "gina": sid, "tim": tid}.items()},
+        "tim_walls_s": tim_walls,
+        "tables_build_s": [e["wall_s"] for e in spans["serve.tables_build"]],
+        "boot_warm_s": [e["wall_s"] for e in spans["serve.boot_warm"]],
+        "bucket": stats, "launches": launches, "served_launches": served,
+        "fused_peak_bytes": {n: peaks[n] for n in ("alice", "bob")},
+        "fused_price_bytes": f_price, "card_budget_bytes": card_budget,
+        "stream_budget_bytes": stream_budget, "stream_chunks": plan.K,
+        "oversized_price_bytes": price.model_bytes,
+        "tim_timeout_s": timeout, "tim_requeues": recs[tid]["requeues"],
+        "reasons": reasons, "wall_s": time.perf_counter() - t_start,
+    }
+    log(f"[68 serve] run_service(device='cuda') on one spool: fused config-1 "
+        f"jobs alice / bob {out['walls_s']['alice']:.4f} / "
+        f"{out['walls_s']['bob']:.4f} s (serve.job spans), bucketed carol "
+        f"{out['walls_s']['carol']:.4f} s, streamed gina "
+        f"{out['walls_s']['gina']:.4f} s ({plan.K} chunks at a pinned "
+        f"{stream_budget} B budget); each == its direct call bit for bit; "
+        f"serve.tables_build {out['tables_build_s']} s, serve.boot_warm "
+        f"{out['boot_warm_s']} s; bucket hit rate {stats['hit_rate']} "
+        f"({stats['hits']} hits, {stats['misses']} misses); launches "
+        f"{launches} (per job {served})")
+    log(f"[68 serve] fused allocator peak alice / bob {peaks['alice']} / "
+        f"{peaks['bob']} B against the admission price {f_price} B; refused "
+        f"dave (price {price.model_bytes} B > card budget {card_budget} B), "
+        f"erin (shards=2 on one card), frank (under-declared); tim evicted "
+        f"{recs[tid]['requeues']} time(s) at a {timeout:.4f} s slice, "
+        f"attempt walls {out['tim_walls_s']} s, then done == its twin; "
+        f"phase {out['wall_s']:.3f} s")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5845,7 +6121,7 @@ def card_line() -> str:
 
 #: the phase groups, in the order a full run takes them
 GROUPS = ("packed", "fused", "bdcm", "gather", "entropy", "sa", "powerlaw",
-          "durable", "obs", "parallel", "soak")
+          "durable", "obs", "parallel", "serve", "soak")
 #: the groups whose results the durable group holds its resumed runs to
 DURABLE_NEEDS = ("fused", "bdcm", "entropy", "sa")
 
@@ -6023,6 +6299,12 @@ def _group_parallel(ctx: dict) -> dict:
     return phase_parallel(ctx)
 
 
+def _group_serve(ctx: dict) -> dict:
+    """The job service (A19): fused jobs on K4′, bucketed and streamed jobs
+    on KB, the refusals and the eviction, through ``run_service``."""
+    return phase_serve(ctx)
+
+
 def run_groups(names) -> dict:
     """The parity gates, then the named groups (and the groups the durable
     group needs), in the order of :data:`GROUPS`. Every kernel is held
@@ -6045,6 +6327,7 @@ def run_groups(names) -> dict:
     t1 = time.perf_counter()
     g_pl = graphs.powerlaw_graph(POWERLAW_N, gamma=2.2, dmin=2, seed=0)
     ctx["g_pl"], ctx["b_pl"] = g_pl, graphs.degree_buckets(g_pl)
+    ctx["pl_edges"] = int(g_pl.num_edges)
     ctx["t_powerlaw_s"] = time.perf_counter() - t1
     gates = ctx["gates"] = {}
     gates["packed_step"] = phase_parity(g_h, ctx["config3"][0])
@@ -6126,6 +6409,7 @@ def kernels_line(res: dict, built: dict) -> list[dict]:
     par = res["parallel"]
     shard = par["shard_step"]
     pb = par["b"]
+    served = res["serve"]["launches"]
 
     return [{
         "name": "packed_step",
@@ -6134,7 +6418,9 @@ def kernels_line(res: dict, built: dict) -> list[dict]:
         "replaces": "graphdyn/ops/pallas_packed.py:129 (K1 pallas_packed_step), "
                     "graphdyn/ops/pallas_packed.py:224 (K2 _general_step_ext)",
         "parity": "bit-exact",
-        "launches": launches,
+        "launches": launches + served["packed_step"],
+        "launches_by_path": {"packed_main_paths": launches,
+                             "serve": served["packed_step"]},
         "max_abs_err": max_abs_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -6166,7 +6452,10 @@ def kernels_line(res: dict, built: dict) -> list[dict]:
         "source": "graphdyn_torch/csrc/fused_anneal.cu",
         "replaces": "graphdyn/ops/pallas_anneal.py:433 (K4 fused_chunk_pallas)",
         "parity": "bit-exact",
-        "launches": main_f["launches"]["fused_chunk"],
+        "launches": main_f["launches"]["fused_chunk"]
+        + served["fused_chunk"],
+        "launches_by_path": {"config1": main_f["launches"]["fused_chunk"],
+                             "serve": served["fused_chunk"]},
         "max_abs_err": max(fused_err, scale["max_abs_err"]),
         "ms": scale["ms"],
         "plain_ms": scale["plain_ms"],
@@ -6333,7 +6622,9 @@ def kernels_line(res: dict, built: dict) -> list[dict]:
                     "XLA), graphdyn/ops/streamed.py:295 "
                     "(_stream_chunk_device, XLA); no pl.pallas_call",
         "parity": "bit-exact",
-        "launches": pl_main["launches"],
+        "launches": pl_main["launches"] + served["bucketed_step"],
+        "launches_by_path": {"bucketed_rollout": pl_main["launches"],
+                             "serve": served["bucketed_step"]},
         "launches_stream_resumed": durable["stream"]["launches"],
         "max_abs_err": kb_parity["max_abs_err"],
         "ms": pl_main["ms"],
@@ -6453,7 +6744,8 @@ def main(argv=None) -> int:
     if args.groups:
         # a partial run: no kernels line, and a last line that names its
         # groups (a full run's last line is {"ok": true, ...})
-        log(json.dumps({"groups": {g: res[g] if g == "obs" else "held"
+        log(json.dumps({"groups": {g: res[g] if g in ("obs", "serve")
+                                   else "held"
                                    for g in GROUPS if g in res}},
                        default=str))
         log(f"[10] seconds in all: {time.perf_counter() - t_start:.3f}")
@@ -6481,7 +6773,7 @@ def main(argv=None) -> int:
         "parallel": {k: v for k, v in res["parallel"].items() if k != "b"},
         "parallel_b": {k: v for k, v in res["parallel"]["b"].items()
                        if k not in ("kb_row", "k3_row")},
-        "soak": res["soak"]}}, default=str))
+        "serve": res["serve"], "soak": res["soak"]}}, default=str))
     log(f"[24 gather] row_gather probe {res['gather']['probe']['wall_s']:.3f}"
         f" s")
     log(f"[10] seconds in all: {time.perf_counter() - t_start:.3f} "

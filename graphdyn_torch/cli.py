@@ -55,6 +55,10 @@
   P ranks of a ``torchrun --nproc-per-node P`` job, rank 0 printing; with
   ``--hub-threshold D`` nodes of degree ≥ D are replicated hubs and churn
   repartitions live.
+- ``serve``: the job service (:mod:`graphdyn_torch.serve`) with the JAX
+  package's actions (``run``, ``submit``, ``status``, ``result``,
+  ``queue``), flags, defaults and JSON outputs; ``run`` serves on
+  ``--device`` (default ``cuda``), the others need no device.
 - ``run-supervised``: the restart loop of
   :mod:`graphdyn_torch.resilience.supervisor` around another command.
 
@@ -354,6 +358,7 @@ def build_parser() -> argparse.ArgumentParser:
              "PyTorch version)",
     )
     _add_search_parsers(sub)
+    _add_serve_parser(sub)
     return p
 
 
@@ -579,6 +584,131 @@ def _add_stream_parser(sub) -> None:
                           "exits 75")
     _add_device_flag(strm)
     strm.add_argument("--out", default=None, help="npz path (conf, m_end)")
+
+
+def _add_serve_parser(sub) -> None:
+    """The ``serve`` command: the JAX package's actions, flags and defaults
+    (``graphdyn/cli.py:643-706``), plus ``--device`` and ``--n-devices``
+    for ``run``."""
+    srv = sub.add_parser(
+        "serve",
+        help="the multi-tenant job service over a durable filesystem spool "
+             "(graphdyn_torch.serve): run a worker, or submit/inspect jobs; "
+             "submissions need no live server and no device, and a "
+             "restarted server recovers its queue from disk alone",
+    )
+    srv.add_argument(
+        "action", choices=["run", "submit", "status", "result", "queue"],
+        help="run: serve the spool (admission by the byte models, "
+             "shape-class bucketing with a boot warm-up, per-job "
+             "timeout→evict→requeue, per-tenant crash quarantine); submit: "
+             "durably enqueue a job; status/result: one job's record / "
+             "finished arrays; queue: counts per state",
+    )
+    srv.add_argument("job", nargs="?", default=None,
+                     help="job id (status/result); give it immediately "
+                          "after the action (argparse does not backfill a "
+                          "trailing positional past options)")
+    srv.add_argument("--root", required=True, metavar="DIR",
+                     help="spool directory (created if missing)")
+    srv.add_argument("--tenant", default="default",
+                     help="tenant name stamped on submissions (quarantine "
+                          "and crash containment are keyed per tenant)")
+    srv.add_argument("--job-timeout", type=float, default=None, metavar="S",
+                     help="per-job deadline (submit: this job; run: default "
+                          "for jobs without one); overstaying jobs are "
+                          "evicted and requeued with a 4x-escalated slice")
+    srv.add_argument("--max-jobs", type=int, default=None, metavar="N",
+                     help="run: exit 0 after settling N jobs")
+    srv.add_argument("--idle-exit", type=float, default=None, metavar="S",
+                     help="run: exit 0 after S seconds with an empty queue "
+                          "(default: serve forever)")
+    srv.add_argument("--no-warm", action="store_true",
+                     help="run: skip the boot-time warm-up of hot shape "
+                          "classes")
+    srv.add_argument("--n-devices", type=int, default=None, metavar="P",
+                     help="run, on the CPU: the gloo processes a sharded "
+                          "streamed job may span (default 1; on the card "
+                          "every card counts)")
+    for flag, typ, hlp in (
+            ("--n", int, "graph size"), ("--d", int, "degree"),
+            ("--graph-seed", int, "graph realization seed"),
+            ("--seed", int, "chain seed"),
+            ("--rule", str, "dynamics rule (majority|minority)"),
+            ("--tie", str, "tie-break (stay|change)"),
+            ("--replicas", int, "replica count (packed 32/word)"),
+            ("--m-target", float, "target magnetization"),
+            ("--max-sweeps", int, "sweep budget"),
+            ("--chunk-sweeps", int, "sweeps per device chunk"),
+            ("--solver", str, "engine: fused (annealer on an RRG), "
+             "bucketed (degree-bucketed rollout on a power-law graph, "
+             "priced edge-proportionally), or streamed (out-of-core chunked "
+             "rollout, priced per chunk)"),
+            ("--edges", int, "declared edge count (required for --solver "
+             "bucketed/streamed; worker-validated against the built graph)"),
+            ("--dmax", int, "declared worst hub degree (--solver streamed; "
+             "worker-validated against the built graph)"),
+            ("--gamma", float, "power-law exponent of the served graph "
+             "(--solver bucketed/streamed; --d is dmin)"),
+            ("--degree-cv", float, "declared degree coefficient of "
+             "variation (informational; does not affect admission)")):
+        srv.add_argument(flag, type=typ, default=None,
+                         help=f"submit: {hlp} (default: spool default)")
+    _add_device_flag(srv)
+
+
+def _serve_main(args) -> int:
+    """The ``serve`` command. Only ``run`` touches a device."""
+    import numpy as np
+
+    from graphdyn_torch.serve import api as serve_api
+
+    if args.action == "run":
+        from graphdyn_torch.serve.lifecycle import run_service
+
+        return run_service(
+            args.root, job_timeout_s=args.job_timeout,
+            max_jobs=args.max_jobs, idle_exit_s=args.idle_exit,
+            warm=not args.no_warm, device=args.device,
+            n_devices=args.n_devices,
+        )
+    if args.action == "submit":
+        spec = {k: v for k, v in (
+            ("solver", args.solver),
+            ("n", args.n), ("d", args.d),
+            ("graph_seed", args.graph_seed), ("seed", args.seed),
+            ("rule", args.rule), ("tie", args.tie),
+            ("replicas", args.replicas), ("m_target", args.m_target),
+            ("max_sweeps", args.max_sweeps),
+            ("chunk_sweeps", args.chunk_sweeps),
+            ("edges", args.edges),
+            ("dmax", args.dmax),
+            ("gamma", args.gamma),
+            ("degree_cv", args.degree_cv)) if v is not None}
+        job_id = serve_api.submit(args.root, spec, args.tenant,
+                                  timeout_s=args.job_timeout)
+        print(json.dumps({"job": job_id, "root": args.root,
+                          "tenant": args.tenant}))
+        return 0
+    if args.action == "queue":
+        print(json.dumps(serve_api.queue(args.root)))
+        return 0
+    if args.job is None:
+        raise SystemExit(f"serve {args.action} needs a job id")
+    if args.action == "status":
+        print(json.dumps(serve_api.status(args.root, args.job)))
+        return 0
+    res = serve_api.result(args.root, args.job)      # action: result
+    print(json.dumps({
+        "job": args.job,
+        "keys": sorted(res),
+        "m_end_mean": float(np.mean(res["m_end"])),
+        # bucketed and streamed results have no target-reached notion
+        "mag_reached": (int(np.sum(res["mag_reached"]))
+                        if "mag_reached" in res else None),
+        "result": serve_api.status(args.root, args.job)["result"],
+    }))
+    return 0
 
 
 def _add_dynamics_flags(ap: argparse.ArgumentParser, p_default: int = 1):
@@ -1269,6 +1399,8 @@ def _run(args) -> int:
     )
     from graphdyn_torch.utils.platform import resolve_device
 
+    if args.cmd == "serve":
+        return _serve_main(args)
     try:
         dev = resolve_device(args.device)
     except RuntimeError as e:

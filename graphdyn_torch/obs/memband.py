@@ -95,6 +95,26 @@ def streamed_min_bytes(dmax: int, W: int) -> int:
     return streamed.streamed_min_bytes(dmax, W)
 
 
+def fused_model_bytes(n: int, W: int, chi: int, dmax: int) -> int:
+    """The JAX package's resident-set formula of its fused kernel
+    (``graphdyn/ops/pallas_anneal.py:225``, ``fused_vmem_bytes``), the
+    service's price of a fused job (``Rp = 32·W`` replica lanes, 4-byte
+    words): the double-buffered packed state ``2·4·(n+1)·W``, the CSA planes
+    and count masks ``(⌈log₂(dmax+1)⌉ + dmax+1)·4·(n+1)·W``, the tables
+    ``4·(n+1)·(χ + 2·(dmax+1) + 2·dmax+1)`` and the per-replica expansion
+    ``6·4·(n+1)·Rp``. A formula, not a measurement of K4′."""
+    Rp = 32 * W
+    n1 = n + 1
+    n_planes = max(int(dmax).bit_length(), 1)
+    return 4 * n1 * (
+        W * (2 + n_planes + dmax + 1)
+        + chi
+        + 2 * (dmax + 1)
+        + (2 * dmax + 1)
+        + 6 * Rp
+    )
+
+
 def packed_state_bytes(n: int, d: int, W: int) -> int:
     """Resident device state of the packed rollout: the ``[n, W]`` words
     (32 replicas a word), the ``int32[n, d]`` neighbour table and the

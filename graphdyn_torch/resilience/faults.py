@@ -43,6 +43,12 @@ site                 instrumented in
                      rendezvous is not up yet
                      (:class:`InjectedUnavailable`), retried until the
                      deadline
+``serve.admit``      ``serve.admission.admit`` — ``raise``: the reject
+                     storm (every decision refuses, "injected" reason)
+``serve.dispatch``   ``serve.worker.Worker._dispatch`` — ``raise``: a
+                     transient unavailability (:class:`InjectedUnavailable`),
+                     retried with backoff, then the job requeued;
+                     ``preempt``: a hard kill of the serving process
 ===================  =====================================================
 
 CLI-level tests inject through the ``GRAPHDYN_FAULT_PLAN`` environment
@@ -282,6 +288,10 @@ def maybe_fail(site: str, key: str = "") -> None:
             )
         if site == "multihost.init":
             raise InjectedUnavailable("injected: coordinator unavailable")
+        if site == "serve.dispatch":
+            raise InjectedUnavailable(
+                "injected: dispatch transiently unavailable"
+            )
     raise InjectedFault(f"injected {spec.action} at {site} (hit {spec.hits})")
 
 

@@ -54,6 +54,7 @@ class ShutdownRequested(Exception):
 
 _flag = threading.Event()
 _signum: list = [None]
+_requests: list = [0]
 _depth = 0
 
 
@@ -68,7 +69,15 @@ def request_shutdown(signum: int | None = None) -> None:
     """Programmatic equivalent of receiving SIGTERM (used by tests and by
     embedding schedulers that deliver preemption notice out-of-band)."""
     _signum[0] = signum
+    _requests[0] += 1
     _flag.set()
+
+
+def shutdown_requests() -> int:
+    """How many requests stand behind the pending flag (0 when none): a
+    caller that made one request itself tells from a count of 1 that no
+    one else asked."""
+    return _requests[0]
 
 
 def clear_shutdown() -> None:
@@ -77,6 +86,7 @@ def clear_shutdown() -> None:
     schedulers that cancel a preemption notice."""
     _flag.clear()
     _signum[0] = None
+    _requests[0] = 0
 
 
 def raise_if_requested(where: str | None = None) -> None:
@@ -107,8 +117,7 @@ def graceful_shutdown(signals=(signal.SIGTERM, signal.SIGINT)):
         return
     prev = {}
     if _depth == 0:
-        _flag.clear()
-        _signum[0] = None
+        clear_shutdown()
 
         def handler(signum, frame):
             if _flag.is_set():
@@ -130,5 +139,4 @@ def graceful_shutdown(signals=(signal.SIGTERM, signal.SIGINT)):
         if _depth == 0:
             for s, h in prev.items():
                 signal.signal(s, h)
-            _flag.clear()
-            _signum[0] = None
+            clear_shutdown()

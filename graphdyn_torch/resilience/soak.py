@@ -20,7 +20,7 @@ kill/requeue cycles, on ``--device`` (default the card; every workload gets
   and the final clean episode leaves none.
 
 The catalogue (randomized per seed: fault positions, counts and schedules
-come from the seed's stream) is the JAX package's, less four scenarios:
+come from the seed's stream) is the JAX package's, less two scenarios:
 
 ==================== ======================================================
 scenario             composition
@@ -58,6 +58,16 @@ scenario             composition
                      repartition) preempted at a chunk boundary mid-churn,
                      requeued onto ``--shards 2``: the journal alone
                      replays the mutations and the repartitions
+``serve_kill_requeue`` the multi-tenant job service: tenants submit to a
+                     durable spool with no server alive (one oversized job
+                     the byte model must refuse, one short-timeout job the
+                     deadline must evict), a serving child process is
+                     hard-killed mid-dispatch at a seeded position (the
+                     claimed job left ``running`` on disk), a fresh child
+                     recovers the orphan from disk alone and drains the
+                     queue; every accepted job bit-exact to a fault-free
+                     oracle, the spool journal carrying the whole
+                     submit/refuse/requeue/evict/done story
 ==================== ======================================================
 
 The workloads reach the port's kernels on the card: the ``entropy`` runs
@@ -66,9 +76,13 @@ step (KB); ``sa`` is plain PyTorch. A ``stream_shard`` episode is one job
 of spawned gloo ranks (:func:`graphdyn_torch.scripts.halo_ranks.
 run_ranks`), as many as its ``--shards``, each running the CLI with the
 episode's fault plan; rank 0 runs in the episode's directory, where its
-post-mortem lands. Left out, each refused with its ROADMAP.md item
+post-mortem lands. ``serve_kill_requeue``'s children serve on
+``--device``'s device (K4′ on the card) from the one kernel build
+directory of the checkout, so no child rebuilds a kernel; the JAX
+package's schedule fuzzer around them is the race checker's, which is not
+ported. Left out, each refused with its ROADMAP.md item
 (:data:`NOT_PORTED`): ``race_mirror_exit`` and ``race_prefetch_close``
-(A18's race checker), ``serve_kill_requeue`` (A19's job service).
+(A18's race checker).
 
 Run it: ``python -m graphdyn_torch.resilience.soak [--bounded] [--seeds N]
 [--scenarios a,b,…] [--device cpu] [--list] [--format text|json]``.
@@ -312,6 +326,15 @@ SCENARIOS: dict[str, Scenario] = {
                  "bit-exactly at the new partition",
                  require_ops=("save", "load", "stream.churn",
                               "stream.repartition")),
+        Scenario("serve_kill_requeue", "serve",
+                 "multi-tenant serve spool: hard kill mid-dispatch, "
+                 "restart recovers the orphaned job from disk, oversized "
+                 "job refused by the byte model, short-timeout job "
+                 "evicted, every accepted job bit-exact after requeue",
+                 require_ops=("serve.submit", "serve.refuse",
+                              "serve.requeue", "serve.evict",
+                              "serve.done"),
+                 mode="serve"),
     )
 }
 
@@ -320,7 +343,6 @@ SCENARIOS: dict[str, Scenario] = {
 NOT_PORTED: dict[str, str] = {
     "race_mirror_exit": "A18 (the race checker's schedule fuzzer)",
     "race_prefetch_close": "A18 (the race checker's schedule fuzzer)",
-    "serve_kill_requeue": "A19 (the job service)",
 }
 
 
@@ -572,6 +594,9 @@ def run_scenario(name: str, seed: int, root: str,
         return _run_hang_detect(scn, seed, root, oracle_cache, device)
     if scn.mode == "crash_loop":
         return _run_crash_loop(scn, seed, root, oracle_cache, device)
+    if scn.mode == "serve":
+        return _run_serve_kill_requeue(scn, seed, root, oracle_cache,
+                                       device)
     rng = np.random.default_rng(seed)
     episodes = _plan_episodes(name, rng)
     workdir = os.path.join(root, name, f"seed{seed}")
@@ -840,6 +865,211 @@ def _run_crash_loop(scn: Scenario, seed: int, root: str,
         )
     return {"scenario": scn.name, "seed": seed, "workload": scn.workload,
             "episodes": eps, "journal_ops": sorted(set(ops)),
+            "problems": problems, "ok": not problems}
+
+
+# ---------------------------------------------------------------------------
+# serve_kill_requeue: the job service's kill/requeue soak
+# ---------------------------------------------------------------------------
+
+#: serve soak: the budget pinned in the child's environment, so the
+#: oversized job's refusal does not depend on the device's memory
+SERVE_HBM_BUDGET = 1 << 30
+
+#: the short-timeout job's first slice: far below the job's runtime floor,
+#: so the deadline always fires during attempt 1 and the eviction runs
+SERVE_EVICT_TIMEOUT_S = 0.05
+
+#: the short-timeout job: 4096 one-sweep chunks, each a launch and a
+#: completion wait on the card (a chunk after every replica froze is a
+#: no-op launch, still waited on), so on any device its runtime is far
+#: above the first slice; the ×4 escalations finish it
+SERVE_EVICT_SPEC = {"n": 128, "d": 3, "rule": "minority",
+                    "max_sweeps": 4096, "chunk_sweeps": 1}
+
+
+def _serve_env(device: str) -> dict:
+    """The serving child's environment: a pinned admission budget, no
+    inherited fault plan, the repo importable."""
+    env = dict(os.environ)
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    env["GRAPHDYN_SERVE_HBM_BUDGET"] = str(SERVE_HBM_BUDGET)
+    env.pop("GRAPHDYN_FAULT_PLAN", None)
+    return env
+
+
+def _serve_child_script(spool: str, device: str) -> str:
+    """The serving child: the real service loop on ``device``. An
+    InjectedPreemption from the dispatch fault site is the hard kill: the
+    child dies with the claimed job left ``running`` on disk, as a SIGKILL
+    leaves it, and exits 75 like a preempted scheduler slot."""
+    return "\n".join([
+        "import sys",
+        "import torch",
+        "torch.set_num_threads(1)",
+        "from graphdyn_torch.resilience.faults import InjectedPreemption",
+        "from graphdyn_torch.serve.lifecycle import run_service",
+        "try:",
+        f"    rc = run_service({spool!r}, idle_exit_s=0.25, "
+        f"device={device!r})",
+        "except InjectedPreemption:",
+        "    sys.exit(75)",
+        "sys.exit(rc)",
+    ]) + "\n"
+
+
+def _serve_oracle(spec: dict, oracle_cache: dict, device: str) -> dict:
+    """Fault-free in-harness run of one fused job spec on ``device``, the
+    parity reference: the requeue path is a full deterministic replay, so
+    eviction, kill and requeue may cost time but never bits."""
+    from graphdyn_torch.serve.bucketing import _sa_config
+    from graphdyn_torch.graphs import random_regular_graph
+    from graphdyn_torch.ops.fused import build_fused_tables
+    from graphdyn_torch.search.fused import fused_anneal
+
+    key = ("serve", device) + tuple(sorted(spec.items()))
+    if key not in oracle_cache:
+        g = random_regular_graph(int(spec["n"]), int(spec["d"]),
+                                 seed=int(spec["graph_seed"]))
+        cfg = _sa_config(spec)
+        # the serve convention: the coloring is the GRAPH's (graph_seed),
+        # the counter-RNG chain the job's (seed)
+        tables = build_fused_tables(g, cfg, seed=int(spec["graph_seed"]))
+        res = fused_anneal(
+            g, cfg, n_replicas=int(spec["replicas"]),
+            seed=int(spec["seed"]), m_target=float(spec["m_target"]),
+            max_sweeps=int(spec["max_sweeps"]),
+            chunk_sweeps=int(spec["chunk_sweeps"]), tables=tables,
+            device=device,
+        )
+        oracle_cache[key] = {
+            "conf": np.asarray(res.s),
+            "mag_reached": np.asarray(res.mag_reached),
+            "m_end": np.asarray(res.m_end),
+            "steps_to_target": np.asarray(res.steps_to_target),
+        }
+    return oracle_cache[key]
+
+
+def _run_serve_kill_requeue(scn: Scenario, seed: int, root: str,
+                            oracle_cache: dict, device: str = "cuda"
+                            ) -> dict:
+    """The serve soak: multi-tenant submissions to a durable spool, a
+    serving child hard-killed mid-dispatch at a seeded position, a second
+    child that must recover the orphaned job from disk alone and drain the
+    queue. Contracts: the oversized job is REFUSED by the byte model, the
+    short-timeout job is EVICTED and still finishes, every accepted job
+    ends ``done`` and bit-exact to the fault-free oracle, and the spool
+    journal is schema-valid with the whole story."""
+    import subprocess
+
+    from graphdyn_torch.serve.spool import Spool
+    from graphdyn_torch.utils.io import load_results_npz
+
+    rng = np.random.default_rng(seed)
+    workdir = os.path.join(root, scn.name, f"seed{seed}")
+    spool_dir = os.path.join(workdir, "spool")
+    problems: list[str] = []
+    ep_log: list[dict] = []
+
+    # -- tenants submit (no server alive yet: the spool IS the API) -------
+    spool = Spool(spool_dir)
+    accepted = []
+    for tenant in ("alice", "bob"):
+        for _ in range(2):
+            accepted.append(spool.submit(
+                {"n": 24, "d": 3, "graph_seed": int(rng.integers(0, 4)),
+                 "seed": int(rng.integers(0, 2**31 - 1)),
+                 "max_sweeps": 32, "chunk_sweeps": 8}, tenant))
+    accepted.append(spool.submit(
+        {**SERVE_EVICT_SPEC, "seed": int(rng.integers(0, 2**31 - 1))},
+        "tim", timeout_s=SERVE_EVICT_TIMEOUT_S))
+    # the oversized job: ~20 GB modeled resident set against the pinned
+    # 1 GiB budget, refused at admission, never on the device
+    oversized = spool.submit(
+        {"n": 200000, "d": 3, "replicas": 4096}, "carol")
+
+    def episode(tag: str, fault_plan: list | None) -> int:
+        env = _serve_env(device)
+        if fault_plan:
+            env["GRAPHDYN_FAULT_PLAN"] = json.dumps(fault_plan)
+        proc = subprocess.run(
+            [sys.executable, "-c", _serve_child_script(spool_dir, device)],
+            capture_output=True, text=True, timeout=300, env=env,
+            cwd=workdir)
+        ep_log.append({"episode": tag, "rc": proc.returncode,
+                       "specs": fault_plan or [],
+                       "stderr": proc.stderr[-2000:]})
+        return proc.returncode
+
+    # episode 1: hard kill mid-dispatch at a seeded position (the 2nd-4th
+    # dispatch, always mid-queue: five jobs pass admission)
+    kill_at = int(rng.integers(2, 5))
+    rc = episode("kill", [{"site": "serve.dispatch", "action": "preempt",
+                           "at": kill_at}])
+    if rc != EX_TEMPFAIL:
+        problems.append(
+            f"killed episode exited {rc}, expected {EX_TEMPFAIL} "
+            f"(preempt at dispatch {kill_at}): {ep_log[-1]['stderr']}")
+    orphans = [r["id"] for r in spool.jobs() if r["state"] == "running"]
+    if not orphans:
+        problems.append(
+            "hard kill left no running orphan in the spool — the kill "
+            "landed outside a claimed job")
+    # episode 2: a fresh server against the same spool, recovering from
+    # disk alone
+    rc = episode("requeue", None)
+    if rc != EX_OK:
+        problems.append(f"recovery episode exited {rc}, expected {EX_OK}: "
+                        f"{ep_log[-1]['stderr']}")
+
+    # -- contracts --------------------------------------------------------
+    recs = {r["id"]: r for r in spool.jobs()}
+    over = recs[oversized]
+    if over["state"] != "refused":
+        problems.append(
+            f"oversized job is {over['state']!r}, want refused")
+    elif "exceeds the device budget" not in (over["reason"] or ""):
+        problems.append(
+            f"oversized refusal reason carries no byte-model verdict: "
+            f"{over['reason']!r}")
+    for jid in accepted:
+        if recs[jid]["state"] != "done":
+            problems.append(
+                f"accepted job {jid} ended {recs[jid]['state']!r} "
+                f"(reason {recs[jid]['reason']!r}), want done")
+    journal = os.path.join(spool_dir, _store.JOURNAL_NAME)
+    ops = _check_journal(journal, scn.require_ops, problems)
+    recovered = [r for r in spool.jobs()
+                 if r["id"] in orphans and r["requeues"] >= 1]
+    if orphans and not recovered:
+        problems.append(
+            "the orphaned running job was never requeued by recovery")
+    # bit-exact parity for every accepted job against the fault-free
+    # oracle on the same device
+    for jid in accepted:
+        rec = recs[jid]
+        if rec["state"] != "done":
+            continue
+        want = _serve_oracle(rec["spec"], oracle_cache, device)
+        got = load_results_npz(rec["result"])
+        if set(got) != set(want):
+            problems.append(
+                f"{jid}: result keys {sorted(got)} vs {sorted(want)}")
+            continue
+        for k in want:
+            if not np.array_equal(got[k], want[k]):
+                problems.append(
+                    f"{jid}: result array {k!r} is not bit-exact after "
+                    f"kill/requeue (requeues={rec['requeues']})")
+    for ep in ep_log:
+        ep.pop("stderr", None)
+    return {"scenario": scn.name, "seed": seed, "workload": scn.workload,
+            "episodes": ep_log, "journal_ops": sorted(set(ops)),
             "problems": problems, "ok": not problems}
 
 

@@ -62,9 +62,8 @@ JOURNAL_NAME = "run_journal.jsonl"
 #: journal event ops (validators reject anything else): the JAX package's
 #: whole set, so each package validates the other's journals. The
 #: ``supervise.*`` ops are appended by the restart loop of
-#: :mod:`graphdyn_torch.resilience.supervisor`; the ``serve.*`` and
-#: ``stream.repartition`` ops come from parts of the JAX package the port
-#: does not have yet (its job service and sharded stream).
+#: :mod:`graphdyn_torch.resilience.supervisor`, the ``serve.*`` ops by the
+#: job service (:mod:`graphdyn_torch.serve.spool`).
 JOURNAL_OPS = (
     "save", "load", "quarantine", "reject", "failover", "read-error",
     "mirror.save", "mirror.degraded", "remove",

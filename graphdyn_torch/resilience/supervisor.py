@@ -186,6 +186,10 @@ class Watchdog:
             poll_s = min(1.0, max(0.01, min(cands)))
         self.poll_s = poll_s
         self._abort = abort or _default_abort
+        #: True once this watchdog's deadline has requested the shutdown
+        #: (set before the request, so a boundary that sees the flag sees
+        #: this too)
+        self.deadline_fired = False
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
@@ -209,14 +213,13 @@ class Watchdog:
 
         t_start = _MONO()
         n_entry = last_beat()[0]        # beats ≤ this are pre-scope
-        deadline_fired = False
         stall_beat: int | None = None   # beat count when the stall was flagged
         stall_t = 0.0
         while not self._stop.wait(self.poll_s):
             now = _MONO()
-            if (self.deadline_s is not None and not deadline_fired
+            if (self.deadline_s is not None and not self.deadline_fired
                     and now - t_start >= self.deadline_s):
-                deadline_fired = True
+                self.deadline_fired = True
                 log.warning(
                     "run deadline of %.3gs reached — requesting graceful "
                     "shutdown (snapshot at next boundary, exit %d)",

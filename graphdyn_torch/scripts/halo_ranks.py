@@ -151,15 +151,17 @@ def _entry(rank: int, world: int, root: str, fn, args: tuple, device,
 
 
 def run_ranks(fn, world: int, *args, device="cuda", backend=None,
-              root: str | None = None, timeout: float = 1800) -> list:
+              root: str | None = None, timeout: float = 1800,
+              stop=None) -> list:
     """Run ``fn(rank, world, *args)`` (a module-level function) on
     ``world`` spawned processes and return its values in rank order. Each
     process takes one intra-op thread and joins one process group
     (:func:`graphdyn_torch.parallel.mesh.init_distributed` on ``device``
     and ``backend``, its default when None, through a ``FileStore`` under
     ``root``, default a temporary directory). Every process is joined, or
-    killed at the timeout, before this returns; a rank that failed or left
-    no result raises ``RuntimeError``, failures first."""
+    killed at the timeout (or as soon as ``stop()``, polled while they run,
+    returns true), before this returns; a rank that failed or left no
+    result raises ``RuntimeError``, failures first."""
     import multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -173,7 +175,9 @@ def run_ranks(fn, world: int, *args, device="cuda", backend=None,
             p.start()
         deadline = time.perf_counter() + timeout
         for p in procs:
-            p.join(max(1.0, deadline - time.perf_counter()))
+            while (p.is_alive() and not (stop and stop())
+                   and time.perf_counter() < deadline):
+                p.join(0.05)
         for p in procs:
             if p.is_alive():
                 p.kill()

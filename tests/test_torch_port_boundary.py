@@ -122,7 +122,14 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.parallel.sa_sharded",
                  "graphdyn_torch.parallel.stream",
                  "graphdyn_torch.scripts.halo_ranks",
-                 "graphdyn_torch.resilience.soak"):
+                 "graphdyn_torch.resilience.soak",
+                 "graphdyn_torch.serve", "graphdyn_torch.serve.spool",
+                 "graphdyn_torch.serve.admission",
+                 "graphdyn_torch.serve.bucketing",
+                 "graphdyn_torch.serve.worker",
+                 "graphdyn_torch.serve.lifecycle",
+                 "graphdyn_torch.serve.api",
+                 "graphdyn_torch.serve.__main__"):
         assert name in out["modules"]
 
 
@@ -280,6 +287,62 @@ def test_cli_without_device_refuses_on_cuda_less_host(argv):
     assert proc.returncode != 0
     assert "device='cpu'" in proc.stderr
     assert proc.stdout == ""
+
+
+SERVE_ENTRY_POINTS = {
+    "Worker": lambda root: __import__(
+        "graphdyn_torch.serve.worker", fromlist=["Worker"]).Worker(
+        __import__("graphdyn_torch.serve.spool",
+                   fromlist=["Spool"]).Spool(root)),
+    "run_service": lambda root: __import__(
+        "graphdyn_torch.serve.lifecycle", fromlist=["run_service"]
+    ).run_service(root, idle_exit_s=0.0),
+    "BucketCache.warm": lambda root: __import__(
+        "graphdyn_torch.serve.bucketing", fromlist=["BucketCache"]
+    ).BucketCache().warm([{"n": 24, "d": 3, "graph_seed": 0, "seed": 0,
+                           "rule": "majority", "tie": "stay",
+                           "replicas": 32, "chunk_sweeps": 2}]),
+}
+
+
+@pytest.mark.parametrize("name", list(SERVE_ENTRY_POINTS))
+def test_serve_entry_point_refuses_on_cuda_less_host(name, tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    root = str(tmp_path / "spool")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SERVE_ENTRY_POINTS[name](root)
+
+
+def test_serve_cli_run_refuses_and_client_actions_need_no_device(tmp_path):
+    """``serve run`` defaults to the card and refuses without one; submit,
+    status and queue touch no device: CUDA stays uninitialised."""
+    root = str(tmp_path / "spool")
+    code = (
+        "import json, sys, torch\n"
+        "from graphdyn_torch.serve import api\n"
+        f"jid = api.submit({root!r}, {{'n': 24}}, 'alice')\n"
+        f"st = api.status({root!r}, jid)\n"
+        f"q = api.queue({root!r})\n"
+        "print(json.dumps({'init': torch.cuda.is_initialized(),\n"
+        "                  'state': st['state'], 'q': q}))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["init"] is False
+    assert out["state"] == "pending" and out["q"]["pending"] == 1
+    if torch.cuda.is_available():
+        return
+    proc = subprocess.run(
+        [sys.executable, "-m", "graphdyn_torch", "serve", "run", "--root",
+         root, "--idle-exit", "0"], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr and proc.stdout == ""
 
 
 def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):

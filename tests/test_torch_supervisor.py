@@ -161,6 +161,29 @@ def test_watchdog_deadline_requests_graceful_shutdown():
         assert shutdown_requested(), "deadline never fired"
 
 
+def test_watchdog_says_whether_its_own_deadline_fired():
+    """``deadline_fired`` is the watchdog's own: a request from anyone
+    else leaves it false, and each request adds one to the count."""
+    from graphdyn_torch.resilience.shutdown import (
+        request_shutdown,
+        shutdown_requests,
+    )
+
+    with sup.supervision(deadline_s=30.0, poll_s=0.02) as wd:
+        request_shutdown()
+        time.sleep(0.06)
+        assert not wd.deadline_fired and shutdown_requests() == 1
+    clear_shutdown()
+    assert shutdown_requests() == 0
+    with sup.supervision(deadline_s=0.06, poll_s=0.02) as wd:
+        deadline = time.monotonic() + 3.0
+        while not wd.deadline_fired and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert wd.deadline_fired and shutdown_requested()
+        request_shutdown()
+        assert shutdown_requests() == 2
+
+
 def test_supervision_without_knobs_is_a_noop():
     with sup.supervision(None, None) as wd:
         assert wd is None               # no thread, no beat, no cost

@@ -792,3 +792,10 @@ def ensemble_mesh_worker(rank: int, world: int, cases: list,
         else:
             raise ValueError(what)
     return out
+
+
+def stall_worker(rank: int, world: int, secs: float = 60.0) -> None:
+    """A rank that only sleeps: the parent's stop test must end it."""
+    import time
+
+    time.sleep(secs)

@@ -16,6 +16,7 @@ EVIDENCE = {
     "hang_detect": "supervise.restart",
     "crash_loop_quarantine": "supervise.quarantine",
     "stream_churn": "stream.churn",
+    "serve_kill_requeue": "serve.evict",
 }
 
 
