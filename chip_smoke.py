@@ -138,8 +138,22 @@ must count 0 there):
   evicted, then done and equal to its twin; each fused job's allocator
   peak held to its admission price; the ``serve.job`` walls, the table
   build and boot warm-up spans and the bucket hit rate printed;
-- the chaos soak's bounded matrix on the card (``soak``: 13 scenarios,
-  seed 0 and more seeds while the run has time).
+- static analysis and race checking (``analysis``, phases 69–74): the
+  ``@contract`` check's host µs a call on the headline's CUDA tensors, a
+  decorated headline step under ``torch.cuda.set_sync_debug_mode("error")``
+  and an int64 neighbour table refused before any launch; the alias
+  sanitizer on the stream shape (``streamed_rollout``, prefetch depth 2)
+  on and off in turns, equal results, and a pinned slab written inside its
+  ``non_blocking`` copy's window raising ``AliasRaceError``; the serve
+  group's fused config-1 jobs and bucketed job with the race checker off
+  and installed with the seeded jitter, equal to their direct calls, the
+  observed lock order against the ledger; the CUDA dispatch fingerprints
+  against ``graphdyn_torch/analysis/fingerprints.json``; the served jobs'
+  resident peaks against ``cost_ledger.json`` and every admission price's
+  margin over them;
+- the chaos soak's bounded matrix on the card (``soak``: all 15 scenarios,
+  the race checker's two among them, seed 0 and more seeds while the run
+  has time).
 
 It also times the fused kernel at config 5's single-chip width (d=5 RRG,
 n=10⁶, R=1024), with its peak device memory; the packed step and its bare
@@ -335,22 +349,20 @@ CONTRACT_TOL = {torch.float32: (1e-5, 1e-7), torch.float64: (1e-12, 1e-15)}
 # 2 (`BASELINE.md:30`), cut only in its sweep count; HPr at T = 5 (the CLI
 # with --p 4 --c 1, its other defaults), cut to HPR_T5_SWEEPS sweeps
 HPR_N, HPR_D = 10_000, 4
-# the sweeps of the reference shape's profiled run (50 until the rest of
-# parallel/ joined) and the T = 5 chains' first sweeps held to plain (3 until
-# then)
+# the sweeps of the reference shape's profiled run and the T = 5 chains'
+# first sweeps held to plain
 REF_PROFILE_SWEEPS, HPR_T5_FIRST_SWEEPS = 10, 1
-HPR_T5_SWEEPS = 20       # cut from 50 since the rest of parallel/ joined
+HPR_T5_SWEEPS = 20
 # T = 6: one make_sweep run on RRG(10^3, 3) at p=5, c=1 (one class, d=2,
 # M=729, K=64, the block path); the global path at T = 4: entropy_sweep on
 # ER(2000, 6/1999) at p=3, c=1, 4 λ in [0, 3], its sweeps cut to one chunk
 # of GLOBAL_MAX_SWEEPS per λ
 T6_N, T6_SWEEPS = 1000, 3
 GLOBAL_N, GLOBAL_C, GLOBAL_SEED, GLOBAL_MAX_SWEEPS = 2000, 6.0, 0, 16
-# ... cut since the rest of parallel/ joined: λ ∈ {0, 1} (was {0, 1, 2, 3}),
-# the first 2 sweeps against plain (was 3), the plain ladder's chunks of 2
-# sweeps (its fixed point stops after one sweep either way)
-GLOBAL_LAMBDAS, GLOBAL_FIRST_SWEEPS, GLOBAL_PLAIN_CHUNK = (0.0, 1.0), 2, 2
-CONFIG2_N, CONFIG2_D, CONFIG2_R, CONFIG2_SWEEPS = 100_000, 3, 256, 20
+# ... the first 2 sweeps against plain, the plain ladder's chunks of 2
+# sweeps (its fixed point stops after one sweep either way), λ ∈ {0}
+GLOBAL_LAMBDAS, GLOBAL_FIRST_SWEEPS, GLOBAL_PLAIN_CHUNK = (0.0,), 2, 2
+CONFIG2_N, CONFIG2_D, CONFIG2_R, CONFIG2_SWEEPS = 100_000, 3, 256, 10
 # the row gather (P): the widths held against index_select, and the port's
 # own gathers as (label, n_src, W, n_idx): the rows and the gathers per step
 # of each main path (config 1: n+1 rows of one word, 3 neighbours each;
@@ -386,12 +398,14 @@ GATHER_PORT_SHAPES = (
 # since a chain at the sa CLI's defaults takes ~10^8 steps to consensus
 # (physics_r04.json)
 SA_PARITY_N, SA_PARITY_L = 300, 2000
-SA_MAIN_STEPS, TEMPER_MAIN_STEPS = 2_500, 5_000
+# (temper's durable leg signals its 4th chunk boundary: 5·10³ steps reach
+# it)
+SA_MAIN_STEPS, TEMPER_MAIN_STEPS = 1_500, 5_000
 # repeats of each implementation in the interleaved gather timing
 GATHER_REPS = 9
 # the entropy CLI's λ ladder, cut from its default 12.0 (121 points) to
-# keep the script's time since the power-law and durability phases joined
-ENTROPY_CLI_LMBD_MAX = 2.0   # 3.0 until the rest of parallel/ joined
+# keep the script's time
+ENTROPY_CLI_LMBD_MAX = 2.0
 # the power-law path: bench.py:powerlaw_rate_row's shape
 # (powerlaw_graph(10^5, gamma=2.2, dmin=2, seed=0), R=1024, 20 steps x 3
 # iterations) and stream_rate_row's (n=65,536, the same law, R=1024, 10
@@ -417,21 +431,20 @@ ENTROPY_NAN_AT = 14
 # ~1640 sweeps; a profiled run of all of them writes a 250 MB trace) and of
 # the sa chunk loop (5 chunks of 256 steps)
 OBS_ENTROPY_LMBD_MAX = 0.5
-OBS_REPEATS = 3
-# (cut from 400 sweeps and 1280 steps since the rest of parallel/ joined)
+OBS_REPEATS = 2
 OBS_HPR_SWEEPS, OBS_HPR_CHUNK = 240, 80
 OBS_SA_STEPS = 768
 # node-axis sharding (the parallel group): steps of each halo main path and
 # of its timed split; the small SA shape of the sharded chains; the
 # consensus leg at the headline width; config 5's light-cone run through
 # the CLI (cut to CONFIG5_CHUNKS chunks); the spawned ranks' time limit
-PAR_STEPS, PAR_TIMED_STEPS = 10, 5
+PAR_STEPS, PAR_TIMED_STEPS = 6, 3
 PAR_SA_N, PAR_SA_R, PAR_SA_L = 2000, 8, 300
 PAR_CONSENSUS_ARGV = ["consensus", "--graph", "rrg", "--n", str(10**6),
                       "--d", "3", "--replicas", "16384", "--m0", "0.1",
-                      "--max-steps", "20", "--chunk", "10", "--device",
+                      "--max-steps", "10", "--chunk", "5", "--device",
                       "cuda"]
-CONFIG5_CHUNKS, CONFIG5_CHUNK = 1, 256   # 2 chunks until the rest of parallel/
+CONFIG5_CHUNKS, CONFIG5_CHUNK = 1, 256
 PAR_SPAWN_TIMEOUT_S = 600
 # the rest of parallel/ (in the parallel group): the churn repartition
 # row's shape and churn seed (bench.py:933-989: powerlaw_graph(16384, 2.2,
@@ -453,12 +466,18 @@ PAR_SPAWN_TIMEOUT_S = 600
 PB_CHURN_N, PB_CHURN_R, PB_CHURN_STEPS, PB_CHURN_MUT = 16384, 512, 12, 512
 PB_CHURN_SEED, PB_CHURN_Q = 7, 0.98
 PB_UNION_L, PB_CELL_LMBD_MAX, PB_SA_GROUP = 2, 0.5, 6
-PB_CONGRUENT_L, PB_SA_STREAM_STEPS = 8, 100
+PB_CONGRUENT_L, PB_SA_STREAM_STEPS = 4, 50
 PB_RESUME_AT, PB_TIMED_SWEEPS = 4, 64
-# the soak group adds seeds past seed 0 while the run is inside this
-SOAK_UNTIL_S = 900
+# the timed calls of the shard-chunk KB and edge-slice K3 rows' plain
+# versions (after the call their kernels are held to, which warms them)
+PB_PLAIN_REPS = 5
+# the sharded stream's steps at the stream shape
+PB_STREAM_STEPS = 5
+# the soak group adds a seed past seed 0 only when it would end inside this
+# (projected from the seed before it), so the script stays inside it
+SOAK_UNTIL_S = 1000
 # the chromatic phase's profiled chunk (its 64-sweep timing run is apart)
-CHROMATIC_PROFILE_SWEEPS = 2   # 8 until the rest of parallel/ joined
+CHROMATIC_PROFILE_SWEEPS = 2
 
 
 _T0 = time.perf_counter()
@@ -1113,13 +1132,10 @@ def phase_fused_cli(main: dict) -> None:
         f"run (a) in every key, {time.perf_counter() - t0:.3f} s wall")
 
 
-def phase_fused_scale() -> dict:
-    """Config 5's single-chip width: d=5 RRG, n=10⁶, R=1024 (W=32),
-    majority/stay. Host set-up seconds; the kernel's ms per class step over
-    2 sweeps by CUDA events, the peak device memory while timed and the
-    bytes the launch itself allocates (its accumulators: no end-state
-    scratch); the plain version's over χ steps; kernel == plain over one
-    chunk of χ steps."""
+def _scale_host_tables() -> tuple:
+    """The scale shape's host set-up: the d=5 RRG of n=10⁶, its power
+    graph, the distance-2 coloring and the fused tables, with the seconds
+    of each (``(graph, tables, timers)``)."""
     timers = {}
     cfg = _sa_config()
     t0 = time.perf_counter()
@@ -1134,7 +1150,19 @@ def phase_fused_scale() -> dict:
     t0 = time.perf_counter()
     tables = build_fused_tables(g, cfg, seed=0, coloring=(g2, colors))
     timers["tables"] = time.perf_counter() - t0
-    del g2
+    return g, tables, timers
+
+
+def phase_fused_scale(host=None) -> dict:
+    """Config 5's single-chip width: d=5 RRG, n=10⁶, R=1024 (W=32),
+    majority/stay. Host set-up seconds (``host``: :func:`_scale_host_tables`
+    made already, as the full run makes it while the kernels compile); the
+    kernel's ms per class step over 2 sweeps by CUDA events, the peak
+    device memory while timed and the bytes the launch itself allocates
+    (its accumulators: no end-state scratch); the plain version's over χ
+    steps; kernel == plain over one chunk of χ steps."""
+    cfg = _sa_config()
+    g, tables, timers = host or _scale_host_tables()
     t0 = time.perf_counter()
     st0, td, static, _, _, W, _ = _assemble_fused(
         g, cfg, n_replicas=SCALE_R, seed=0, m_target=1.0, betas=None,
@@ -3511,13 +3539,14 @@ def _stream_shape() -> tuple:
     return g, _stream_budget(g, STREAM_R // 32)
 
 
-def _run_cli(argv) -> tuple[dict, float]:
-    """Run the port's CLI in this process; its JSON line and wall time."""
+def _run_cli(argv, graph=None) -> tuple[dict, float]:
+    """Run the port's CLI in this process (``graph``: a ``stream``
+    command's graph, built already); its JSON line and wall time."""
     buf = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
+        rc = cli.main(argv, graph=graph)
     wall = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"{argv[0]} CLI exit {rc}")
@@ -3557,7 +3586,7 @@ def phase_stream_main() -> dict:
             path = os.path.join(tmp, f"d{depth}.npz")
             bucketed_cuda.LAUNCHES = 0
             doc, wall = _run_cli(base + ["--prefetch-depth", str(depth),
-                                         "--out", path])
+                                         "--out", path], graph=g)
             launches = bucketed_cuda.LAUNCHES
             if doc["chunks"] < 4:
                 raise AssertionError(f"stream plan has {doc['chunks']} chunks")
@@ -3941,12 +3970,12 @@ class _CkptCost:
                 "load_ms": self.load_s * 1e3 / max(self.loads, 1)}
 
 
-def _cli_rc(argv) -> int:
-    """``cli.main(argv)`` in this process, its output discarded; its exit
-    code. An injected hard preemption propagates (the process would die
-    there)."""
+def _cli_rc(argv, graph=None) -> int:
+    """``cli.main(argv, graph=graph)`` in this process, its output
+    discarded; its exit code. An injected hard preemption propagates (the
+    process would die there)."""
     with contextlib.redirect_stdout(io.StringIO()):
-        return cli.main(argv)
+        return cli.main(argv, graph=graph)
 
 
 def _cli_preempted(argv, site: str, at: int) -> None:
@@ -3960,12 +3989,12 @@ def _cli_preempted(argv, site: str, at: int) -> None:
     raise AssertionError(f"{argv[0]}: no preemption at {site} #{at}")
 
 
-def _cli_signalled(argv, site: str, at: int) -> None:
+def _cli_signalled(argv, site: str, at: int, graph=None) -> None:
     """A leg that gets a graceful-shutdown request at the ``at``-th hit of
     ``site`` (``GRAPHDYN_FAULT_PLAN``'s ``signal`` action, what a SIGTERM
     handler does): it must save there and exit 75."""
     with _fault_env([{"site": site, "action": "signal", "at": at}]):
-        rc = _cli_rc(argv)
+        rc = _cli_rc(argv, graph)
     if rc != EX_TEMPFAIL:
         raise AssertionError(f"{argv[0]}: exit {rc} on a shutdown request, "
                              f"not {EX_TEMPFAIL}")
@@ -4156,14 +4185,14 @@ def phase_stream_durable(tmp: str) -> dict:
     then with ``--checkpoint``: a graceful-shutdown request at the 3rd
     ``chunk.boundary`` (exit 75), resumed (the journaled churn replayed).
     Equal bit for bit; KB's launches over both legs = chunks × steps."""
-    _, budget = _stream_shape()
+    g, budget = _stream_shape()
     steps = 4
     base = ["stream", "--n", str(STREAM_N), "--gamma", "2.2", "--replicas",
             str(STREAM_R), "--steps", str(steps), "--device-budget",
             str(budget), "--churn-rate", "64", "--churn-seed",
             "3", "--device", "cuda"]
     ref = os.path.join(tmp, "stream_ref.npz")
-    doc, _ = _run_cli(base + ["--out", ref])
+    doc, _ = _run_cli(base + ["--out", ref], graph=g)
     ck, npz = os.path.join(tmp, "stream", "run"), os.path.join(tmp,
                                                                 "stream.npz")
     argv = base + ["--checkpoint", ck, "--checkpoint-interval", "0",
@@ -4171,8 +4200,8 @@ def phase_stream_durable(tmp: str) -> dict:
     bucketed_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
     with _CkptCost() as cost:
-        _cli_signalled(argv, "chunk.boundary", 3)
-        if _cli_rc(argv) != 0:
+        _cli_signalled(argv, "chunk.boundary", 3, graph=g)
+        if _cli_rc(argv, graph=g) != 0:
             raise AssertionError("stream: the resumed run failed")
     wall = time.perf_counter() - t0
     launches = bucketed_cuda.LAUNCHES
@@ -4977,16 +5006,122 @@ def phase_config5_lightcone(tmp: str) -> dict:
             "peak_bytes": peak}
 
 
+def _par_p1_legs(ctx: dict, inp: dict, tmp: str, make_mesh,
+                 halo_leg) -> dict:
+    """The parallel group's P=1 legs on this process's one-rank NCCL group
+    (while the spawned P=2 ranks run): the halo rollouts, the consensus
+    sweep unsharded and at P=1, config 5's light-cone width, the SA chain
+    the P=2 runs are held to, and the P=1 twins of the rest of parallel/.
+    Returns them under ``p1``, ``docs``, ``config5``, ``want``, ``mesh1``
+    and ``pb_one``."""
+    mesh1 = make_mesh((1, 1), ("replica", "node"), device="cuda")
+    p1 = {}
+    for k, g, W, seed in (("headline", ctx["g_h"], HEADLINE_R // 32, 1),
+                          ("config3", inp["g_e"], CONFIG3_R // 32, 3)):
+        part1 = graphs.partition_graph(g, 1, seed=0)
+        p1[k] = halo_leg(g, part1, W, seed, mesh1, k, steps=PAR_STEPS,
+                         timed=PAR_TIMED_STEPS)
+        if not p1[k]["equal"] or p1[k]["launches"]["packed_step"] \
+                != PAR_STEPS:
+            raise AssertionError(f"P=1 {k}: {p1[k]}")
+    docs = {}
+    for label, extra in (("unsharded", []), ("P=1", ["--sharded"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(PAR_CONSENSUS_ARGV + extra)
+        docs[label] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc != 0:
+            raise AssertionError(f"consensus {label} exit {rc}")
+    config5 = phase_config5_lightcone(tmp)
+    want = simulated_annealing(inp["g_sa"], _sa_config(), s0=inp["s0"],
+                               proposals=inp["prop"], uniforms=inp["unif"],
+                               device="cuda")
+    return {"p1": p1, "docs": docs, "config5": config5, "want": want,
+            "mesh1": mesh1, "pb_one": _pb_legs(1, tmp)}
+
+
+def _par_p2_checks(out: dict, ranks: list, inp: dict, tmp: str,
+                   sa_sharded) -> None:
+    """The parallel group's P=2 results against their twins, once the
+    spawned ranks are joined; the P=2 preempted SA run resumed at P=1."""
+    r0 = ranks[0]
+    for leg in ("headline", "config3"):
+        for r in ranks:
+            if not r[leg]["equal"] \
+                    or r[leg]["launches"]["shard"] != PAR_STEPS:
+                raise AssertionError(f"P=2 {leg}: {r[leg]}")
+    log(f"[54 halo P=2] two ranks on one card over gloo (staged through "
+        f"pinned host buffers), {PAR_STEPS} steps each, equal to the "
+        f"unsharded K1/K2' rollout: "
+        + "; ".join(
+            f"{r0[k]['label']}: edge_cut {r0[k]['edge_cut']}, partition "
+            f"{inp['part_s'][k]:.3f} s on the host, main path wall "
+            f"{r0[k]['wall_s']:.3f} s, shard launches (rank 0/1) "
+            f"{[r[k]['launches']['shard'] for r in ranks]}, per step "
+            f"(median of {PAR_TIMED_STEPS} timed steps, rank 0 / 1) "
+            f"step {[round(r[k]['step_ms'], 3) for r in ranks]} ms + "
+            f"exchange {[round(r[k]['exchange_ms'], 3) for r in ranks]} "
+            f"ms for "
+            f"{r0[k]['halo_bytes_per_step']} B (halo_bytes_per_step; "
+            f"{r0[k]['halo_rows']} useful rows, {r0[k]['slab_rows']} "
+            f"shipped)" for k in ("headline", "config3"))
+        + f"; spawn wall {out['spawn_wall_s']:.3f} s (the P=1 legs ran "
+        f"meanwhile: these times are shared)")
+    out["p2"] = {k: r0[k] for k in ("headline", "config3")}
+    docs = out.pop("docs")
+    c2 = r0["consensus"]
+    docs["P=2"] = json.loads(c2["out"].strip().splitlines()[-1])
+    if ranks[1]["consensus"]["out"].strip() or c2["rc"] != 0 \
+            or ranks[1]["consensus"]["rc"] != 0:
+        raise AssertionError("consensus --sharded: rank 1 printed or a "
+                             "rank failed")
+    if not (docs["unsharded"]["rows"] == docs["P=1"]["rows"]
+            == docs["P=2"]["rows"]):
+        raise AssertionError("consensus --sharded differs from the "
+                             "unsharded sweep")
+    log(f"[55 consensus] {' '.join(PAR_CONSENSUS_ARGV)}: --sharded at "
+        f"P=1 (one NCCL rank) and P=2 (two gloo ranks, word slabs of "
+        f"{HEADLINE_R // 64} words) equal to the unsharded rows; K1/K2' "
+        f"launches on each rank {c2['launches']}")
+    out["consensus_launches_p2"] = c2["launches"]
+    # the small SA shape: P=2 gather and halo equal to the one-process
+    # port; the P=2 preempted run resumed at P=1
+    want, mesh1 = out.pop("want"), out.pop("mesh1")
+    for mode in ("gather", "halo"):
+        _same_result(r0[f"sa_{mode}"], want, f"sa_sharded {mode} P=2")
+    if any(r["preempt"] != "preempted" for r in ranks):
+        raise AssertionError("the P=2 checkpointed run was not preempted")
+    t0 = time.perf_counter()
+    res = sa_sharded(inp["g_sa"], _sa_config(), mesh=mesh1, s0=inp["s0"],
+                     proposals=inp["prop"], uniforms=inp["unif"],
+                     chunk_steps=64, checkpoint_path=inp["ckpt"],
+                     checkpoint_interval_s=0.0, device="cuda")
+    resume_wall = time.perf_counter() - t0
+    _same_result({f: getattr(res, f) for f in res._fields}, want,
+                 "sa_sharded resumed at P=1")
+    log(f"[57 sa_sharded] RRG d=3 n={PAR_SA_N}, R={PAR_SA_R}, "
+        f"{PAR_SA_L} injected draws: gather and halo at P=2 equal to "
+        f"simulated_annealing (walls {r0['sa_gather']['wall_s']:.3f} / "
+        f"{r0['sa_halo']['wall_s']:.3f} s); preempted at its 2nd chunk "
+        f"boundary at P=2 (halo), resumed at P=1 from rank 0's global "
+        f"snapshot: equal to the uninterrupted chain ({resume_wall:.3f} s)")
+    out["sa"] = {"gather_wall_s": r0["sa_gather"]["wall_s"],
+                 "halo_wall_s": r0["sa_halo"]["wall_s"],
+                 "resume_wall_s": resume_wall}
+
+
 def phase_parallel(ctx: dict) -> dict:
     """Node-axis sharding: the shard-layout launch against
     its twin; the P=2 legs on two spawned ranks sharing the card over gloo
     (the headline and config-3 halo rollouts, the sharded consensus, the
     sharded SA and a preempted SA run); the P=1 legs on a one-rank NCCL
-    group in this process (the same rollouts and consensus, config 5's
-    light-cone width, and the P=2 run resumed at P=1); memcheck's halo
-    row. The same spawn and NCCL group run the legs of the rest of
-    parallel/ (:func:`_pb_legs`), which :func:`phase_parallel_b` checks
-    (``out["b"]``)."""
+    group in this process while the ranks run (the same rollouts and
+    consensus, config 5's light-cone width: their times, and the ranks',
+    are taken with the other side running), and after the join the P=2
+    run resumed at P=1; memcheck's halo row. The same spawn and NCCL group
+    run the legs of the rest of parallel/ (:func:`_pb_legs`), which
+    :func:`phase_parallel_b` checks (``out["b"]``), its kernel rows timed
+    with no rank running."""
     import torch.distributed as dist
 
     from graphdyn_torch.obs import memband
@@ -5004,108 +5139,32 @@ def phase_parallel(ctx: dict) -> dict:
              ("config 3 P=3", inp["g_e"],
               graphs.partition_graph(inp["g_e"], 3, seed=0), 3)])
         torch.cuda.empty_cache()
+        # the P=2 ranks run while this process runs the P=1 twins: the
+        # ranks are host-bound (gloo staging through host memory), and
+        # this process would otherwise only wait for them. The twins that
+        # need the ranks' results (the P=1 resume of their preempted run,
+        # the comparisons) and the kernel rows of the rest of parallel/
+        # (phase_parallel_b) come after the join
+        spawn = ThreadPoolExecutor(1)
         t0 = time.perf_counter()
-        ranks = run_ranks(_par_rank, 2, tmp, device="cuda", backend="gloo",
-                          root=tmp, timeout=PAR_SPAWN_TIMEOUT_S)
-        out["spawn_wall_s"] = time.perf_counter() - t0
-        pb_ranks = [r.pop("pb") for r in ranks]
-        r0 = ranks[0]
-        for leg in ("headline", "config3"):
-            for r in ranks:
-                if not r[leg]["equal"] \
-                        or r[leg]["launches"]["shard"] != PAR_STEPS:
-                    raise AssertionError(f"P=2 {leg}: {r[leg]}")
-        log(f"[54 halo P=2] two ranks on one card over gloo (staged through "
-            f"pinned host buffers), {PAR_STEPS} steps each, equal to the "
-            f"unsharded K1/K2' rollout: "
-            + "; ".join(
-                f"{r0[k]['label']}: edge_cut {r0[k]['edge_cut']}, partition "
-                f"{inp['part_s'][k]:.3f} s on the host, main path wall "
-                f"{r0[k]['wall_s']:.3f} s, shard launches (rank 0/1) "
-                f"{[r[k]['launches']['shard'] for r in ranks]}, per step "
-                f"(median of {PAR_TIMED_STEPS} timed steps, rank 0 / 1) "
-                f"step {[round(r[k]['step_ms'], 3) for r in ranks]} ms + "
-                f"exchange {[round(r[k]['exchange_ms'], 3) for r in ranks]} "
-                f"ms for "
-                f"{r0[k]['halo_bytes_per_step']} B (halo_bytes_per_step; "
-                f"{r0[k]['halo_rows']} useful rows, {r0[k]['slab_rows']} "
-                f"shipped)" for k in ("headline", "config3"))
-            + f"; spawn wall {out['spawn_wall_s']:.3f} s")
-        init_distributed(world_size=1, rank=0, backend="nccl",
-                         device="cuda")
+        ranks_f = spawn.submit(run_ranks, _par_rank, 2, tmp, device="cuda",
+                               backend="gloo", root=tmp,
+                               timeout=PAR_SPAWN_TIMEOUT_S)
         try:
-            mesh1 = make_mesh((1, 1), ("replica", "node"), device="cuda")
-            p1 = {}
-            for k, g, W, seed in (("headline", ctx["g_h"], HEADLINE_R // 32,
-                                   1), ("config3", inp["g_e"],
-                                        CONFIG3_R // 32, 3)):
-                part1 = graphs.partition_graph(g, 1, seed=0)
-                p1[k] = halo_leg(g, part1, W, seed, mesh1, k,
-                                 steps=PAR_STEPS, timed=PAR_TIMED_STEPS)
-                if not p1[k]["equal"] or p1[k]["launches"]["packed_step"] \
-                        != PAR_STEPS:
-                    raise AssertionError(f"P=1 {k}: {p1[k]}")
-            out["p1"], out["p2"] = p1, {k: r0[k] for k in ("headline",
-                                                           "config3")}
-            docs = {}
-            for label, extra in (("unsharded", []), ("P=1", ["--sharded"])):
-                buf = io.StringIO()
-                with contextlib.redirect_stdout(buf):
-                    rc = cli.main(PAR_CONSENSUS_ARGV + extra)
-                docs[label] = json.loads(buf.getvalue().strip()
-                                         .splitlines()[-1])
-                if rc != 0:
-                    raise AssertionError(f"consensus {label} exit {rc}")
-            c2 = r0["consensus"]
-            docs["P=2"] = json.loads(c2["out"].strip().splitlines()[-1])
-            if ranks[1]["consensus"]["out"].strip() or c2["rc"] != 0 \
-                    or ranks[1]["consensus"]["rc"] != 0:
-                raise AssertionError("consensus --sharded: rank 1 printed or "
-                                     "a rank failed")
-            if not (docs["unsharded"]["rows"] == docs["P=1"]["rows"]
-                    == docs["P=2"]["rows"]):
-                raise AssertionError("consensus --sharded differs from the "
-                                     "unsharded sweep")
-            log(f"[55 consensus] {' '.join(PAR_CONSENSUS_ARGV)}: --sharded at "
-                f"P=1 (one NCCL rank) and P=2 (two gloo ranks, word slabs "
-                f"of {HEADLINE_R // 64} words) equal to the unsharded rows; "
-                f"K1/K2' launches on each rank {c2['launches']}")
-            out["consensus_launches_p2"] = c2["launches"]
-            out["config5"] = phase_config5_lightcone(tmp)
-            # the small SA shape: P=2 gather and halo equal to the one-
-            # process port; the P=2 preempted run resumed at P=1
-            cfg = _sa_config()
-            want = simulated_annealing(inp["g_sa"], cfg, s0=inp["s0"],
-                                       proposals=inp["prop"],
-                                       uniforms=inp["unif"], device="cuda")
-            for mode in ("gather", "halo"):
-                _same_result(r0[f"sa_{mode}"], want, f"sa_sharded {mode} P=2")
-            if any(r["preempt"] != "preempted" for r in ranks):
-                raise AssertionError("the P=2 checkpointed run was not "
-                                     "preempted")
-            t0 = time.perf_counter()
-            res = sa_sharded(inp["g_sa"], cfg, mesh=mesh1, s0=inp["s0"],
-                             proposals=inp["prop"], uniforms=inp["unif"],
-                             chunk_steps=64, checkpoint_path=inp["ckpt"],
-                             checkpoint_interval_s=0.0, device="cuda")
-            resume_wall = time.perf_counter() - t0
-            _same_result({f: getattr(res, f) for f in res._fields}, want,
-                         "sa_sharded resumed at P=1")
-            log(f"[57 sa_sharded] RRG d=3 n={PAR_SA_N}, R={PAR_SA_R}, "
-                f"{PAR_SA_L} injected draws: gather and halo at P=2 equal to "
-                f"simulated_annealing (walls "
-                f"{r0['sa_gather']['wall_s']:.3f} / "
-                f"{r0['sa_halo']['wall_s']:.3f} s); preempted at its 2nd "
-                f"chunk boundary at P=2 (halo), resumed at P=1 from rank 0's "
-                f"global snapshot: equal to the uninterrupted chain "
-                f"({resume_wall:.3f} s)")
-            out["sa"] = {"gather_wall_s": r0["sa_gather"]["wall_s"],
-                         "halo_wall_s": r0["sa_halo"]["wall_s"],
-                         "resume_wall_s": resume_wall}
-            # the P=1 twins of the rest of parallel/ on this one-rank group
-            pb_one = _pb_legs(1, tmp)
+            init_distributed(world_size=1, rank=0, backend="nccl",
+                             device="cuda")
+            try:
+                out.update(_par_p1_legs(ctx, inp, tmp, make_mesh,
+                                        halo_leg))
+                pb_one = out.pop("pb_one")
+                ranks = ranks_f.result()
+                out["spawn_wall_s"] = time.perf_counter() - t0
+                pb_ranks = [r.pop("pb") for r in ranks]
+                _par_p2_checks(out, ranks, inp, tmp, sa_sharded)
+            finally:
+                dist.destroy_process_group()
         finally:
-            dist.destroy_process_group()
+            spawn.shutdown()
         out["b"] = phase_parallel_b(ctx, pb_ranks, pb_one, tmp)
     # memcheck's halo row (the obs group's memcheck prints it among the
     # others): the widest smoke shard's peak against its model
@@ -5282,7 +5341,7 @@ def _pb_legs(world: int, tmp: str, device="cuda") -> dict:
     sync()
     t0 = time.perf_counter()
     out = sharded_streamed_rollout(
-        g, sp, STREAM_STEPS, n_shards=world, device_budget_bytes=budget,
+        g, sp, PB_STREAM_STEPS, n_shards=world, device_budget_bytes=budget,
         mesh=mesh(("replica", "node")), stats_out=st, device=device)
     res["stream"] = {"words": words_to_numpy(out), "stats": st,
                      "wall_s": time.perf_counter() - t0,
@@ -5339,6 +5398,25 @@ def _pb_legs(world: int, tmp: str, device="cuda") -> dict:
                       if e["name"] == f"parallel.sharded.{k}")
         for k in ("contract", "gather")}
     res["union"]["split"]["spans"] = len(spans)
+    if world > 1:
+        # the same ladder with a checkpoint, preempted after its first λ on
+        # every rank, then resumed at P=2 from rank 0's global snapshot
+        kw = dict(seed=0, lambdas=_config4_lambdas()[:PB_UNION_L],
+                  mesh=mesh(("replica", "edge")), device=device,
+                  checkpoint_path=os.path.join(tmp, "ck", "union"),
+                  checkpoint_interval_s=0.0)
+        try:
+            with faults.FaultPlan([faults.FaultSpec(
+                    "lambda.boundary", "preempt", at=1)]):
+                entropy_ensemble_union(gs, _config4_config(), **kw)
+            cut = False
+        except faults.InjectedPreemption:
+            cut = True
+        dist.barrier()
+        res["union_ckpt"] = {
+            "cut": cut,
+            "res": entropy_ensemble_union(gs, _config4_config(),
+                                          **kw)._asdict()}
     if world > 1:
         # config 2's replica mesh (each rank draws every chain's initial
         # state with numpy, as the unsharded solver does, and keeps its
@@ -5460,17 +5538,13 @@ def _pb_kb_row(plan_tables, W: int) -> dict:
     err = _max_abs_err(out, want)
     if err:
         raise AssertionError("KB on a shard chunk != its plain version")
-    t = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    t.record()
-    plain(slab, slab.index_select(0, self_loc.long()))
-    e.record()
-    torch.cuda.synchronize()
+    plain_ms = _cuda_ms(lambda: plain(slab, slab.index_select(
+        0, self_loc.long())), PB_PLAIN_REPS)
     nbytes = 4 * W * (ch.M + 1) + 4 * W * ch.C + 4 * ch.C * ch.width \
         + 8 * ch.C
     ops = majority_ops(W, ch.deg)
     b = _rbound(nbytes, ops, INT32_OPS_PER_S)
-    return {"ms": ms, "plain_ms": t.elapsed_time(e), "max_abs_err": err,
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "bytes": nbytes, "ops": ops,
             "shape": f"stream bench shape, P=2, shard 0's largest chunk: "
@@ -5506,19 +5580,16 @@ def _pb_k3_row() -> dict:
     ms = _cuda_ms(lambda: bdcm_cuda.dp_contract_cuda(
         chi_in, a, old, d=cls.d, T=data.T, damp=0.5), 20)
     bdcm_cuda.LAUNCHES = counted
-    t = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    t.record()
     want = bdcm_ops.dp_contract_grouped_plain(chi_in, a, old, d=cls.d,
                                               T=data.T, damp=0.5)
-    e.record()
-    torch.cuda.synchronize()
+    plain_ms = _cuda_ms(lambda: bdcm_ops.dp_contract_grouped_plain(
+        chi_in, a, old, d=cls.d, T=data.T, damp=0.5), PB_PLAIN_REPS)
     err = _max_abs_err(got, want)
     rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
     if not torch.allclose(got, want, rtol=1e-5, atol=1e-7):
         raise AssertionError(f"K3 on the edge slice: max abs err {err}")
     b = contract_bound(1, half, cls.d, data.T, data.dtype)
-    return {"ms": ms, "plain_ms": t.elapsed_time(e), "max_abs_err": err,
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "max_rel_err": rel, "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "bytes": b["bytes"],
             "flops": b["flops"],
@@ -5547,12 +5618,12 @@ def phase_parallel_b(ctx: dict, ranks: list, one: dict, tmp: str) -> dict:
     # the stream: P=2 == P=1 == single-device == resident
     g, budget, sp = _pb_stream_inputs()
     want = words_to_numpy(bucketed.bucketed_rollout_global(
-        g, sp.to("cuda"), STREAM_STEPS)).copy()
+        g, sp.to("cuda"), PB_STREAM_STEPS)).copy()
     if "powerlaw" not in ctx:
         # (the power-law group's phase 38 holds streamed_rollout to the
         # resident rollout at this shape in a full run)
         single = words_to_numpy(streamed.streamed_rollout(
-            g, sp, STREAM_STEPS, device_budget_bytes=budget))
+            g, sp, PB_STREAM_STEPS, device_budget_bytes=budget))
         if not np.array_equal(single, want):
             raise AssertionError("streamed_rollout != resident")
     for label, r in (("P=2 rank 0", r0), ("P=2 rank 1", ranks[1]),
@@ -5560,11 +5631,11 @@ def phase_parallel_b(ctx: dict, ranks: list, one: dict, tmp: str) -> dict:
         s = r["stream"]
         if not np.array_equal(s["words"], want):
             raise AssertionError(f"sharded stream {label} != resident")
-        if s["launches"] != s["stats"]["shard_chunks"] * STREAM_STEPS:
+        if s["launches"] != s["stats"]["shard_chunks"] * PB_STREAM_STEPS:
             raise AssertionError(
                 f"sharded stream {label}: {s['launches']} KB launches "
                 f"for {s['stats']['shard_chunks']} chunks x "
-                f"{STREAM_STEPS} steps")
+                f"{PB_STREAM_STEPS} steps")
     st2, st1 = r0["stream"]["stats"], one["stream"]["stats"]
     # per step: the chunk walk and the exchange (their sum is the steady
     # step); apart: the call's seconds outside the steps (the shard plan,
@@ -5573,9 +5644,9 @@ def phase_parallel_b(ctx: dict, ranks: list, one: dict, tmp: str) -> dict:
     for k, r in (("P=2 rank 0", r0), ("P=2 rank 1", ranks[1]), ("P=1", one)):
         walk, exch = (r["stream"]["stats"]["walk_s"],
                       r["stream"]["stats"]["exchange_s"])
-        split[k] = {"walk_ms": walk * 1e3 / STREAM_STEPS,
-                    "exchange_ms": exch * 1e3 / STREAM_STEPS,
-                    "steady_ms": (walk + exch) * 1e3 / STREAM_STEPS,
+        split[k] = {"walk_ms": walk * 1e3 / PB_STREAM_STEPS,
+                    "exchange_ms": exch * 1e3 / PB_STREAM_STEPS,
+                    "steady_ms": (walk + exch) * 1e3 / PB_STREAM_STEPS,
                     "outside_steps_s": r["stream"]["wall_s"] - walk - exch}
     out["stream"] = {"split": split, "P2": {k: st2[k] for k in (
         "h2d_bytes", "d2h_bytes", "exchange_bytes", "per_shard_overlap",
@@ -5586,7 +5657,7 @@ def phase_parallel_b(ctx: dict, ranks: list, one: dict, tmp: str) -> dict:
         "budget": budget}
     log(f"[60 sharded stream] sharded_streamed_rollout at the stream "
         f"bench shape (n={STREAM_N}, R={STREAM_R}, budget {budget} B a "
-        f"shard, {STREAM_STEPS} steps): P=2 (two gloo ranks on the card) "
+        f"shard, {PB_STREAM_STEPS} steps): P=2 (two gloo ranks on the card) "
         f"and P=1 equal to streamed_rollout and the resident "
         f"bucketed_rollout_global bit for bit; per step (host clock, "
         f"synchronised; steady = walk + exchange, outside_steps_s the "
@@ -5651,6 +5722,17 @@ def phase_parallel_b(ctx: dict, ranks: list, one: dict, tmp: str) -> dict:
                 f"{u['classes']} classes x {sweeps} sweeps, K3' "
                 f"{u['k3p']}")
     _same_arrays(ranks[1]["union"]["res"], u2["res"], "union P=2 ranks")
+    # the mesh ladder's checkpoint: preempted after its first λ, resumed at
+    # P=2 from rank 0's global snapshot, equal to the uninterrupted P=2 run
+    for r in ranks:
+        if not r["union_ckpt"]["cut"]:
+            raise AssertionError("the checkpointed union ladder was not "
+                                 "preempted")
+        _same_arrays(r["union_ckpt"]["res"], u2["res"],
+                     "union resumed at P=2")
+    log(f"[63 edge-sharded union] preempted after its first λ at P=2 and "
+        f"resumed from rank 0's global snapshot: equal to the "
+        f"uninterrupted P=2 ladder on both ranks")
     unsharded = entropy_ensemble_union(
         _config4_graphs(), _config4_config(), seed=0,
         lambdas=_config4_lambdas()[:PB_UNION_L], device="cuda")._asdict()
@@ -5824,8 +5906,8 @@ def _sha(a) -> str:
 
 def _group_soak(ctx: dict) -> dict:
     """The chaos soak's bounded matrix on the card (every workload on
-    ``--device cuda``): seed 0 always, further seeds while the run is
-    inside SOAK_UNTIL_S seconds."""
+    ``--device cuda``): seed 0 always, a further seed when it would end
+    inside SOAK_UNTIL_S seconds (as long as the seed before it took)."""
     from graphdyn_torch.resilience.soak import SCENARIOS, run_soak
 
     seeds, walls, failed = [], [], 0
@@ -5834,7 +5916,8 @@ def _group_soak(ctx: dict) -> dict:
         os.chdir(tmp)
         try:
             for seed in range(3):
-                if seed and time.perf_counter() - _T0 > SOAK_UNTIL_S:
+                if seed and time.perf_counter() - _T0 + walls[-1] \
+                        > SOAK_UNTIL_S:
                     break
                 t0 = time.perf_counter()
                 rep = run_soak(seeds=[seed], root=os.path.join(tmp, "soak"),
@@ -5923,7 +6006,7 @@ def phase_serve(ctx: dict) -> dict:
     from graphdyn_torch.obs.memband import fused_model_bytes
     from graphdyn_torch.ops.packed import pack_spins, unpack_spins
     from graphdyn_torch.serve import admission
-    from graphdyn_torch.serve.bucketing import BucketCache, graph_key
+    from graphdyn_torch.serve.bucketing import graph_key
     from graphdyn_torch.serve.lifecycle import run_service
     from graphdyn_torch.serve.spool import Spool
     from graphdyn_torch.serve.worker import _random_spins
@@ -5953,7 +6036,7 @@ def phase_serve(ctx: dict) -> dict:
                "erin": sp.submit({**stream_spec, "shards": 2}, "erin"),
                "frank": sp.submit({"solver": "bucketed", "n": 4096, "d": 2,
                                    "gamma": 2.2, "edges": 1}, "frank")}
-        cache = BucketCache()
+        cache = _seeded_cache(ctx)
         peaks, served = {}, {}
         fused_cuda.LAUNCHES = packed_cuda.LAUNCHES = 0
         bucketed_cuda.LAUNCHES = 0
@@ -6010,11 +6093,13 @@ def phase_serve(ctx: dict) -> dict:
         if states != want_states:
             raise AssertionError(f"served states {states}; reasons "
                                  f"{[r['reason'] for r in recs.values()]}")
-        # results equal to the direct calls
+        # results equal to the direct calls (kept for the analysis group)
+        twins = ctx["serve_twins"] = {}
         for name in ("alice", "bob"):
             spec = recs[ids[name]]["spec"]
-            _serve_same(recs[ids[name]]["result"],
-                        _serve_fused_twin(cache, spec), f"fused job {name}")
+            twins[name] = _serve_fused_twin(cache, spec)
+            _serve_same(recs[ids[name]]["result"], twins[name],
+                        f"fused job {name}")
         _serve_same(recs[tid]["result"], _serve_fused_twin(cache, recs[tid][
             "spec"]), "evicted job tim (its uninterrupted twin)")
         g_pl, b_pl = cache._graphs[graph_key(recs[ids["carol"]]["spec"])]
@@ -6022,6 +6107,7 @@ def phase_serve(ctx: dict) -> dict:
         want_b = unpack_spins(bucketed.bucketed_rollout_global(
             g_pl, pack_spins(torch.as_tensor(s0, device="cuda")),
             POWERLAW_STEPS, buckets=b_pl), POWERLAW_R).cpu().numpy()
+        twins["carol"] = want_b
         _serve_same(recs[ids["carol"]]["result"], {"conf": want_b},
                     "bucketed job carol")
         s0 = _random_spins(stream_spec, STREAM_N)
@@ -6111,6 +6197,363 @@ def phase_serve(ctx: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# static analysis and race checking (graphdyn_torch.analysis) on the card
+# ---------------------------------------------------------------------------
+
+#: the contract check's timing: calls per batch, batches (median of them)
+CONTRACT_CALLS, CONTRACT_BATCHES = 1000, 7
+#: the sanitized stream legs: turns of (off, on) at the stream shape, each
+#: way's ms a step the median of its turns
+SANITIZE_TURNS = 3
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def phase_contracts(ctx: dict) -> dict:
+    """The contracts on CUDA tensors: the check's host µs per call (median
+    of batches of decorated minus undecorated calls on the headline's
+    tensors), a decorated headline step (one K1/K2′ launch) under
+    ``torch.cuda.set_sync_debug_mode("error")``, and an int64 neighbour
+    table refused with ``ContractError`` before any launch."""
+    from graphdyn_torch.analysis.contracts import ContractError, contract
+
+    nbr_h, deg_h = ctx["tables_h"]
+    sp_h = draw_packed_biased(1, ctx["g_h"].n, HEADLINE_R // 32, 0.0,
+                              device="cuda")
+    spec = dict(nbr="int32[n,d]", deg="int32[n]", sp="int32[n,w]",
+                ret="int32[n,w]")
+
+    def body(nbr, deg, sp):
+        return sp
+
+    checked = contract(**spec)(body)
+    per_call = []
+    for _ in range(CONTRACT_BATCHES):
+        t0 = time.perf_counter()
+        for _ in range(CONTRACT_CALLS):
+            checked(nbr_h, deg_h, sp_h)
+        t1 = time.perf_counter()
+        for _ in range(CONTRACT_CALLS):
+            body(nbr_h, deg_h, sp_h)
+        t2 = time.perf_counter()
+        per_call.append(((t1 - t0) - (t2 - t1)) / CONTRACT_CALLS * 1e6)
+    us = _median(per_call)
+    # the decorated headline step: a warmed kernel step (its table checks
+    # and plan ran at the warm-up), then one launch under sync-debug
+    step = _stepper(nbr_h, deg_h, "majority", "stay")
+    ext = torch.cat([sp_h, sp_h.new_zeros(1, sp_h.shape[1])])
+    ext = step(ext)
+    torch.cuda.synchronize()
+    launch = contract(nbr="int32[n,d]", deg="int32[n]", ext="int32[m,w]",
+                      ret="int32[m,w]")(lambda nbr, deg, ext: step(ext))
+    launches0 = packed_cuda.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        launch(nbr_h, deg_h, ext)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if packed_cuda.LAUNCHES != launches0 + 1:
+        raise AssertionError("the decorated headline step did not launch")
+    launches0 = packed_cuda.LAUNCHES
+    try:
+        packed_rollout(nbr_h.long(), deg_h, sp_h, 1)
+    except ContractError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("an int64 neighbour table was not refused")
+    if packed_cuda.LAUNCHES != launches0:
+        raise AssertionError("the refused call launched the kernel")
+    head_ms = ctx["packed"]["head"]["ms"] if "packed" in ctx else None
+    log(f"[69 contracts] @contract check on the headline's CUDA tensors: "
+        f"{us:.3f} µs of host time a call (median of {CONTRACT_BATCHES} "
+        f"batches of {CONTRACT_CALLS}; the headline packed step "
+        f"{head_ms if head_ms is not None else 2.64} ms); the decorated "
+        f"headline step raised nothing under set_sync_debug_mode('error') "
+        f"and launched once; an int64 table refused before any launch: "
+        f"{refused[:120]}")
+    return {"us_per_call": us, "batches_us": per_call, "refused": refused}
+
+
+def phase_sanitizer(ctx: dict) -> dict:
+    """The alias sanitizer on the stream shape (``streamed_rollout``, n =
+    65,536, R = 1024, 10 steps, prefetch depth 2, one plan) on and off in
+    turns: no ``AliasRaceError``, every result equal to the unsanitized
+    one, ms a step each way; then the control leg: a pinned slab written
+    after its ``non_blocking`` copy was issued behind a busy stream, before
+    the copy's event completed, must raise naming that crossing."""
+    from graphdyn_torch.analysis.sanitize import (
+        AliasRaceError,
+        alias_sanitizer,
+    )
+    from graphdyn_torch.ops.packed import pack_spins
+    from graphdyn_torch.serve.worker import _random_spins
+
+    g_s, budget = _stream_shape()
+    plan = streamed.build_stream_plan(g_s, W=STREAM_R // 32,
+                                      device_budget_bytes=budget)
+    sp = pack_spins(_random_spins({"seed": 0, "replicas": STREAM_R},
+                                  STREAM_N))
+
+    def leg():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = streamed.streamed_rollout(g_s, sp, STREAM_STEPS, plan=plan,
+                                        prefetch_depth=2, device="cuda")
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / STREAM_STEPS
+
+    want, _ = leg()                     # warm: the chunks' launch objects
+    ms = {"off": [], "on": []}
+    crossings = 0
+    for _ in range(SANITIZE_TURNS):
+        out, t = leg()
+        ms["off"].append(t)
+        if not torch.equal(out, want):
+            raise AssertionError("the stream's unsanitized legs differ")
+        with alias_sanitizer() as san:
+            out, t = leg()
+        crossings = san.crossings
+        ms["on"].append(t)
+        if not torch.equal(out, want):
+            raise AssertionError("the sanitized stream differs from the "
+                                 "unsanitized one")
+    # the control leg: a write inside a pending copy's window
+    slab = torch.ones(1 << 22, dtype=torch.int32, pin_memory=True)
+    side = torch.cuda.Stream()
+    try:
+        with alias_sanitizer():
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(200_000_000)   # the copy waits behind it
+                _ = slab.to("cuda", non_blocking=True)
+            slab[0] = 7                          # inside the window
+            side.synchronize()
+    except AliasRaceError as e:
+        caught = str(e)
+    else:
+        raise AssertionError("the sanitizer missed a pinned slab written "
+                             "before its non_blocking copy completed")
+    if "chip_smoke.py" not in caught:
+        raise AssertionError(f"the race does not name its crossing: "
+                             f"{caught}")
+    torch.cuda.synchronize()
+    med = {k: _median(v) for k, v in ms.items()}
+    out = {"ms_per_step": ms, "median_ms_per_step": med,
+           "crossings": crossings, "chunks": plan.K, "control": caught[:300]}
+    log(f"[70 sanitizer] streamed_rollout n={STREAM_N} R={STREAM_R} "
+        f"{STREAM_STEPS} steps, {plan.K} chunks, prefetch depth 2, "
+        f"{SANITIZE_TURNS} turns: ms a step off {med['off']:.3f} (median of "
+        f"{[round(x, 3) for x in ms['off']]}), on {med['on']:.3f} (of "
+        f"{[round(x, 3) for x in ms['on']]}) ({crossings} crossings "
+        f"digested a run); every result equal to the unsanitized one; the "
+        f"control leg raised AliasRaceError: {caught[:160]}")
+    return out
+
+
+def _seeded_cache(ctx: dict):
+    """A serve table cache seeded with the graphs the run built once: the
+    power-law bench graph with its buckets, and the stream shape's graph
+    (so no served job builds them a second time)."""
+    from graphdyn_torch.serve.bucketing import BucketCache, graph_key
+    from graphdyn_torch.serve.spool import SPEC_DEFAULTS
+
+    cache = BucketCache()
+    pl = {**SPEC_DEFAULTS, "solver": "bucketed", "n": POWERLAW_N, "d": 2,
+          "gamma": 2.2, "graph_seed": 0}
+    cache._graphs[graph_key(pl)] = ctx["pl_shared"]
+    st = {**SPEC_DEFAULTS, "solver": "streamed", "n": STREAM_N, "d": 2,
+          "gamma": 2.2, "graph_seed": 0}
+    cache._graphs[graph_key(st)] = (_stream_shape()[0], None)
+    return cache
+
+
+def phase_racecheck(ctx: dict) -> dict:
+    """The serve group's fused config-1 jobs and its bucketed job through
+    ``run_service`` with the race checker off, then installed with the
+    seeded jitter (``install(fuzz_seed=0)``): every result equal to its
+    direct call, the observed lock order consistent with the committed
+    ledger, ``racecheck.acquire`` counters in the flight ring, the walls
+    both ways."""
+    from graphdyn_torch.analysis import racecheck
+    from graphdyn_torch.ops.packed import pack_spins, unpack_spins
+    from graphdyn_torch.serve.bucketing import graph_key
+    from graphdyn_torch.serve.lifecycle import run_service
+    from graphdyn_torch.serve.spool import Spool
+    from graphdyn_torch.serve.worker import _random_spins
+
+    fused = [dict(SERVE_FUSED, seed=s) for s in (0, 1)]
+    bucketed_spec = {"solver": "bucketed", "n": POWERLAW_N, "d": 2,
+                     "gamma": 2.2, "graph_seed": 0, "seed": 0,
+                     "replicas": POWERLAW_R, "max_sweeps": POWERLAW_STEPS,
+                     "edges": ctx["pl_edges"]}
+    specs = fused + [bucketed_spec]
+    cache = _seeded_cache(ctx)
+    walls, results = {}, {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        for mode in ("off", "on"):
+            sp = Spool(os.path.join(tmp, mode))
+            ids = [sp.submit(s, "rc") for s in specs]
+            if mode == "on":
+                wrapped = racecheck.install(fuzz_seed=0)
+                obs_flight.clear()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = run_service(sp.root, idle_exit_s=0.0, warm=False,
+                                 device="cuda", cache=cache)
+                torch.cuda.synchronize()
+                walls[mode] = time.perf_counter() - t0
+                if mode == "on":
+                    problems = racecheck.assert_observed_against_ledger()
+                    observed = racecheck.observed_order()
+                    undeclared = racecheck.undeclared_observed()
+                    acquires = [e for e in obs_flight.snapshot()
+                                if e.get("name") == "racecheck.acquire"]
+            finally:
+                if mode == "on":
+                    racecheck.uninstall()
+            if rc != 0:
+                raise AssertionError(f"racecheck {mode}: run_service exit "
+                                     f"{rc}")
+            recs = {r["id"]: r for r in sp.jobs()}
+            results[mode] = [recs[i]["result"] for i in ids]
+            served = [recs[i]["spec"] for i in ids]     # defaults filled
+            if any(recs[i]["state"] != "done" for i in ids):
+                raise AssertionError(f"racecheck {mode}: states "
+                                     f"{[recs[i]['state'] for i in ids]}")
+        # the serve group's direct calls of the same jobs, when it ran
+        twins = ctx.get("serve_twins", {})
+        for k, name in enumerate(("alice", "bob")):
+            want = twins.get(name) or _serve_fused_twin(cache, served[k])
+            for mode in ("off", "on"):
+                _serve_same(results[mode][k], want,
+                            f"fused job {k} (racecheck {mode})")
+        want_b = twins.get("carol")
+        if want_b is None:
+            g_pl, b_pl = cache._graphs[graph_key(served[2])]
+            s0 = _random_spins(bucketed_spec, POWERLAW_N)
+            want_b = unpack_spins(bucketed.bucketed_rollout_global(
+                g_pl, pack_spins(torch.as_tensor(s0, device="cuda")),
+                POWERLAW_STEPS, buckets=b_pl), POWERLAW_R).cpu().numpy()
+        for mode in ("off", "on"):
+            _serve_same(results[mode][2], {"conf": want_b},
+                        f"bucketed job (racecheck {mode})")
+    if problems:
+        raise AssertionError(f"observed lock order inverts the ledger: "
+                             f"{problems}")
+    if not acquires:
+        raise AssertionError("no racecheck.acquire counter reached the "
+                             "flight ring")
+    out = {"walls_s": walls, "wrapped": len(wrapped),
+           "observed": observed, "undeclared": undeclared,
+           "acquires_in_ring": len(acquires)}
+    log(f"[71 racecheck] the serve group's two fused config-1 jobs and its "
+        f"bucketed job through run_service: off {walls['off']:.4f} s, "
+        f"installed with fuzz seed 0 {walls['on']:.4f} s ({len(wrapped)} "
+        f"module locks traced); every result == its direct call; "
+        f"{len(acquires)} racecheck.acquire events in the flight ring; "
+        f"observed order {observed} (undeclared in the ledger: "
+        f"{undeclared}); no inversion")
+    return out
+
+
+def phase_graftcheck() -> dict:
+    """The dispatch fingerprints of the entry points on the card against
+    the committed ledger's CUDA rows (and the live rules)."""
+    from graphdyn_torch.analysis import graftcheck
+
+    t0 = time.perf_counter()
+    live = graftcheck.collect_fingerprints(device="cuda")
+    findings = []
+    for name, fp in live.items():
+        if "unsupported" not in fp:
+            spec = graftcheck.ENTRIES[name]
+            findings += graftcheck.audit_fingerprint(
+                name, fp, in_place=spec.in_place, device="cuda",
+                f64_reason=spec.f64_reason)
+    findings += graftcheck.check_ledger(live, graftcheck.load_ledger(),
+                                        "cuda")
+    launches = {k: v["launches"] for k, v in live.items()
+                if "unsupported" not in v}
+    log(f"[72 graftcheck] {len(live)} entry points fingerprinted on the "
+        f"card in {time.perf_counter() - t0:.3f} s; launches per chunk "
+        f"{launches}; fused state in place "
+        f"{live['fused_anneal'].get('state_in_place')}; findings "
+        f"{[tuple(f) for f in findings]}")
+    if findings:
+        raise AssertionError(f"graftcheck on the card: {findings}")
+    return {"entries": sorted(live), "launches": launches,
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_graftcost() -> dict:
+    """The served jobs' resident peaks at the calibration shapes, measured
+    by the graftcost CLI in a fresh process (``python -m
+    graphdyn_torch.analysis.graftcost --device cuda``; this process waits):
+    every sample (the median of its serves) must lie in its committed
+    ledger sample's range (GB101, the CLI's exit code), and, refitted here,
+    every admission price must lie above every serve, the memband models in
+    their bands and the fits in their exponents (GB102, GB104). The ledger
+    was measured in a fresh process too: late in this script the streamed
+    job's prefetch thread staged more chunks at its peak (one run measured
+    its serves 6–40% above a fresh process's)."""
+    from graphdyn_torch.analysis import graftcost
+
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "graphdyn_torch.analysis.graftcost",
+         "--device", "cuda", "--format", "json"],
+        capture_output=True, text=True, timeout=600, cwd=HERE)
+    try:
+        doc = json.loads(r.stdout)
+    except ValueError:
+        raise AssertionError(f"graftcost CLI exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}") from None
+    live = doc["samples"]
+    fresh = graftcost.build_ledger(live)
+    findings = ([graftcost.Finding(**f) for f in doc["findings"]]
+                + graftcost.check_ledger(fresh, diag=log))
+    for name, row in fresh["entries"].items():
+        m = row["models"]["peak_bytes"]
+        log(f"[73 graftcost] {name}: requested peaks (serves) "
+            f"{ {n: s['repeats'] for n, s in row['samples'].items()} } B, "
+            f"allocator peaks "
+            f"{ {n: s['allocated_bytes'] for n, s in row['samples'].items()} }"
+            f" B; fit {m['intercept']:.1f} + {m['slope']:.3f} n (residual "
+            f"{m['residual']:.4f}, exponent {m['exponent']:.3f})")
+    for hm, row in fresh["hand_models"].items():
+        log(f"[73 graftcost] {hm} ({row['module']}): hand "
+            f"{row['hand_bytes']} B; margin over what the card held "
+            f"{ {n: round(v, 4) for n, v in row['margins'].items()} }")
+    log(f"[73 graftcost] {time.perf_counter() - t0:.3f} s (a fresh process, "
+        f"exit {r.returncode}); findings (GB101 against the committed "
+        f"samples' ranges, GB102, GB104) {[tuple(f) for f in findings]}")
+    if findings or r.returncode != 0:
+        raise AssertionError(f"graftcost on the card: exit {r.returncode}, "
+                             f"{findings}")
+    return {"samples": live, "hand_models": fresh["hand_models"],
+            "wall_s": time.perf_counter() - t0}
+
+
+def _group_analysis(ctx: dict) -> dict:
+    """Static analysis and race checking (A18) on the card: the contracts,
+    the alias sanitizer on the stream, the race checker on the served
+    jobs, the dispatch fingerprints and the served jobs' resident peaks."""
+    t0 = time.perf_counter()
+    out = {"contracts": phase_contracts(ctx),
+           "sanitizer": phase_sanitizer(ctx),
+           "racecheck": phase_racecheck(ctx),
+           "graftcheck": phase_graftcheck(),
+           "graftcost": phase_graftcost()}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[74 analysis] group {out['wall_s']:.3f} s")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6121,7 +6564,7 @@ def card_line() -> str:
 
 #: the phase groups, in the order a full run takes them
 GROUPS = ("packed", "fused", "bdcm", "gather", "entropy", "sa", "powerlaw",
-          "durable", "obs", "parallel", "serve", "soak")
+          "durable", "obs", "parallel", "serve", "analysis", "soak")
 #: the groups whose results the durable group holds its resumed runs to
 DURABLE_NEEDS = ("fused", "bdcm", "entropy", "sa")
 
@@ -6190,7 +6633,8 @@ def _group_fused(ctx: dict) -> dict:
     main_f = phase_config1_main_path()
     return {"main_f": main_f, "verdicts": phase_config1_check(main_f),
             "cfg1": phase_config1_timing(main_f["graph"]),
-            "cli": phase_fused_cli(main_f), "scale": phase_fused_scale(),
+            "cli": phase_fused_cli(main_f),
+            "scale": phase_fused_scale(ctx.pop("scale_host", None)),
             "hubs": phase_fused_hubs()}
 
 
@@ -6305,12 +6749,14 @@ def _group_serve(ctx: dict) -> dict:
     return phase_serve(ctx)
 
 
-def run_groups(names) -> dict:
+def run_groups(names, build=None) -> dict:
     """The parity gates, then the named groups (and the groups the durable
     group needs), in the order of :data:`GROUPS`. Every kernel is held
     against its plain version first, whatever the groups; a run with every
-    group is the whole script. Returns the gates' results under
-    ``"gates"`` and each group's under its name."""
+    group is the whole script. ``build``: a future of :func:`phase_build`
+    still compiling, waited for after the host graphs are built and before
+    the first kernel runs. Returns the gates' results under ``"gates"`` and
+    each group's under its name."""
     want = set(names)
     if "durable" in want:
         want |= set(DURABLE_NEEDS)
@@ -6328,7 +6774,17 @@ def run_groups(names) -> dict:
     g_pl = graphs.powerlaw_graph(POWERLAW_N, gamma=2.2, dmin=2, seed=0)
     ctx["g_pl"], ctx["b_pl"] = g_pl, graphs.degree_buckets(g_pl)
     ctx["pl_edges"] = int(g_pl.num_edges)
+    if want & {"serve", "analysis"}:
+        # the served jobs take the bench graph from here, not a rebuild
+        ctx["pl_shared"] = (g_pl, ctx["b_pl"])
     ctx["t_powerlaw_s"] = time.perf_counter() - t1
+    if build is not None:
+        # more host set-up while the kernels still compile
+        if "fused" in want:
+            ctx["scale_host"] = _scale_host_tables()
+        if want & {"powerlaw", "durable", "parallel", "serve", "analysis"}:
+            _stream_shape()
+        ctx["built"] = build.result()
     gates = ctx["gates"] = {}
     gates["packed_step"] = phase_parity(g_h, ctx["config3"][0])
     gates["fused_chunk"] = phase_fused_parity()
@@ -6737,14 +7193,19 @@ def main(argv=None) -> int:
     torch.cuda.set_device(0)
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"(CUDA {torch.version.cuda})")
-    built = phase_build()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    res = run_groups(args.groups or GROUPS)
+    # the kernels compile (nvcc processes) while this thread builds the
+    # host graphs the gates and groups start from
+    with ThreadPoolExecutor(1) as pool:
+        res = run_groups(args.groups or GROUPS,
+                         build=pool.submit(phase_build))
+    built = res["built"]
     if args.groups:
         # a partial run: no kernels line, and a last line that names its
         # groups (a full run's last line is {"ok": true, ...})
-        log(json.dumps({"groups": {g: res[g] if g in ("obs", "serve")
+        log(json.dumps({"groups": {g: res[g] if g in ("obs", "serve",
+                                                      "analysis")
                                    else "held"
                                    for g in GROUPS if g in res}},
                        default=str))
@@ -6773,7 +7234,8 @@ def main(argv=None) -> int:
         "parallel": {k: v for k, v in res["parallel"].items() if k != "b"},
         "parallel_b": {k: v for k, v in res["parallel"]["b"].items()
                        if k not in ("kb_row", "k3_row")},
-        "serve": res["serve"], "soak": res["soak"]}}, default=str))
+        "serve": res["serve"], "analysis": res["analysis"],
+        "soak": res["soak"]}}, default=str))
     log(f"[24 gather] row_gather probe {res['gather']['probe']['wall_s']:.3f}"
         f" s")
     log(f"[10] seconds in all: {time.perf_counter() - t_start:.3f} "

@@ -1206,15 +1206,21 @@ def _stream_main(args, dev) -> dict:
 
 
 def _stream_inputs(args):
-    """The ``stream`` command's graph, packed initial state and churn."""
+    """The ``stream`` command's graph (the one :func:`main` was given, else
+    built from the flags), packed initial state and churn."""
     import numpy as np
 
     from graphdyn_torch.graphs import powerlaw_graph
     from graphdyn_torch.ops.packed import pack_spins
     from graphdyn_torch.ops.streamed import seeded_churn
 
-    g = powerlaw_graph(args.n, gamma=args.gamma, dmin=args.dmin,
-                       seed=args.graph_seed)
+    g = getattr(args, "graph", None)
+    if g is None:
+        g = powerlaw_graph(args.n, gamma=args.gamma, dmin=args.dmin,
+                           seed=args.graph_seed)
+    elif g.n != args.n:
+        raise SystemExit(f"the prebuilt graph has n={g.n} but --n is "
+                         f"{args.n}")
     rng = np.random.default_rng(args.seed)
     s0 = (2 * rng.integers(0, 2, size=(args.replicas, args.n)) - 1
           ).astype(np.int8)
@@ -1297,12 +1303,16 @@ _SEARCH_COMMANDS = {"sa": _sa_main, "temper": _temper_main,
                     "chromatic": _chromatic_main, "stream": _stream_main}
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, graph=None) -> int:
     """Parse the flags and run the command under the graceful-shutdown
     protocol: a SIGTERM/SIGINT (or the watchdog, or the deadline) saves at
     the next chunk/rep/λ boundary when ``--checkpoint`` is set and exits
     75; a second signal exits 130. ``run-supervised`` hands over to the
-    supervisor before anything else."""
+    supervisor before anything else. ``graph``: for a ``stream`` command
+    run in this process, the graph its flags describe
+    (``powerlaw_graph(n, gamma=, dmin=, seed=graph_seed)``) built already,
+    which the command then does not build again (its ``n`` is checked);
+    no other command takes one."""
     import os
     import sys
 
@@ -1328,6 +1338,9 @@ def main(argv=None) -> int:
         cmd = argv[1:]
         return supervisor_main(cmd[1:] if cmd[:1] == ["--"] else cmd)
     args = build_parser().parse_args(argv)
+    if graph is not None and args.cmd != "stream":
+        raise SystemExit(f"only the stream command takes a prebuilt graph, "
+                         f"not {args.cmd}")
     if args.cmd == "run-supervised":
         # top-level flags before the subcommand: the watchdog's go to the
         # supervisor, the store's back onto the child's command line
@@ -1356,16 +1369,31 @@ def main(argv=None) -> int:
              else env_float("GRAPHDYN_STALL_TIMEOUT"))
     deadline = (args.deadline if args.deadline is not None
                 else env_float("GRAPHDYN_DEADLINE"))
+    # GRAPHDYN_RACECHECK=1: wrap the inventoried module locks in the
+    # runtime proxy (graphdyn_torch.analysis.racecheck) BEFORE any driver
+    # thread spawns: per-thread acquisitions land in the flight ring, the
+    # observed order is asserted against the committed ledger, and
+    # GRAPHDYN_RACEFUZZ=<seed> adds the seeded jitter. Off costs this check
+    if os.environ.get("GRAPHDYN_RACECHECK") == "1":
+        from graphdyn_torch.analysis.racecheck import maybe_install
+
+        maybe_install()
+    # GRAPHDYN_SANITIZE=alias: the whole command under the host-aliasing
+    # sanitizer (graphdyn_torch.analysis.sanitize); off, a no-op
+    from graphdyn_torch.analysis.sanitize import maybe_alias_sanitizer
     from graphdyn_torch import obs
     from graphdyn_torch.obs import flight, trace
 
     try:
-        with graceful_shutdown(), obs.recording(args.obs_ledger) as rec, \
+        with graceful_shutdown(), maybe_alias_sanitizer(), \
+                obs.recording(args.obs_ledger) as rec, \
                 trace.profiling(args.profile), supervision(stall, deadline):
             if rec.enabled:
                 rec.manifest(**obs.run_manifest_fields(
                     cmd=args.cmd, argv=list(argv),
                     config={k: v for k, v in sorted(vars(args).items())}))
+            if graph is not None:
+                args.graph = graph     # after the manifest: not a flag
             # the dump sites sit inside the recording scope: a live ledger
             # takes the obs.crash event, else obs_postmortem.jsonl is written
             try:

@@ -47,9 +47,12 @@ edges split, the per-class kernel K3 on the card);
 ``graph`` dimension, each rank sweeping its block of instances as the
 unsharded ensemble sweeps them (K3′ on the card), the joint fixed point's
 ``max|Δchi|`` all-reduced every sweep and the per-member observables
-gathered. Every rank returns the same result. A mesh ladder keeps no
-checkpoint: ``checkpoint_path``/``checkpointer`` with ``mesh=`` are
-refused.
+gathered. Every rank returns the same result. A mesh ladder checkpoints
+as the sharded SA chains do: rank 0 writes a global snapshot (the whole
+ensemble's chi) through :mod:`graphdyn_torch.utils.io`, each λ boundary's
+save and shutdown decisions are or-reduced over the ranks
+(:class:`graphdyn_torch.parallel.mesh.WorldSync`), and a snapshot resumes
+at any rank count, one process included.
 """
 
 from __future__ import annotations
@@ -84,6 +87,7 @@ from graphdyn_torch.ops.bdcm import (
 )
 from graphdyn_torch.resilience import faults as _faults
 from graphdyn_torch.resilience.shutdown import (
+    ShutdownRequested,
     raise_if_requested,
     shutdown_requested,
 )
@@ -97,11 +101,15 @@ from graphdyn_torch.utils.platform import resolve_device
 log = logging.getLogger("graphdyn_torch.models")
 
 
-def _refuse_mesh_checkpoint(mesh, *checkpoints) -> None:
-    if mesh is not None and any(c is not None for c in checkpoints):
-        raise ValueError(
-            "a mesh ladder keeps no checkpoint in graphdyn_torch: drop "
-            "checkpoint_path/checkpointer, or run without mesh=")
+def _mesh_sync(mesh, *checkpoints):
+    """The :class:`~graphdyn_torch.parallel.mesh.WorldSync` of a mesh ladder
+    that checkpoints, else None (an unsharded or uncheckpointed ladder takes
+    its decisions alone)."""
+    if mesh is None or all(c is None for c in checkpoints):
+        return None
+    from graphdyn_torch.parallel.mesh import WorldSync
+
+    return WorldSync()
 
 
 def _plateau_prefix(prev_rows, plateau_eps: float, plateau_patience: int):
@@ -156,7 +164,7 @@ def _run_ladder(lambdas, chi, *, set_leaves, fixed_point, observe, eps: float,
                 stop_fn, verbose: bool = False, plateau_eps: float = 0.0,
                 plateau_patience: int = 3, checkpointer=None,
                 checkpoint_meta=None, checkpoint_extra_arrays=None,
-                prev_rows=None):
+                prev_rows=None, sync=None, global_chi=None):
     """The λ-ladder loop (`ipynb:394-451` semantics) of the serial and
     ensemble solvers: leaf write → warm-started fixed point → observables →
     Legendre transform → early exits. ``fixed_point(chi, lm)`` returns
@@ -172,7 +180,11 @@ def _run_ladder(lambdas, chi, *, set_leaves, fixed_point, observe, eps: float,
     ``checkpoint_extra_arrays``, the metadata ``lmbd``, ``failed`` and
     ``checkpoint_meta``), saved at once when a shutdown is pending, which
     then raises :class:`~graphdyn_torch.resilience.ShutdownRequested`; the
-    ``lambda.boundary`` fault site. Returns
+    ``lambda.boundary`` fault site. ``sync`` (a mesh ladder's
+    :class:`~graphdyn_torch.parallel.mesh.WorldSync`) or-reduces rank 0's
+    save clock and every rank's shutdown flag into one decision, every rank
+    builds the payload (``global_chi(chi)``, a collective, gives the whole
+    ensemble's messages) and rank 0 alone writes it. Returns
     ``(visited, ents, m_inits, ent1s, sweeps, nonconverged, chi)``."""
     ents, m_inits, ent1s, sweeps, visited = [], [], [], [], []
     nonconverged = 0.0
@@ -217,21 +229,28 @@ def _run_ladder(lambdas, chi, *, set_leaves, fixed_point, observe, eps: float,
             print(f"lambda={lm:.2f} t={t} m_init={m_s} ent1={e_s}")
         _beat("lambda")
         stopping = shutdown_requested()
-        if checkpointer is not None and (stopping or checkpointer.due()):
+        due = checkpointer is not None and checkpointer.due()
+        if sync is not None:
+            stopping, due = sync.any(stopping, sync.writer and due)
+        if checkpointer is not None and (stopping or due):
+            snap = chi if global_chi is None else global_chi(chi)
             payload = {
-                "chi": chi.cpu().numpy(), "ent": np.array(ents),
+                "chi": snap.cpu().numpy(), "ent": np.array(ents),
                 "m_init": np.array(m_inits), "ent1": np.array(ent1s),
                 "sweeps": np.array(sweeps), "lambdas": np.array(visited),
                 **(checkpoint_extra_arrays or {}),
             }
             meta = {"lmbd": lm, "failed": bool(failed),
                     **(checkpoint_meta or {})}
-            if stopping:
-                checkpointer.save_now(payload, meta)
-            else:
-                checkpointer.maybe_save(payload, meta)
+            if sync is None or sync.writer:
+                if stopping:
+                    checkpointer.save_now(payload, meta)
+                else:
+                    checkpointer.maybe_save(payload, meta)
         if stopping:
             raise_if_requested(where="lambda")
+            # a rank whose own flag is clear stops with the rank that had it
+            raise ShutdownRequested(None, where="lambda")
         _faults.maybe_fail("lambda.boundary", key=f"lmbd={lm:g}")
         if stop_fn(e1) or failed:
             break
@@ -333,7 +352,8 @@ def _ladder_rows(out):
 
 def _run_managed_ladder(checkpoint_path, interval_s, *, id_key, id_value,
                         what, lambdas, stop_fn, chi_init, dtype, device,
-                        ladder_fn, base_meta, extra_arrays=None):
+                        ladder_fn, base_meta, extra_arrays=None, sync=None,
+                        local_chi=None):
     """The managed λ-ladder resume protocol of the ensemble solvers (the
     JAX package's): an identity-checked load
     (:func:`~graphdyn_torch.utils.io.load_validated`), re-entry at the first
@@ -343,19 +363,37 @@ def _run_managed_ladder(checkpoint_path, interval_s, *, id_key, id_value,
 
     ``ladder_fn(lambdas_rest, chi, checkpointer, meta, extra_arrays,
     prev_rows)`` runs the solver's :func:`_run_ladder` and returns its
-    7-tuple; ``chi_init()`` builds the cold-start messages. Returns ``(rows
-    dict, nonconverged, chi)``."""
+    7-tuple; ``chi_init()`` builds the cold-start messages. Under ``sync``
+    (a mesh ladder) rank 0 reads and removes the snapshot and broadcasts
+    it (or its refusal) to every rank, and ``local_chi`` takes a rank's
+    part of the saved global chi. Returns ``(rows dict, nonconverged,
+    chi)``."""
     from graphdyn_torch.utils.io import PeriodicCheckpointer, load_validated
 
     lambdas = np.asarray(lambdas, float)
-    prefix = load_validated(checkpoint_path, id_key, id_value, what)
+    writer = sync is None or sync.writer
+    if sync is None:
+        prefix = load_validated(checkpoint_path, id_key, id_value, what)
+    else:
+        got = None
+        if writer:
+            try:
+                got = ("ok", load_validated(checkpoint_path, id_key,
+                                            id_value, what))
+            except ValueError as e:
+                got = ("refused", str(e))
+        got = sync.bcast(got)
+        if got[0] == "refused":
+            raise ValueError(got[1])
+        prefix = got[1]
     checkpointer = PeriodicCheckpointer(checkpoint_path, interval_s=interval_s)
     meta = {**base_meta, id_key: id_value}
     k0 = 0
     pre = None
     if prefix is not None:
         arrays, pmeta = prefix
-        chi = torch.as_tensor(np.asarray(arrays["chi"]), dtype=dtype).to(device)
+        chi = torch.as_tensor(np.asarray(arrays["chi"]), dtype=dtype)
+        chi = (chi if local_chi is None else local_chi(chi)).to(device)
         seg = {k: np.asarray(arrays[k]) for k in _LADDER_ROW_KEYS}
         if "prev_lambdas" in arrays:
             # interrupted twice: the earlier stitched segments ride along
@@ -366,7 +404,8 @@ def _run_managed_ladder(checkpoint_path, interval_s, *, id_key, id_value,
         k0 = int(pre["lambdas"].size)
         failed_prev = bool(pmeta.get("failed", False))
         if failed_prev or stop_fn(pre["ent1"][-1]) or k0 >= lambdas.size:
-            checkpointer.remove()
+            if writer:
+                checkpointer.remove()
             return (pre, float(pmeta["lmbd"]) if failed_prev else 0.0,
                     chi)
     else:
@@ -377,7 +416,8 @@ def _run_managed_ladder(checkpoint_path, interval_s, *, id_key, id_value,
          **({f"prev_{k}": v for k, v in pre.items()} if pre is not None
             else {})},
         (pre["m_init"], pre["ent1"]) if pre is not None else None)
-    checkpointer.remove()
+    if writer:
+        checkpointer.remove()
     rows, nonconverged, chi = _ladder_rows(out)
     if pre is not None:
         rows = (pre if rows["lambdas"].size == 0 else
@@ -430,8 +470,9 @@ def entropy_ensemble(
     previous result's chi. ``checkpoint_path``: the managed λ-granular
     resume (:func:`_run_managed_ladder`). ``mesh``: split the graph axis
     over the mesh's ``graph_axis`` dimension (module docstring; the graph
-    count must divide into it); every rank of it calls this together."""
-    _refuse_mesh_checkpoint(mesh, checkpoint_path)
+    count must divide into it); every rank of it calls this together, and
+    its checkpoint is the whole ensemble's, resumable at any rank count."""
+    sync = _mesh_sync(mesh, checkpoint_path)
     config = config or EntropyConfig()
     stop_fn = _ensemble_stop_fn(config, ent_floor_mode)
     dyn = config.dynamics
@@ -510,7 +551,7 @@ def entropy_ensemble(
             plateau_eps=config.plateau_eps,
             plateau_patience=config.plateau_patience, checkpointer=ck,
             checkpoint_meta=meta, checkpoint_extra_arrays=xtra,
-            prev_rows=prev_rows)
+            prev_rows=prev_rows, sync=sync, global_chi=gather)
 
     if checkpoint_path is not None:
         rows, nonconverged, chi = _run_managed_ladder(
@@ -519,7 +560,8 @@ def entropy_ensemble(
                                   ent_floor_mode, chi0),
             what="congruent-ensemble", lambdas=lambdas, stop_fn=stop_fn,
             chi_init=chi_init, dtype=ens.dtype, device=dev,
-            ladder_fn=ladder_fn, base_meta={"seed": seed})
+            ladder_fn=ladder_fn, base_meta={"seed": seed}, sync=sync,
+            local_chi=lambda c: c[block])
     else:
         rows, nonconverged, chi = _ladder_rows(ladder_fn(
             np.asarray(lambdas, float), chi_init(), None, None, None))
@@ -615,8 +657,9 @@ def entropy_ensemble_union(
     :class:`~graphdyn_torch.utils.io.PeriodicCheckpointer` (one of the two).
     ``mesh``: run every fixed point edge-sharded over the mesh's
     ``edge_axis`` dimension (module docstring); every rank of it calls this
-    together."""
-    _refuse_mesh_checkpoint(mesh, checkpoint_path, checkpointer)
+    together (chi is replicated, so its checkpoint is any rank's chi, and
+    rank 0 writes it)."""
+    sync = _mesh_sync(mesh, checkpoint_path, checkpointer)
     if checkpoint_path is not None and checkpointer is not None:
         raise ValueError("pass either checkpoint_path (managed resume) or "
                          "checkpointer (caller-managed), not both")
@@ -654,7 +697,7 @@ def entropy_ensemble_union(
         ent = -lam[:, None] * n_iso_a[None, :] / n_tot_a[None, :]
         m0 = np.broadcast_to(n_iso_a / n_tot_a, (lam.size, G)).copy()
         K = 2 ** (dyn.p + dyn.c)
-        if union_id is not None:
+        if union_id is not None and (sync is None or sync.writer):
             from graphdyn_torch.utils.io import load_validated, open_checkpoint
 
             load_validated(checkpoint_path, "union_id", union_id,
@@ -705,7 +748,7 @@ def entropy_ensemble_union(
             verbose=verbose, plateau_eps=config.plateau_eps,
             plateau_patience=config.plateau_patience, checkpointer=ck,
             checkpoint_meta=meta, checkpoint_extra_arrays=xtra,
-            prev_rows=prev_rows)
+            prev_rows=prev_rows, sync=sync)
 
     edge_gid_np = np.asarray(edge_gid)
     if union_id is not None:
@@ -714,7 +757,7 @@ def entropy_ensemble_union(
             id_value=union_id, what="union-ensemble", lambdas=lambdas,
             stop_fn=stop_fn, chi_init=chi_init, dtype=data.dtype,
             device=dev, ladder_fn=ladder_fn, base_meta={"seed": seed},
-            extra_arrays={"edge_gid": edge_gid_np})
+            extra_arrays={"edge_gid": edge_gid_np}, sync=sync)
     else:
         rows, nonconverged, chi = _ladder_rows(ladder_fn(
             np.asarray(lambdas, float), chi_init(), checkpointer,

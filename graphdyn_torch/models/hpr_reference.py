@@ -173,7 +173,9 @@ def port_ref_record(dtype: str, *, kernel: str = "auto", device=None) -> dict:
     for k in range(1, max(REF_SWEEPS) + 1):
         chi = setup.sweep(chi, setup.lmbd, bias_edge)
         if k in REF_SWEEPS:
+            # graftlint: disable-next-line=GD003  the reference record's snapshots at its recorded sweeps only
             out[str(k)] = ref_summary(chi.cpu().numpy(),
+                                      # graftlint: disable-next-line=GD003  same recorded-sweep snapshot
                                       setup.marginals(chi).cpu().numpy(),
                                       edge_ids, node_ids)
     return out

@@ -445,12 +445,14 @@ def run_chunks(advance, state, *, on_chunk=None, span: str | None = None,
             HOST_READS += 1
             if recording:
                 # the chunk's one host read, widened to the span's numbers
+                # graftlint: disable-next-line=GD003  the chunk's one host read while recording (steps advanced, live chains)
                 steps, live = torch.stack(
                     [state.chunk_t.max().to(torch.int64),
                      state.active.sum()]).tolist()
                 go = live > 0
                 sp.set(steps_advanced=steps, active=live)
             else:
+                # graftlint: disable-next-line=GD003  the chunk's one host read: the liveness stop test
                 go = bool(state.active.any())
         if recording:
             obs.memband.emit_memory_gauges(state.active.device,
@@ -647,6 +649,7 @@ def simulated_annealing(
             idx, st._replace(chunk_t=torch.zeros_like(st.chunk_t)), consts,
             prop_d, unif_d, rollout_steps=rollout, R_coef=R_coef,
             C_coef=C_coef, max_steps=max_steps, injected=injected,
+            # graftlint: disable-next-line=GD003  chunk_steps is the driver's Python int, not a tensor
             stream_len=stream_len, chunk_steps=int(chunk_steps),
             lc_tables=lc_tables)
 

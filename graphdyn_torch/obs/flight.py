@@ -114,6 +114,21 @@ def _crash_attrs(reason: str, exc, site) -> dict:
                 attrs["heartbeat_where"] = where
     except Exception:  # noqa: BLE001 — crash-path telemetry never raises
         pass
+    # with the racecheck runtime installed (GRAPHDYN_RACECHECK=1), stamp what
+    # every thread currently HOLDS: the per-acquire ring events can rotate
+    # out under a long tail, but the crash event itself names the lock a
+    # wedged run died holding
+    try:
+        from graphdyn_torch.analysis import racecheck as _rc
+
+        if _rc.installed():
+            held = _rc.held_locks()
+            if held:
+                attrs["locks_held"] = {
+                    t: "|".join(st) for t, st in sorted(held.items())
+                }
+    except Exception:  # noqa: BLE001 — crash-path telemetry never raises
+        pass
     if exc is not None:
         attrs["exc_type"] = type(exc).__name__
         attrs["message"] = str(exc)[:500]

@@ -74,6 +74,13 @@ def bucketed_state_bytes(n: int, W: int, table_entries: int) -> int:
     return bucketed.bucketed_state_bytes(n, W, table_entries)
 
 
+def bucketed_job_bytes(n: int, W: int, n_edges: int) -> int:
+    """:func:`graphdyn_torch.ops.bucketed.bucketed_job_bytes`."""
+    from graphdyn_torch.ops import bucketed
+
+    return bucketed.bucketed_job_bytes(n, W, n_edges)
+
+
 def bucketed_table_entries_bound(n: int, n_edges: int) -> int:
     """:func:`graphdyn_torch.ops.bucketed.bucketed_table_entries_bound`."""
     from graphdyn_torch.ops import bucketed

@@ -58,6 +58,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from graphdyn_torch.analysis.contracts import contract
 from graphdyn_torch.attractors import (
     attr_mask,
     edge_factor_tensor,
@@ -82,6 +83,7 @@ from graphdyn_torch.resilience import faults as _faults
 from graphdyn_torch.utils.platform import resolve_device
 
 KERNELS = ("auto", "cuda", "plain")
+# graftlint: disable-next-line=GD004  the float64 BDCM mode is a supported message dtype: its name table
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -239,10 +241,13 @@ def counter_draw(seed: int, purpose: int, start: int, count: int, dtype,
 
     j = torch.arange(start, start + count, dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(int(seed) & _M32, HPR_INIT_TAG + int(purpose),
+                          # graftlint: disable-next-line=GD018  j is a non-negative int64 counter: the shift is logical
                           j >> 32, j & _M32)
     if dtype == torch.float32:
+        # graftlint: disable-next-line=GD018  y0 is int64 holding a uint32 value (non-negative): the shift is logical
         return (y0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
     if dtype == torch.float64:
+        # graftlint: disable-next-line=GD004,GD018  the float64 BDCM mode's 53-bit uniforms
         return ((y0 << 21) | (y1 >> 11)).to(torch.float64) * (1.0 / (1 << 53))
     if dtype == torch.int64:        # the raw uint32 word 0
         return y0
@@ -399,6 +404,7 @@ def dp_contract_grouped_plain(chi_in: torch.Tensor, a_tilted: torch.Tensor,
     a = a[:, None] if a.ndim == 4 else a[None, None]    # [G|1, 1, K, K, M]
     tiny = torch.finfo(dtype).tiny
     out = torch.empty((G, Ed, K, K), dtype=dtype, device=chi_in.device)
+    # graftlint: disable-next-line=GD016  row-chunk budget of a host-side temporary (_row_chunk), not a byte model of the card
     rows = _row_chunk(G * chi_in.element_size() * (2 * K * M + 2 * K * K * M))
     for e0 in range(0, Ed, rows):
         ci = chi_in[:, e0:e0 + rows]
@@ -662,6 +668,8 @@ def make_sweep(
           for cls in data.edge_classes]
     x0 = torch.as_tensor(data.x0, dtype=dt, device=dev)
 
+    @contract(chi="float32|float64[e,k,k]", lmbd="float32|float64[]",
+              ret="float32|float64[e,k,k]")
     def sweep(chi, lmbd, bias_edge=None, *, biases=None):
         if with_bias and (bias_edge is None) == (biases is None):
             raise ValueError("this sweep was built with_bias=True: pass "
@@ -711,6 +719,7 @@ def marginals_group(chi: torch.Tensor, rev: torch.Tensor,
     sel = sel_plus[None, :, None]
     Zp = torch.empty(G * twoE, dtype=chi.dtype, device=chi.device)
     Zm = torch.empty_like(Zp)
+    # graftlint: disable-next-line=GD016  row-chunk budget of a temporary (_row_chunk), not a byte model of the card
     rows = _row_chunk(4 * K * K * chi.element_size())
     for e0 in range(0, G * twoE, rows):
         c = flat[e0:e0 + rows]

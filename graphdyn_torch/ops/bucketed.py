@@ -85,7 +85,27 @@ def bucketed_state_bytes(n: int, W: int, table_entries: int) -> int:
     the bucket blocks (``table_entries`` int32 slots,
     :attr:`DegreeBuckets.table_entries`) and the degree vectors (``n``
     int32)."""
+    # graftlint: disable-next-line=GD016  the bucketed resident model that obs/memband and serve admission price with; graftcost holds it to the card's allocator peak
     return 4 * n * W + 4 * table_entries + 4 * n
+
+
+def bucketed_job_bytes(n: int, W: int, n_edges: int) -> int:
+    """Device bytes a served bucketed job holds at its peak, from its
+    declared edge count alone (the serve admission price): the job's
+    ``[n, W]`` words and their bucketed permutation, the rollout's two
+    ``[n+1, W]`` ping-pong states, the two int64 permutations, the bucket
+    tables at :func:`bucketed_table_entries_bound` with the degree vector,
+    and KB's count workspace at its bound. The workspace holds ``W·32``
+    counts and ``G`` tickets (int32) for each row wider than a wide
+    chunk (:func:`bucketed_cuda.wide_geometry`, 16-byte-aligned states);
+    such a row's degree exceeds the chunk, so there are at most
+    ``2E // (chunk + 1)`` of them."""
+    geo = bucketed_cuda.wide_geometry(W, bucketed_cuda.words_per_thread(W))
+    ws_rows = min(n, 2 * n_edges // (geo["chunk"] + 1))
+    # graftlint: disable-next-line=GD016  the served bucketed job's resident model (serve admission's price); graftcost holds it to the card's allocator peak
+    return (4 * W * (2 * n + 2 * (n + 1)) + 2 * 8 * n
+            + 4 * bucketed_table_entries_bound(n, n_edges) + 4 * n
+            + 4 * ws_rows * (W * bucketed_cuda.WARP + geo["G"]))
 
 
 def bucketed_table_entries_bound(n: int, n_edges: int) -> int:
@@ -175,7 +195,8 @@ def _lut_bucket_out_counts(cnt, rows_b, prev):
     (node, replica) lane reads ``rows[i, cnt, prev_bit]``."""
     shifts = torch.arange(WORD, dtype=torch.int32, device=prev.device)
     prev_bits = ((prev[..., None] >> shifts) & 1).long()
-    idx = torch.arange(rows_b.shape[0], device=prev.device)[:, None, None]
+    idx = torch.arange(rows_b.shape[0], dtype=torch.int64,
+                       device=prev.device)[:, None, None]
     return _pack_lanes(rows_b[idx, cnt.long(), prev_bits].bool())
 
 
@@ -241,6 +262,7 @@ class PlainBucketStep:
         if self.wide:
             # the [rows·width/32, W, 32] count temporaries, cut into row
             # chunks of at most _TEMP_BYTES each
+            # graftlint: disable-next-line=GD016  row-chunk budget of a temporary (_row_chunk), not a byte model of the card
             rows = _row_chunk(8 * self.width * src.shape[1] * WORD)
             outs = [self._wide(src, self.nbr[r:r + rows],
                                self.deg_col[r:r + rows], prev[r:r + rows],

@@ -30,6 +30,11 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: sources whose kernels take a float decision that must equal the plain
+#: version's bit for bit: their libraries build with ``--fmad=false``
+#: (``ops/fused_cuda.py``), and graftlint's GD019 flags a build without it
+FMAD_FALSE_SOURCES = frozenset({"fused_anneal.cu"})
+
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 

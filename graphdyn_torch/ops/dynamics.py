@@ -21,6 +21,7 @@ import enum
 
 import torch
 
+from graphdyn_torch.analysis.contracts import contract
 from graphdyn_torch.utils.platform import resolve_device
 
 
@@ -62,6 +63,7 @@ def step_spins(
     return (R * torch.sign(t)).to(s.dtype)
 
 
+@contract(nbr="int32[n,d]", s="int8[r,n]", ret="int8[r,n]")
 def batched_rollout(nbr: torch.Tensor, s: torch.Tensor, steps: int,
                     rule: str = "majority", tie: str = "stay",
                     gather: str = "fused") -> torch.Tensor:
@@ -129,6 +131,13 @@ def run_dynamics(
     s = torch.as_tensor(init_spins, device=dev)
     if s.ndim == 2:
         return batched_rollout(nbr, s, steps, rule, tie)
+    return _run_single(nbr, s, steps, rule, tie)
+
+
+@contract(nbr="int32[n,d]", s0="int8[n]", ret="int8[n]")
+def _run_single(nbr: torch.Tensor, s0: torch.Tensor, steps: int, rule: str,
+                tie: str) -> torch.Tensor:
+    s = s0
     for _ in range(max(steps, 0)):
         s = step_spins(nbr, s, rule, tie)
     return s

@@ -96,6 +96,7 @@ def threefry2x32(k0, k1, c0, c1):
 def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     """int64 uint32 bits -> f32 uniforms in [0, 1): the top 24 bits scaled
     by 2⁻²⁴, exact in f32."""
+    # graftlint: disable-next-line=GD018  bits is int64 holding a uint32 value (non-negative): the shift is logical
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
@@ -135,6 +136,7 @@ def counter_uniforms_np(seed, step, n: int, Rp: int) -> np.ndarray:
     c0 = np.full((n, pairs), int(step) & _M32, np.int64)
     y0, y1 = threefry2x32(np.int64(int(seed)), k1, c0, node)
     u = np.stack([y0, y1], axis=2).reshape(n, Rp)
+    # graftlint: disable-next-line=GD018  numpy uint32: the shift is logical
     return (u >> 8).astype(np.float32) * np.float32(1.0 / (1 << 24))
 
 

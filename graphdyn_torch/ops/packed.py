@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from graphdyn_torch.analysis.contracts import contract
 from graphdyn_torch.ops import packed_cuda
 from graphdyn_torch.ops.dynamics import Rule, TieBreak
 from graphdyn_torch.utils.platform import resolve_device
@@ -56,6 +57,7 @@ def _fold_u32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2³²) -> int32 with the same 32-bit pattern, by
     value (x − 2³² for x ≥ 2³¹), so no cast ever narrows."""
     x = x & 0xFFFFFFFF
+    # graftlint: disable-next-line=GD018  x is int64 in [0, 2^32): the shift is logical
     return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
@@ -68,6 +70,7 @@ def pack_spins(s) -> torch.Tensor:
     W = -(-R // WORD)
     out = torch.empty((n, W), dtype=torch.int32, device=s.device)
     shifts = torch.arange(WORD, dtype=torch.int64, device=s.device)
+    # graftlint: disable-next-line=GD016  row-chunk budget of a temporary (_row_chunk), not a byte model of the card
     rows = _row_chunk(2 * W * WORD * 8)
     for i0 in range(0, n, rows):
         bits = (s[:, i0:i0 + rows] == 1).T.to(torch.int64)      # [rc, R]
@@ -85,6 +88,7 @@ def unpack_spins(p: torch.Tensor, R: int) -> torch.Tensor:
     n, W = p.shape
     out = torch.empty((R, n), dtype=torch.int8, device=p.device)
     shifts = torch.arange(WORD, dtype=torch.int32, device=p.device)
+    # graftlint: disable-next-line=GD016  row-chunk budget of a temporary (_row_chunk), not a byte model of the card
     rows = _row_chunk(2 * W * WORD * 4)
     for i0 in range(0, n, rows):
         bits = (p[i0:i0 + rows, :, None] >> shifts) & 1        # [rc, W, 32]
@@ -222,6 +226,9 @@ def _stepper(nbr, deg, rule, tie, plain: bool = False):
     raise ValueError(f"packed rollout runs on cuda or cpu, not {nbr.device}")
 
 
+# the JAX spec's uint32 words are the port's int32 words (same bit patterns)
+@contract(nbr="int32[n,d]", deg="int32[n]", sp="int32[n,w]",
+          ret="int32[n,w]")
 def _rollout(nbr, deg, sp, steps, rule, tie, plain):
     _check_tables(nbr, deg, sp)
     step = _stepper(nbr, deg, rule, tie, plain)
@@ -290,6 +297,7 @@ def _bit_counts(sp: torch.Tensor) -> torch.Tensor:
     n, W = sp.shape
     shifts = torch.arange(WORD, dtype=torch.int32, device=sp.device)
     cnt = torch.zeros((W, WORD), dtype=torch.int64, device=sp.device)
+    # graftlint: disable-next-line=GD016  row-chunk budget of a temporary (_row_chunk), not a byte model of the card
     rows = _row_chunk(2 * W * WORD * 4)
     for i0 in range(0, n, rows):
         cnt += ((sp[i0:i0 + rows, :, None] >> shifts) & 1).sum(dim=0)
@@ -352,6 +360,7 @@ def draw_packed_biased(seed: int, n: int, W: int, m0: float,
     Wl = len(range(W)[cols])
     out = torch.empty((n, Wl), dtype=torch.int32, device=dev)
     shifts = torch.arange(WORD, dtype=torch.int64, device=dev)
+    # graftlint: disable-next-line=GD016  row-chunk budget of a temporary (_row_chunk), not a byte model of the card
     rows = _row_chunk(3 * W * WORD * 8)
     for i0 in range(0, n, rows):
         rc = min(rows, n - i0)
@@ -386,6 +395,7 @@ def _replica_magnetization(sp: torch.Tensor, R: int) -> torch.Tensor:
     return _magnetization_from_counts(_bit_counts(sp)[:R], sp.shape[0])
 
 
+@contract(nbr="int32[n,d]", deg="int32[n]", sp="int32[n,w]")
 def packed_consensus_scan(nbr, deg, sp, R: int, max_steps: int,
                           chunk: int = 10, near_eps: float = 0.01,
                           rule: str = "majority", tie: str = "stay",
@@ -436,6 +446,7 @@ def packed_consensus_scan(nbr, deg, sp, R: int, max_steps: int,
     near_t = torch.full((R,), -1, dtype=torch.int32, device=dev)
     t = 0
     done = bool if all_done is None else all_done
+    # graftlint: disable-next-line=GD003  the slab's one stop-test read
     while t < max_steps and not done(bool(near.all())):  # one sync per slab
         for _ in range(chunk):
             ext = step(ext)

@@ -656,6 +656,7 @@ class HaloProgram:
         order, on every rank."""
         from graphdyn_torch.interop import words_to_numpy
 
+        # graftlint: disable-next-line=GD013  fetch() is the one-off global read-back of the result, not a step's exchange
         allp = all_gather_tiled(sp_loc.contiguous()[None], self.mesh,
                                 self.node_axis, dim=0)
         return gather_state(self.tables, words_to_numpy(

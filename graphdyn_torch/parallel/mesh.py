@@ -176,8 +176,8 @@ def make_mesh(shape: tuple[int, ...] | None = None,
     if int(np.prod(shape)) != world:
         raise ValueError(f"mesh shape {tuple(shape)} needs {np.prod(shape)} "
                          f"ranks; the world has {world}")
-    return DeviceMesh(_mesh_device_type(),
-                      torch.arange(world).reshape(tuple(shape)),
+    ranks = torch.arange(world, dtype=torch.int64).reshape(tuple(shape))
+    return DeviceMesh(_mesh_device_type(), ranks,
                       mesh_dim_names=tuple(axis_names))
 
 
@@ -210,7 +210,8 @@ def make_hybrid_mesh(ici_shape: tuple[int, ...], axis_names: tuple[str, ...],
         raise ValueError(f"prod(ici_shape)={need} must equal the per-host "
                          f"rank count {per_host}")
     hosts = world // per_host
-    ranks = torch.arange(world).reshape((hosts,) + tuple(ici_shape))
+    ranks = torch.arange(world, dtype=torch.int64).reshape(
+        (hosts,) + tuple(ici_shape))
     ranks = ranks.movedim(0, k)
     return DeviceMesh(_mesh_device_type(), ranks,
                       mesh_dim_names=tuple(axis_names))
@@ -343,6 +344,7 @@ def all_gather_tiled(t: torch.Tensor, mesh, axis: str,
     """``lax.all_gather(t, axis, axis=dim, tiled=True)``: the blocks of the
     ranks along ``axis`` concatenated on ``dim`` in rank order."""
     if t.dtype == torch.bool:         # gathered as bytes: not every backend
+        # graftlint: disable-next-line=GD013  the gather primitive itself (bool tensors as bytes)
         return all_gather_tiled(t.to(torch.uint8), mesh, axis, dim).bool()
     g = axis_group(mesh, axis)
     P = axis_size(mesh, axis)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from graphdyn_torch.analysis.contracts import contract
 from graphdyn_torch.ops.dynamics import rule_coefficients
 from graphdyn_torch.parallel.mesh import (
     NODE,
@@ -66,7 +67,8 @@ def _real_mask(mesh, node_axis: str, n_block: int, n_real: int,
     """bool[n_block]: which rows of this rank's node block are real nodes
     (contiguous blocks: global index = node index · n_block + row)."""
     g0 = axis_index(mesh, node_axis) * n_block
-    return torch.arange(g0, g0 + n_block, device=device) < n_real
+    return torch.arange(g0, g0 + n_block, dtype=torch.int64,
+                        device=device) < n_real
 
 
 def _local_step(nbr_local, s_full, s_local, real_mask, R_coef: int,
@@ -100,11 +102,14 @@ def make_sharded_rollout(mesh, n_real: int, steps: int,
     ``all_gather`` over ``node_axis`` per step."""
     R_coef, C_coef = rule_coefficients(rule, tie)
 
+    @contract(nbr_local="int32[nb,d]", s_local="int8[r,nb]",
+              ret="int8[r,nb]")
     def rollout(nbr_local, s_local):
         mask = _real_mask(mesh, node_axis, s_local.shape[1], n_real,
                           s_local.device)
         s = s_local
         for _ in range(steps):
+            # graftlint: disable-next-line=GD013  legacy gather mode: the parity baseline the halo path (parallel/halo.py) is tested against, and the small-graph fallback
             s_full = all_gather_tiled(s, mesh, node_axis, dim=1)
             s = _local_step(nbr_local, s_full, s, mask, R_coef, C_coef)
         return s
@@ -263,6 +268,7 @@ def _sharded_sweep_core(data, mesh, *, damp: float, eps_clamp: float,
                                           kernel=mode)[0]
                 fence(rec)
             with rec.span("parallel.sharded.gather", cls=k):
+                # graftlint: disable-next-line=GD013  edge-sharded BDCM sweep: chi is replicated by design, each class's updated rows gathered once a class (the JAX package's sharded sweep)
                 rows = all_gather_tiled(upd, mesh, edge_axis, dim=0)
                 # the padded tail repeats the first edge's update: the real
                 # rows are the first Ed, in class order

@@ -351,6 +351,7 @@ def _graph_from_adj(adj: _Adjacency) -> Graph:
     dst = dst[order]
     starts = np.concatenate([[0], np.cumsum(deg)[:-1]])
     rank = np.arange(dst.size) - np.repeat(starts, deg)
+    # graftlint: disable-next-line=GD017  _graph_from_adj builds the graph's own table, the same arrays graphs.graph_from_edges gives
     nbr = np.full((n, max(int(deg.max()), 1)), n, np.int32)
     nbr[src, rank] = dst
     keep = ~below[order]
@@ -478,6 +479,7 @@ class _ShardEngine:
     def gather_global(self, loc_p: torch.Tensor) -> np.ndarray:
         """Every shard's state gathered and put back in global order, as
         uint32 ``[n, W]`` on every rank (a collective)."""
+        # graftlint: disable-next-line=GD013  the global state for a churn repartition, a snapshot or the result, not a step's exchange
         allp = all_gather_tiled(loc_p[None].to(self.device), self.mesh,
                                 self.node_axis, dim=0).cpu()
         return gather_state(self.tables, allp.numpy().view(np.uint32))
@@ -523,6 +525,7 @@ class _ShardEngine:
         lut = _shard_lut(self.tables, self.p)
         rebuilt = []
         for g, old in zip(self.chunk_nodes, self.chunks):
+            # graftlint: disable-next-line=GD003  host numpy ids of a chunk (a churn repartition's host rebuild), not a read of the card
             members = set(g.tolist())
             clean = (old.nodes.size == g.size
                      and np.array_equal(old.nodes, g)
@@ -562,6 +565,7 @@ class _ShardEngine:
                     out = self.stepper.step(item)
                     outs.append((chunks[c], out))
                     h2d += item[2]
+                    # graftlint: disable-next-line=GD016  measured d2h traffic gauge, not a predictive byte model
                     d2h += out.numel() * out.element_size()
             finally:
                 totals["build_s"] += pf.build_s
@@ -584,6 +588,7 @@ class _ShardEngine:
                     tables.schedule]
                 prev_h = new[h0:h0 + H] if H else None
                 args = ([hub_slab, prev_h] if H else []) + sends
+                # graftlint: disable-next-line=GD016  measured h2d traffic gauge over the operands actually staged, not a predictive byte model
                 h2d += sum(a.numel() * a.element_size() for a in args)
                 args = [a.to(dev, non_blocking=False) for a in args]
                 out_h, recvs = fn(args[0] if H else None,
@@ -597,6 +602,7 @@ class _ShardEngine:
                     rv = rv.cpu()
                     new.index_copy_(0, torch.from_numpy(
                         r[self.p].astype(np.int64)), rv)
+                    # graftlint: disable-next-line=GD016  measured d2h traffic gauge, not a predictive byte model
                     d2h += rv.numel() * rv.element_size()
             if sync:
                 torch.cuda.synchronize(dev)
@@ -806,8 +812,10 @@ def sharded_streamed_rollout(
                              eng.chunks_rebuilt, len(eng.chunks)],
                             dtype=torch.int64, device=dev), mesh,
                node_axis).tolist()
+    # graftlint: disable-next-line=GD013  two host timing numbers a rank, not state
     bw = all_gather_tiled(torch.tensor([[totals["build_s"],
                                          totals["wait_s"]]],
+                                       # graftlint: disable-next-line=GD004  host timing totals (seconds) gathered as one float64 row, not device state
                                        dtype=torch.float64, device=dev),
                           mesh, node_axis, dim=0).tolist()
     per_shard = []

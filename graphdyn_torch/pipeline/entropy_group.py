@@ -401,6 +401,7 @@ def run_cell_ladder(
         if need_leaf.any():
             chi = ex.set_leaves(chi, lam, need_leaf)
             a_t = ex.factors(lam)
+            # graftlint: disable-next-line=GD010  consumed by the leaf write at once, before the host flags are written again; on the card the crossing copies
             fresh = torch.as_tensor(need_leaf, device=dev)
             delta = torch.where(fresh, torch.inf, delta)
             t = torch.where(fresh, 0, t)
@@ -411,7 +412,9 @@ def run_cell_ladder(
         with rec.span("pipeline.entropy.chunk", chunk=chunk_i,
                       cold=chunk_i == 0) as sp:
             chi, delta, t = ex.fixed_point_chunk(
+                # graftlint: disable-next-line=GD010  consumed by the chunk at once, before the host flags are written again; on the card the crossing copies
                 chi, a_t, torch.as_tensor(active, device=dev), delta, t)
+            # graftlint: disable-next-line=GD003  the chunk's one host read: every lane's delta and sweep count
             delta_h, t_h = delta.cpu().numpy(), t.cpu().numpy()
             if rec.enabled:
                 sp.set(sweeps_advanced=int(np.sum(t_h[active]
@@ -438,6 +441,7 @@ def run_cell_ladder(
         fired = []
         for g in crossed:
             lmv = float(lambdas[k[g]])
+            # graftlint: disable-next-line=GD003  a lane that finished its lambda: its observables for the ladder's rows, once per lambda
             phi, m0 = (x.cpu().numpy() for x in observed[g])
             e1 = phi + lmv * m0
             t_g = int(t_h[g])

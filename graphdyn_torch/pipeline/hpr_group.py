@@ -397,10 +397,12 @@ class HPRGroupExec:
                 st = self.advance(st, min(st.t + int(chunk_sweeps),
                                           self.spec.TT + 2))
                 if rec.enabled:
+                    # graftlint: disable-next-line=GD003  the chunk's one host read while recording (live chains)
                     live = int(st.active.sum())
                     go = live > 0
                     sp.set(sweeps_advanced=st.t - t_start, active=live)
                 else:
+                    # graftlint: disable-next-line=GD003  the chunk's one host read: the liveness stop test
                     go = bool(st.active.any())
             if rec.enabled:
                 obs.memband.emit_memory_gauges(self.device, loop="hpr.chunk",

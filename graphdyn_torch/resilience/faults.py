@@ -260,6 +260,7 @@ def check_fault(site: str, key: str = "") -> FaultSpec | None:
             # or a dead NFS mount looks like from the watchdog's seat. The
             # sleep is the whole fault; execution then continues normally,
             # so an UNsupervised run is perturbed only in wall-clock time.
+            # graftrace: disable-next-line=GT005  the injected fault primitive: this sleep IS the hang being simulated, not a synchronization idiom
             time.sleep(spec.secs)
     return spec
 

@@ -58,6 +58,17 @@ scenario             composition
                      repartition) preempted at a chunk boundary mid-churn,
                      requeued onto ``--shards 2``: the journal alone
                      replays the mutations and the repartitions
+``race_mirror_exit`` the race checker's seeded schedule fuzzer
+                     (``GRAPHDYN_RACECHECK=1`` + ``GRAPHDYN_RACEFUZZ``) on
+                     the mirror-flush-vs-exit race, in real child
+                     processes with every write-behind copy stalled: the
+                     atexit ``flush_mirror`` delivers the last replica; at
+                     the pinned seed a control child with that
+                     registration undone must lose it
+``race_prefetch_close`` prefetcher close-vs-emit under the same seeded
+                     jitter: close mid-stream neither deadlocks nor leaks a
+                     worker, the fuzzed stream equals the synchronous
+                     builds, the overlap gauge lands exactly once
 ``serve_kill_requeue`` the multi-tenant job service: tenants submit to a
                      durable spool with no server alive (one oversized job
                      the byte model must refuse, one short-timeout job the
@@ -78,11 +89,10 @@ run_ranks`), as many as its ``--shards``, each running the CLI with the
 episode's fault plan; rank 0 runs in the episode's directory, where its
 post-mortem lands. ``serve_kill_requeue``'s children serve on
 ``--device``'s device (K4′ on the card) from the one kernel build
-directory of the checkout, so no child rebuilds a kernel; the JAX
-package's schedule fuzzer around them is the race checker's, which is not
-ported. Left out, each refused with its ROADMAP.md item
-(:data:`NOT_PORTED`): ``race_mirror_exit`` and ``race_prefetch_close``
-(A18's race checker).
+directory of the checkout, so no child rebuilds a kernel, and under the
+race checker's schedule fuzzer (:mod:`graphdyn_torch.analysis.racecheck`),
+as the JAX package's children are. All fifteen of the JAX package's
+scenarios are ported.
 
 Run it: ``python -m graphdyn_torch.resilience.soak [--bounded] [--seeds N]
 [--scenarios a,b,…] [--device cpu] [--list] [--format text|json]``.
@@ -311,6 +321,18 @@ SCENARIOS: dict[str, Scenario] = {
                  require_ops=("supervise.start", "supervise.restart",
                               "supervise.quarantine"),
                  mode="crash_loop"),
+        Scenario("race_mirror_exit", "store",
+                 "seeded schedule fuzz on the mirror-flush-vs-exit race: "
+                 "the atexit flush must always deliver the last replica, "
+                 "and the pinned-seed reverted-fix control leg must lose "
+                 "it (the fuzzer detects the historical bug class)",
+                 mirror=True, require_ops=("save", "mirror.save"),
+                 mode="race_mirror"),
+        Scenario("race_prefetch_close", "pipeline",
+                 "seeded schedule fuzz on prefetcher close-vs-emit: no "
+                 "deadlock or thread leak, fuzzed stream bit-exact with "
+                 "synchronous builds, overlap gauge exactly once",
+                 mode="race_prefetch"),
         Scenario("stream_churn", "stream",
                  "out-of-core streamed rollout with live edge churn: "
                  "preempted twice at chunk boundaries mid-churn, each "
@@ -337,19 +359,6 @@ SCENARIOS: dict[str, Scenario] = {
                  mode="serve"),
     )
 }
-
-#: scenarios of the JAX package's catalogue not ported yet, with the
-#: ROADMAP.md item that brings each
-NOT_PORTED: dict[str, str] = {
-    "race_mirror_exit": "A18 (the race checker's schedule fuzzer)",
-    "race_prefetch_close": "A18 (the race checker's schedule fuzzer)",
-}
-
-
-def _not_ported_msg(name: str) -> str:
-    return (f"soak scenario {name!r} is not ported to graphdyn_torch yet "
-            f"(ROADMAP.md {NOT_PORTED[name]})")
-
 
 # ---------------------------------------------------------------------------
 # workloads (real CLI command lines)
@@ -587,9 +596,11 @@ def run_scenario(name: str, seed: int, root: str,
     per-check details. Supervised scenarios (``mode`` = "hang" /
     "crash_loop") go through the supervisor's own restart loop instead of
     the scheduler-requeue episode chain."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(_not_ported_msg(name))
     scn = SCENARIOS[name]
+    if scn.mode == "race_mirror":
+        return _run_race_mirror(scn, seed, root)
+    if scn.mode == "race_prefetch":
+        return _run_race_prefetch(scn, seed, root)
     if scn.mode == "hang":
         return _run_hang_detect(scn, seed, root, oracle_cache, device)
     if scn.mode == "crash_loop":
@@ -869,6 +880,273 @@ def _run_crash_loop(scn: Scenario, seed: int, root: str,
 
 
 # ---------------------------------------------------------------------------
+# the race checker's seeded-schedule scenarios
+# ---------------------------------------------------------------------------
+
+#: lock-jitter cap for the race scenarios (GRAPHDYN_RACEFUZZ_MAX_MS)
+RACE_FUZZ_MAX_MS = 30.0
+#: the mirror.copy stall (seconds): it must dwarf the child's main-thread
+#: runtime from its first save to its exit (well under 0.25 s with the
+#: worst jitter), so the reverted-fix control leg loses the last replica
+#: deterministically, while the atexit flush (timeout 10 s) always drains
+RACE_STALL_SECS = 0.35
+#: saves per child: enough that the write-behind queue is deep at exit
+RACE_SAVES = 4
+#: the control leg (fix reverted) runs at this seed only: pinned, so the
+#: red outcome is one reproducible schedule
+RACE_PIN_SEED = 0
+#: the port's prefetch worker's thread name
+PREFETCH_THREAD = "graphdyn-torch-prefetch"
+
+
+def _race_mirror_child(primary: str, mirror: str, revert: bool) -> str:
+    """The subprocess body of ``race_mirror_exit``: N durable saves with a
+    write-behind mirror, then fall off the end — exit-vs-flush is the race
+    under test. ``revert=True`` unregisters the atexit ``flush_mirror``
+    (the historical bug) without touching shipped code."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    lines = [
+        "import sys",
+        f"sys.path.insert(0, {repo!r})",
+        "import numpy as np",
+        "from graphdyn_torch.analysis.racecheck import maybe_install",
+        "from graphdyn_torch.resilience.store import (DurableCheckpoint, "
+        "configure_store, flush_mirror)",
+        "maybe_install()",
+        f"configure_store(mirror={mirror!r}, keep={RACE_SAVES * 2})",
+    ]
+    if revert:
+        lines += [
+            "import atexit",
+            "atexit.unregister(flush_mirror)   # the reverted fix",
+        ]
+    lines += [
+        f"ck = DurableCheckpoint({os.path.join(primary, 'ck')!r})",
+        f"for i in range({RACE_SAVES}):",
+        "    ck.save({'state': np.arange(64) + i}, {'i': i})",
+        "# fall off the end: interpreter teardown races the queue",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def _race_mirror_env(seed: int) -> dict:
+    env = dict(os.environ)
+    env.update({
+        "GRAPHDYN_RACECHECK": "1",
+        "GRAPHDYN_RACEFUZZ": str(seed),
+        "GRAPHDYN_RACEFUZZ_MAX_MS": str(RACE_FUZZ_MAX_MS),
+        # a thread-side delay the lock proxy cannot reach: stall every
+        # write-behind copy on the worker (an env plan is process-global,
+        # so the WORKER thread polls it)
+        "GRAPHDYN_FAULT_PLAN": json.dumps([{
+            "site": "mirror.copy", "action": "stall",
+            "secs": RACE_STALL_SECS, "at": 1, "count": 999,
+        }]),
+    })
+    env.pop("GRAPHDYN_CKPT_MIRROR", None)
+    return env
+
+
+def _mirror_last_replica(primary: str, mirror: str) -> str:
+    """The mirror-side path of the LAST save's immutable version, through
+    the store's own namespacing (``_mirror_base``), so a layout change there
+    can never read as a lost-replica race here."""
+    mbase = _store.DurableCheckpoint(
+        os.path.join(primary, "ck"), mirror=mirror)._mirror_base()
+    return f"{mbase}.v{RACE_SAVES}.npz"
+
+
+def _run_race_mirror(scn: Scenario, seed: int, root: str) -> dict:
+    """Mirror-flush-vs-exit under the seeded schedule fuzzer, end to end in
+    real subprocesses. Green leg (every seed): with the atexit
+    ``flush_mirror`` registration present, the last save's replica is in
+    the mirror after exit despite per-copy stalls and lock jitter. Control
+    leg (pinned seed only): the same child with the registration undone
+    must LOSE the last replica, so a future revert of the fix goes red."""
+    import subprocess
+
+    workdir = os.path.join(root, scn.name, f"seed{seed}")
+    problems: list[str] = []
+    ep_log: list[dict] = []
+
+    def start(tag: str, revert: bool):
+        d = os.path.join(workdir, tag)
+        primary = os.path.join(d, "primary")
+        mirror = os.path.join(d, "mirror")
+        os.makedirs(primary, exist_ok=True)
+        script = _race_mirror_child(primary, mirror, revert)
+        proc = subprocess.Popen(
+            [sys.executable, "-c", script], stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True, env=_race_mirror_env(seed),
+            cwd=d)
+        return tag, revert, proc, primary, mirror
+
+    def finish(run) -> tuple[str, str]:
+        tag, revert, proc, primary, mirror = run
+        try:
+            _, err = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        ep_log.append({"episode": tag, "rc": proc.returncode,
+                       "revert": revert})
+        if proc.returncode != 0:
+            problems.append(
+                f"{tag} child exited {proc.returncode}: {err[-500:]}")
+        return primary, mirror
+
+    # the two legs are independent children in their own directories: they
+    # run side by side (the race is inside each child, between its main
+    # thread's exit and its own write-behind worker)
+    green = start("green", revert=False)
+    control = start("reverted", revert=True) \
+        if seed == RACE_PIN_SEED else None
+    primary, mirror = finish(green)
+    last = _mirror_last_replica(primary, mirror)
+    if not problems and not os.path.exists(last):
+        problems.append(
+            f"atexit flush_mirror LOST the last write-behind replica "
+            f"under fuzz seed {seed} (missing {last}) — the "
+            f"flush-vs-exit race regressed")
+    if not problems:
+        pub = os.path.join(os.path.dirname(last), "ck.npz")
+        got = np.load(pub)["state"][0] if os.path.exists(pub) else None
+        if got != RACE_SAVES - 1:
+            problems.append(
+                f"published mirror replica is not the LAST save "
+                f"(state[0]={got}, want {RACE_SAVES - 1})")
+    journal = os.path.join(primary, _store.JOURNAL_NAME)
+    ops = _check_journal(journal, scn.require_ops, problems)
+
+    # control leg, pinned seed: reverting the fix must lose the race
+    lost = None
+    if control is not None:
+        primary_r, mirror_r = finish(control)
+        lost = not os.path.exists(_mirror_last_replica(primary_r, mirror_r))
+        if not problems and not lost:
+            problems.append(
+                "control leg: with atexit flush_mirror REVERTED the last "
+                "replica still reached the mirror — the fuzzer no longer "
+                "detects the historical bug class (stall/jitter budget "
+                "too small?)")
+
+    return {"scenario": scn.name, "seed": seed, "workload": scn.workload,
+            "episodes": ep_log, "journal_ops": sorted(set(ops)),
+            "control_lost_replica": lost,
+            "problems": problems, "ok": not problems}
+
+
+def _run_race_prefetch(scn: Scenario, seed: int, root: str) -> dict:
+    """Prefetcher close-vs-emit under the seeded schedule fuzzer,
+    in-process: (a) close() mid-stream — worker mid-build or blocked on a
+    full queue — returns without deadlock and releases the thread,
+    idempotently; (b) the fuzzed threaded stream is bit-exact with the
+    synchronous builds; (c) with a recorder, the overlap gauge lands exactly
+    once per prefetcher. The inventoried locks the fuzzer jitters here are
+    the flight ring's and the journal's: every obs emission the worker and
+    the closer make is schedule-perturbed."""
+    import threading
+
+    from graphdyn_torch import obs
+    from graphdyn_torch.analysis import racecheck as _rc
+    from graphdyn_torch.obs import flight
+    from graphdyn_torch.pipeline.prefetch import HostPrefetcher
+
+    workdir = os.path.join(root, scn.name, f"seed{seed}")
+    os.makedirs(workdir, exist_ok=True)
+    problems: list[str] = []
+    rng = np.random.default_rng(seed)
+    delays = rng.uniform(0.0, 0.004, size=16)
+
+    def build(k: int):
+        # seeded build latency widens the emit-vs-close window; the value
+        # is a pure function of k (the prefetcher's determinism premise)
+        # graftrace: disable-next-line=GT005  injected build latency for the race scenario, not synchronization
+        time.sleep(float(delays[k]))
+        return np.arange(32, dtype=np.int64) + k
+
+    def live_workers() -> list:
+        return [t for t in threading.enumerate()
+                if t.name == PREFETCH_THREAD and t.is_alive()]
+
+    was_installed = _rc.installed()
+    if not was_installed:
+        _rc.install(fuzz_seed=seed, fuzz_max_ms=8.0)
+    pre_workers = len(live_workers())
+    flight.clear()                      # so the hung-counter check is ours
+    leg_problems: list[str] = []
+
+    def legs() -> None:
+        # (a) close mid-stream: the depth-2 queue is full, the worker
+        # blocked; close() always clears _thread (even for a hung worker it
+        # merely abandons), so the leak checks run after the join below
+        pf = HostPrefetcher(build, list(range(12)), depth=2)
+        first = pf.get(0)
+        if not np.array_equal(first, np.arange(32, dtype=np.int64)):
+            leg_problems.append("mid-stream get returned the wrong build")
+        pf.close()
+        pf.close()                      # idempotent under fuzz
+        # (b) full fuzzed stream == synchronous builds, bit-exact
+        pf2 = HostPrefetcher(build, list(range(12)), depth=3)
+        got = [pf2.get(k) for k in range(12)]
+        pf2.close()
+        if not all(np.array_equal(g, np.arange(32, dtype=np.int64) + k)
+                   for k, g in enumerate(got)):
+            leg_problems.append(
+                "fuzzed prefetch stream diverged from synchronous builds")
+        # (c) overlap gauge exactly once per prefetcher
+        if not obs.enabled():
+            from graphdyn_torch.obs.recorder import read_ledger
+
+            ledger = os.path.join(workdir, "obs.jsonl")
+            with obs.recording(ledger):
+                pf3 = HostPrefetcher(build, list(range(6)), depth=2)
+                for k in range(3):
+                    pf3.get(k)
+                pf3.close()
+                pf3.close()
+            events, _ = read_ledger(ledger)
+            n = sum(1 for e in events
+                    if e.get("name") == "pipeline.prefetch.overlap_util")
+            if n != 1:
+                leg_problems.append(
+                    f"expected exactly one overlap gauge per closed "
+                    f"prefetcher, got {n}")
+
+    try:
+        # the legs run on a bounded worker: get() blocks on an untimed
+        # Queue.get, so the wedge this scenario exists to catch would
+        # otherwise hang the soak; the join timeout is the deadline
+        runner = threading.Thread(target=legs, name="graphdyn-soak-race-legs",
+                                  daemon=True)
+        runner.start()
+        runner.join(timeout=60.0)
+        if runner.is_alive():
+            problems.append(
+                "scenario WEDGED: the prefetch legs did not finish within "
+                "60 s — a get/close/emit path deadlocked under fuzz")
+        else:
+            problems.extend(leg_problems)
+            hung = [e for e in flight.snapshot()
+                    if e.get("name") == "pipeline.prefetch.hung"]
+            if hung:
+                problems.append(
+                    f"a prefetch worker wedged past close()'s join window "
+                    f"under fuzz ({len(hung)} pipeline.prefetch.hung "
+                    f"event(s))")
+            if len(live_workers()) > pre_workers:
+                problems.append(
+                    f"a live {PREFETCH_THREAD} worker survived the scenario")
+    finally:
+        if not was_installed:
+            _rc.uninstall()
+    return {"scenario": scn.name, "seed": seed, "workload": scn.workload,
+            "episodes": [{"episode": 0, "rc": 0}],
+            "journal_ops": [], "problems": problems, "ok": not problems}
+
+
+# ---------------------------------------------------------------------------
 # serve_kill_requeue: the job service's kill/requeue soak
 # ---------------------------------------------------------------------------
 
@@ -888,16 +1166,32 @@ SERVE_EVICT_SPEC = {"n": 128, "d": 3, "rule": "minority",
                     "max_sweeps": 4096, "chunk_sweeps": 1}
 
 
-def _serve_env(device: str) -> dict:
-    """The serving child's environment: a pinned admission budget, no
-    inherited fault plan, the repo importable."""
+#: serve-specific schedule-fuzz jitter bound: the serve path heartbeats at
+#: every chunk boundary, so its lock-acquisition rate is far above the
+#: chain scenarios'. The JAX package bounds it at 3 ms; the port's evicted
+#: job runs 4096 one-sweep chunks through its escalating slices, a few
+#: traced locks a chunk, so 3 ms made the scenario ~5× longer (and 1 ms
+#: ~3×) for no more schedules: any jittered sleep yields the thread, which
+#: is what permutes the schedule
+SERVE_FUZZ_MAX_MS = 0.25
+
+
+def _serve_env(device: str, seed: int) -> dict:
+    """The serving child's environment: the schedule fuzzer on (seeded lock
+    jitter over every inventoried lock the child takes), a pinned admission
+    budget, no inherited fault plan, the repo importable."""
     env = dict(os.environ)
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env["PYTHONPATH"] = os.pathsep.join(
         [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
-    env["GRAPHDYN_SERVE_HBM_BUDGET"] = str(SERVE_HBM_BUDGET)
+    env.update({
+        "GRAPHDYN_RACECHECK": "1",
+        "GRAPHDYN_RACEFUZZ": str(seed),
+        "GRAPHDYN_RACEFUZZ_MAX_MS": str(SERVE_FUZZ_MAX_MS),
+        "GRAPHDYN_SERVE_HBM_BUDGET": str(SERVE_HBM_BUDGET),
+    })
     env.pop("GRAPHDYN_FAULT_PLAN", None)
     return env
 
@@ -911,6 +1205,8 @@ def _serve_child_script(spool: str, device: str) -> str:
         "import sys",
         "import torch",
         "torch.set_num_threads(1)",
+        "from graphdyn_torch.analysis.racecheck import maybe_install",
+        "maybe_install()",
         "from graphdyn_torch.resilience.faults import InjectedPreemption",
         "from graphdyn_torch.serve.lifecycle import run_service",
         "try:",
@@ -994,7 +1290,7 @@ def _run_serve_kill_requeue(scn: Scenario, seed: int, root: str,
         {"n": 200000, "d": 3, "replicas": 4096}, "carol")
 
     def episode(tag: str, fault_plan: list | None) -> int:
-        env = _serve_env(device)
+        env = _serve_env(device, seed)
         if fault_plan:
             env["GRAPHDYN_FAULT_PLAN"] = json.dumps(fault_plan)
         proc = subprocess.run(
@@ -1082,9 +1378,6 @@ def run_soak(scenarios=None, seeds=BOUNDED_SEEDS, root: str | None = None,
 
     device = resolve_device(device).type
     names = list(scenarios or SCENARIOS)
-    for name in names:
-        if name in NOT_PORTED:
-            raise NotImplementedError(_not_ported_msg(name))
     tmp = None
     if root is None:
         tmp = tempfile.mkdtemp(prefix="graphdyn_soak_")
@@ -1142,9 +1435,6 @@ def main(argv=None) -> int:
         return 0
     names = args.scenarios.split(",") if args.scenarios else None
     if names:
-        left_out = [n for n in names if n in NOT_PORTED]
-        if left_out:
-            ap.error("; ".join(_not_ported_msg(n) for n in left_out))
         unknown = [n for n in names if n not in SCENARIOS]
         if unknown:
             ap.error(f"unknown scenario(s): {unknown}; "

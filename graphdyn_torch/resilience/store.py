@@ -247,6 +247,7 @@ def journal_event(jpath: str, op: str, **fields) -> None:
                         sealed = prev.read(1) != b"\n"
                 except (OSError, ValueError):
                     pass            # absent or empty: nothing to seal
+            # graftlint: disable-next-line=GD007  append-only journal: one flushed JSON line per event, a torn last line is skipped on read
             with open(jpath, "a", encoding="utf-8") as f:
                 if sealed:
                     f.write("\n")
@@ -371,6 +372,7 @@ def _ensure_mirror_worker() -> None:
     global _mirror_thread
     with _mirror_thread_lock:
         if _mirror_thread is None or not _mirror_thread.is_alive():
+            # graftrace: disable-next-line=GT003  daemon LOOP thread, never joined by design — the bounded close path is flush_mirror(timeout_s): it drains the queue (the thread's whole observable effect) under a deadline
             _mirror_thread = threading.Thread(
                 target=_mirror_worker, name="graphdyn-ckpt-mirror",
                 daemon=True,
@@ -421,6 +423,7 @@ def flush_mirror(timeout_s: float | None = None) -> None:
                 timeout_s, _mirror_q.unfinished_tasks,
             )
             return
+        # graftrace: disable-next-line=GT005  bounded drain poll, not synchronization: queue.Queue.join() has no timeout parameter, so the deadline-capped poll IS the bounded join
         time.sleep(0.02)
 
 

@@ -346,6 +346,7 @@ def run_inprocess(args: list[str], cwd: str) -> int:
     _reset_journal_state()
     clear_shutdown()
     try:
+        # graftlint: disable-next-line=GD007  the null device, not a file
         with open(os.devnull, "w") as devnull, \
                 contextlib.redirect_stdout(devnull):
             try:

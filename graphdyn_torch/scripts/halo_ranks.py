@@ -146,6 +146,7 @@ def _entry(rank: int, world: int, root: str, fn, args: tuple, device,
         payload = {"ok": True, "result": out}
     except BaseException:          # noqa: BLE001 - reported to the parent
         payload = {"ok": False, "error": traceback.format_exc()}
+    # graftlint: disable-next-line=GD007  a rank's result handed to its parent under the spawn's own root, read once after the join; a torn file fails the spawn
     with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(payload, f, protocol=4)
 

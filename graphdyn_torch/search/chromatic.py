@@ -133,6 +133,7 @@ def chromatic_anneal(
         return go
 
     full, tail = divmod(int(max_sweeps), int(chunk_sweeps))
+    # graftlint: disable-next-line=GD003,GD014  chunk_sweeps is a host int (the planned chunk sizes), not a tensor
     for cs in [int(chunk_sweeps)] * full + ([tail] if tail else []):
         if not running(state):
             break

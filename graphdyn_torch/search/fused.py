@@ -152,7 +152,9 @@ def _run_plan(state: FusedState, seed: int, tables_dev: FusedDeviceTables,
     cuda = state.sp_ext.device.type == "cuda"
     for cs in plan:
         if sync:
+            # graftlint: disable-next-line=GD003  the chunk's stop test (the sanctioned per-chunk sync)
             if not bool(state.active.any()) or (
+                    # graftlint: disable-next-line=GD003  the same per-chunk stop test
                     stop_on_first and bool((state.t_target >= 0).any())):
                 break
         state = fused_chunk(state, seed, tables_dev, kernel=kernel,

@@ -12,8 +12,11 @@ reaches the device, from the byte models alone:
   never needs more), prices ``solver='fused'`` jobs. No declaration of a
   fused job (``edges``, ``degree_cv``) discounts it: the fused tables are
   padded-``dmax``/χ-bound whatever the node labeling;
-- :func:`graphdyn_torch.obs.memband.bucketed_state_bytes` prices
-  ``solver='bucketed'`` jobs from their declared ``edges``; the worker
+- :func:`graphdyn_torch.obs.memband.bucketed_job_bytes` prices
+  ``solver='bucketed'`` jobs from their declared ``edges``: what the port's
+  KB rollout holds at its peak (the job's words, their bucketed
+  permutation, two ping-pong states, the permutations, the tables at the
+  edge bound and KB's count workspace at its bound); the worker
   re-validates the declaration against the built graph's table before any
   device work (:class:`DeclaredShapeMismatch`);
 - :func:`graphdyn_torch.obs.memband.streamed_state_bytes` prices
@@ -27,11 +30,20 @@ reaches the device, from the byte models alone:
 A refusal carries the model's numbers in its reason string (modeled bytes
 vs budget), so "why was my job refused" is answerable from the job record
 alone. Decisions, reasons and prices equal the JAX package's under the same
-budget, with one difference: the JAX package labels a fused job whose
-formula exceeds its 10 MiB VMEM budget ``'xla'`` and runs it on its XLA
-twin. The port has no such twin and no such budget (K4′ works from global
-memory, :mod:`graphdyn_torch.ops.fused`), so it admits that job with
-``kernel='auto'`` and runs it on K4′; the served result is the same chain.
+budget, with two differences:
+
+- the JAX package labels a fused job whose formula exceeds its 10 MiB VMEM
+  budget ``'xla'`` and runs it on its XLA twin. The port has no such twin
+  and no such budget (K4′ works from global memory,
+  :mod:`graphdyn_torch.ops.fused`), so it admits that job with
+  ``kernel='auto'`` and runs it on K4′; the served result is the same
+  chain;
+- the JAX package prices a bucketed job at one resident copy of its words
+  and tables (``bucketed_state_bytes``). The port's rollout holds about
+  four copies of the words at its peak, and the card measured it at three
+  times that price (``graphdyn_torch.analysis.graftcost``), so the port
+  prices what it holds. Its price is higher, and so a bucketed job may be
+  refused here under a budget the JAX package would admit it in.
 
 The ``serve.admit`` fault site injects a **reject storm** (every decision
 refuses, with an "injected" reason).
@@ -249,19 +261,16 @@ def _admit_streamed(spec, n, R, W, budget, device, n_devices):
 
 
 def _admit_bucketed(spec, n, R, W, budget):
-    """The edge-proportional engine: the declared edges price what runs
-    (the worker re-validates them against the built table)."""
-    from graphdyn_torch.obs.memband import (
-        bucketed_state_bytes,
-        bucketed_table_entries_bound,
-    )
+    """The edge-proportional engine: the declared edges price what the
+    rollout holds (the worker re-validates them against the built
+    table)."""
+    from graphdyn_torch.obs.memband import bucketed_job_bytes
 
     n_edges, refusal = _declared_edges(spec, n, "bucketed",
                                        "edge-proportional", budget)
     if refusal is not None:
         return refusal
-    model = bucketed_state_bytes(n, W,
-                                 bucketed_table_entries_bound(n, n_edges))
+    model = bucketed_job_bytes(n, W, n_edges)
     if model > budget:
         return AdmissionDecision(
             False, "",

@@ -79,6 +79,7 @@ def run_service(root: str, *, job_timeout_s: float | None = None,
                 return 0
             # idle poll of the durable queue between submissions (the spool
             # is a filesystem, there is no condition variable)
+            # graftrace: disable-next-line=GT005  idle poll of the durable queue between submissions — the spool is a filesystem, there is no condition variable
             time.sleep(poll_s)
     except ShutdownRequested:
         # the in-flight job was requeued by the worker before the re-raise;

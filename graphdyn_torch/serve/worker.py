@@ -249,6 +249,7 @@ class Worker:
                             attempt=attempt + 1)
                 # the retry policy's seeded backoff: the de-correlation
                 # is the sleep
+                # graftrace: disable-next-line=GT005  the retry policy's seeded backoff delay — the de-correlation IS the sleep
                 time.sleep(delays[attempt])
         return False
 
@@ -316,12 +317,15 @@ class Worker:
                 "job was under-priced at admission — resubmit with the "
                 "real edge count")
         R = int(spec["replicas"])
-        sp = pack_spins(torch.from_numpy(_random_spins(spec, g.n))
-                        .to(self.device))
+        # packed and unpacked on the host: the card holds the words alone,
+        # not the [n, R] spins and their packing temporaries (graftcost
+        # measured ~200 MB of them at n = 8192 against a ~1.6 MB price)
+        sp = pack_spins(torch.from_numpy(_random_spins(spec, g.n))).to(
+            self.device)
         out = bucketed_rollout_global(
             g, sp, int(spec["max_sweeps"]), rule=str(spec["rule"]),
             tie=str(spec["tie"]), buckets=buckets)
-        return _rollout_payload(unpack_spins(out, R).cpu().numpy(), spec)
+        return _rollout_payload(unpack_spins(out.cpu(), R).numpy(), spec)
 
     def _run_streamed(self, spec: dict, g) -> dict:
         """One ``solver='streamed'`` job: re-validate the declared edges

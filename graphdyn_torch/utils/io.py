@@ -11,8 +11,13 @@ JAX package's digest for the same numpy arrays and strings; the drivers put
 the port's own identity into what they fingerprint, so a JAX-package
 snapshot, whose RNG state means something else here, is refused.
 
-The JAX package's ``save_pytree_orbax``/``load_pytree_orbax`` store JAX
-pytrees through a JAX library and are not ported (ROADMAP A18).
+The JAX package's ``save_pytree_orbax``/``load_pytree_orbax``
+(``graphdyn/utils/io.py:510-525``) have no counterpart, by decision: they
+store a JAX pytree through Orbax, a JAX library the card's machine does not
+have; nothing in the JAX package calls them (every driver snapshots through
+the npz :class:`Checkpoint` format above, which the port reads and writes
+in the JAX package's layout); and a torch pytree writer would be an API
+with no caller and no JAX-side format to stay compatible with.
 """
 
 from __future__ import annotations

@@ -129,8 +129,44 @@ def test_importing_every_port_module_loads_no_jax():
                  "graphdyn_torch.serve.worker",
                  "graphdyn_torch.serve.lifecycle",
                  "graphdyn_torch.serve.api",
-                 "graphdyn_torch.serve.__main__"):
+                 "graphdyn_torch.serve.__main__",
+                 *ANALYSIS_MODULES):
         assert name in out["modules"]
+
+
+ANALYSIS_MODULES = (
+    "graphdyn_torch.analysis", "graphdyn_torch.analysis.__main__",
+    "graphdyn_torch.analysis.contracts", "graphdyn_torch.analysis.graftlint",
+    "graphdyn_torch.analysis.sanitize", "graphdyn_torch.analysis.racecheck",
+    "graphdyn_torch.analysis.graftcheck",
+    "graphdyn_torch.analysis.graftcost")
+
+
+@pytest.fixture(scope="module")
+def analysis_imports():
+    """Each analysis module imported in turn by one fresh interpreter: the
+    forbidden modules present after each import."""
+    code = (
+        "import importlib, json, sys\n"
+        f"names = {list(ANALYSIS_MODULES)!r}\n"
+        "out = {}\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "    out[name] = sorted(m for m in sys.modules\n"
+        "        if m.split('.')[0] in ('jax', 'jaxlib', 'graphdyn'))\n"
+        "print(json.dumps(out))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", ANALYSIS_MODULES)
+def test_analysis_module_imports_neither_jax_nor_graphdyn(name,
+                                                          analysis_imports):
+    assert analysis_imports[name] == []
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES)

@@ -3,8 +3,9 @@
 (``graphdyn.serve``): equal decisions, reasons, model bytes and budgets
 under a pinned ``GRAPHDYN_SERVE_HBM_BUDGET`` over fused, bucketed,
 streamed, sharded, malformed and oversized specs and the ``serve.admit``
-reject storm, with the one stated difference (the JAX package's ``'xla'``
-label is the port's ``'auto'``: K4′ has no VMEM budget); the budget on the
+reject storm, with the two stated differences (the JAX package's ``'xla'``
+label is the port's ``'auto'``: K4′ has no VMEM budget; a bucketed job is
+priced at what the port's rollout holds); the budget on the
 card and on the CPU; equal graph and shape keys, hit and miss counts,
 eviction order, warm-up classes, and fused tables seeded by the graph."""
 
@@ -92,12 +93,30 @@ def _xla_to_auto(kernel: str) -> str:
     return "auto" if kernel == "xla" else kernel
 
 
+def _as_the_port_decides(spec: dict, want):
+    """The JAX package's decision with the port's two differences: its
+    ``'xla'`` label is ``'auto'``, and a priced bucketed job costs what the
+    port's rollout holds (``memband.bucketed_job_bytes``, above the JAX
+    package's one resident copy), its refusal reason naming that price."""
+    want = want._replace(kernel=_xla_to_auto(want.kernel))
+    if spec.get("solver") != "bucketed" or not want.model_bytes:
+        return want
+    W = -(-int(spec["replicas"]) // 32)
+    price = memband.bucketed_job_bytes(int(spec["n"]), W, int(spec["edges"]))
+    assert price > want.model_bytes
+    if want.admitted:
+        assert price <= want.budget_bytes    # no shape here crosses it
+        return want._replace(model_bytes=price)
+    return want._replace(model_bytes=price, reason=want.reason.replace(
+        f"{want.model_bytes} B", f"{price} B"))
+
+
 @pytest.mark.parametrize("name", list(SPECS))
 def test_admit_equal_under_pinned_budget(name, budget):
     spec = normalize_spec(SPECS[name])
     want = jadm.admit(spec)
     got = tadm.admit(spec, device="cpu", n_devices=N_DEV)
-    assert got == want._replace(kernel=_xla_to_auto(want.kernel))
+    assert got == _as_the_port_decides(spec, want)
     assert got.budget_bytes == budget
     if not got.admitted:
         assert got.reason and (got.model_bytes == 0

@@ -139,8 +139,11 @@ def test_bucket_statistics_equal(served):
 def test_streamed_twin_admitted_where_resident_twin_refused(tmp_path):
     """Under a clamped budget the same declared shape is refused on the
     resident bucketed engine and served streamed in at least two chunks,
-    by both packages, with equal records and bit-equal results."""
+    by both packages, with equal records and bit-equal results. The
+    refusals name each package's own bucketed price (the port's is what
+    its rollout holds, above the JAX package's one resident copy)."""
     from graphdyn_torch.obs.memband import (
+        bucketed_job_bytes,
         bucketed_state_bytes,
         bucketed_table_entries_bound,
         streamed_min_bytes,
@@ -149,18 +152,22 @@ def test_streamed_twin_admitted_where_resident_twin_refused(tmp_path):
     n = 512
     resident = bucketed_state_bytes(n, 1, bucketed_table_entries_bound(
         n, E512))
+    price = bucketed_job_bytes(n, 1, E512)
     budget = max(3 * resident // 4, 4 * streamed_min_bytes(DMAX512, 1))
-    assert budget < resident
+    assert budget < resident < price
     shape = {"n": n, "d": 2, "gamma": 2.5, "edges": E512, "replicas": 32,
              "max_sweeps": 4}
     jobs = [("t1", {**shape, "solver": "bucketed"}),
             ("t1", {**shape, "solver": "streamed", "dmax": DMAX512})]
     out = _serve_both(tmp_path, jobs, budget=budget)
-    recs = out["port"]["spool"].jobs()
-    torch_serve.same_records(recs, out["jax"]["spool"].jobs())
+    recs, jrecs = out["port"]["spool"].jobs(), out["jax"]["spool"].jobs()
+    assert f"{price} B" in recs[0]["reason"]
+    assert f"{resident} B" in jrecs[0]["reason"]
+    torch_serve.same_records(
+        recs, [{**jrecs[0], "reason": jrecs[0]["reason"].replace(
+            f"{resident} B", f"{price} B")}] + jrecs[1:])
     assert [r["state"] for r in recs] == ["refused", "done"]
-    assert f"{resident} B" in recs[0]["reason"]
-    torch_serve.hold_results(recs, out["jax"]["spool"].jobs())
+    torch_serve.hold_results(recs, jrecs)
     assert int(np.load(recs[1]["result"])["chunks"]) >= 2
 
 

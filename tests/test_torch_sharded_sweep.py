@@ -20,8 +20,9 @@ for the module; P = 2 runs on a 2 × 2 mesh).
   packages' class updates (the port's unsharded ladder is 1.2e-4 relative
   off the JAX package's on one of 12 entries), so the ladders' observables
   are held at the port's f32 ladder tolerance, atol 1e-4
-  (``tests/test_torch_entropy_group.py``). The divisibility and checkpoint
-  refusals."""
+  (``tests/test_torch_entropy_group.py``). The divisibility refusal, and
+  a mesh union given both checkpoint forms (the mesh ladders' checkpoints
+  are held in ``tests/test_torch_mesh_ckpt.py``)."""
 
 import os
 
@@ -243,10 +244,8 @@ def test_mesh_refusals(tmp_path):
     graphs = torch_ranks.bdcm_graphs("congruent")
     with pytest.raises(ValueError, match="divisible"):
         entropy_ensemble(graphs, cfg, mesh=_Mesh("graph"), device="cpu")
-    with pytest.raises(ValueError, match="keeps no checkpoint"):
-        entropy_ensemble(graphs, cfg, mesh=_Mesh("graph"), device="cpu",
-                         checkpoint_path=str(tmp_path / "ck"))
-    with pytest.raises(ValueError, match="keeps no checkpoint"):
+    with pytest.raises(ValueError, match="not both"):
         entropy_ensemble_union(torch_ranks.bdcm_graphs("union"), cfg,
                                mesh=_Mesh("edge"), device="cpu",
-                               checkpoint_path=str(tmp_path / "ck"))
+                               checkpoint_path=str(tmp_path / "ck"),
+                               checkpointer=object())

@@ -1,7 +1,6 @@
 """The port's chaos soak harness (``graphdyn_torch.resilience.soak``): the
-catalogue's shape (the 13 ported scenarios with their evidence, the 2 left
-out refused with their ROADMAP.md item wherever they are named), the
-command line, and the card refusal. The bounded matrix itself runs in
+catalogue's shape (all 15 of the JAX package's scenarios, with their
+evidence), the command line, and the card refusal. The bounded matrix itself runs in
 ``tests/test_torch_soak_*.py`` (eight files, so that ``--dist loadfile``
 spreads it over the test workers)."""
 
@@ -20,14 +19,12 @@ from graphdyn_torch.resilience import soak
 PORTED = {"torn_write", "write_degrade", "truncated_read", "bitrot",
           "mirror_failover", "mirror_degraded", "requeue_storm",
           "hang_detect", "deadline_preempt", "crash_loop_quarantine",
-          "stream_churn", "stream_shard_requeue", "serve_kill_requeue"}
-LEFT_OUT = {"race_mirror_exit": "A18", "race_prefetch_close": "A18"}
+          "stream_churn", "stream_shard_requeue", "serve_kill_requeue",
+          "race_mirror_exit", "race_prefetch_close"}
 
 
 def test_catalogue_shape_matches_the_jax_package():
-    assert set(soak.SCENARIOS) == PORTED
-    assert set(soak.NOT_PORTED) == set(LEFT_OUT)
-    assert set(soak.SCENARIOS) | set(soak.NOT_PORTED) == set(jsoak.SCENARIOS)
+    assert set(soak.SCENARIOS) == PORTED == set(jsoak.SCENARIOS)
     for name, scn in soak.SCENARIOS.items():
         j = jsoak.SCENARIOS[name]
         assert (scn.workload, scn.mirror, scn.require_ops, scn.require_flight,
@@ -37,11 +34,14 @@ def test_catalogue_shape_matches_the_jax_package():
     assert len(soak.BOUNDED_SEEDS) >= 3
 
 
-# the supervised and the serve scenarios plan no episode chain (their
-# runners drive the supervisor, or the serving child processes, directly)
+# the supervised, serve and race scenarios plan no episode chain (their
+# runners drive the supervisor, the serving or racing child processes, or
+# the prefetcher directly)
 @pytest.mark.parametrize("name", sorted(PORTED - {"hang_detect",
                                                   "crash_loop_quarantine",
-                                                  "serve_kill_requeue"}))
+                                                  "serve_kill_requeue",
+                                                  "race_mirror_exit",
+                                                  "race_prefetch_close"}))
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_episode_plans_match_the_jax_package(name, seed):
     import numpy as np
@@ -60,16 +60,10 @@ def test_workloads_are_the_jax_package_lines_on_a_device():
         assert got[:i] + got[i + 2:] == want
 
 
-@pytest.mark.parametrize("name,item", sorted(LEFT_OUT.items()))
-def test_left_out_scenarios_raise_with_their_item(name, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        soak.run_scenario(name, 0, str(tmp_path), {}, "cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        soak.run_soak(scenarios=[name], seeds=[0], device="cpu")
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as ex:
-        soak.main(["--scenarios", f"torn_write,{name}", "--device", "cpu"])
-    assert ex.value.code == 2 and item in err.getvalue()
+def test_race_constants_are_the_jax_package_ones():
+    for name in ("RACE_FUZZ_MAX_MS", "RACE_STALL_SECS", "RACE_SAVES",
+                 "RACE_PIN_SEED", "SERVE_HBM_BUDGET"):
+        assert getattr(soak, name) == getattr(jsoak, name), name
 
 
 def test_list_and_card_refusal(tmp_path):

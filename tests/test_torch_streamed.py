@@ -231,6 +231,35 @@ def test_stream_cli_keys_and_npz_equal_jax_cli(tmp_path, capsys):
 # the sharded stream runs since its slice (tests/test_torch_stream_shard.py,
 # the CLI under ranks in tests/test_torch_ensemble_mesh_cli.py): what a
 # one-process job refuses is a shard count larger than the job
+def test_stream_cli_takes_its_prebuilt_graph(tmp_path, capsys):
+    """``main(argv, graph=)``: the stream command on the graph its flags
+    describe, built already, writes what it writes when it builds the
+    graph; a graph of another size, or a graph for another command, is
+    refused."""
+    from graphdyn_torch.cli import main
+    from graphdyn_torch.graphs import powerlaw_graph
+
+    argv = CLI_ARGS + ["--device", "cpu", "--out"]
+    g = powerlaw_graph(96, gamma=2.5, dmin=2, seed=0)
+    docs = []
+    for name, kw in (("built", {}), ("given", {"graph": g})):
+        assert main(argv + [str(tmp_path / name)], **kw) == 0
+        docs.append(json.loads(capsys.readouterr().out.strip()
+                               .splitlines()[-1]))
+    assert list(docs[0]) == list(docs[1])
+    for k in ("solver", "n", "steps", "shards", "chunks", "h2d_bytes",
+              "d2h_bytes", "mutations", "repartitions", "m_end_mean"):
+        assert docs[0][k] == docs[1][k], k      # overlap_frac is a timing
+    a, b = np.load(tmp_path / "built.npz"), np.load(tmp_path / "given.npz")
+    for k in ("conf", "m_end"):
+        np.testing.assert_array_equal(a[k], b[k])
+    with pytest.raises(SystemExit, match="n=40 but --n is 96"):
+        main(argv + [str(tmp_path / "x")],
+             graph=powerlaw_graph(40, gamma=2.5, dmin=2, seed=0))
+    with pytest.raises(SystemExit, match="only the stream command"):
+        main(["sa", "--device", "cpu", "--n", "96"], graph=g)
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--shards", "2"], "--shards 2 > 1 ranks in the job"),
     (["--hub-threshold", "5", "--shards", "3"],

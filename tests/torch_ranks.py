@@ -799,3 +799,85 @@ def stall_worker(rank: int, world: int, secs: float = 60.0) -> None:
     import time
 
     time.sleep(secs)
+
+
+#: the mesh ladders' checkpoint cases: a 3-point ladder preempted after
+#: its first ``MESH_CKPT_AT`` λ
+MESH_CKPT_CFG = dict(lmbd_max=1.0, lmbd_step=0.5, max_sweeps=300)
+MESH_CKPT_AT = 1
+
+
+def mesh_ladder(what: str, mesh=None, **kw):
+    """``entropy_ensemble_union`` (``what='union'``, edge axis) or
+    ``entropy_ensemble`` (``'congruent'``, graph axis) on the sharded-sweep
+    test graphs, as a dict of the result's fields."""
+    from graphdyn_torch.config import EntropyConfig
+    from graphdyn_torch.models.entropy import (
+        entropy_ensemble,
+        entropy_ensemble_union,
+    )
+
+    cfg = EntropyConfig(**MESH_CKPT_CFG)
+    fn = entropy_ensemble_union if what == "union" else entropy_ensemble
+    return fn(bdcm_graphs(what), cfg, seed=0, mesh=mesh, device="cpu",
+              **kw)._asdict()
+
+
+def mesh_ckpt_worker(rank: int, world: int, root: str) -> dict:
+    """Each mesh ladder at P = world with ``checkpoint_path``: preempted
+    after λ ``MESH_CKPT_AT`` (every rank), the snapshot copied aside for a
+    one-process resume, then resumed at P = world; and a run whose
+    shutdown request reaches rank 1 alone (``signal``), which every rank
+    honours at the same λ. Returns ``{what: {...}}``."""
+    import glob
+    import shutil
+
+    import torch.distributed as dist
+
+    from graphdyn_torch.parallel.mesh import make_mesh
+    from graphdyn_torch.resilience import faults
+    from graphdyn_torch.resilience.shutdown import (
+        ShutdownRequested,
+        clear_shutdown,
+    )
+
+    out = {}
+    for what, axis in (("union", "edge"), ("congruent", "graph")):
+        mesh = make_mesh((world,), (axis,), device="cpu")
+        ck = os.path.join(root, f"{what}-ck")
+        kw = dict(checkpoint_path=ck, checkpoint_interval_s=0.0)
+        plan = faults.FaultPlan([faults.FaultSpec(
+            "lambda.boundary", "preempt", at=MESH_CKPT_AT)])
+        try:
+            with plan:
+                mesh_ladder(what, mesh, **kw)
+            cut = None
+        except faults.InjectedPreemption as e:
+            cut = str(e)
+        dist.barrier()
+        if rank == 0:
+            for f in glob.glob(ck + ".*"):
+                shutil.copy(f, f.replace(f"{what}-ck", f"{what}-ck-p1", 1))
+        dist.barrier()
+        res = mesh_ladder(what, mesh, **kw)
+        dist.barrier()                    # rank 0 removes the snapshot
+        left = sorted(os.path.basename(f) for f in glob.glob(ck + ".*npz"))
+        # a shutdown request on one rank stops every rank at one λ
+        sig = faults.FaultPlan([faults.FaultSpec(
+            "lambda.boundary", "signal", at=1)] if rank == 1 else [])
+        sk = os.path.join(root, f"{what}-sig")
+        try:
+            with sig:
+                mesh_ladder(what, mesh, checkpoint_path=sk,
+                            checkpoint_interval_s=3600.0)
+            stopped = None
+        except ShutdownRequested as e:
+            stopped = e.where
+        finally:
+            clear_shutdown()
+        dist.barrier()
+        sig_res = mesh_ladder(what, mesh, checkpoint_path=sk,
+                              checkpoint_interval_s=3600.0)
+        out[what] = {"cut": cut, "resumed": res, "left": left,
+                     "stopped": stopped, "sig_resumed": sig_res}
+    return out
